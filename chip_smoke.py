@@ -1,0 +1,411 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``fedml_tpu_torch``) on one NVIDIA card.
+
+Drives the port's serving path once through the entry points a user
+calls — ``load_arguments`` on ``fedml_tpu_torch/configs/serve_transformer_flash.yaml``,
+``models.create``, ``convert.params_from_flax``, ``ModelEndpoint`` and
+``ServingEngine`` — at the full width of that configuration (embed 512,
+8 heads of 64, 4096 tokens, 2 layers, seeded random weights), and holds
+every hand-written kernel of the path against its plain PyTorch version
+on the card.
+
+Phases, each of which fails the run:
+
+1. card: CUDA present; the card's name and power limit from nvidia-smi;
+2. build: every kernel source of the path compiles (one nvcc each, in
+   parallel);
+3. kernels: each kernel against its plain version at the path's shapes
+   and a few more (f32 and bf16, causal and not, head dims 16-128, a
+   ragged length), with stated tolerances; kernel, plain and library
+   (one PyTorch call computing the same function) times;
+4. slice: bursts of 8 requests through ``ServingEngine``; the answers
+   have the right shape, are finite and match the same model with
+   ``attention_impl: full``; the kernels' launch counts rose on the
+   path; a hot swap advances the version and changes the answers; one
+   burst runs under ``torch.profiler`` for the device time by kernel.
+
+Run from the repo root, on a machine with one CUDA card and the CUDA
+toolkit:  ``python3 chip_smoke.py``.  The last two lines of its output
+are one JSON object ``{"kernels": [...]}`` and one
+``{"ok": true, "device": {...}}``; it exits 0 only when every phase
+passed.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parent
+CONFIG = REPO / "fedml_tpu_torch" / "configs" / "serve_transformer_flash.yaml"
+DEVICE = "cuda"
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit). A
+# kernel's bound is the larger of the bytes it must move over the memory
+# rate and its operations over the peak rate for its input type. f32
+# attention runs on the CUDA cores (TF32 would drop precision the JAX
+# kernel keeps); bf16 is bounded by the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+
+# flash kernel cases: (B, T, H, D, dtype, causal). The first is the
+# serving path's own shape (serve_max_batch 8, T 4096, 8 heads of 64, f32).
+FLASH_CASES = [
+    (8, 4096, 8, 64, torch.float32, True),
+    (8, 4096, 8, 64, torch.float32, False),
+    (8, 4096, 8, 64, torch.bfloat16, True),
+    (8, 4096, 8, 64, torch.bfloat16, False),
+    (4, 4096, 4, 32, torch.float32, True),
+    (2, 2048, 4, 128, torch.bfloat16, True),
+    (2, 1024, 4, 16, torch.float32, False),
+    (2, 1000, 4, 64, torch.float32, True),  # T not a multiple of the tile
+]
+# O and lse against the plain version. f32: both compute in f32 and differ
+# only in summation order over up to 4096 keys (~1e-6 expected), so 1e-4.
+# bf16: both accumulate in f32 and round O once to bf16, so they may land
+# one bf16 step apart, 2**-6 = 0.0156 for |O| in [2, 4): 2e-2. lse is f32
+# in both cases.
+O_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+LSE_ATOL = 1e-4
+# served logits, flash vs full attention: the same f32 weights and
+# inputs; the two paths differ only in attention's summation order
+LOGITS_ATOL = 1e-4
+TIMED_BURSTS = 4
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if out.returncode != 0 or not out.stdout.strip():
+        fail(f"nvidia-smi: exit {out.returncode}: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean time of ``fn`` on the card, by CUDA events around ``iters``
+    back-to-back calls after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def flash_bound(B, T, H, D, dtype, causal):
+    """(bound_ms, bound_by) for one flash forward: 4·D flops per
+    unmasked (query, key) pair, every input read once, O and lse
+    written once."""
+    pairs = T * (T + 1) / 2 if causal else T * T
+    flops = 4.0 * B * H * D * pairs
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = 4.0 * B * T * H * D * itemsize + 4.0 * B * H * T
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# -- phase 2 -----------------------------------------------------------
+def build_kernels():
+    from fedml_tpu_torch.ops import _build
+
+    names = ["flash_attention_fwd"]
+    t0 = time.perf_counter()
+    _build.build(names)
+    log(f"build: {names} in {time.perf_counter() - t0:.1f} s")
+    for name in names:
+        for line in _build.build_log(name).splitlines():
+            if "entry function" in line or "Used" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+
+# -- phase 3 -----------------------------------------------------------
+def check_flash_kernel():
+    """Every flash case against the plain version; returns the kernel's
+    ``kernels`` entry (main-path numbers from the first case)."""
+    import torch.nn.functional as F
+
+    from fedml_tpu_torch.ops.flash_attention import (
+        FWD_KERNEL,
+        flash_attention_reference,
+    )
+
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    cases = []
+    for B, T, H, D, dtype, causal in FLASH_CASES:
+        # q, k, v as views of one fused projection, as the model cuts them
+        qkv = torch.randn((B, T, 3 * H * D), generator=gen, device=DEVICE).to(dtype)
+        q, k, v = (t.view(B, T, H, D) for t in qkv.split(H * D, dim=-1))
+        scale = D**-0.5
+        o, lse = FWD_KERNEL(q, k, v, causal, scale)
+        o_ref, lse_ref = flash_attention_reference(q, k, v, causal, scale)
+        torch.cuda.synchronize()
+        err_o = (o.float() - o_ref.float()).abs().max().item()
+        err_lse = (lse - lse_ref).abs().max().item()
+        finite = bool(torch.isfinite(o.float()).all()) and bool(torch.isfinite(lse).all())
+        heavy = B * H * T * T >= 2**30
+        ms = cuda_time_ms(lambda: FWD_KERNEL(q, k, v, causal, scale), 5 if heavy else 20)
+        plain_ms = cuda_time_ms(
+            lambda: flash_attention_reference(q, k, v, causal, scale), 2 if heavy else 5, 1
+        )
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        library_ms = cuda_time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal), 10
+        )
+        bound_ms, bound_by = flash_bound(B, T, H, D, dtype, causal)
+        case = {
+            "shape": [B, T, H, D], "dtype": str(dtype).replace("torch.", ""),
+            "causal": causal, "max_abs_err": err_o, "lse_max_abs_err": err_lse,
+            "o_atol": O_ATOL[dtype], "lse_atol": LSE_ATOL,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        log(f"flash {case['shape']} {case['dtype']} causal={causal}: "
+            f"O err {err_o:.3g} (atol {O_ATOL[dtype]}), lse err {err_lse:.3g} "
+            f"(atol {LSE_ATOL}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"sdpa {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+        if not finite:
+            fail(f"flash {case['shape']} {case['dtype']}: non-finite output")
+        if err_o > O_ATOL[dtype] or err_lse > LSE_ATOL:
+            fail(f"flash {case['shape']} {case['dtype']} causal={causal}: "
+                 f"O err {err_o} / lse err {err_lse} over tolerance")
+        cases.append(case)
+        del qkv, q, k, v, o, lse, o_ref, lse_ref
+        torch.cuda.empty_cache()
+    log(f"flash kernel launches while checking (not counted): {FWD_KERNEL.launches}")
+    main = cases[0]
+    return {
+        "name": FWD_KERNEL.name,
+        "route": "cuda",
+        "source": "fedml_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+        "replaces": "fedml_tpu/ops/flash_attention.py:32",
+        "launches": None,  # filled from the slice's run
+        **{key: main[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shape": main["shape"], "dtype": main["dtype"],
+        "cases": cases,
+    }
+
+
+# -- phase 4 -----------------------------------------------------------
+def flax_params(args, vocab: int, rng: np.random.Generator) -> dict:
+    """Random weights in the flax TransformerLM's tree layout (numpy),
+    the form a JAX checkpoint arrives in."""
+    C = int(args.embed_dim)
+    max_len = max(int(args.seq_len), int(args.max_len))
+
+    def normal(shape, std):
+        return rng.normal(0.0, std, size=shape).astype(np.float32)
+
+    def dense(i, o):
+        return {"kernel": normal((i, o), i**-0.5), "bias": normal((o,), 0.02)}
+
+    def ln():
+        return {"scale": 1.0 + normal((C,), 0.1), "bias": normal((C,), 0.02)}
+
+    tree = {
+        "Embed_0": {"embedding": normal((vocab, C), 1.0)},
+        "Embed_1": {"embedding": normal((max_len, C), 1.0)},
+        "LayerNorm_0": ln(),
+        "Dense_0": dense(C, vocab),
+    }
+    for i in range(int(args.num_layers)):
+        tree[f"Block_{i}"] = {
+            "LayerNorm_0": ln(), "Dense_0": dense(C, 3 * C), "Dense_1": dense(C, C),
+            "LayerNorm_1": ln(), "Dense_2": dense(C, 4 * C), "Dense_3": dense(4 * C, C),
+        }
+    return tree
+
+
+def burst(engine, rows):
+    """Submit ``rows`` as one paused burst (one micro-batch); returns
+    (answers [n, T, vocab], per-request latencies in s, wall s)."""
+    done = [0.0] * len(rows)
+    engine.pause()
+    t0 = time.perf_counter()
+    futs = engine.submit_many(list(rows), deadline_s=60.0)
+    for i, f in enumerate(futs):
+        f.add_done_callback(lambda _f, i=i: done.__setitem__(i, time.perf_counter()))
+    engine.resume()
+    answers = np.stack([f.result(timeout=600) for f in futs])
+    wall = time.perf_counter() - t0
+    return answers, [d - t0 for d in done], wall
+
+
+def profile_burst(engine, rows):
+    """One burst under ``torch.profiler``: device time by kernel name and
+    the device's busy share of the burst's wall time (profiler overhead
+    included in the wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, _, wall = burst(engine, rows)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    top = [(name[:110], ms) for name, ms in
+           sorted(by_name.items(), key=lambda kv: -kv[1])[:10]]
+    if not by_name:
+        log("profile: the profiler saw no device events; device time not measured")
+    else:
+        log(f"profile: one burst of {len(rows)}: wall {wall * 1e3:.2f} ms, device "
+            f"busy {busy:.2f} ms ({busy / (wall * 1e3):.1%}); device time by kernel:")
+        for name, ms in top:
+            log(f"  {ms:9.3f} ms  {name}")
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy if by_name else None,
+            "top_kernels_ms": top}
+
+
+def full_attention_logits(args, output_dim, params, rows):
+    """The same model with ``attention_impl: full``, on the card."""
+    from fedml_tpu_torch import models
+
+    full_args = copy.copy(args)
+    full_args.attention_impl = "full"
+    full = models.create(full_args, output_dim, device=DEVICE)
+    on_card = {k: v.to(DEVICE) for k, v in params.items()}
+    with torch.inference_mode():
+        out = full.apply(on_card, torch.as_tensor(rows, device=DEVICE)).cpu().numpy()
+    del full
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_slice(kernels):
+    from fedml_tpu_torch import models
+    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.convert import params_from_flax
+    from fedml_tpu_torch.core import devtime
+    from fedml_tpu_torch.ops.flash_attention import FWD_KERNEL
+    from fedml_tpu_torch.serving import ModelEndpoint, ServingEngine
+
+    args = load_arguments(str(CONFIG))
+    output_dim = 90  # class_num of the shakespeare stand-in
+    model = models.create(args, output_dim, device=DEVICE)
+    vocab, T, L = model.input_bound, int(args.seq_len), int(args.num_layers)
+    rng = np.random.default_rng(int(args.random_seed))
+    params = params_from_flax(flax_params(args, vocab, rng))
+    n_params = model.param_count(params)
+    log(f"slice: {model.name} embed {args.embed_dim}, {args.num_heads} heads, "
+        f"{L} layers, T {T}, vocab {vocab}, attention {args.attention_impl}, "
+        f"{n_params} params, serve_max_batch {args.serve_max_batch}")
+    rows = rng.integers(0, vocab, size=(int(args.serve_max_batch), T))
+
+    endpoint = ModelEndpoint(model, params)
+    engine = ServingEngine(endpoint, args).start()
+    FWD_KERNEL.reset_launches()  # count only the slice's own launches
+    try:
+        answers, _, first_wall = burst(engine, rows)
+        lat, walls = [], []
+        for _ in range(TIMED_BURSTS):
+            _, l_s, wall = burst(engine, rows)
+            lat += l_s
+            walls.append(wall)
+        profiled = profile_burst(engine, rows)
+        params2 = params_from_flax(flax_params(args, vocab, rng))
+        version = engine.hot_swap(params2)
+        swapped, _, _ = burst(engine, rows)
+    finally:
+        engine.stop()
+    launches = {FWD_KERNEL.name: FWD_KERNEL.launches}
+    batches = engine.telemetry.get_counter("serving_batches_total", bucket=len(rows))
+    for entry in kernels:
+        entry["launches"] = launches[entry["name"]]
+    log(f"slice: {int(batches)} micro-batches of {len(rows)}, kernel launches {launches}")
+    if batches != TIMED_BURSTS + 3:
+        fail(f"expected {TIMED_BURSTS + 3} micro-batches, the engine ran {batches}")
+    if launches[FWD_KERNEL.name] != L * batches:
+        fail(f"flash kernel launched {launches[FWD_KERNEL.name]} times for "
+             f"{batches} micro-batches of a {L}-layer model (want {L * batches})")
+
+    if answers.shape != (len(rows), T, vocab) or answers.dtype != np.float32:
+        fail(f"answers {answers.shape} {answers.dtype}, want {(len(rows), T, vocab)} float32")
+    if not (np.isfinite(answers).all() and np.isfinite(swapped).all()):
+        fail("non-finite logits")
+    ref = full_attention_logits(args, output_dim, params, rows)
+    err = float(np.abs(answers - ref).max())
+    log(f"slice: flash vs full-attention logits max abs err {err:.3g} "
+        f"(atol {LOGITS_ATOL}, |logits| max {np.abs(ref).max():.3g})")
+    if err > LOGITS_ATOL:
+        fail(f"served logits differ from the full-attention model by {err}")
+    if version != 1:
+        fail(f"hot swap returned version {version}, want 1")
+    moved = float(np.abs(swapped - answers).max())
+    ref2 = full_attention_logits(args, output_dim, params2, rows)
+    err2 = float(np.abs(swapped - ref2).max())
+    log(f"slice: after hot swap v{version}: answers moved by {moved:.3g}, "
+        f"vs full attention err {err2:.3g}")
+    if moved < 1e-2 or err2 > LOGITS_ATOL:
+        fail("hot swap did not take effect")
+
+    p50 = float(np.median(lat))
+    tokens_per_s = TIMED_BURSTS * len(rows) * T / sum(walls)
+    fwd = [e["seconds"] for e in devtime.ring_snapshot()
+           if e["executable"] == "serving.forward"][1:1 + TIMED_BURSTS]
+    log(f"slice: first burst {first_wall * 1e3:.1f} ms; timed {TIMED_BURSTS} bursts "
+        f"of {len(rows)}: p50 request latency {p50 * 1e3:.2f} ms, "
+        f"{tokens_per_s:.0f} tokens/s, serving.forward median "
+        f"{np.median(fwd) * 1e3:.2f} ms")
+    return {"p50_request_latency_ms": p50 * 1e3, "tokens_per_s": tokens_per_s,
+            "serving_forward_ms": float(np.median(fwd)) * 1e3,
+            "logits_max_abs_err": err, "params": n_params, "profile": profiled}
+
+
+def main() -> int:
+    sys.path.insert(0, str(REPO))
+    try:
+        import fedml_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke run "
+              "needs a CUDA card", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    card = card_line()
+    log(card)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    build_kernels()
+    kernels = [check_flash_kernel()]
+    slice_numbers = run_slice(kernels)
+    log(f"slice numbers on {card}: {json.dumps(slice_numbers)}")
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

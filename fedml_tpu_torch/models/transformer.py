@@ -1,0 +1,134 @@
+"""Decoder-only transformer LM (port of ``fedml_tpu/models/transformer.py``).
+
+Pre-LN blocks with a pluggable attention implementation:
+
+- ``attention="full"``  — dense (``parallel.sequence.full_attention``)
+- ``attention="flash"`` — the hand-written Hopper flash kernel
+  (``ops.flash_attention``)
+
+Module names are the flax module names (``Embed_0``, ``Block_i``,
+``Dense_0`` ...), so ``convert.params_from_flax`` maps a JAX checkpoint
+onto these modules key for key. Three details match flax exactly, each
+worth a small but real mismatch otherwise: ``LayerNorm`` uses epsilon
+1e-6 and the fast variance E[x²]−E[x]²; ``gelu`` is the tanh
+approximation; ``Dense_0``'s output splits into q, k, v in that order
+along the last axis, each then viewed as [B, T, H, D].
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def _dense_attention(q, k, v):
+    from ..parallel.sequence import full_attention
+
+    return full_attention(q, k, v, causal=True)
+
+
+def _flash(q, k, v):
+    from ..ops.flash_attention import flash_attention, pick_block
+
+    # explicit attention="flash" engages the kernel at any block size
+    # (minimum=1)
+    b = pick_block(q.shape[1], minimum=1)
+    return flash_attention(q, k, v, True, None, b, b)
+
+
+def resolve_attention(name_or_fn) -> Callable:
+    if callable(name_or_fn):
+        return name_or_fn
+    table = {"full": _dense_attention, "flash": _flash}
+    if name_or_fn not in table:
+        raise ValueError(
+            f"attention {name_or_fn!r}: only {sorted(table)} resolve by name; "
+            "'ring'/'ulysses' are not ported yet"
+        )
+    return table[name_or_fn]
+
+
+class LayerNorm(nn.Module):
+    """``flax.linen.LayerNorm``: statistics in f32, the fast variance
+    E[x²]−E[x]² clipped at zero, epsilon 1e-6."""
+
+    def __init__(self, dim: int, eps: float = 1e-6) -> None:
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean) * mul + self.bias).to(x.dtype)
+
+
+class Block(nn.Module):
+    """Pre-LN block: attention, then a tanh-gelu MLP."""
+
+    def __init__(
+        self,
+        embed_dim: int,
+        num_heads: int,
+        attn_fn: Callable = _dense_attention,
+        mlp_ratio: int = 4,
+    ) -> None:
+        super().__init__()
+        C = embed_dim
+        self.num_heads = num_heads
+        self.attn_fn = attn_fn
+        self.LayerNorm_0 = LayerNorm(C)
+        self.Dense_0 = nn.Linear(C, 3 * C)
+        self.Dense_1 = nn.Linear(C, C)
+        self.LayerNorm_1 = LayerNorm(C)
+        self.Dense_2 = nn.Linear(C, mlp_ratio * C)
+        self.Dense_3 = nn.Linear(mlp_ratio * C, C)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, T, C = x.shape
+        h = self.LayerNorm_0(x)
+        q, k, v = self.Dense_0(h).split(C, dim=-1)
+        shape = (B, T, self.num_heads, C // self.num_heads)
+        o = self.attn_fn(q.view(shape), k.view(shape), v.view(shape))
+        x = x + self.Dense_1(o.reshape(B, T, C))
+        h = self.LayerNorm_1(x)
+        h = F.gelu(self.Dense_2(h), approximate="tanh")
+        return x + self.Dense_3(h)
+
+
+class TransformerLM(nn.Module):
+    """Causal LM: tokens [B, T] -> logits [B, T, vocab]."""
+
+    def __init__(
+        self,
+        vocab_size: int,
+        num_layers: int = 2,
+        num_heads: int = 4,
+        embed_dim: int = 128,
+        max_len: int = 512,
+        attention: str = "full",
+        attn_fn: Optional[Callable] = None,
+    ) -> None:
+        super().__init__()
+        attn = attn_fn or resolve_attention(attention)
+        self.num_layers = num_layers
+        self.Embed_0 = nn.Embedding(vocab_size, embed_dim)
+        self.Embed_1 = nn.Embedding(max_len, embed_dim)
+        for i in range(num_layers):
+            self.add_module(f"Block_{i}", Block(embed_dim, num_heads, attn))
+        self.LayerNorm_0 = LayerNorm(embed_dim)
+        self.Dense_0 = nn.Linear(embed_dim, vocab_size)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        T = tokens.shape[1]
+        x = self.Embed_0(tokens)
+        x = x + self.Embed_1(torch.arange(T, device=tokens.device))[None]
+        for i in range(self.num_layers):
+            x = getattr(self, f"Block_{i}")(x)
+        return self.Dense_0(self.LayerNorm_0(x))
