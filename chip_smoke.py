@@ -17,7 +17,9 @@ Phases, each of which fails the run:
 3. kernels: each kernel against its plain version at the path's shapes
    and a few more (f32 and bf16, causal and not, head dims 16-128, a
    ragged length), with stated tolerances; kernel, plain and library
-   (one PyTorch call computing the same function) times;
+   (one PyTorch call computing the same function) times, the library
+   call's own device kernel named from a short profiler window, and each
+   time's share of the kernel's bound;
 4. slice: bursts of 8 requests through ``ServingEngine``; the answers
    have the right shape, are finite and match the same model with
    ``attention_impl: full``; the kernels' launch counts rose on the
@@ -49,11 +51,15 @@ DEVICE = "cuda"
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit). A
 # kernel's bound is the larger of the bytes it must move over the memory
-# rate and its operations over the peak rate for its input type. f32
-# attention runs on the CUDA cores (TF32 would drop precision the JAX
-# kernel keeps); bf16 is bounded by the tensor cores.
+# rate and its operations over the peak rate of the route that computes
+# them. f32 attention runs on the tensor cores as 3xTF32: every f32
+# product is three TF32 products (lo*hi + hi*lo + hi*hi of a hi/lo
+# split), so its operations take three passes at the 495 TFLOP/s TF32
+# peak. bf16 is bounded by the 989 TFLOP/s bf16 tensor-core peak.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 495e12, torch.bfloat16: 989e12}
+PASSES = {torch.float32: 3, torch.bfloat16: 1}
+ROUTE = {torch.float32: "3xTF32", torch.bfloat16: "bf16"}
 
 # flash kernel cases: (B, T, H, D, dtype, causal). The first is the
 # serving path's own shape (serve_max_batch 8, T 4096, 8 heads of 64, f32).
@@ -64,18 +70,21 @@ FLASH_CASES = [
     (8, 4096, 8, 64, torch.bfloat16, False),
     (4, 4096, 4, 32, torch.float32, True),
     (2, 2048, 4, 128, torch.bfloat16, True),
+    (2, 2048, 4, 128, torch.float32, True),  # most registers per thread in f32
     (2, 1024, 4, 16, torch.float32, False),
     (2, 1000, 4, 64, torch.float32, True),  # T not a multiple of the tile
 ]
-# O and lse against the plain version. f32: both compute in f32 and differ
-# only in summation order over up to 4096 keys (~1e-6 expected), so 1e-4.
+# O and lse against the plain version. f32: the kernel's 3xTF32 products
+# keep f32's accuracy, so the two differ by f32 rounding and summation
+# order over up to 4096 keys (~1e-5 at T 4096), so 1e-4.
 # bf16: both accumulate in f32 and round O once to bf16, so they may land
 # one bf16 step apart, 2**-6 = 0.0156 for |O| in [2, 4): 2e-2. lse is f32
 # in both cases.
 O_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LSE_ATOL = 1e-4
 # served logits, flash vs full attention: the same f32 weights and
-# inputs; the two paths differ only in attention's summation order
+# inputs; the two paths differ only in attention's f32 rounding and
+# summation order
 LOGITS_ATOL = 1e-4
 TIMED_BURSTS = 4
 
@@ -116,14 +125,38 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 def flash_bound(B, T, H, D, dtype, causal):
     """(bound_ms, bound_by) for one flash forward: 4·D flops per
-    unmasked (query, key) pair, every input read once, O and lse
-    written once."""
+    unmasked (query, key) pair, in ``PASSES[dtype]`` tensor-core passes
+    at ``PEAK_FLOPS[dtype]``; every input read once, O and lse written
+    once."""
     pairs = T * (T + 1) / 2 if causal else T * T
     flops = 4.0 * B * H * D * pairs
     itemsize = torch.empty((), dtype=dtype).element_size()
     nbytes = 4.0 * B * T * H * D * itemsize + 4.0 * B * H * T
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    t_ops = PASSES[dtype] * flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def device_kernel_names(fn, windows: int = 3):
+    """Names of the device kernels one call of ``fn`` launches, the
+    longest-running first, from a short ``torch.profiler`` window (up to
+    ``windows`` of them while one comes back without device events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    by_name = {}
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        if by_name:
+            break
+    return sorted(by_name, key=lambda name: -by_name[name])
 
 
 # -- phase 2 -----------------------------------------------------------
@@ -170,26 +203,35 @@ def check_flash_kernel():
             lambda: flash_attention_reference(q, k, v, causal, scale), 2 if heavy else 5, 1
         )
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        library_ms = cuda_time_ms(
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal), 10
-        )
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+        library_ms = cuda_time_ms(sdpa, 10)
+        library_kernel = device_kernel_names(sdpa)[:1] or ["not measured"]
         bound_ms, bound_by = flash_bound(B, T, H, D, dtype, causal)
         case = {
             "shape": [B, T, H, D], "dtype": str(dtype).replace("torch.", ""),
             "causal": causal, "max_abs_err": err_o, "lse_max_abs_err": err_lse,
             "o_atol": O_ATOL[dtype], "lse_atol": LSE_ATOL,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_kernel": library_kernel[0],
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_route": ROUTE[dtype],
         }
         log(f"flash {case['shape']} {case['dtype']} causal={causal}: "
             f"O err {err_o:.3g} (atol {O_ATOL[dtype]}), lse err {err_lse:.3g} "
             f"(atol {LSE_ATOL}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"sdpa {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+            f"sdpa {library_ms:.3f} ms ({library_kernel[0][:90]}), bound "
+            f"{bound_ms:.3f} ms ({bound_by}, {ROUTE[dtype]}): "
+            f"{bound_ms / ms:.1%} of bound")
         if not finite:
             fail(f"flash {case['shape']} {case['dtype']}: non-finite output")
         if err_o > O_ATOL[dtype] or err_lse > LSE_ATOL:
             fail(f"flash {case['shape']} {case['dtype']} causal={causal}: "
                  f"O err {err_o} / lse err {err_lse} over tolerance")
+        if ms < bound_ms:
+            fail(f"flash {case['shape']} {case['dtype']}: {ms} ms beats its bound "
+                 f"{bound_ms} ms, so the bound is wrong")
         cases.append(case)
         del qkv, q, k, v, o, lse, o_ref, lse_ref
         torch.cuda.empty_cache()
@@ -202,7 +244,8 @@ def check_flash_kernel():
         "replaces": "fedml_tpu/ops/flash_attention.py:32",
         "launches": None,  # filled from the slice's run
         **{key: main[key] for key in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_route",
+            "library_ms", "library_kernel")},
         "shape": main["shape"], "dtype": main["dtype"],
         "cases": cases,
     }

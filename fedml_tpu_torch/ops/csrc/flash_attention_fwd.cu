@@ -10,217 +10,554 @@
 //
 // Bound on an H100: causal attention at the serving shapes (T 4096, D 64)
 // does ~2*T*D flops per byte it must move, far above the card's balance
-// point, so it is bound by operations. f32 inputs are computed in full
-// f32 on the CUDA cores (67 TFLOP/s peak; TF32 would lose the precision
-// the JAX kernel keeps); bf16 inputs could reach the tensor cores, which
-// this first version does not use.
+// point, so it is bound by operations. Both products run on the tensor
+// cores (mma.sync m16n8k8 tf32). f32 inputs take 3xTF32: each operand x
+// is split into hi = tf32(x) and lo = tf32(x - hi), both rounded to
+// nearest (ties away, as cvt.rna), and a product is lo*hi + hi*lo + hi*hi
+// accumulated in f32, which keeps f32's accuracy where one TF32 pass
+// would not. Three passes at the 495 TFLOP/s TF32 peak bound it. bf16
+// inputs are exact in TF32, so their lo terms vanish: Q.K^T is one pass
+// and P.V two (P is f32, V exact).
 //
-// Design (simple and right first): one 256-thread block per
-// (64-row query tile, batch*head). The query tile, one 64-key K/V tile and
-// the 64x64 score tile live in shared memory as f32; each thread owns a
-// 4x4 patch of scores and a 4x(D/16) patch of the output accumulator; four
-// threads share each row's softmax state (running max m, normaliser l)
-// and reduce with warp shuffles. Inputs are read through their strides
-// (last stride 1), so q/k/v views cut from one fused qkv projection need
-// no copy. wgmma, TMA and warp specialisation are later work.
+// Design. One block per (64-row query tile, batch*head): four consumer
+// warps, each owning 16 query rows, and one producer warp.
+// - The producer's lane 0 loads the query tile once and then every K/V
+//   tile with TMA (cp.async.bulk.tensor, 4-D tensor maps over the
+//   [B, T, H, D] strides, so the q/k/v views of a fused projection need
+//   no copy) into a ring of shared-memory stages. `full` mbarriers carry
+//   TMA's byte count to the consumers; each consumer warp arrives on the
+//   stage's `empty` mbarrier when done, which frees it for the next load.
+//   There is no block-wide barrier in the key loop. Rows past the
+//   sequence end arrive zero-filled (TMA's out-of-bounds fill).
+// - Tiles are stored with TMA's 16-byte swizzle (128 B rows, or 64/32 B
+//   for narrow heads), so the fragment loads below are free of bank
+//   conflicts.
+// - S = Q.K^T. A = Q: in f32 each warp splits its 16 rows once into TF32
+//   hi and lo planes in shared memory and reads both with ldmatrix per
+//   k-step; bf16 Q is held in registers. B = K: ldmatrix (f32), split as
+//   it is loaded. Scores, the row max and sum (reduced with quad
+//   shuffles) and P stay in registers, in log2 units (scale * log2(e)
+//   folded into one multiply) so each weight is one ex2.
+// - P.V. P goes straight from S's accumulator layout into the A
+//   fragment: the mma's k index t is key 2t and k index t+4 is key 2t+1,
+//   and V's B fragment reads rows 2t and 2t+1 to match, so no shuffle is
+//   needed. In f32 (32-column boxes) a 16-byte load of V gives four
+//   n-tiles at once, the n-tiles taking O's columns in the order that
+//   makes those loads conflict-free.
+// - 64-key tiles in two stages (32 keys in three at D 128): two blocks
+//   fit on an SM. The grid launches each head's longest causal query
+//   tiles first.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <cstdio>
+#include <type_traits>
 
 namespace {
 
 constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 256;
+constexpr int kConsumerWarps = kBlockQ / 16;
+constexpr int kThreads = (kConsumerWarps + 1) * 32;
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.693147180559945309f;
+constexpr double kLog2e = 1.44269504088896340736;
+// A barrier wait that spins this many clocks (~9 s) means a lost
+// arrival: trap, so a bug fails the launch instead of hanging the card.
+constexpr long long kSpinClocks = 1ll << 34;
+
+template <typename T, int D>
+struct Cfg {
+  static constexpr bool kSplit = std::is_same<T, float>::value;  // 3xTF32 operands
+  static constexpr int kBlockK = D == 128 ? 32 : 64;
+  static constexpr int kStages = D == 128 ? 3 : 2;
+  // columns per TMA box: one swizzle span of at most 128 bytes
+  static constexpr int kChunk = D * (int)sizeof(T) > 128 ? 128 / (int)sizeof(T) : D;
+  static constexpr int kRowBytes = kChunk * (int)sizeof(T);
+  static constexpr int kQBytes = kBlockQ * D * (int)sizeof(T);
+  static constexpr int kQLoBytes = kSplit ? kQBytes : 0;         // Q's lo plane
+  static constexpr int kKVBytes = kBlockK * D * (int)sizeof(T);  // K or V, one stage
+  static constexpr int kBarOffset = kQBytes + kQLoBytes + 2 * kStages * kKVBytes;
+  static constexpr int kSmemBytes = kBarOffset + 8 * (1 + 2 * kStages);
+  // V's B fragments four n-tiles per 16-byte load
+  static constexpr bool kVecV = kSplit && kChunk == 32;
+  static_assert(kBlockQ * kRowBytes % 1024 == 0 && kBlockK * kRowBytes % 1024 == 0,
+                "every box must start on a 1024-byte swizzle boundary");
+};
+
+// ---- PTX wrappers ----------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  for (long long start = 0;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > kSpinClocks) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// four 8x8 b16 matrices, read here as four 8-row x 4-float tiles: lane
+// 8m + r gives the address of row r of matrix m and gets word lane % 4 of
+// row lane / 4 of each
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero: the rounding of cvt.rna.tf32.f32. Adding half a TF32 ulp to the
+// magnitude bits and clearing the low 13 is two integer instructions;
+// cvt.rna compiles to four (it also guards Inf and NaN, which reach the
+// output as NaN through x - hi here all the same).
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo to ~2^-22 relative, both exact TF32 values
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// 2^x; flushes results below 2^-126 (weights next to the row's max of 1)
+// to zero
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// d += a * b on one 16x8x8 tile, f32 accumulate
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32"
+      " {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += (a_lo * b_hi + a_hi * b_lo) + a_hi * b_hi: 3xTF32
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&a_hi)[4],
+                                     const uint32_t (&a_lo)[4], const uint32_t (&b_hi)[2],
+                                     const uint32_t (&b_lo)[2]) {
+  mma(d, a_lo, b_hi[0], b_hi[1]);
+  mma(d, a_hi, b_lo[0], b_lo[1]);
+  mma(d, a_hi, b_hi[0], b_hi[1]);
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// Byte offset of element (row, col) in a tile that TMA stored as boxes
+// of kChunk columns, each kRows rows of kRowBytes, with the swizzle that
+// XORs the 16-byte unit with bits 7.. of the offset (CU_TENSOR_MAP_
+// SWIZZLE_32B/64B/128B for 32/64/128-byte rows). Boxes start
+// 1024-aligned, so the XOR depends only on row & 7.
+template <typename T, int kChunk, int kRows>
+__device__ __forceinline__ int tile_off(int row, int col) {
+  constexpr int kRowBytes = kChunk * (int)sizeof(T);
+  const int swz = ((((row & 7) * kRowBytes) >> 7) & (kRowBytes / 16 - 1)) << 4;
+  return (col / kChunk) * (kRows * kRowBytes) + row * kRowBytes +
+         (((col % kChunk) * (int)sizeof(T)) ^ swz);
+}
+
+template <typename T, int kChunk, int kRows>
+__device__ __forceinline__ float tile_at(const unsigned char* tile, int row, int col) {
+  return to_f32(*reinterpret_cast<const T*>(tile + tile_off<T, kChunk, kRows>(row, col)));
+}
+
+// ---- kernel ----------------------------------------------------------------
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map, T* __restrict__ o,
+                 float* __restrict__ lse, int seq_len, int heads, float scale_log2,
+                 int causal) {
+  using C = Cfg<T, D>;
+  constexpr int BK = C::kBlockK, kStages = C::kStages, kChunk = C::kChunk;
+  constexpr bool kSplit = C::kSplit;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  unsigned char* q_s = smem;                    // Q, then (f32) Q's hi plane
+  unsigned char* q_lo_s = smem + C::kQBytes;    // f32: Q's lo plane
+  unsigned char* kv_s = q_lo_s + C::kQLoBytes;  // stage s: K at 2s, V at 2s+1 (kKVBytes each)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::kBarOffset);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;  // longest causal tiles first
+  const int bh = blockIdx.y;
+  const int b = bh / heads, h = bh - b * heads;
+  int n_kt = (seq_len + BK - 1) / BK;
+  if (causal) n_kt = min(n_kt, (q0 + kBlockQ + BK - 1) / BK);  // later tiles fully masked
+
+  if (threadIdx.x == 0) {
+    if (smem_u32(smem) & 1023) __trap();  // the swizzle assumes 1024-byte boxes
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {  // producer
+    if (lane == 0) {
+      mbar_expect_tx(q_full, C::kQBytes);
+#pragma unroll
+      for (int c = 0; c < D / kChunk; ++c)
+        tma_load(q_s + c * kBlockQ * C::kRowBytes, &q_map, q_full, c * kChunk, h, q0, b);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % kStages;
+        if (kt >= kStages) mbar_wait(&empty[s], (kt / kStages - 1) & 1);
+        unsigned char* k_s = kv_s + 2 * s * C::kKVBytes;
+        unsigned char* v_s = k_s + C::kKVBytes;
+        mbar_expect_tx(&full[s], 2 * C::kKVBytes);
+#pragma unroll
+        for (int c = 0; c < D / kChunk; ++c) {
+          tma_load(k_s + c * BK * C::kRowBytes, &k_map, &full[s], c * kChunk, h, kt * BK, b);
+          tma_load(v_s + c * BK * C::kRowBytes, &v_map, &full[s], c * kChunk, h, kt * BK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warp w owns query rows r0 .. r0+15 of the tile; lane
+  // (g, t) = (lane / 4, lane % 4) holds rows g and g+8 of each fragment;
+  // for ldmatrix, lane (lm, lr) = (lane / 8, lane % 8) addresses row lr
+  // of matrix lm
+  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
+  const int lm = lane >> 3, lr = lane & 7;
+
+  mbar_wait(q_full, 0);
+  // Q's A fragments: rows r0+g, r0+g+8 x columns 8ks+t, 8ks+t+4
+  uint32_t q_reg[kSplit ? 1 : D / 8][4];
+  if constexpr (kSplit) {  // this warp's rows: hi in place, lo beside
+    for (int e = lane; e < 16 * D; e += 32) {
+      const int off = tile_off<T, kChunk, kBlockQ>(r0 + e / D, e % D);
+      uint32_t hi, lo;
+      split(*reinterpret_cast<const float*>(q_s + off), hi, lo);
+      *reinterpret_cast<uint32_t*>(q_s + off) = hi;
+      *reinterpret_cast<uint32_t*>(q_lo_s + off) = lo;
+    }
+    __syncwarp();
+  } else {
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        q_reg[ks][i] = __float_as_uint(tile_at<T, kChunk, kBlockQ>(
+            q_s, r0 + g + (i & 1) * 8, ks * 8 + t + (i >> 1) * 4));
+  }
+  auto q_frag = [&](int ks, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+    if constexpr (kSplit) {
+      const int off =
+          tile_off<T, kChunk, kBlockQ>(r0 + lr + (lm & 1) * 8, ks * 8 + (lm >> 1) * 4);
+      ldsm4(hi, q_s + off);
+      ldsm4(lo, q_lo_s + off);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) hi[i] = q_reg[ks][i];
+    }
+  };
+  // K's B fragments (b0, b1) of n-tiles n and n+1 at k-step ks, hi and lo
+  auto k_frags = [&](const unsigned char* k_s, int ks, int n, uint32_t (&hi)[2][2],
+                     uint32_t (&lo)[2][2]) {
+    if constexpr (kSplit) {
+      uint32_t r[4];
+      ldsm4(r, k_s + tile_off<T, kChunk, BK>((n + (lm >> 1)) * 8 + lr, ks * 8 + (lm & 1) * 4));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split(__uint_as_float(r[i]), hi[i >> 1][i & 1], lo[i >> 1][i & 1]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        hi[i >> 1][i & 1] = __float_as_uint(
+            tile_at<T, kChunk, BK>(k_s, (n + (i >> 1)) * 8 + g, ks * 8 + t + (i & 1) * 4));
+    }
+  };
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};  // running max, log2 units
+  float l[2] = {0.f, 0.f};          // running sum, this lane's columns only
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = kt % kStages;
+    mbar_wait(&full[s], (kt / kStages) & 1);
+    const unsigned char* k_s = kv_s + 2 * s * C::kKVBytes;
+    const unsigned char* v_s = k_s + C::kKVBytes;
+
+    // S = Q K^T over this tile: sc[n] holds keys 8n + 2t, 8n + 2t + 1
+    float sc[BK / 8][4];
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[n][i] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) {
+      uint32_t a_hi[4], a_lo[4];
+      q_frag(ks, a_hi, a_lo);
+#pragma unroll
+      for (int n = 0; n < BK / 8; n += 2) {
+        uint32_t b_hi[2][2], b_lo[2][2];
+        k_frags(k_s, ks, n, b_hi, b_lo);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          if constexpr (kSplit) mma3(sc[n + j], a_hi, a_lo, b_hi[j], b_lo[j]);
+          else mma(sc[n + j], a_hi, b_hi[j][0], b_hi[j][1]);
+        }
+      }
+    }
+
+    // scale to log2 units, mask, online softmax; rows g (i = 0, 1) and
+    // g + 8 (i = 2, 3)
+    const int k0 = kt * BK;
+    const bool edge = (causal && k0 + BK - 1 > q0) || k0 + BK > seq_len;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x = sc[n][i] * scale_log2;
+        if (edge) {
+          const int key = k0 + n * 8 + 2 * t + (i & 1);
+          const int row = q0 + r0 + g + (i >> 1) * 8;
+          if (key >= seq_len || (causal && key > row)) x = kNegInf;
+        }
+        sc[n][i] = x;
+        mx[i >> 1] = fmaxf(mx[i >> 1], x);
+      }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
+      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
+      const float corr = exp2_ftz(m[j] - mx[j]);
+      m[j] = mx[j];
+      l[j] *= corr;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[n][2 * j] *= corr;
+        acc[n][2 * j + 1] *= corr;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = exp2_ftz(sc[n][i] - m[i >> 1]);
+        sc[n][i] = p;
+        l[i >> 1] += p;
+      }
+
+    // O += P V over key steps of 8: the mma's k index t is key 2t and k
+    // index t+4 is key 2t+1, so P's A fragment is S's accumulator
+    // {c0, c2, c1, c3} and V's B fragment reads rows 2t and 2t+1
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      uint32_t p_hi[4], p_lo[4];
+      split(sc[kk][0], p_hi[0], p_lo[0]);
+      split(sc[kk][2], p_hi[1], p_lo[1]);
+      split(sc[kk][1], p_hi[2], p_lo[2]);
+      split(sc[kk][3], p_hi[3], p_lo[3]);
+      if constexpr (C::kVecV) {
+        // n-tile 4x + e takes O's columns 32x + 4g + e, so that the 16
+        // bytes at columns 32x + 4g .. +3 of rows 2t, 2t+1 feed four
+        // n-tiles (conflict-free: the swizzle puts the 8 lanes of a
+        // phase on 8 distinct 16-byte units)
+#pragma unroll
+        for (int x = 0; x < D / 32; ++x) {
+          float4 v4[2];
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            v4[r] = *reinterpret_cast<const float4*>(
+                v_s + tile_off<T, kChunk, BK>(kk * 8 + 2 * t + r, 32 * x + 4 * g));
+          const float x0[4] = {v4[0].x, v4[0].y, v4[0].z, v4[0].w};
+          const float x1[4] = {v4[1].x, v4[1].y, v4[1].z, v4[1].w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            uint32_t b_hi[2], b_lo[2];
+            split(x0[e], b_hi[0], b_lo[0]);
+            split(x1[e], b_hi[1], b_lo[1]);
+            mma3(acc[4 * x + e], p_hi, p_lo, b_hi, b_lo);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          const float x0 = tile_at<T, kChunk, BK>(v_s, kk * 8 + 2 * t, n * 8 + g);
+          const float x1 = tile_at<T, kChunk, BK>(v_s, kk * 8 + 2 * t + 1, n * 8 + g);
+          uint32_t b_hi[2], b_lo[2];
+          if constexpr (kSplit) {
+            split(x0, b_hi[0], b_lo[0]);
+            split(x1, b_hi[1], b_lo[1]);
+            mma3(acc[n], p_hi, p_lo, b_hi, b_lo);
+          } else {  // V exact in TF32
+            mma(acc[n], p_lo, __float_as_uint(x0), __float_as_uint(x1));
+            mma(acc[n], p_hi, __float_as_uint(x0), __float_as_uint(x1));
+          }
+        }
+      }
+    }
+
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
+  }
+
+  // epilogue: finish each row's sum across its quad, then O and lse
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 1);
+    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 2);
+    const int row = q0 + r0 + g + 8 * j;
+    if (row >= seq_len) continue;
+    const float lj = fmaxf(l[j], 1e-30f);
+    if (t == 0) lse[(long long)bh * seq_len + row] = m[j] * kLn2 + logf(lj);
+    // O is allocated contiguous [B, T, H, D]
+    T* orow = o + (((long long)b * seq_len + row) * heads + h) * D;
+    if constexpr (C::kVecV) {  // columns 32x + 8t .. +3 (c0) and +4 .. +7 (c1)
+#pragma unroll
+      for (int x = 0; x < D / 32; ++x) {
+        float* dst = reinterpret_cast<float*>(orow) + 32 * x + 8 * t;
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          *reinterpret_cast<float4*>(dst + 4 * c) = make_float4(
+              acc[4 * x][2 * j + c] / lj, acc[4 * x + 1][2 * j + c] / lj,
+              acc[4 * x + 2][2 * j + c] / lj, acc[4 * x + 3][2 * j + c] / lj);
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        store2(orow + n * 8 + 2 * t, acc[n][2 * j] / lj, acc[n][2 * j + 1] / lj);
+    }
+  }
+}
+
+// ---- host side -------------------------------------------------------------
+
+// error codes beside cudaError_t's (which are >= 0)
+constexpr int kErrNoEncoder = -1;   // libcuda has no cuTensorMapEncodeTiled (before CUDA 12)
+constexpr int kErrEncode = -1000;   // minus the CUresult of a failed encode
+
+using EncodeFn = decltype(&cuTensorMapEncodeTiled);
+
+EncodeFn tensor_map_encoder() {
+  static const EncodeFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
 
 struct Strides {
   long long b, t, h;  // element strides of batch, time and head; D is unit-stride
 };
 
-template <int D>
-struct Smem {
-  static constexpr int kQ = D + 1;        // padded rows: conflict-free column reads
-  static constexpr int kK = D + 1;
-  static constexpr int kS = kBlockK + 1;
-  static constexpr int kFloats =
-      kBlockQ * kQ + kBlockK * kK + kBlockK * D + kBlockQ * kS + kBlockQ;
-  static constexpr size_t kBytes = sizeof(float) * kFloats;
-};
-
-// Copies rows [t0, t0 + 64) of one (batch, head) slice into shared memory
-// as f32, zero-filling rows past the end of the sequence (a zero V row
-// keeps 0 * garbage from turning into NaN).
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
-                                          long long row_stride, int t0, int seq_len) {
-  for (int e = threadIdx.x; e < kBlockK * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    const int t = t0 + r;
-    dst[r * ld + c] = t < seq_len ? to_f32(src[t * row_stride + c]) : 0.f;
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int seq_len, int heads,
-                 Strides qs, Strides ks, Strides vs, float scale, int causal) {
-  using S = Smem<D>;
-  constexpr int kCols = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* q_s = smem;                         // [64][D+1]
-  float* k_s = q_s + kBlockQ * S::kQ;        // [64][D+1]
-  float* v_s = k_s + kBlockK * S::kK;        // [64][D]
-  float* s_s = v_s + kBlockK * D;            // [64][65] scores, then probabilities
-  float* row_s = s_s + kBlockQ * S::kS;      // [64] per-row rescale, then normaliser
-
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int bh = blockIdx.y;
-  const int b = bh / heads, h = bh - b * heads;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
-
-  // score / output mapping: rows ty*4 .. ty*4+3, columns tx + 16*j
-  const int ty = tid >> 4, tx = tid & 15;
-  // softmax mapping: four threads per row, adjacent lanes
-  const int srow = tid >> 2, spart = tid & 3;
-
-  load_tile<T, D>(q_s, S::kQ, qb, qs.t, q0, seq_len);
-
-  float acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
-  float m_i = kNegInf, l_i = 0.f;
-
-  int n_kt = (seq_len + kBlockK - 1) / kBlockK;
-  if (causal) n_kt = min(n_kt, (q0 + kBlockQ + kBlockK - 1) / kBlockK);
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // previous tile's readers are done with k_s / v_s / s_s
-    load_tile<T, D>(k_s, S::kK, kb, ks.t, k0, seq_len);
-    load_tile<T, D>(v_s, D, vb, vs.t, k0, seq_len);
-    __syncthreads();
-
-    // scores: s = (q . k) * scale, masked
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = q_s[(ty * 4 + i) * S::kQ + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = k_s[(tx + 16 * j) * S::kK + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int kpos = k0 + c;
-        const bool masked = kpos >= seq_len || (causal && kpos > q0 + r);
-        s_s[r * S::kS + c] = masked ? kNegInf : s[i][j] * scale;
-      }
-    }
-    __syncthreads();
-
-    // online softmax over this tile, one row per four lanes
-    {
-      float* row = s_s + srow * S::kS;
-      float mx = kNegInf;
-      for (int j = spart; j < kBlockK; j += 4) mx = fmaxf(mx, row[j]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_i, mx);
-      float sum = 0.f;
-      for (int j = spart; j < kBlockK; j += 4) {
-        const float p = expf(row[j] - m_new);
-        row[j] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      const float corr = expf(m_i - m_new);
-      l_i = l_i * corr + sum;
-      m_i = m_new;
-      if (spart == 0) row_s[srow] = corr;
-    }
-    __syncthreads();
-
-    // acc = acc * corr + p @ v
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float corr = row_s[ty * 4 + i];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] *= corr;
-    }
-#pragma unroll 4
-    for (int j = 0; j < kBlockK; ++j) {
-      float p[4], vv[kCols];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = s_s[(ty * 4 + i) * S::kS + j];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) vv[c] = v_s[j * D + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[i][c] = fmaf(p[i], vv[c], acc[i][c]);
-    }
-  }
-
-  __syncthreads();  // every reader of row_s's rescale factors is done
-  if (spart == 0) {
-    const float l = fmaxf(l_i, 1e-30f);
-    row_s[srow] = l;
-    const int t = q0 + srow;
-    if (t < seq_len) lse[(long long)bh * seq_len + t] = m_i + logf(l);
-  }
-  __syncthreads();
-
-  // O is allocated contiguous [B, T, H, D]
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    const int t = q0 + r;
-    if (t >= seq_len) continue;
-    const float l = row_s[r];
-    T* orow = o + (((long long)b * seq_len + t) * heads + h) * D;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) store(orow + tx + 16 * c, acc[i][c] / l);
-  }
+// A 4-D map over [B, T, H, D] (innermost first: D, H, T, B) whose box is
+// `rows` time steps of one (batch, head) and `chunk` columns.
+template <typename T>
+int encode(CUtensorMap* map, const void* base, int batch, int seq_len, int heads, int head_dim,
+           Strides st, int chunk, int rows) {
+  EncodeFn fn = tensor_map_encoder();
+  if (fn == nullptr) return kErrNoEncoder;
+  constexpr long long es = sizeof(T);
+  const cuuint64_t dims[4] = {(cuuint64_t)head_dim, (cuuint64_t)heads, (cuuint64_t)seq_len,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)(st.h * es), (cuuint64_t)(st.t * es),
+                                 (cuuint64_t)(st.b * es)};
+  const cuuint32_t box[4] = {(cuuint32_t)chunk, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const int row_bytes = chunk * (int)es;
+  const CUtensorMapSwizzle swizzle = row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                       : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = fn(
+      map, std::is_same<T, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode - (int)r;
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
            int seq_len, int heads, Strides qs, Strides ks, Strides vs, float scale,
            int causal, cudaStream_t stream) {
-  const size_t smem = Smem<D>::kBytes;
+  using C = Cfg<T, D>;
+  CUtensorMap q_map, k_map, v_map;
+  int rc = encode<T>(&q_map, q, batch, seq_len, heads, D, qs, C::kChunk, kBlockQ);
+  if (rc == 0) rc = encode<T>(&k_map, k, batch, seq_len, heads, D, ks, C::kChunk, C::kBlockK);
+  if (rc == 0) rc = encode<T>(&v_map, v, batch, seq_len, heads, D, vs, C::kChunk, C::kBlockK);
+  if (rc != 0) return rc;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((seq_len + kBlockQ - 1) / kBlockQ, batch * heads);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, seq_len, heads, qs, ks, vs, scale, causal);
+  flash_fwd_kernel<T, D><<<grid, kThreads, C::kSmemBytes, stream>>>(
+      q_map, k_map, v_map, static_cast<T*>(o), lse, seq_len, heads,
+      (float)(scale * kLog2e), causal);
   return (int)cudaGetLastError();
 }
 
@@ -246,8 +583,11 @@ int dispatch_dim(int head_dim, const void* q, const void* k, const void* v, void
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the CUDA error code of the
-// launch (0 = cudaSuccess); the caller raises on anything else.
+// dtype: 0 = float32, 1 = bfloat16. Every pointer and every stride of a
+// dimension longer than 1, in bytes, must be a multiple of 16 (TMA's
+// rule; the Python wrapper sees to it). Returns 0 on success, else a
+// CUDA error code of the launch or one of the negative codes above; the
+// caller raises on anything but 0.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                         int dtype, int batch, int seq_len, int heads, int head_dim,
                         long long q_sb, long long q_st, long long q_sh, long long k_sb,
@@ -266,6 +606,12 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, vo
 }
 
 const char* flash_attention_error_string(int code) {
+  if (code == kErrNoEncoder) return "libcuda has no cuTensorMapEncodeTiled (CUDA 12 or later needed)";
+  if (code <= kErrEncode) {
+    static thread_local char msg[80];
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed with CUresult %d", kErrEncode - code);
+    return msg;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

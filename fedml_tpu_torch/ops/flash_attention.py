@@ -3,9 +3,13 @@
 The port of ``fedml_tpu/ops/flash_attention.py``. The forward is the CUDA
 C++ kernel in ``csrc/flash_attention_fwd.cu``, which replaces the Pallas
 TPU kernel ``_flash_kernel`` (``fedml_tpu/ops/flash_attention.py:32``).
-Causal attention at the serving shapes is bound by operations on an H100
-(67 TFLOP/s in f32, 989 in bf16 on the tensor cores); the kernel and its
-first, simple design are described in the source.
+Causal attention at the serving shapes is bound by operations on an H100.
+Both products run on the tensor cores: f32 inputs as 3xTF32 (each f32
+product is three TF32 products of a hi/lo split, so the bound is three
+passes at the 495 TFLOP/s TF32 peak and the result keeps f32's
+accuracy), bf16 inputs with their exact TF32 values; K/V tiles arrive
+by TMA through a ring of shared-memory stages. The source describes the
+design.
 
 Dispatch follows the tensor's device and nothing else: a CPU tensor takes
 the plain version, ``flash_attention_reference``; a CUDA tensor launches
@@ -32,6 +36,7 @@ __all__ = [
     "flash_attention",
     "flash_attention_reference",
     "flash_forward",
+    "kernel_operand",
     "pick_block",
 ]
 
@@ -40,6 +45,26 @@ _NEG_INF = -1e30
 # torch dtype -> the kernel's dtype code
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
+# TMA reads from a 16-byte-aligned base with 16-byte multiples as strides
+_TMA_ALIGN = 16
+
+
+def kernel_operand(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int, int]]:
+    """``x`` [B, T, H, D] as the kernel's TMA loads read it, with its
+    (batch, time, head) element strides.
+
+    TMA needs a 16-byte-aligned base address and a 16-byte multiple for
+    every stride it steps over. The q/k/v views of a fused projection
+    meet that as they are; a view that does not is copied to a
+    contiguous tensor. A dimension of size 1 is never stepped over, so
+    its stride is given as the contiguous one."""
+    size = x.element_size()
+    steps = [x.stride(i) for i in range(3) if x.shape[i] > 1]
+    if x.data_ptr() % _TMA_ALIGN or any(s * size % _TMA_ALIGN for s in steps):
+        x = x.clone(memory_format=torch.contiguous_format)
+    _, T, H, D = x.shape
+    dense = (T * H * D, H * D, D)
+    return x, tuple(x.stride(i) if x.shape[i] > 1 else dense[i] for i in range(3))
 
 
 class FlashForwardKernel:
@@ -106,16 +131,14 @@ class FlashForwardKernel:
         if B * H > 65535:
             raise ValueError(f"flash kernel: batch*heads {B * H} exceeds 65535")
         fn = self._bind()
+        (q, qs), (k, ks), (v, vs) = (kernel_operand(x) for x in (q, k, v))
         o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
         lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = fn(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                _DTYPE_CODES[q.dtype], B, T, H, D,
-                q.stride(0), q.stride(1), q.stride(2),
-                k.stride(0), k.stride(1), k.stride(2),
-                v.stride(0), v.stride(1), v.stride(2),
+                _DTYPE_CODES[q.dtype], B, T, H, D, *qs, *ks, *vs,
                 float(scale), int(bool(causal)), stream,
             )
         if rc != 0:

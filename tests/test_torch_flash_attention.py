@@ -5,10 +5,15 @@ On a CPU tensor the port's wrapper takes the kernel's plain version, so
 these tests hold that version, the autograd function around it and the
 blockwise backward against the JAX kernel on the same inputs. The CUDA
 kernel itself is held against the same plain version on the card by
-``chip_smoke.py``.
+``chip_smoke.py``; here a numpy emulation of its 3xTF32 arithmetic is
+held against the JAX kernel, and the rules the wrapper applies before a
+launch are checked.
 """
 
 from __future__ import annotations
+
+import importlib.util
+import os
 
 import jax
 import jax.numpy as jnp
@@ -124,3 +129,122 @@ def test_cpu_tensors_take_the_plain_version():
     assert tfa.FWD_KERNEL.launches == before
     with pytest.raises(ValueError, match="not CUDA"):
         tfa.FWD_KERNEL(q, k, v, True, D**-0.5)
+
+
+# -- the CUDA kernel's arithmetic, emulated in numpy -------------------------
+
+
+def _tf32(x):
+    """Round to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as the kernel's ``tf32()`` does (the rounding of
+    cvt.rna.tf32.f32)."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_matmul(a, b, passes):
+    """a @ b on TF32 operands with f32 accumulation: one pass (hi·hi) or
+    the kernel's 3xTF32 (lo·hi + hi·lo + hi·hi of x = hi + lo)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+
+    def mm(x, y):
+        return np.matmul(x, y, dtype=np.float32)
+
+    if passes == 1:
+        return mm(a_hi, b_hi)
+    return (mm(a_lo, b_hi) + mm(a_hi, b_lo)) + mm(a_hi, b_hi)
+
+
+def _emulated_kernel(q, k, v, causal, passes):
+    """(O, lse) computed as the CUDA kernel computes them: both products
+    in TF32 passes, scores in log2 units, unnormalised weights exp2(s - m)
+    split again for P·V, O = acc / max(l, 1e-30)."""
+    qf, kf, vf = (x.transpose(0, 2, 1, 3) for x in (q, k, v))
+    scale_log2 = np.float32(D**-0.5 * np.log2(np.e))
+    s = _tf32_matmul(qf, kf.transpose(0, 1, 3, 2), passes) * scale_log2
+    if causal:
+        s = np.where(np.tril(np.ones((T, T), bool)), s, np.float32(-1e30))
+    m = s.max(axis=-1, keepdims=True)
+    p = np.exp2(s - m)
+    l = np.maximum(p.sum(axis=-1, keepdims=True), np.float32(1e-30))
+    o = _tf32_matmul(p, vf, passes) / l
+    lse = m[..., 0] * np.float32(np.log(2.0)) + np.log(l[..., 0])
+    return o.transpose(0, 2, 1, 3), lse
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_3xtf32_emulation_matches_jax_kernel(causal):
+    """The kernel's 3xTF32 split keeps the JAX kernel's f32 result within
+    the file's tolerance; one TF32 pass does not."""
+    q, k, v = _qkv(16)
+    want_o, want_lse = _flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                      causal, None, BLOCK, BLOCK, True)
+    want_o, want_lse = np.asarray(want_o), np.asarray(want_lse)
+    o, lse = _emulated_kernel(q, k, v, causal, passes=3)
+    np.testing.assert_allclose(o, want_o, atol=ATOL)
+    np.testing.assert_allclose(lse, want_lse, atol=ATOL)
+    one_o, one_lse = _emulated_kernel(q, k, v, causal, passes=1)
+    assert np.abs(one_o - want_o).max() > ATOL
+    assert np.abs(one_lse - want_lse).max() > ATOL
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    """The kernel's rounding, (bits + 0x1000) & 0xffffe000, is the one
+    cvt.rna.tf32.f32 defines: to nearest, ties away from zero."""
+    ulp = 2.0**-10  # TF32's spacing in [1, 2)
+    x = np.array([1 + ulp / 4, 1 + ulp / 2, 1 + 3 * ulp / 4, -(1 + ulp / 2), 1 + ulp],
+                 np.float32)
+    np.testing.assert_array_equal(
+        _tf32(x), np.array([1, 1 + ulp, 1 + ulp, -(1 + ulp), 1 + ulp], np.float32))
+    hi = _tf32(x)
+    assert not (hi.view(np.uint32) & 0x1FFF).any()
+
+
+# -- the bound chip_smoke.py reports for the kernel ---------------------------
+
+
+def _chip_smoke():
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("dtype, want_ms", [(torch.float32, 0.833), (torch.bfloat16, 0.139)])
+def test_flash_bound_counts_the_route(dtype, want_ms):
+    """Main path [8, 4096, 8, 64] causal: 1.37e11 flops, in f32 three
+    TF32 passes at 495 TFLOP/s, in bf16 one pass at 989 TFLOP/s."""
+    bound_ms, bound_by = _chip_smoke().flash_bound(8, 4096, 8, 64, dtype, True)
+    assert bound_by == "operations"
+    assert bound_ms == pytest.approx(want_ms, abs=5e-4)
+
+
+# -- what the wrapper hands the kernel's TMA loads ----------------------------
+
+
+def test_kernel_operand_keeps_fused_projection_views():
+    qkv = torch.zeros((B, T, 3 * H * D))
+    for view in (t.view(B, T, H, D) for t in qkv.split(H * D, dim=-1)):
+        x, strides = tfa.kernel_operand(view)
+        assert x is view
+        assert strides == (T * 3 * H * D, 3 * H * D, D)
+
+
+def test_kernel_operand_copies_a_misaligned_view():
+    flat = torch.arange(B * T * H * D + 1, dtype=torch.float32)
+    view = flat[1:].view(B, T, H, D)  # base 4 bytes past an aligned one
+    assert view.data_ptr() % 16
+    x, strides = tfa.kernel_operand(view)
+    assert x.data_ptr() % 16 == 0 and x.is_contiguous()
+    assert torch.equal(x, view)
+    assert strides == (T * H * D, H * D, D)
+
+
+def test_kernel_operand_ignores_strides_of_length_one_dims():
+    x = torch.zeros((1, T, 1, D)).as_strided((1, T, 1, D), (3, D, 1, 1))
+    got, strides = tfa.kernel_operand(x)
+    assert got is x
+    assert strides == (T * D, D, D)
