@@ -1,13 +1,21 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``fedml_tpu_torch``) on one NVIDIA card.
 
-Drives the port's serving path once through the entry points a user
-calls — ``load_arguments`` on ``fedml_tpu_torch/configs/serve_transformer_flash.yaml``,
-``models.create``, ``convert.params_from_flax``, ``ModelEndpoint`` and
-``ServingEngine`` — at the full width of that configuration (embed 512,
-8 heads of 64, 4096 tokens, 2 layers, seeded random weights), and holds
-every hand-written kernel of the path against its plain PyTorch version
-on the card.
+Drives the port's two paths once each through the entry points a user
+calls, and holds every hand-written kernel against its plain PyTorch
+version on the card:
+
+- serving: ``load_arguments`` on
+  ``fedml_tpu_torch/configs/serve_transformer_flash.yaml``,
+  ``models.create``, ``convert.params_from_flax``, ``ModelEndpoint`` and
+  ``ServingEngine``, at the full width of that configuration (embed 512,
+  8 heads of 64, 4096 tokens, 2 layers, seeded random weights);
+- FedAvg training: ``fedml_tpu_torch.run_simulation`` on
+  ``fedml_tpu_torch/configs/fedavg_femnist_cnn.yaml``, the bench's
+  headline cohort at full width (32 clients x 600 samples of the
+  FEMNIST stand-in, the 2-conv CNN, 5 local epochs, batch 32). This path
+  runs no hand-written kernel: its convolutions and matrix products are
+  cuDNN's and cuBLAS's through PyTorch, as XLA generated them on the TPU.
 
 Phases, each of which fails the run:
 
@@ -24,7 +32,15 @@ Phases, each of which fails the run:
    have the right shape, are finite and match the same model with
    ``attention_impl: full``; the kernels' launch counts rose on the
    path; a hot swap advances the version and changes the answers; one
-   burst runs under ``torch.profiler`` for the device time by kernel.
+   burst runs under ``torch.profiler`` for the device time by kernel;
+5. fedavg: FedAvg equals centralized full-batch GD on the card (the
+   reference's oracle 1, atol 1e-5); the vectorized round equals the
+   sequential one (float64, atol 1e-5; the f32 error is printed); the headline configuration trains through
+   ``run_simulation`` (one warm-up round, three timed rounds, one round
+   under ``torch.profiler``), its train loss falls and its test accuracy
+   ends at least 5x chance. Rounds/s, samples/s, peak memory, the
+   per-round loss and accuracy and the profiled round's device time by
+   kernel are printed before the JSON lines.
 
 Run from the repo root, on a machine with one CUDA card and the CUDA
 toolkit:  ``python3 chip_smoke.py``.  The last two lines of its output
@@ -47,6 +63,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "fedml_tpu_torch" / "configs" / "serve_transformer_flash.yaml"
+FEDAVG_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "fedavg_femnist_cnn.yaml"
 DEVICE = "cuda"
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit). A
@@ -87,6 +104,22 @@ LSE_ATOL = 1e-4
 # summation order
 LOGITS_ATOL = 1e-4
 TIMED_BURSTS = 4
+
+# FedAvg phase. Oracle 1: with full-batch clients, one epoch, every
+# client and plain SGD, FedAvg's weighted mean of per-client steps is
+# one full-batch GD step on the union; they differ by f32 summation
+# order (the reference's own tolerance, tests/test_fedavg_oracle.py).
+ORACLE_ATOL = 1e-5
+# vectorized (vmapped: cuDNN grouped convolutions) against sequential
+# (one client at a time), gated in float64: per client the arithmetic is
+# the same, so the two agree to f64 rounding. In f32 they need not agree
+# to 1e-5 at all: the two convolution algorithms round differently, and
+# on the rare example whose ReLU input lands within that rounding of
+# zero the client's step changes by O(lr). The f32 error is printed.
+VEC_SEQ_ATOL = 1e-5
+# the headline: one warm-up round, three timed, one profiled
+HEADLINE_WARMUP, HEADLINE_TIMED = 1, 3
+CHANCE_FACTOR = 5  # final test accuracy must reach 5x chance
 
 
 def log(msg: str) -> None:
@@ -418,6 +451,314 @@ def run_slice(kernels):
             "logits_max_abs_err": err, "params": n_params, "profile": profiled}
 
 
+# -- phase 5 -----------------------------------------------------------
+def _fedavg_args(**kw):
+    from fedml_tpu_torch import init
+    from fedml_tpu_torch.arguments import Arguments
+
+    args = Arguments()
+    for key, val in kw.items():
+        setattr(args, key, val)
+    args._validate()
+    return init(args)
+
+
+def _fedavg_api(args):
+    from fedml_tpu_torch import data, models
+    from fedml_tpu_torch.simulation import FedAvgAPI
+
+    dataset = data.load(args, device=DEVICE)
+    model = models.create(args, dataset.class_num, device=DEVICE)
+    return FedAvgAPI(args, DEVICE, dataset, model)
+
+
+def _max_err(a, b):
+    return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+
+def fedavg_oracle():
+    """Oracle 1 on the card: the lr model on the MNIST stand-in, four
+    full-batch clients, one epoch, every client, plain SGD, 3 rounds,
+    against 3 steps of centralized full-batch GD on the union."""
+    from fedml_tpu_torch.core.types import flat_examples
+
+    lr, rounds = 0.1, 3
+    api = _fedavg_api(_fedavg_args(
+        dataset="mnist", synthetic_train_size=400, synthetic_test_size=100, model="lr",
+        partition_method="homo", client_num_in_total=4, client_num_per_round=4,
+        comm_round=rounds, epochs=1, batch_size=100, learning_rate=lr, momentum=0.0,
+        weight_decay=0.0, frequency_of_the_test=rounds, shuffle=False, log_metrics=False))
+    params = {k: v.clone() for k, v in api.global_params.items()}
+    api.train()
+    g = flat_examples(api.dataset.train_data_global)
+    keep = g.mask > 0
+    x, y = g.x[keep], g.y[keep]
+    ones = torch.ones(len(y), device=DEVICE)
+
+    def loss(p):
+        return api.model.loss_fn(api.model.apply(p, x), y, ones)[0]
+
+    for _ in range(rounds):
+        grads = torch.func.grad(loss)(params)
+        params = {k: params[k] - lr * grads[k] for k in params}
+    err = _max_err(api.global_params, params)
+    log(f"fedavg oracle 1: FedAvg vs centralized full-batch GD, {rounds} rounds of 4 "
+        f"full-batch clients: max abs err {err:.3g} (atol {ORACLE_ATOL})")
+    if not err <= ORACLE_ATOL:
+        fail(f"FedAvg differs from centralized GD by {err} (atol {ORACLE_ATOL})")
+    return err
+
+
+def _as_float64(api):
+    """The API's params and packed federation in float64."""
+    from fedml_tpu_torch.core.types import Batches
+
+    api.global_params = {k: v.double() for k, v in api.global_params.items()}
+    for split in ("packed_train", "packed_test"):
+        b = getattr(api.dataset, split)
+        setattr(api.dataset, split, Batches(x=b.x.double(), y=b.y, mask=b.mask.double()))
+    return api
+
+
+def fedavg_vectorized_vs_sequential():
+    """The CNN on the FEMNIST stand-in, 4 clients of the hetero
+    partition, 2 epochs, 2 rounds, shuffled: the vmapped round against
+    the client-by-client round (both draw the round's shuffle once), in
+    float64 (gated) and in f32 (printed)."""
+    errs = {}
+    for dtype in (torch.float64, torch.float32):
+        out = {}
+        for mode in ("vectorized", "sequential"):
+            api = _fedavg_api(_fedavg_args(
+                dataset="femnist", synthetic_train_size=480, synthetic_test_size=96,
+                model="cnn", partition_method="hetero", partition_alpha=0.5,
+                client_num_in_total=4, client_num_per_round=4, comm_round=2, epochs=2,
+                batch_size=32, learning_rate=0.03, frequency_of_the_test=2, sim_mode=mode,
+                log_metrics=False))
+            if dtype == torch.float64:
+                _as_float64(api)
+            api.train()
+            out[mode] = api.global_params
+        errs[str(dtype).replace("torch.", "")] = _max_err(out["vectorized"], out["sequential"])
+    log(f"fedavg vectorized vs sequential: CNN, 4 hetero clients, 2 rounds x 2 epochs, "
+        f"shuffled: max abs err float64 {errs['float64']:.3g} (atol {VEC_SEQ_ATOL}), "
+        f"float32 {errs['float32']:.3g} (not gated)")
+    if not errs["float64"] <= VEC_SEQ_ATOL:
+        fail(f"vectorized and sequential rounds differ by {errs['float64']} in float64 "
+             f"(atol {VEC_SEQ_ATOL})")
+    return errs
+
+
+# device kernels of the FedAvg path by kind, first match wins (cuDNN's
+# and PyTorch's kernel names)
+KERNEL_KINDS = (
+    ("conv backward", ("dgrad", "wgrad", "grad_weight", "backward_input", "conv_depthwise2d_backward")),
+    ("conv forward", ("fprop", "conv_depthwise2d_forward", "implicit_convolve")),
+    ("layout transposes", ("transpose", "nchwtonhwc", "nhwctonchw")),
+    ("GEMM", ("gemm", "gemv")),
+    ("pooling", ("max_pool",)),
+)
+
+
+def kernel_kind(name: str) -> str:
+    low = name.lower()
+    for kind, keys in KERNEL_KINDS:
+        if any(k in low for k in keys):
+            return kind
+    return "elementwise, reductions, copies"
+
+
+def device_busy_ms(fn, calls: int = 5):
+    """Device time of one call of ``fn``: the union of its device
+    intervals under ``torch.profiler``, averaged over ``calls``, and the
+    kernel count per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fedml_tpu_torch.core.tracing import _union_us
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    if not spans:
+        return None, 0
+    return _union_us(spans) / 1e3 / calls, len(spans) / calls
+
+
+def fedavg_step_yardstick():
+    """One local step of the headline cohort (32 clients x 32 images,
+    the CNN, SGD) three ways, on the same params and batch: the port's
+    vmapped step; the same step written by hand as grouped convolutions
+    over the stacked cohort (a yardstick the port does not use); and the
+    port's step for one client. Wall ms per step by CUDA events over
+    back-to-back steps, device-busy ms per step by the profiler."""
+    import torch.nn.functional as F
+
+    from fedml_tpu_torch import models
+    from fedml_tpu_torch.arguments import Arguments
+    from fedml_tpu_torch.core import optimizers
+    from fedml_tpu_torch.core.local_trainer import make_local_train_fn
+    from fedml_tpu_torch.core.types import Batches
+
+    a = Arguments()
+    a.model, a.dataset = "cnn", "femnist"
+    model = models.create(a, 62, device=DEVICE)
+    params = model.init(torch.Generator().manual_seed(0))
+    C, B, lr = 32, 32, 0.03
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    x = torch.randn((C, 1, B, 28, 28, 1), generator=gen, device=DEVICE)
+    y = torch.randint(0, 62, (C, 1, B), generator=gen, device=DEVICE)
+    cohort = Batches(x=x, y=y, mask=torch.ones((C, 1, B), device=DEVICE))
+    one = Batches(x=x[:1], y=y[:1], mask=cohort.mask[:1])
+    step = make_local_train_fn(model.apply, model.loss_fn, optimizers.sgd(lr), epochs=1,
+                               shuffle=False)
+    stacked = {k: v.expand((C,) + tuple(v.shape)).contiguous() for k, v in params.items()}
+
+    def grouped():
+        p = {k: v.detach().requires_grad_(True) for k, v in stacked.items()}
+        h = x[:, 0, ..., 0].transpose(0, 1)  # [B, C, 28, 28]: client = channel
+        h = F.conv2d(h, p["Conv_0/weight"].flatten(0, 1), p["Conv_0/bias"].flatten(),
+                     padding=1, groups=C)
+        h = F.max_pool2d(F.relu(h), 2)
+        h = F.conv2d(h, p["Conv_1/weight"].flatten(0, 1), p["Conv_1/bias"].flatten(),
+                     padding=1, groups=C)
+        h = F.max_pool2d(F.relu(h), 2)  # [B, C*64, 7, 7]
+        h = h.reshape(B, C, 64, 7, 7).permute(1, 0, 3, 4, 2).reshape(C, B, -1)
+        h = F.relu(torch.baddbmm(p["Dense_0/bias"][:, None], h,
+                                 p["Dense_0/weight"].transpose(1, 2)))
+        logits = torch.baddbmm(p["Dense_1/bias"][:, None], h, p["Dense_1/weight"].transpose(1, 2))
+        loss = F.cross_entropy(logits.flatten(0, 1), y[:, 0].flatten(), reduction="sum") / B
+        grads = torch.autograd.grad(loss, list(p.values()))
+        return {k: v - lr * g for (k, v), g in zip(p.items(), grads)}
+
+    # the hand-written step computes the port's step: both run cuDNN's
+    # grouped convolution (vmap batches a convolution over clients as
+    # one with groups=C), so they agree to rounding (0 on the card)
+    want, _ = step(params, cohort)
+    got = grouped()
+    err = max(float((got[k].detach() - want[k]).abs().max()) for k in want)
+    out = {}
+    for name, fn in (("port vmapped step, 32 clients", lambda: step(params, cohort)),
+                     ("grouped-conv step by hand, 32 clients", grouped),
+                     ("port vmapped step, 1 client", lambda: step(params, one))):
+        wall = cuda_time_ms(fn, 20, 3)
+        busy, kernels = device_busy_ms(fn)
+        out[name] = {"wall_ms": wall, "device_busy_ms": busy, "kernels": kernels}
+        log(f"fedavg step yardstick: {name}: {wall:.3f} ms per step, device busy "
+            f"{'not measured' if busy is None else f'{busy:.3f} ms'}, {kernels:.0f} device "
+            f"kernels per step")
+    log(f"fedavg step yardstick: grouped-conv step vs the port's, max abs err {err:.3g}")
+    if not err <= 1e-4:
+        fail(f"the grouped-conv yardstick computes another step (err {err})")
+    out["grouped_vs_port_max_abs_err"] = err
+    return out
+
+
+def run_fedavg():
+    """The headline configuration through ``run_simulation``."""
+    import tempfile
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.ops.flash_attention import FWD_KERNEL
+
+    oracle_err = fedavg_oracle()
+    vec_seq_errs = fedavg_vectorized_vs_sequential()
+    yardstick = fedavg_step_yardstick()
+
+    args = load_arguments(str(FEDAVG_CONFIG))
+    profiled = HEADLINE_WARMUP + HEADLINE_TIMED
+    with tempfile.TemporaryDirectory(prefix="fedavg_smoke_") as tmp:
+        args.comm_round = profiled + 1
+        args.frequency_of_the_test = 1
+        args.metrics_jsonl_path = str(Path(tmp) / "metrics.jsonl")
+        args.telemetry_dir = tmp
+        args.profile_rounds = [profiled]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        FWD_KERNEL.reset_launches()  # this path runs no hand-written kernel
+        t0 = time.perf_counter()
+        final = fedml_tpu_torch.run_simulation(device=DEVICE, args=args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {FWD_KERNEL.name: FWD_KERNEL.launches}
+        rounds = [json.loads(line) for line in
+                  (Path(tmp) / "metrics.jsonl").read_text().splitlines()]
+        summary = json.loads((Path(tmp) / "profile" / f"round_{profiled:04d}"
+                              / "summary.json").read_text())
+    n_clients, epochs = int(args.client_num_per_round), int(args.epochs)
+    timed = rounds[HEADLINE_WARMUP:HEADLINE_WARMUP + HEADLINE_TIMED]
+    train_s = sum(r["train_time_s"] for r in timed)
+    rounds_per_s = len(timed) / train_s
+    # real (unmasked) examples each round trains on: the cohort's per
+    # epoch count, times the epochs
+    samples = timed[0]["cohort_samples"] * epochs
+    log(f"fedavg headline: {n_clients} clients x {int(args.synthetic_train_size) // n_clients} "
+        f"samples, {args.model}, {epochs} epochs, batch {args.batch_size}, "
+        f"{len(rounds)} rounds in {wall:.1f} s (data, init and warm-up included); "
+        f"kernel launches on this path {launches}")
+    for r in rounds:
+        log(f"  round {r['round']}: train {r['train_time_s'] * 1e3:.1f} ms, with eval "
+            f"{r['round_time_s'] * 1e3:.1f} ms; train_loss {r['train_loss']:.4f}, "
+            f"train_acc {r['train_acc']:.4f}, test_loss {r['test_loss']:.4f}, "
+            f"test_acc {r['test_acc']:.4f}, cohort loss {r['train_loss_cohort']:.4f}")
+    log(f"fedavg headline: rounds {HEADLINE_WARMUP}-{HEADLINE_WARMUP + HEADLINE_TIMED - 1} "
+        f"(timed): {rounds_per_s:.3f} rounds/s, {samples * rounds_per_s:.0f} real samples/s "
+        f"({samples} per round), peak memory {peak / 2**20:.1f} MiB")
+    busy, window = summary["device_busy_s"], summary["wall_s"]
+    by_kernel = summary["device_s_by_kernel"]
+    top = list(by_kernel.items())[:15]
+    kinds = {}
+    for name, sec in by_kernel.items():
+        kinds[kernel_kind(name)] = kinds.get(kernel_kind(name), 0.0) + sec
+    if busy > 0:
+        total = summary["device_kernel_s"]
+        log(f"fedavg profile of round {profiled} (training + eval): wall {window * 1e3:.1f} ms, "
+            f"device busy {busy * 1e3:.1f} ms ({busy / window:.1%}), idle "
+            f"{(window - busy) * 1e3:.1f} ms; kernel time {total * 1e3:.1f} ms summed over "
+            f"streams (cuDNN runs a grouped convolution's groups on several streams, so "
+            f"it exceeds the busy time); {len(by_kernel)} distinct kernels; by kind:")
+        for kind, sec in sorted(kinds.items(), key=lambda kv: -kv[1]):
+            log(f"  {sec * 1e3:9.3f} ms  {sec / total:6.1%}  {kind}")
+        log("fedavg profile: kernel time by kernel:")
+        for name, sec in top:
+            log(f"  {sec * 1e3:9.3f} ms  {name[:110]}")
+    else:
+        log("fedavg profile: the profiler saw no device events; device time not measured")
+
+    losses = [r["train_loss"] for r in rounds]
+    final_acc = rounds[-1]["test_acc"]
+    floor = CHANCE_FACTOR / 62
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"headline train loss did not fall across the rounds: {losses}")
+    if not final_acc >= floor:
+        fail(f"headline test accuracy {final_acc} after {len(rounds)} rounds is under "
+             f"{CHANCE_FACTOR}x chance ({floor:.3f})")
+    if final["round"] != rounds[-1]["round"]:
+        fail("run_simulation's result is not the last round's stats")
+    if launches[FWD_KERNEL.name] != 0:
+        fail(f"the flash kernel ran {launches} times on the FedAvg path, which has no attention")
+    return {
+        "oracle_max_abs_err": oracle_err, "vectorized_vs_sequential_max_abs_err": vec_seq_errs,
+        "rounds_per_s": rounds_per_s, "real_samples_per_s": samples * rounds_per_s,
+        "timed_round_train_s": [r["train_time_s"] for r in timed],
+        "peak_memory_bytes": peak,
+        "train_loss": losses, "test_acc": [r["test_acc"] for r in rounds],
+        "step_yardstick": yardstick,
+        "profile": {"round": profiled, "wall_ms": window * 1e3,
+                    "device_busy_ms": busy * 1e3 if busy > 0 else None,
+                    "kernel_sum_ms": summary["device_kernel_s"] * 1e3,
+                    "by_kind_ms": {k: v * 1e3 for k, v in kinds.items()},
+                    "top_kernels_ms": [(n[:110], sec * 1e3) for n, sec in top]},
+    }
+
+
 def main() -> int:
     sys.path.insert(0, str(REPO))
     try:
@@ -440,6 +781,8 @@ def main() -> int:
     kernels = [check_flash_kernel()]
     slice_numbers = run_slice(kernels)
     log(f"slice numbers on {card}: {json.dumps(slice_numbers)}")
+    fedavg_numbers = run_fedavg()
+    log(f"fedavg numbers on {card}: {json.dumps(fedavg_numbers)}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,74 @@ hand-written Hopper kernel under ``ops/csrc``. Entry points take
 
 Ported so far: the serving path of the flash-attention TransformerLM
 (``serving.ServingEngine`` over ``serving.ModelEndpoint``,
-``models.create`` and the flash-attention forward kernel). ROADMAP.md
-lists the slices still to come.
+``models.create`` and the flash-attention forward kernel), and FedAvg
+training through ``run_simulation()`` (``init`` -> ``data.load`` ->
+``models.create`` -> ``SimulatorSingleProcess`` -> ``FedAvgAPI.train``).
+ROADMAP.md lists the slices still to come.
 """
+
+from __future__ import annotations
+
+import logging
+import random as _random
+from typing import Optional
+
+import numpy as np
+
+from . import constants
+from .arguments import MATMUL_PRECISIONS, Arguments, add_args
+from .device import DeviceLike, get_device
+
+
+def init(args: Optional[Arguments] = None) -> Arguments:
+    """Load args (``--cf <yaml>`` from the command line when none are
+    given), seed ``random`` and ``numpy``, and set the matmul precision.
+
+    ``matmul_precision`` maps onto the two process-wide TF32 switches,
+    ``torch.backends.cuda.matmul.allow_tf32`` and
+    ``torch.backends.cudnn.allow_tf32``: ``"highest"`` (the default)
+    turns both off, so f32 products stay f32; ``"high"``/``"default"``
+    turn both on. This is the only place the port sets them. The port's
+    own randomness comes from explicit ``torch.Generator``s, so the
+    global torch seed is left alone."""
+    if args is None:
+        args = Arguments(add_args())
+    seed = int(getattr(args, "random_seed", 0))
+    _random.seed(seed)
+    np.random.seed(seed)
+    import torch
+
+    tf32 = MATMUL_PRECISIONS[str(getattr(args, "matmul_precision", "highest"))]
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    logging.info(
+        "matmul_precision=%s: TF32 %s for cuBLAS and cuDNN",
+        args.matmul_precision, "on" if tf32 else "off",
+    )
+    return args
+
+
+def run_simulation(
+    backend: str = constants.FEDML_SIMULATION_TYPE_SP,
+    device: DeviceLike = "cuda",
+    args: Optional[Arguments] = None,
+):
+    """One-line simulation entry: trains ``args.comm_round`` rounds of
+    the configured algorithm on ``device`` and returns the last
+    evaluated round's stats. ``args`` defaults to ``--cf <yaml>`` from
+    the command line. Only the single-process backend is ported."""
+    dev = get_device(device)
+    if backend in (constants.FEDML_SIMULATION_TYPE_MESH, constants.FEDML_SIMULATION_TYPE_NCCL):
+        raise NotImplementedError(
+            f"backend {backend!r}: the mesh simulator arrives with the "
+            "multi-card slice (ROADMAP.md, queue A)"
+        )
+    if backend != constants.FEDML_SIMULATION_TYPE_SP:
+        raise ValueError(f"unknown simulation backend {backend!r}")
+    from . import data, models
+    from .simulation import SimulatorSingleProcess
+
+    args = init(args)
+    dataset = data.load(args, device=dev)
+    model = models.create(args, dataset.class_num, device=dev)
+    return SimulatorSingleProcess(args, dev, dataset, model).run()

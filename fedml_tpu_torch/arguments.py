@@ -1,10 +1,12 @@
 """Configuration: YAML -> flat ``Arguments`` (port of ``fedml_tpu/arguments.py``).
 
-The subset the serving slice reads: the YAML load and section
-flattening, the defaults for the seed, the dataset, the model geometry
-and the serving knobs the engine reads, and their validation. A YAML
-written for the JAX package loads here unchanged; knobs this subset
-has no default for still land on the object as the YAML sets them.
+The subset the ported slices read: the YAML load and section
+flattening, the defaults for the seed, the dataset and its
+partitioning, the model geometry, the FedAvg training knobs and the
+serving knobs, and their validation. A YAML written for the JAX package
+loads here unchanged; knobs this subset has no default for still land
+on the object as the YAML sets them (the training loop raises on the
+ones whose slice has not arrived).
 
 Validation imports nothing else of the port, and nothing of JAX: the
 dtype knob is checked here against its own table.
@@ -17,13 +19,59 @@ from typing import Any, Dict, Optional
 
 import yaml
 
+from . import constants
+
 # Defaults applied when neither the YAML nor the caller provides a value.
 _DEFAULTS: Dict[str, Any] = {
     "random_seed": 0,
     # data
     "dataset": "synthetic",
+    # a copy of the dataset here would be read by the JAX package; the
+    # port raises on it until real-data ingestion is ported
+    "data_cache_dir": "./data_cache",
+    "partition_method": constants.PARTITION_HETERO,
+    "partition_alpha": 0.5,
+    # padded-packing long-tail policy: the shared num_batches is clamped
+    # to waste_cap x the median client's; float("inf") disables
+    "packing_waste_cap": 4.0,
+    "image_size": 64,  # H=W of the resized-image stand-ins
+    "synthetic_sigma": 1.0,  # synthetic feature noise scale
+    # training
+    "federated_optimizer": constants.FED_OPTIMIZER_FEDAVG,
+    "client_num_in_total": 10,
+    "client_num_per_round": 10,
+    "comm_round": 10,
+    "epochs": 1,
+    "batch_size": 32,
+    "client_optimizer": "sgd",
+    "learning_rate": 0.03,
+    "momentum": 0.0,
+    "weight_decay": 0.0,
+    "fedprox_mu": 0.0,
+    # "vectorized" (vmap the cohort) or "sequential" (a loop per client)
+    "sim_mode": "vectorized",
+    "shuffle": True,  # reshuffle each client's examples every local epoch
+    "frequency_of_the_test": 5,
+    # learning-rate schedule: "constant" or "cosine", step-indexed
+    # (lr_total_steps) or round-indexed (lr_total_rounds, FL)
+    "lr_schedule": "constant",
+    "lr_total_steps": 0,
+    "warmup_steps": 0,
+    "lr_total_rounds": 0,
+    "warmup_rounds": 0,
+    # "highest" keeps f32 products in f32 (TF32 off for cuBLAS and
+    # cuDNN); "high"/"default" allow TF32, which changes results
+    "matmul_precision": "highest",
+    # rounds in flight; only 1 (the synchronous loop) is ported
+    "pipeline_depth": 1,
+    # metrics and profiling
+    "log_metrics": True,  # mirror round metrics into the log
+    "metrics_jsonl_path": None,  # also append them as JSON lines here
+    "telemetry_dir": None,  # run artifacts (profile captures) land here
+    "profile_rounds": None,  # rounds to capture with torch.profiler
     # model
     "model": "lr",
+    "hidden_dim": 64,  # MLP hidden width
     # compute dtype of the hot loop ("float32" = no casting)
     "dtype": "float32",
     "vocab_size": 0,  # LM vocabulary (0 = the model family's default)
@@ -63,6 +111,11 @@ _SECTIONS = (
 )
 
 _DTYPES = ("bfloat16", "float32")
+# matmul_precision values (the JAX names) and whether each allows TF32
+MATMUL_PRECISIONS = {
+    "highest": False, "float32": False,
+    "high": True, "default": True, "tensorfloat32": True, "bfloat16": True,
+}
 
 
 class Arguments:
@@ -108,8 +161,30 @@ class Arguments:
                 f"dtype {dtype!r}: pick one of {sorted(_DTYPES)} (float16 is "
                 "unsupported — no loss scaling)"
             )
-        for int_key in ("random_seed", "serve_queue_size", "serve_max_batch"):
+        for int_key in (
+            "random_seed", "serve_queue_size", "serve_max_batch",
+            "client_num_in_total", "client_num_per_round", "comm_round",
+            "epochs", "batch_size", "pipeline_depth",
+        ):
             setattr(self, int_key, int(getattr(self, int_key)))
+        for float_key in ("learning_rate", "partition_alpha", "fedprox_mu"):
+            setattr(self, float_key, float(getattr(self, float_key)))
+        if self.client_num_per_round > self.client_num_in_total:
+            self.client_num_per_round = self.client_num_in_total
+        if self.pipeline_depth < 1:
+            raise ValueError(
+                f"pipeline_depth={self.pipeline_depth}: must be >= 1 "
+                "(1 = synchronous round loop)"
+            )
+        if self.sim_mode not in ("vectorized", "sequential"):
+            raise ValueError(
+                f"sim_mode {self.sim_mode!r}: pick 'vectorized' or 'sequential'"
+            )
+        if str(self.matmul_precision) not in MATMUL_PRECISIONS:
+            raise ValueError(
+                f"matmul_precision {self.matmul_precision!r}: pick one of "
+                f"{sorted(MATMUL_PRECISIONS)}"
+            )
         if self.serve_queue_size < 1 or self.serve_max_batch < 1:
             raise ValueError(
                 f"serve_queue_size={self.serve_queue_size} / "
@@ -129,3 +204,13 @@ class Arguments:
 def load_arguments(path: str) -> Arguments:
     """``Arguments`` from one YAML file (what ``--cf <yaml>`` does)."""
     return Arguments(argparse.Namespace(yaml_config_file=path))
+
+
+def add_args() -> argparse.Namespace:
+    """The reference's command line: ``--cf <yaml>``; other flags are
+    left to the caller."""
+    parser = argparse.ArgumentParser(description="fedml_tpu_torch")
+    parser.add_argument("--yaml_config_file", "--cf", type=str, default="",
+                        help="yaml configuration file")
+    args, _ = parser.parse_known_args()
+    return args

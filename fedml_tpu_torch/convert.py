@@ -5,6 +5,8 @@ numpy arrays under slash-joined keys (``cross_device/model_file.py``).
 This maps each parameter onto the port's module of the same name:
 
 - ``Dense.kernel`` ``[in, out]`` -> ``Linear.weight`` ``[out, in]``;
+- ``Conv.kernel`` ``[kh, kw, in, out]`` -> ``Conv2d.weight``
+  ``[out, in, kh, kw]``;
 - ``Dense.bias`` and ``LayerNorm.bias`` -> ``bias``;
 - ``LayerNorm.scale`` -> ``weight``;
 - ``Embed.embedding`` -> ``Embedding.weight``.
@@ -47,13 +49,15 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             raise ValueError(f"flax param {key!r}: unknown leaf {leaf!r}")
         arr = np.asarray(val)
         if leaf == "kernel":
-            if arr.ndim != 2:
+            if arr.ndim == 2:
+                arr = arr.T
+            elif arr.ndim == 4:
+                arr = arr.transpose(3, 2, 0, 1)
+            else:
                 raise ValueError(
                     f"flax param {key!r}: {arr.ndim}-d kernel; only Dense "
-                    "kernels are ported so far (convolutions come with the "
-                    "FedAvg training slice)"
+                    "(2-d) and 2-D Conv (4-d) kernels are ported so far"
                 )
-            arr = arr.T
         name = f"{path}{_SEP}{_LEAVES[leaf]}" if path else _LEAVES[leaf]
         out[name] = torch.tensor(np.ascontiguousarray(arr))
     return out

@@ -1,0 +1,193 @@
+"""The client-side hot loop: local training vectorized over clients.
+
+The port of ``fedml_tpu/core/local_trainer.py``. One optimizer step is a
+per-client function ``(params, opt_state, x, y, mask) -> (params,
+opt_state, metrics)``; ``torch.func.vmap`` over
+``torch.func.grad_and_value`` runs it for a whole cohort at once, on
+params and optimizer state stacked along a leading client axis, and
+Python drives the epochs x batches around it, eagerly. The same
+function trains one client (the sequential mode: a cohort of one) or
+the full cohort (the vectorized mode).
+
+As in the JAX package:
+
+- a fully masked (padding) batch is skipped exactly: params *and*
+  optimizer state keep their values (``torch.where``), so a padded
+  client matches ragged iteration under any optimizer;
+- the per-epoch reshuffle permutes the real examples and keeps padding
+  at the tail, so a client with n samples takes ceil(n/bs) steps per
+  epoch;
+- the FedProx term mu/2 ||w - w_global||^2 is a flag, not a fork;
+- ``args.dtype: bfloat16`` runs the forward and backward in bf16 over
+  f32 master params (cast inside the loss, so gradients return to the
+  f32 copy in f32); optimizer state, the loss reduction, the prox term
+  and the metric sums stay f32.
+
+The shuffle draws its permutations from uniforms the caller passes
+(``rng``: ``[C, epochs, nb*bs]``), drawn by the round engine from its
+``torch.Generator``; PyTorch's stream is not ``jax.random``'s, so the
+two packages agree on a shuffled run in distribution, not bitwise.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+from torch.utils import _pytree as pytree
+
+from .optimizers import GradientTransformation
+from .types import Batches, flat_examples, rebatch
+
+Params = Dict[str, torch.Tensor]
+
+# float16 is absent: without loss scaling its ~6e-5 normal floor flushes
+# small gradients to zero; bf16 keeps f32's exponent range
+_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+# examples per forward pass in evaluation
+EVAL_CHUNK = 4096
+
+
+def compute_dtype_from_args(args) -> Optional[torch.dtype]:
+    """``args.dtype`` -> compute dtype of the hot loop (None = f32, no
+    casting)."""
+    name = str(getattr(args, "dtype", "float32") or "float32")
+    if name not in _DTYPES:
+        raise ValueError(
+            f"dtype {name!r}: pick one of {sorted(_DTYPES)} (float16 is "
+            "unsupported — no loss scaling)"
+        )
+    return _DTYPES[name]
+
+
+def _cast_floats(tree: Params, dtype) -> Params:
+    return {k: v.to(dtype) if v.is_floating_point() else v for k, v in tree.items()}
+
+
+def _shuffle_batches(b: Batches, u: torch.Tensor) -> Batches:
+    """Random order of the REAL examples, padding kept at the tail.
+
+    ``b`` has leaves ``[C, nb, bs, ...]``, ``u`` is ``[C, nb*bs]``
+    uniforms: ``argsort(u)`` is a random permutation per client, and a
+    stable sort by validity then moves the real examples, in that random
+    order, to the leading slots."""
+    flat = flat_examples(b)
+    perm = torch.argsort(u, dim=-1)
+    invalid = 1.0 - torch.gather(flat.mask, -1, perm)
+    order = torch.sort(invalid, dim=-1, stable=True).indices
+    idx = torch.gather(perm, -1, order)
+    rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
+    shuffled = Batches(x=flat.x[rows, idx], y=flat.y[rows, idx], mask=flat.mask[rows, idx])
+    return rebatch(shuffled, b.num_batches, b.batch_size)
+
+
+def _stack(tree, count: int):
+    """Every leaf broadcast along a new leading client axis."""
+    return pytree.tree_map(lambda t: t.expand((count,) + tuple(t.shape)), tree)
+
+
+def make_local_train_fn(
+    apply_fn: Callable[[Params, torch.Tensor], torch.Tensor],
+    loss_fn: Callable,
+    optimizer: GradientTransformation,
+    epochs: int,
+    prox_mu: float = 0.0,
+    shuffle: bool = True,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> Callable:
+    """Build ``local_train(params, batches, rng=None, lr_mult=None) ->
+    (new_params, metrics)``.
+
+    ``params`` are the global params (one model); ``batches`` are a
+    cohort's, leaves ``[C, nb, bs, ...]``; ``rng`` the shuffle's
+    uniforms ``[C, epochs, nb*bs]`` (required when ``shuffle``);
+    ``lr_mult`` scales every update (the round-indexed LR). Returns the
+    C clients' params stacked ``[C, ...]`` and, per client, the last
+    epoch's f32 ``loss_sum`` / ``correct`` / ``count``. Inputs are never
+    written to.
+    """
+
+    def batch_loss(params, global_params, x, y, mask):
+        if compute_dtype is not None:
+            logits = apply_fn(
+                _cast_floats(params, compute_dtype), x.to(compute_dtype)
+            ).to(torch.float32)
+        else:
+            logits = apply_fn(params, x)
+        loss, metrics = loss_fn(logits, y, mask)
+        if prox_mu > 0.0:
+            sq = sum(torch.sum((p - g) * (p - g))
+                     for p, g in zip(params.values(), global_params.values()))
+            loss = loss + 0.5 * prox_mu * sq
+        return loss, metrics
+
+    grad_fn = torch.func.grad_and_value(batch_loss, has_aux=True)
+
+    def train_step(p, s, global_params, x, y, m, lr_mult):
+        grads, (_, metrics) = grad_fn(p, global_params, x, y, m)
+        updates, s_new = optimizer.update(grads, s, p)
+        if lr_mult is not None:
+            updates = {k: u * lr_mult for k, u in updates.items()}
+        p_new = {k: p[k] + updates[k] for k in p}
+        nonempty = m.sum() > 0
+        p = pytree.tree_map(lambda a, b: torch.where(nonempty, a, b), p_new, p)
+        s = pytree.tree_map(lambda a, b: torch.where(nonempty, a, b), s_new, s)
+        return p, s, metrics
+
+    def local_train(params: Params, batches: Batches, rng=None, lr_mult=None):
+        C = batches.mask.shape[0]
+        if shuffle and rng is None:
+            raise ValueError("local_train: shuffle is on, so rng (the uniforms) is required")
+        step = torch.func.vmap(
+            lambda p, s, x, y, m: train_step(p, s, params, x, y, m, lr_mult)
+        )
+        p, s = _stack(params, C), _stack(optimizer.init(params), C)
+        for epoch in range(epochs):
+            b = _shuffle_batches(batches, rng[:, epoch]) if shuffle else batches
+            zero = torch.zeros(C, dtype=torch.float32, device=batches.mask.device)
+            loss_sum, correct, count = zero, zero, zero
+            for i in range(b.num_batches):
+                p, s, m = step(p, s, b.x[:, i], b.y[:, i], b.mask[:, i])
+                loss_sum = loss_sum + (m["loss"] * m["count"]).to(torch.float32)
+                correct = correct + m["correct"].to(torch.float32)
+                count = count + m["count"].to(torch.float32)
+        return p, {"loss_sum": loss_sum, "correct": correct, "count": count}
+
+    return local_train
+
+
+def make_eval_fn(
+    apply_fn: Callable[[Params, torch.Tensor], torch.Tensor],
+    loss_fn: Callable,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> Callable[[Params, Batches], Dict[str, torch.Tensor]]:
+    """Build ``evaluate(params, batches) -> summed metrics`` over every
+    packed batch of ``batches`` (any leading axes before ``[nb, bs]``),
+    ``EVAL_CHUNK`` examples per forward pass; the sums stay on the
+    device."""
+
+    def evaluate(params: Params, batches: Batches) -> Dict[str, torch.Tensor]:
+        bs = batches.batch_size
+        feat = tuple(batches.x.shape[batches.mask.dim():])
+        x = batches.x.reshape((-1, bs) + feat)
+        y = batches.y.reshape((-1, bs) + tuple(batches.y.shape[batches.mask.dim():]))
+        mask = batches.mask.reshape(-1, bs)
+        if compute_dtype is not None:
+            params = _cast_floats(params, compute_dtype)
+        per = max(1, EVAL_CHUNK // bs)
+        parts = []
+        with torch.no_grad():
+            for i in range(0, mask.shape[0], per):
+                xb = x[i:i + per].flatten(0, 1)
+                if compute_dtype is not None:
+                    logits = apply_fn(params, xb.to(compute_dtype)).to(torch.float32)
+                else:
+                    logits = apply_fn(params, xb)
+                loss, metrics = loss_fn(logits, y[i:i + per].flatten(0, 1),
+                                        mask[i:i + per].flatten(0, 1))
+                parts.append(torch.stack([loss * metrics["count"], metrics["correct"],
+                                          metrics["count"]]))
+        return dict(zip(("loss_sum", "correct", "count"), torch.stack(parts).sum(0)))
+
+    return evaluate

@@ -1,0 +1,43 @@
+"""Masked loss / metric functions (port of ``fedml_tpu/core/losses.py``).
+
+Every loss takes a validity ``mask`` because ragged per-client datasets
+are packed into padded batches of one shape; masked-out examples add
+zero loss and zero gradient. The functions are plain tensor code, so
+``torch.func.vmap`` runs them per client.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+Tensor = torch.Tensor
+
+
+def _mean_over_mask(values: Tensor, mask: Tensor) -> Tensor:
+    denom = torch.clamp(mask.sum(), min=1.0)
+    return (values * mask).sum() / denom
+
+
+def softmax_cross_entropy(
+    logits: Tensor, labels: Tensor, mask: Tensor
+) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Classification loss: the masked mean of -log softmax at the label;
+    metrics ``loss``, ``correct`` (masked count), ``count`` and ``acc``."""
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = logp.gather(-1, labels[..., None])[..., 0]
+    loss = _mean_over_mask(-ll, mask)
+    correct = (logits.argmax(dim=-1) == labels).to(torch.float32)
+    acc = _mean_over_mask(correct, mask)
+    return loss, {
+        "loss": loss,
+        "correct": (correct * mask).sum(),
+        "count": mask.sum(),
+        "acc": acc,
+    }
+
+
+LOSSES = {
+    "classification": softmax_cross_entropy,
+}

@@ -1,16 +1,21 @@
 """Model hub (port of ``fedml_tpu/models/__init__.py``).
 
 ``create(args, output_dim, device=...)`` builds the model ``args.model``
-names on ``device``. The port has the ``transformer`` branch so far;
-every other name raises ``NotImplementedError`` naming the slice of the
-port that brings it (ROADMAP.md, queue A).
+names on ``device``. Ported so far: ``lr``, ``mlp``, ``cnn`` (the FEMNIST
+CNN, or the CIFAR one for RGB datasets) and ``transformer``; every other
+name raises ``NotImplementedError`` naming the slice of the port that
+brings it (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..device import DeviceLike, get_device
+from .cnn import CNNCifar, CNNFedAvg
+from .linear import MLP, LogisticRegression
 from .spec import FedModel
 
 __all__ = ["FedModel", "create"]
@@ -18,17 +23,65 @@ __all__ = ["FedModel", "create"]
 # model name -> the port slice that brings it
 _LATER = {
     **dict.fromkeys(
-        ("lr", "mlp", "cnn", "resnet18", "resnet18_gn", "resnet56", "resnet"),
-        "the FedAvg training slice",
+        ("resnet18", "resnet18_gn", "resnet56", "resnet"),
+        "the dense-model slice (ResNet-18-GN in bf16)",
     ),
     "moe_transformer": "the ring/Ulysses slice, with the expert-parallel planes",
 }
+
+_IMAGE_SHAPES = {
+    "mnist": (28, 28, 1),
+    "femnist": (28, 28, 1),
+    "fashion_mnist": (28, 28, 1),
+    "cifar10": (32, 32, 3),
+    "cifar100": (32, 32, 3),
+    "cinic10": (32, 32, 3),
+    "fed_cifar100": (32, 32, 3),
+    "fets2021": (64, 64, 4),
+}
+_RGB = ("cifar10", "cifar100", "cinic10", "fed_cifar100", "imagenet", "gld23k", "gld160k")
+
+
+def _example_shape(args, default=(28, 28, 1)):
+    ds = str(getattr(args, "dataset", "synthetic")).lower()
+    if ds in ("synthetic", "stackoverflow_lr"):
+        return (int(getattr(args, "input_dim", 60)),)
+    if ds in ("imagenet", "gld23k", "gld160k"):
+        hw = int(getattr(args, "image_size", 64) or 64)
+        return (hw, hw, 3)
+    return _IMAGE_SHAPES.get(ds, default)
 
 
 def create(args, output_dim: int, device: DeviceLike = "cuda") -> FedModel:
     """The model ``args.model`` names, its weights on ``device``."""
     dev = get_device(device)
     name = str(getattr(args, "model", "lr")).lower()
+    ds = str(getattr(args, "dataset", "synthetic")).lower()
+    if ds == "stackoverflow_lr" and name in ("lr", "mlp"):
+        raise NotImplementedError(
+            "tag prediction (stackoverflow_lr) is not ported yet; it arrives "
+            "with the data-ingestion slice (ROADMAP.md, queue A item 5)"
+        )
+    if name in ("lr", "mlp"):
+        shape = _example_shape(args)
+        in_dim = math.prod(shape)
+        module = (
+            LogisticRegression(in_dim, output_dim)
+            if name == "lr"
+            else MLP(in_dim, int(getattr(args, "hidden_dim", 64)), output_dim)
+        )
+        return FedModel(name=name, module=module.to(dev), example_shape=shape)
+    if name == "cnn":
+        if ds in _RGB:
+            shape = _example_shape(args, (32, 32, 3))
+            return FedModel(
+                name="cnn_cifar",
+                module=CNNCifar(output_dim, image_size=shape[0]).to(dev),
+                example_shape=shape,
+            )
+        return FedModel(
+            name="cnn", module=CNNFedAvg(output_dim).to(dev), example_shape=(28, 28, 1)
+        )
     if name == "transformer":
         from .transformer import TransformerLM
 
@@ -54,5 +107,5 @@ def create(args, output_dim: int, device: DeviceLike = "cuda") -> FedModel:
     later = _LATER.get(name, "a later slice")
     raise NotImplementedError(
         f"model {name!r} is not ported to PyTorch yet; it arrives with "
-        f"{later} (ROADMAP.md, queue A). Ported: 'transformer'."
+        f"{later} (ROADMAP.md, queue A). Ported: 'lr', 'mlp', 'cnn', 'transformer'."
     )

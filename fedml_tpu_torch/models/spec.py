@@ -1,20 +1,24 @@
-"""Model spec: an ``nn.Module`` + task type + example shape, as one handle.
+"""Model spec: an ``nn.Module`` + task type + loss, as one handle.
 
 The port of ``fedml_tpu/models/spec.py``. Params are a flat
 ``{slash/joined/key: Tensor}`` dict (``Block_0/Dense_0/weight``), the
 port's counterpart of the JAX package's params pytree: ``apply`` runs
 the module on them through ``torch.func.functional_call``, so an
 endpoint can swap the whole dict atomically without touching the
-module.
+module. ``loss_fn`` looks the task's loss up in ``core.losses``, as the
+JAX package does.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+import math
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+
+from ..core.losses import LOSSES
 
 Params = Dict[str, torch.Tensor]
 
@@ -37,9 +41,10 @@ class FedModel:
 
     def init(self, generator: torch.Generator) -> Params:
         """Fresh params on the model's device, drawn from ``generator``
-        (a CPU generator): dense and embedding weights from a normal
-        with variance 1/fan_in (flax's lecun-normal family), biases
-        zero, normalisation scales one."""
+        (a CPU generator): dense, convolution and embedding weights from
+        a normal with variance 1/fan_in (flax's lecun-normal family;
+        fan_in is the product of a weight's dims after the first),
+        biases zero, normalisation scales one."""
         out = {}
         for key, p in self.module.named_parameters():
             leaf = key.rsplit(".", 1)[-1]
@@ -48,7 +53,8 @@ class FedModel:
             elif p.dim() == 1:
                 val = torch.ones(p.shape)
             else:
-                val = torch.randn(p.shape, generator=generator) * p.shape[1] ** -0.5
+                fan_in = math.prod(p.shape[1:])
+                val = torch.randn(p.shape, generator=generator) * fan_in**-0.5
             out[key.replace(".", "/")] = val.to(device=p.device, dtype=p.dtype)
         return out
 
@@ -58,3 +64,22 @@ class FedModel:
 
     def param_count(self, params: Params) -> int:
         return sum(int(p.numel()) for p in params.values())
+
+    @property
+    def loss_fn(self) -> Callable:
+        if self.task not in LOSSES:
+            raise NotImplementedError(
+                f"task {self.task!r}: its loss is not ported yet; it arrives "
+                "with the slice that trains it (ROADMAP.md, queue A)"
+            )
+        return LOSSES[self.task]
+
+    def metrics_from_sums(self, sums: Dict[str, float]) -> Dict[str, float]:
+        """Summed ``loss_sum`` / ``correct`` / ``count`` (tensors or host
+        floats) -> mean ``loss``, ``acc`` and the ``count``."""
+        count = float(sums["count"])
+        return {
+            "loss": float(sums["loss_sum"]) / max(count, 1.0),
+            "count": count,
+            "acc": float(sums["correct"]) / max(count, 1.0),
+        }

@@ -1,0 +1,315 @@
+"""FedAvg-family simulation on one card (port of ``simulation/fedavg_api.py``).
+
+A round gathers the sampled cohort from the packed federation on the
+device, trains every client of it at once (``core/local_trainer.py``:
+``torch.func.vmap`` over the client axis, eager, epochs x batches
+driven from Python), weights the clients by their packed sample counts
+and averages. Global params never leave the device; the loop reads a
+device value only at its evaluation cadence, as the JAX loop does.
+
+Client sampling keeps the reference's determinism contract, bitwise:
+``np.random.RandomState(round_idx).choice`` without replacement. The
+round's other randomness, the per-epoch shuffles, comes from one
+``torch.Generator`` on the device seeded by ``args.random_seed``.
+
+Ported: ``FedAvgAPI`` with the ``vectorized`` and ``sequential`` modes
+and the synchronous loop, and ``FedProxAPI``. The knobs of later slices
+(the round pipeline, checkpoints, defenses, the client registry,
+preemption, the stall watchdog, the metrics server) raise
+``NotImplementedError`` instead of being ignored.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from ..core import devtime
+from ..core.aggregation import normalize_weights, stack_pytrees, weighted_average
+from ..core.local_trainer import (
+    compute_dtype_from_args,
+    make_eval_fn,
+    make_local_train_fn,
+)
+from ..core.optimizers import create_client_optimizer, resolve_round_lr_schedule
+from ..core.tracing import RoundProfiler
+from ..core.tracking import MetricsReporter
+from ..core.types import Batches
+from ..data.loader import FederatedDataset
+from ..device import DeviceLike, get_device
+from ..models.spec import FedModel
+
+Params = Dict[str, torch.Tensor]
+
+# knob -> (is it set?, the slice that brings it)
+_LATER_KNOBS = {
+    "pipeline_depth": (lambda v: int(v or 1) > 1, "the round-pipeline slice"),
+    "checkpoint_dir": (bool, "the checkpoint/resume slice"),
+    "defense_type": (bool, "the robust-aggregation planes (queue A item 5)"),
+    "client_registry_size": (lambda v: int(v or 0) > 0, "the population planes (queue A item 5)"),
+    "preempt_signal": (lambda v: str(v or "none").lower() != "none", "the elastic-mesh slice"),
+    "stall_timeout_s": (lambda v: float(v or 0) > 0, "the telemetry exporters"),
+    "metrics_port": (lambda v: int(v or 0) > 0, "the telemetry exporters"),
+}
+
+
+def _reject_later_knobs(args) -> None:
+    for knob, (is_set, where) in _LATER_KNOBS.items():
+        value = getattr(args, knob, None)
+        if is_set(value):
+            raise NotImplementedError(
+                f"{knob}={value!r} is not ported to PyTorch yet; it arrives "
+                f"with {where} (ROADMAP.md, queue A)"
+            )
+
+
+def _take(b: Batches, idx: torch.Tensor) -> Batches:
+    return Batches(
+        x=b.x.index_select(0, idx),
+        y=b.y.index_select(0, idx),
+        mask=b.mask.index_select(0, idx),
+    )
+
+
+def build_round_fn(local_train, aggregate):
+    """The round engine as a pure function of its collaborators:
+    ``round_fn(global_params, server_state, packed, nsamples, idx, rng,
+    lr_mult=None) -> (new_global, new_state, summed_metrics)``, every
+    tensor on the device. ``aggregate`` may be a bound method (the
+    algorithms' server step plugs in there)."""
+
+    def round_fn(global_params, server_state, packed: Batches, nsamples, idx, rng,
+                 lr_mult=None):
+        cohort = _take(packed, idx)
+        ns = nsamples.index_select(0, idx)
+        new_stacked, train_metrics = local_train(global_params, cohort, rng, lr_mult)
+        weights = normalize_weights(ns)
+        new_global, new_state = aggregate(
+            global_params, server_state, new_stacked, weights, cohort, rng
+        )
+        summed = {k: v.sum() for k, v in train_metrics.items()}
+        return new_global, new_state, summed
+
+    return round_fn
+
+
+def deterministic_client_sampling(
+    round_idx: int, client_num_in_total: int, client_num_per_round: int
+) -> np.ndarray:
+    """Reference determinism contract: MT19937 seeded with
+    ``round_idx``, ``choice`` without replacement, through a local
+    ``RandomState`` (the caller's global NumPy RNG is left alone)."""
+    if client_num_in_total == client_num_per_round:
+        return np.arange(client_num_in_total, dtype=np.int32)
+    rs = np.random.RandomState(round_idx)
+    return np.asarray(
+        rs.choice(range(client_num_in_total), client_num_per_round, replace=False),
+        dtype=np.int32,
+    )
+
+
+class FedAvgAPI:
+    """Single-card simulator for the FedAvg family.
+
+    ``args.sim_mode``: ``"vectorized"`` (default; the cohort trains as
+    one vmapped batch of clients) or ``"sequential"`` (a Python loop
+    over clients, each a cohort of one)."""
+
+    algorithm = "FedAvg"
+
+    def __init__(
+        self,
+        args,
+        device: DeviceLike,
+        dataset: FederatedDataset,
+        model: FedModel,
+    ) -> None:
+        _reject_later_knobs(args)
+        self.args = args
+        self.device = get_device(device)
+        self.dataset = dataset
+        self.model = model
+        self.mode = getattr(args, "sim_mode", "vectorized")
+        self.history: List[Dict[str, float]] = []
+
+        seed = int(getattr(args, "random_seed", 0))
+        self.global_params = model.init(torch.Generator().manual_seed(seed))
+        # the round's randomness: the per-epoch shuffle uniforms
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+        # round-indexed LR schedule (decay across rounds, constant within
+        # one local fit): None for lr_schedule=constant
+        self._round_lr = resolve_round_lr_schedule(args)
+        prox_mu = float(getattr(args, "fedprox_mu", 0.0)) if self.algorithm == "FedProx" else 0.0
+        self.shuffle = bool(getattr(args, "shuffle", True))
+        self.epochs = int(args.epochs)
+        self._local_train = make_local_train_fn(
+            model.apply,
+            model.loss_fn,
+            create_client_optimizer(
+                args,
+                lr=float(args.learning_rate) if self._round_lr is not None else None,
+            ),
+            epochs=self.epochs,
+            prox_mu=prox_mu,
+            shuffle=self.shuffle,
+            compute_dtype=compute_dtype_from_args(args),
+        )
+        self._eval = make_eval_fn(
+            model.apply, model.loss_fn, compute_dtype=compute_dtype_from_args(args)
+        )
+        self._round_fn = build_round_fn(self._local_train, self._aggregate)
+        self.server_state = self._init_server_state()
+        self.metrics_reporter = MetricsReporter(args)
+
+    # -- algorithm hooks ----------------------------------------------
+    def _init_server_state(self):
+        return ()
+
+    def _aggregate(self, global_params, server_state, new_stacked, weights, cohort, rng):
+        """FedAvg: the weighted average."""
+        return weighted_average(new_stacked, weights), server_state
+
+    # -- reference-parity sampling ------------------------------------
+    def _client_sampling(
+        self, round_idx: int, client_num_in_total: int, client_num_per_round: int
+    ) -> np.ndarray:
+        return deterministic_client_sampling(
+            round_idx, client_num_in_total, client_num_per_round
+        )
+
+    def _lr_mult(self, round_idx: int):
+        """Round-indexed LR multiplier (schedule(r) / peak), or None."""
+        if self._round_lr is None:
+            return None
+        return float(np.float32(self._round_lr(round_idx) / float(self.args.learning_rate)))
+
+    def _shuffle_uniforms(self, cohort_size: int):
+        """The round's shuffle draws, ``[C, epochs, nb*bs]``, or None."""
+        if not self.shuffle:
+            return None
+        packed = self.dataset.packed_train
+        n = packed.num_batches * packed.batch_size
+        return torch.rand(
+            (cohort_size, self.epochs, n), generator=self.generator, device=self.device
+        )
+
+    # -- round loop ----------------------------------------------------
+    def train(self) -> Dict[str, float]:
+        args = self.args
+        packed = self.dataset.packed_train
+        nsamples = torch.as_tensor(
+            self.dataset.packed_num_samples, dtype=torch.float32, device=self.device
+        )
+        comm_rounds = int(args.comm_round)
+        freq = max(1, int(getattr(args, "frequency_of_the_test", 5)))
+        profiler = RoundProfiler(args, self.device)
+        try:
+            return self._train_rounds_sync(packed, nsamples, comm_rounds, freq, profiler)
+        finally:
+            profiler.close()
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _train_rounds_sync(self, packed, nsamples, comm_rounds, freq, profiler):
+        """The synchronous loop. A round that evaluates waits for the
+        card before its evaluation and records ``train_time_s`` (round
+        start to training done on the device) beside ``round_time_s``
+        (to the end of evaluation)."""
+        args = self.args
+        final_stats: Dict[str, float] = {}
+        for round_idx in range(comm_rounds):
+            profiler.tick(round_idx)
+            t0 = time.perf_counter()
+            idx = self._client_sampling(
+                round_idx, self.dataset.client_num, int(args.client_num_per_round)
+            )
+            rng = self._shuffle_uniforms(len(idx))
+            lr_mult = self._lr_mult(round_idx)
+            with devtime.measure("simulation.round_fn", bucket=f"b{len(idx)}"):
+                if self.mode == "sequential":
+                    self.global_params, summed = self._sequential_round(
+                        idx, rng, lr_mult, nsamples
+                    )
+                else:
+                    idx_t = torch.as_tensor(idx, dtype=torch.int64, device=self.device)
+                    self.global_params, self.server_state, summed = self._round_fn(
+                        self.global_params, self.server_state, packed, nsamples,
+                        idx_t, rng, lr_mult,
+                    )
+            if round_idx % freq == 0 or round_idx == comm_rounds - 1:
+                self._sync()
+                train_time = time.perf_counter() - t0
+                stats = self._local_test_on_all_clients(round_idx)
+                loss_sum, count = torch.stack(
+                    [summed["loss_sum"], summed["count"]]
+                ).tolist()
+                stats["round"] = round_idx
+                stats["round_time_s"] = time.perf_counter() - t0
+                stats["train_time_s"] = train_time
+                stats["train_loss_cohort"] = loss_sum / max(count, 1.0)
+                # real examples the cohort trained on in one epoch
+                stats["cohort_samples"] = count
+                self.history.append(stats)
+                final_stats = stats
+                self.metrics_reporter.report_server_training_metric(stats)
+        return final_stats
+
+    def _sequential_round(self, idx: np.ndarray, rng, lr_mult, nsamples):
+        """Reference shape: a Python loop over the sampled clients, each
+        trained as a cohort of one with its slice of the round's
+        shuffle draws."""
+        stacked, sums = [], None
+        packed = self.dataset.packed_train
+        for j, i in enumerate(idx):
+            client = Batches(
+                x=packed.x[i:i + 1], y=packed.y[i:i + 1], mask=packed.mask[i:i + 1]
+            )
+            p, m = self._local_train(
+                self.global_params, client, None if rng is None else rng[j:j + 1], lr_mult
+            )
+            stacked.append({k: v[0] for k, v in p.items()})
+            m = {k: v[0] for k, v in m.items()}
+            sums = m if sums is None else {k: sums[k] + m[k] for k in sums}
+        ns = nsamples.index_select(
+            0, torch.as_tensor(idx, dtype=torch.int64, device=self.device)
+        )
+        new_global, self.server_state = self._aggregate(
+            self.global_params, self.server_state, stack_pytrees(stacked),
+            normalize_weights(ns), None, rng,
+        )
+        return new_global, sums
+
+    # -- evaluation ----------------------------------------------------
+    def _local_test_on_all_clients(self, round_idx: int) -> Dict[str, float]:
+        # the eval function sums over every leading axis, so one call
+        # covers all clients (the JAX package vmaps it: build_eval_all)
+        train_sums = self._eval(self.global_params, self.dataset.packed_train)
+        test_sums = self._eval(self.global_params, self.dataset.packed_test)
+        keys = ("loss_sum", "correct", "count")
+        # one device-to-host copy for both sets
+        host = torch.stack([train_sums[k] for k in keys] + [test_sums[k] for k in keys]).tolist()
+        tr = self.model.metrics_from_sums(dict(zip(keys, host[:3])))
+        te = self.model.metrics_from_sums(dict(zip(keys, host[3:])))
+        return {
+            "train_acc": tr["acc"],
+            "train_loss": tr["loss"],
+            "test_acc": te["acc"],
+            "test_loss": te["loss"],
+        }
+
+    def evaluate_global(self) -> Dict[str, float]:
+        sums = self._eval(self.global_params, self.dataset.test_data_global)
+        return self.model.metrics_from_sums(sums)
+
+
+class FedProxAPI(FedAvgAPI):
+    """FedProx = FedAvg + the proximal term in the client loss
+    (``args.fedprox_mu``)."""
+
+    algorithm = "FedProx"
