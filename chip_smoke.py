@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``fedml_tpu_torch``) on one NVIDIA card.
 
-Drives the port's two paths once each through the entry points a user
+Drives the port's paths once each through the entry points a user
 calls, and holds every hand-written kernel against its plain PyTorch
 version on the card:
 
@@ -13,9 +13,15 @@ version on the card:
 - FedAvg training: ``fedml_tpu_torch.run_simulation`` on
   ``fedml_tpu_torch/configs/fedavg_femnist_cnn.yaml``, the bench's
   headline cohort at full width (32 clients x 600 samples of the
-  FEMNIST stand-in, the 2-conv CNN, 5 local epochs, batch 32). This path
-  runs no hand-written kernel: its convolutions and matrix products are
-  cuDNN's and cuBLAS's through PyTorch, as XLA generated them on the TPU.
+  FEMNIST stand-in, the 2-conv CNN, 5 local epochs, batch 32);
+- dense FedAvg: ``run_simulation`` on
+  ``fedml_tpu_torch/configs/fedavg_cifar10_resnet18_bf16.yaml``, the
+  repo's north-star cohort at full width (ResNet-18-GN on the CIFAR-10
+  stand-in, 10 of 100 clients per round, batch 64, bf16 over f32
+  masters) through the round pipeline.
+The training paths run no hand-written kernel: their convolutions and
+matrix products are cuDNN's and cuBLAS's through PyTorch, as XLA
+generated them on the TPU.
 
 Phases, each of which fails the run:
 
@@ -40,7 +46,18 @@ Phases, each of which fails the run:
    under ``torch.profiler``), its train loss falls and its test accuracy
    ends at least 5x chance. Rounds/s, samples/s, peak memory, the
    per-round loss and accuracy and the profiled round's device time by
-   kernel are printed before the JSON lines.
+   kernel are printed before the JSON lines;
+6. dense: one local step's FLOPs (``FlopCounterMode``, one client) and
+   launches by kind for 1 and 16 clients (GroupNorm must not launch
+   more for 16: vmap batches it); the configuration through
+   ``run_simulation`` (round 0 warms up, rounds 1-3 are timed as a whole
+   on the card's clock, round 4 runs under ``torch.profiler``, round 5
+   evaluates): rounds/s, real and computed samples/s, FLOPs per round,
+   the share of the bf16 peak, peak memory, busy share, device time and
+   launches by kernel kind; the train loss falls; then depth 4 against
+   depth 1 (4 rounds, cuDNN deterministic for this check only): bitwise
+   equal params and records, f32 masters, and depth 4's hot loop under
+   ``torch.cuda.set_sync_debug_mode("error")`` between flushes.
 
 Run from the repo root, on a machine with one CUDA card and the CUDA
 toolkit:  ``python3 chip_smoke.py``.  The last two lines of its output
@@ -51,6 +68,7 @@ passed.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import subprocess
@@ -64,6 +82,7 @@ import torch
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "fedml_tpu_torch" / "configs" / "serve_transformer_flash.yaml"
 FEDAVG_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "fedavg_femnist_cnn.yaml"
+DENSE_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "fedavg_cifar10_resnet18_bf16.yaml"
 DEVICE = "cuda"
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit). A
@@ -120,6 +139,14 @@ VEC_SEQ_ATOL = 1e-5
 # the headline: one warm-up round, three timed, one profiled
 HEADLINE_WARMUP, HEADLINE_TIMED = 1, 3
 CHANCE_FACTOR = 5  # final test accuracy must reach 5x chance
+# dense phase, the configuration as it is (6 rounds, evaluation at 0 and
+# 5): round 0 warms up, rounds 1-3 are timed as a whole on the card's
+# clock, round 4 runs under torch.profiler (training only), round 5
+# evaluates
+DENSE_TIMED = (1, 3)
+DENSE_PROFILED = 4
+# the pipeline check: 4 rounds, evaluation every 2 (records 0, 2, 3)
+DENSE_CHECK_ROUNDS, DENSE_CHECK_FREQ = 4, 2
 
 
 def log(msg: str) -> None:
@@ -555,6 +582,8 @@ KERNEL_KINDS = (
     ("conv backward", ("dgrad", "wgrad", "grad_weight", "backward_input", "conv_depthwise2d_backward")),
     ("conv forward", ("fprop", "conv_depthwise2d_forward", "implicit_convolve")),
     ("layout transposes", ("transpose", "nchwtonhwc", "nhwctonchw")),
+    ("GroupNorm", ("groupnorm", "group_norm", "rowwisemoments", "computefusedparams",
+                   "computeinternalgradients", "computebackwardfusedparams", "gammabeta")),
     ("GEMM", ("gemm", "gemv")),
     ("pooling", ("max_pool",)),
 )
@@ -659,6 +688,41 @@ def fedavg_step_yardstick():
     return out
 
 
+def profile_summary(tag: str, summary: dict) -> dict:
+    """Print a ``profile_rounds`` summary (``core/tracing.py``): wall,
+    device busy (the union of device intervals) and idle, kernel time by
+    kind and by kernel; returns the numbers."""
+    busy, window = summary["device_busy_s"], summary["wall_s"]
+    by_kernel = summary["device_s_by_kernel"]
+    top = list(by_kernel.items())[:15]
+    kinds, kind_launches = {}, {}
+    for name, sec in by_kernel.items():
+        kinds[kernel_kind(name)] = kinds.get(kernel_kind(name), 0.0) + sec
+    for name, n in summary["device_launches_by_kernel"].items():
+        kind_launches[kernel_kind(name)] = kind_launches.get(kernel_kind(name), 0) + n
+    if busy <= 0:
+        log(f"{tag}: the profiler saw no device events; device time not measured")
+        return {"wall_ms": window * 1e3, "device_busy_ms": None}
+    total = summary["device_kernel_s"]
+    log(f"{tag}: wall {window * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
+        f"({busy / window:.1%}), idle {(window - busy) * 1e3:.1f} ms; kernel time "
+        f"{total * 1e3:.1f} ms summed over streams (cuDNN runs a grouped convolution's "
+        f"groups on several streams, so it can exceed the busy time); "
+        f"{summary['device_launches']} device intervals, {len(by_kernel)} distinct "
+        f"kernels; by kind:")
+    for kind, sec in sorted(kinds.items(), key=lambda kv: -kv[1]):
+        log(f"  {sec * 1e3:9.3f} ms  {sec / total:6.1%}  {kind_launches[kind]:7d} launches  {kind}")
+    log(f"{tag}: kernel time by kernel:")
+    for name, sec in top:
+        log(f"  {sec * 1e3:9.3f} ms  {name[:110]}")
+    return {"wall_ms": window * 1e3, "device_busy_ms": busy * 1e3,
+            "busy_share": busy / window, "kernel_sum_ms": total * 1e3,
+            "device_launches": summary["device_launches"],
+            "by_kind_ms": {k: v * 1e3 for k, v in kinds.items()},
+            "launches_by_kind": kind_launches,
+            "top_kernels_ms": [(n[:110], sec * 1e3) for n, sec in top]}
+
+
 def run_fedavg():
     """The headline configuration through ``run_simulation``."""
     import tempfile
@@ -688,8 +752,8 @@ def run_fedavg():
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         launches = {FWD_KERNEL.name: FWD_KERNEL.launches}
-        rounds = [json.loads(line) for line in
-                  (Path(tmp) / "metrics.jsonl").read_text().splitlines()]
+        rounds = [rec for rec in map(json.loads, (Path(tmp) / "metrics.jsonl").read_text()
+                                     .splitlines()) if rec["kind"] == "server_train"]
         summary = json.loads((Path(tmp) / "profile" / f"round_{profiled:04d}"
                               / "summary.json").read_text())
     n_clients, epochs = int(args.client_num_per_round), int(args.epochs)
@@ -711,26 +775,7 @@ def run_fedavg():
     log(f"fedavg headline: rounds {HEADLINE_WARMUP}-{HEADLINE_WARMUP + HEADLINE_TIMED - 1} "
         f"(timed): {rounds_per_s:.3f} rounds/s, {samples * rounds_per_s:.0f} real samples/s "
         f"({samples} per round), peak memory {peak / 2**20:.1f} MiB")
-    busy, window = summary["device_busy_s"], summary["wall_s"]
-    by_kernel = summary["device_s_by_kernel"]
-    top = list(by_kernel.items())[:15]
-    kinds = {}
-    for name, sec in by_kernel.items():
-        kinds[kernel_kind(name)] = kinds.get(kernel_kind(name), 0.0) + sec
-    if busy > 0:
-        total = summary["device_kernel_s"]
-        log(f"fedavg profile of round {profiled} (training + eval): wall {window * 1e3:.1f} ms, "
-            f"device busy {busy * 1e3:.1f} ms ({busy / window:.1%}), idle "
-            f"{(window - busy) * 1e3:.1f} ms; kernel time {total * 1e3:.1f} ms summed over "
-            f"streams (cuDNN runs a grouped convolution's groups on several streams, so "
-            f"it exceeds the busy time); {len(by_kernel)} distinct kernels; by kind:")
-        for kind, sec in sorted(kinds.items(), key=lambda kv: -kv[1]):
-            log(f"  {sec * 1e3:9.3f} ms  {sec / total:6.1%}  {kind}")
-        log("fedavg profile: kernel time by kernel:")
-        for name, sec in top:
-            log(f"  {sec * 1e3:9.3f} ms  {name[:110]}")
-    else:
-        log("fedavg profile: the profiler saw no device events; device time not measured")
+    profile = profile_summary(f"fedavg profile of round {profiled} (training + eval)", summary)
 
     losses = [r["train_loss"] for r in rounds]
     final_acc = rounds[-1]["test_acc"]
@@ -750,12 +795,283 @@ def run_fedavg():
         "timed_round_train_s": [r["train_time_s"] for r in timed],
         "peak_memory_bytes": peak,
         "train_loss": losses, "test_acc": [r["test_acc"] for r in rounds],
-        "step_yardstick": yardstick,
-        "profile": {"round": profiled, "wall_ms": window * 1e3,
-                    "device_busy_ms": busy * 1e3 if busy > 0 else None,
-                    "kernel_sum_ms": summary["device_kernel_s"] * 1e3,
-                    "by_kind_ms": {k: v * 1e3 for k, v in kinds.items()},
-                    "top_kernels_ms": [(n[:110], sec * 1e3) for n, sec in top]},
+        "step_yardstick": yardstick, "kernel_launches": launches,
+        "profile": {"round": profiled, **profile},
+    }
+
+
+# -- phase 6 -----------------------------------------------------------
+def launches_by_kind(fn) -> dict:
+    """Device kernel launches of one call of ``fn``, by kind, from a
+    ``torch.profiler`` window (after one warm-up call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            out[kernel_kind(e.name)] = out.get(kernel_kind(e.name), 0) + 1
+    return out
+
+
+def dense_step_census(model, epochs: int) -> dict:
+    """One local step of the dense model through the port's trainer, for
+    one client and for the 16-client bucket (64 images each):
+
+    - training FLOPs per image, counted by
+      ``torch.utils.flop_counter.FlopCounterMode`` over the ONE-client
+      step, whose convolutions are ungrouped. Over the vmapped cohort the
+      counter prices a grouped convolution's weight gradient as if every
+      group saw every input channel (groups x too high), so that count is
+      printed, not used;
+    - device launches by kind: vmap must batch GroupNorm (and its
+      backward) into the same kernels for 16 clients as for one, not
+      fall back to a loop over clients."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from fedml_tpu_torch.core import optimizers
+    from fedml_tpu_torch.core.local_trainer import make_local_train_fn
+    from fedml_tpu_torch.core.types import Batches
+
+    params = model.init(torch.Generator().manual_seed(0))
+    step = make_local_train_fn(model.apply, model.loss_fn, optimizers.sgd(0.03), epochs=epochs,
+                               shuffle=False, compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    flops, kinds = {}, {}
+    for clients in (1, 16):
+        x = torch.randn((clients, 1, 64) + tuple(model.example_shape), generator=gen,
+                        device=DEVICE)
+        y = torch.randint(0, 10, (clients, 1, 64), generator=gen, device=DEVICE)
+        batch = Batches(x=x, y=y, mask=torch.ones((clients, 1, 64), device=DEVICE))
+        with FlopCounterMode(display=False) as counter:
+            step(params, batch)
+        flops[clients] = counter.get_total_flops() / (clients * 64 * epochs)
+        kinds[clients] = launches_by_kind(lambda: step(params, batch))
+    log(f"dense FLOPs per trained image (FlopCounterMode, one client's step): "
+        f"{flops[1] / 1e9:.4f} GFLOP; the same counter over the 16-client vmapped step "
+        f"reads {flops[16] / 1e9:.4f} GFLOP per image (grouped weight gradients "
+        f"overcounted; not used)")
+    log(f"dense step launches by kind, 1 client: {kinds[1]}; 16 clients: {kinds[16]}")
+    if kinds[16].get("GroupNorm", 0) != kinds[1].get("GroupNorm", 0) or not kinds[1].get(
+            "GroupNorm"):
+        fail(f"GroupNorm launches per step differ between 1 and 16 clients "
+             f"({kinds[1].get('GroupNorm')} vs {kinds[16].get('GroupNorm')}): vmap is "
+             f"not batching it")
+    return {"per_image": flops[1], "vmapped_counter_per_image": flops[16],
+            "step_launches_by_kind": kinds}
+
+
+def _dense_sim(depth: int, comm_round: int, freq: int):
+    """The dense configuration's simulator, as ``run_simulation`` builds
+    it, kept so that its trainer's params can be read afterwards."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch import data, models
+    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.simulation import SimulatorSingleProcess
+
+    args = load_arguments(str(DENSE_CONFIG))
+    args.pipeline_depth, args.comm_round, args.frequency_of_the_test = depth, comm_round, freq
+    args.log_metrics = False
+    args = fedml_tpu_torch.init(args)
+    dataset = data.load(args, device=DEVICE)
+    model = models.create(args, dataset.class_num, device=DEVICE)
+    return SimulatorSingleProcess(args, DEVICE, dataset, model)
+
+
+@contextlib.contextmanager
+def sync_debug_between_flushes():
+    """``torch.cuda.set_sync_debug_mode("error")`` over the round
+    pipeline's hot loop: any operation that makes the host wait for the
+    card raises, except inside the horizon's one upload and the
+    deferred-metrics flushes (an event wait is not such an operation)."""
+    from fedml_tpu_torch.core.round_pipeline import RoundPipeline
+    from fedml_tpu_torch.core.tracking import DeferredMetrics
+
+    real = {"run": RoundPipeline.run, "_precompute": RoundPipeline._precompute,
+            "flush": DeferredMetrics.flush}
+
+    def allowed(fn):
+        def call(*a, **kw):
+            torch.cuda.set_sync_debug_mode("default")
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+        return call
+
+    def run(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real["run"](*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    RoundPipeline.run, RoundPipeline._precompute = run, allowed(real["_precompute"])
+    DeferredMetrics.flush = allowed(real["flush"])
+    try:
+        yield
+    finally:
+        RoundPipeline.run, RoundPipeline._precompute = real["run"], real["_precompute"]
+        DeferredMetrics.flush = real["flush"]
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def dense_pipeline_check():
+    """Depth 4 against depth 1 on the dense configuration (4 rounds,
+    evaluation every 2), under deterministic cuDNN for this check only:
+    cuDNN's grouped kernels need not be bitwise reproducible otherwise.
+    The depth-4 run's hot loop runs under sync debug mode "error"."""
+    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    out = {}
+    try:
+        for depth in (1, 4):
+            sim = _dense_sim(depth, DENSE_CHECK_ROUNDS, DENSE_CHECK_FREQ)
+            t0 = time.perf_counter()
+            if depth == 4:
+                with sync_debug_between_flushes():
+                    sim.run()
+            else:
+                sim.run()
+            torch.cuda.synchronize()
+            api = sim.fl_trainer
+            out[depth] = {
+                "params": {k: v.detach().clone() for k, v in api.global_params.items()},
+                "history": [{k: v for k, v in h.items()
+                             if k not in ("round_time_s", "train_time_s")} for h in api.history],
+                "stats": {k: v for k, v in api.pipeline_stats.items() if k != "round_spans_s"},
+                "wall_s": time.perf_counter() - t0,
+            }
+            del sim, api
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    p1, p4 = out[1]["params"], out[4]["params"]
+    unequal = [k for k in p1 if not torch.equal(p1[k], p4[k])]
+    dtypes = sorted({str(v.dtype) for v in p4.values()})
+    log(f"dense pipeline check (cuDNN deterministic for this check only): depth 1 "
+        f"{out[1]['stats']} in {out[1]['wall_s']:.1f} s; depth 4 {out[4]['stats']} in "
+        f"{out[4]['wall_s']:.1f} s, its hot loop under sync debug mode 'error' between "
+        f"flushes; params differing bitwise: {len(unequal)} of {len(p1)}; master dtypes "
+        f"{dtypes}")
+    if unequal:
+        err = max(float((p1[k] - p4[k]).abs().max()) for k in unequal)
+        fail(f"depth 4 differs from depth 1 in {len(unequal)} params (max {err})")
+    if out[1]["history"] != out[4]["history"]:
+        fail(f"depth 4's records differ from depth 1's: {out[1]['history']} vs "
+             f"{out[4]['history']}")
+    if dtypes != ["torch.float32"]:
+        fail(f"master params are {dtypes} after bf16 training, want float32")
+    s4 = out[4]["stats"]
+    if not (s4["host_syncs"] == s4["flushes"] < DENSE_CHECK_ROUNDS):
+        fail(f"depth 4 fetched {s4['host_syncs']} times in {s4['flushes']} flushes")
+    return {"bitwise_equal": True, "master_dtypes": dtypes,
+            "depth1": out[1]["stats"], "depth4": out[4]["stats"],
+            "wall_s": {d: out[d]["wall_s"] for d in out}}
+
+
+def run_dense():
+    """The north-star cohort through ``run_simulation``, as configured."""
+    import tempfile
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch import models
+    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.ops.flash_attention import FWD_KERNEL
+
+    args = load_arguments(str(DENSE_CONFIG))
+    model = models.create(args, 10, device=DEVICE)
+    flops = dense_step_census(model, int(args.epochs))
+    del model
+    with tempfile.TemporaryDirectory(prefix="dense_smoke_") as tmp:
+        args.metrics_jsonl_path = str(Path(tmp) / "metrics.jsonl")
+        args.telemetry_dir = tmp
+        args.profile_rounds = [DENSE_PROFILED]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        FWD_KERNEL.reset_launches()  # this path runs no hand-written kernel
+        t0 = time.perf_counter()
+        final = fedml_tpu_torch.run_simulation(device=DEVICE, args=args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {FWD_KERNEL.name: FWD_KERNEL.launches}
+        lines = [json.loads(line) for line in
+                 (Path(tmp) / "metrics.jsonl").read_text().splitlines()]
+        summary = json.loads((Path(tmp) / "profile" / f"round_{DENSE_PROFILED:04d}"
+                              / "summary.json").read_text())
+    records = [r for r in lines if r["kind"] == "server_train"]
+    pipe = next(r for r in lines if r["kind"] == "pipeline")
+    spans = pipe["round_spans_s"]
+    first, last = DENSE_TIMED
+    timed_s = spans[last][1] - spans[first][0]
+    n_timed = last - first + 1
+    rounds_per_s = n_timed / timed_s
+    bucket, nb, bs = pipe["bucket"], pipe["num_batches"], int(args.batch_size)
+    epochs = int(args.epochs)
+    # real examples of the timed rounds' cohorts, per round, x epochs
+    real = float(np.mean(pipe["round_samples"][first:last + 1])) * epochs
+    computed = bucket * nb * bs * epochs
+    flops_round = flops["per_image"] * computed
+    peak_flops = PEAK_FLOPS[torch.bfloat16]
+    card = card_line()
+    log(f"dense: {args.model}, {args.client_num_per_round} of {args.client_num_in_total} "
+        f"clients per round (pow2 bucket {bucket}), batch {bs}, {epochs} epoch, "
+        f"{args.dtype}; {len(spans)} rounds in {wall:.1f} s (data, init and warm-up "
+        f"included); kernel launches on this path {launches}; pipeline {dict((k, v) for k, v in pipe.items() if k not in ('round_spans_s', 'ts', 'kind'))}")
+    for r, (a, b) in enumerate(spans):
+        log(f"  round {r}: {(b - a) * 1e3:.1f} ms on the card's clock")
+    for r in records:
+        log(f"  round {r['round']} record: train {r['train_time_s'] * 1e3:.1f} ms; "
+            f"train_loss {r['train_loss']:.4f}, train_acc {r['train_acc']:.4f}, "
+            f"test_loss {r['test_loss']:.4f}, test_acc {r['test_acc']:.4f}, cohort loss "
+            f"{r['train_loss_cohort']:.4f}, cohort samples {r['cohort_samples']:.0f}")
+    log(f"dense on {card}: rounds {first}-{last} timed as a whole on the card's clock "
+        f"(CUDA events; the pipeline reads them after its flushes): {timed_s:.4f} s, "
+        f"{rounds_per_s:.4f} rounds/s; {real * rounds_per_s:.1f} real samples/s ({real:.0f} "
+        f"per round); {computed * rounds_per_s:.1f} computed samples/s ({computed} per "
+        f"round, padded slots counted); model FLOPs per round {flops_round / 1e12:.3f} "
+        f"TFLOP computed ({flops['per_image'] / 1e9:.4f} GFLOP per image, FlopCounterMode), "
+        f"{flops['per_image'] * real / 1e12:.3f} TFLOP on real samples; "
+        f"{flops_round * rounds_per_s / 1e12:.2f} TFLOP/s = "
+        f"{flops_round * rounds_per_s / peak_flops:.2%} of the {peak_flops / 1e12:.0f} TFLOP/s "
+        f"bf16 dense peak (NVIDIA H100 SXM data sheet), "
+        f"{flops['per_image'] * real * rounds_per_s / peak_flops:.2%} counting real samples "
+        f"only; peak memory {peak / 2**20:.1f} MiB (torch.cuda.max_memory_allocated)")
+    profile = profile_summary(
+        f"dense profile of round {DENSE_PROFILED} (training only) on {card}", summary)
+    if profile.get("device_launches"):
+        steps = nb * epochs
+        per_kind = {k: round(n / steps, 1) for k, n in profile["launches_by_kind"].items()}
+        log(f"dense on {card}: {profile['device_launches'] / steps:.0f} device launches "
+            f"per step ({steps} steps in the profiled round); per step by kind: {per_kind}")
+
+    losses = [r["train_loss"] for r in records]
+    if len(records) < 2 or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"dense train loss did not fall across the rounds: {losses}")
+    if final["round"] != records[-1]["round"]:
+        fail("run_simulation's result is not the last round's stats")
+    if launches[FWD_KERNEL.name] != 0:
+        fail(f"the flash kernel ran {launches} times on the dense path, which has no attention")
+    check = dense_pipeline_check()
+    return {
+        "card": card, "rounds_per_s": rounds_per_s, "timed_rounds_s": timed_s,
+        "round_device_s": [b - a for a, b in spans],
+        "real_samples_per_s": real * rounds_per_s,
+        "computed_samples_per_s": computed * rounds_per_s,
+        "flops_per_image": flops, "flops_per_round": flops_round,
+        "bf16_peak_share": flops_round * rounds_per_s / peak_flops,
+        "bf16_peak_share_real": flops["per_image"] * real * rounds_per_s / peak_flops,
+        "peak_memory_bytes": peak, "train_loss": losses,
+        "test_acc": [r["test_acc"] for r in records], "pipeline": pipe,
+        "profile": {"round": DENSE_PROFILED, **profile}, "pipeline_check": check,
+        "kernel_launches": launches,
     }
 
 
@@ -783,6 +1099,14 @@ def main() -> int:
     log(f"slice numbers on {card}: {json.dumps(slice_numbers)}")
     fedavg_numbers = run_fedavg()
     log(f"fedavg numbers on {card}: {json.dumps(fedavg_numbers)}")
+    dense_numbers = run_dense()
+    log(f"dense numbers on {card}: {json.dumps(dense_numbers)}")
+    for entry in kernels:  # each path's own count, reset just before it
+        entry["launches_by_path"] = {
+            "serving": entry["launches"],
+            "fedavg_headline": fedavg_numbers["kernel_launches"][entry["name"]],
+            "fedavg_dense": dense_numbers["kernel_launches"][entry["name"]],
+        }
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

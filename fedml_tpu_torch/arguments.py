@@ -47,6 +47,10 @@ _DEFAULTS: Dict[str, Any] = {
     "learning_rate": 0.03,
     "momentum": 0.0,
     "weight_decay": 0.0,
+    # FedOpt's server optimizer: sgd | adam | adagrad | yogi
+    "server_optimizer": "sgd",
+    "server_lr": 1.0,
+    "server_momentum": 0.0,
     "fedprox_mu": 0.0,
     # "vectorized" (vmap the cohort) or "sequential" (a loop per client)
     "sim_mode": "vectorized",
@@ -62,8 +66,14 @@ _DEFAULTS: Dict[str, Any] = {
     # "highest" keeps f32 products in f32 (TF32 off for cuBLAS and
     # cuDNN); "high"/"default" allow TF32, which changes results
     "matmul_precision": "highest",
-    # rounds in flight; only 1 (the synchronous loop) is ported
+    # round pipeline (vectorized mode): rounds in flight (1 = the
+    # synchronous loop's behaviour; K>1 defers metric fetches so the hot
+    # loop waits for nothing between flushes)
     "pipeline_depth": 1,
+    # cohort bucket policy: "pow2" pads the sampled cohort up to the
+    # next power of two (zero-weight, fully masked padding), "exact"
+    # keeps its size
+    "pipeline_bucket": "pow2",
     # metrics and profiling
     "log_metrics": True,  # mirror round metrics into the log
     "metrics_jsonl_path": None,  # also append them as JSON lines here
@@ -167,7 +177,7 @@ class Arguments:
             "epochs", "batch_size", "pipeline_depth",
         ):
             setattr(self, int_key, int(getattr(self, int_key)))
-        for float_key in ("learning_rate", "partition_alpha", "fedprox_mu"):
+        for float_key in ("learning_rate", "server_lr", "partition_alpha", "fedprox_mu"):
             setattr(self, float_key, float(getattr(self, float_key)))
         if self.client_num_per_round > self.client_num_in_total:
             self.client_num_per_round = self.client_num_in_total
@@ -175,6 +185,10 @@ class Arguments:
             raise ValueError(
                 f"pipeline_depth={self.pipeline_depth}: must be >= 1 "
                 "(1 = synchronous round loop)"
+            )
+        if self.pipeline_bucket not in ("pow2", "exact"):
+            raise ValueError(
+                f"pipeline_bucket {self.pipeline_bucket!r}: pick 'pow2' or 'exact'"
             )
         if self.sim_mode not in ("vectorized", "sequential"):
             raise ValueError(

@@ -145,14 +145,16 @@ def make_local_train_fn(
         p, s = _stack(params, C), _stack(optimizer.init(params), C)
         for epoch in range(epochs):
             b = _shuffle_batches(batches, rng[:, epoch]) if shuffle else batches
-            zero = torch.zeros(C, dtype=torch.float32, device=batches.mask.device)
-            loss_sum, correct, count = zero, zero, zero
+            sums = {"loss_sum": 0.0, "correct": 0.0, "count": 0.0}
             for i in range(b.num_batches):
                 p, s, m = step(p, s, b.x[:, i], b.y[:, i], b.mask[:, i])
-                loss_sum = loss_sum + (m["loss"] * m["count"]).to(torch.float32)
-                correct = correct + m["correct"].to(torch.float32)
-                count = count + m["count"].to(torch.float32)
-        return p, {"loss_sum": loss_sum, "correct": correct, "count": count}
+                # summed in the metrics' own dtype (the loss is f32 under
+                # bf16, f64 in a float64 run) and cast once, as the JAX
+                # package sums its scan's outputs
+                sums = {"loss_sum": sums["loss_sum"] + m["loss"] * m["count"],
+                        "correct": sums["correct"] + m["correct"],
+                        "count": sums["count"] + m["count"]}
+        return p, {k: v.to(torch.float32) for k, v in sums.items()}
 
     return local_train
 

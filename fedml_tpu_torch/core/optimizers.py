@@ -15,8 +15,10 @@ either):
 ``-lr * t``); ``weight_decay`` adds ``wd * params`` to the gradient
 *before* it (``add_decayed_weights``). ``adam`` and ``adamw`` keep
 optax's defaults (b1 0.9, b2 0.999, eps 1e-8, bias correction);
-``adamw`` adds the decayed weights after the Adam scaling. Server
-optimizers arrive with FedOpt.
+``adamw`` adds the decayed weights after the Adam scaling. The server
+optimizers of FedOpt (``create_server_optimizer``) are optax's ``sgd``
+(momentum ``server_momentum``), ``adam`` (``server_beta1``/``_beta2``),
+``adagrad`` and ``yogi`` at their optax defaults.
 
 The learning-rate schedules are optax's formulas, as host functions of
 a step or round index.
@@ -111,14 +113,66 @@ def scale_by_adam(
     return GradientTransformation(init, update)
 
 
+def scale_by_rss(
+    initial_accumulator_value: float = 0.1, eps: float = 1e-7
+) -> GradientTransformation:
+    """Adagrad's scaling: ``g / sqrt(sum of g^2 so far + eps)`` (0 where
+    the sum is 0)."""
+
+    def init(params):
+        return {"sum_of_squares": _map(
+            lambda p: torch.full_like(p, initial_accumulator_value), params)}
+
+    def update(updates, state, params):
+        ss = _map(lambda g, t: g * g + t, updates, state["sum_of_squares"])
+        out = _map(
+            lambda g, t: torch.where(t > 0, torch.rsqrt(t + eps), torch.zeros_like(t)) * g,
+            updates, ss,
+        )
+        return out, {"sum_of_squares": ss}
+
+    return GradientTransformation(init, update)
+
+
+def scale_by_yogi(
+    b1: float = 0.9, b2: float = 0.999, eps: float = 1e-3,
+    initial_accumulator_value: float = 1e-6,
+) -> GradientTransformation:
+    """Yogi: Adam with the additive second-moment update
+    ``v - (1 - b2) * sign(v - g^2) * g^2``."""
+
+    def init(params):
+        some = next(iter(params.values()))
+        full = lambda p: torch.full_like(p, initial_accumulator_value)  # noqa: E731
+        return {
+            "count": torch.zeros((), dtype=torch.int32, device=some.device),
+            "mu": _map(full, params),
+            "nu": _map(full, params),
+        }
+
+    def update(updates, state, params):
+        mu = _map(lambda g, m: (1 - b1) * g + b1 * m, updates, state["mu"])
+        nu = _map(lambda g, v: v - (1 - b2) * torch.sign(v - g * g) * (g * g),
+                  updates, state["nu"])
+        count = state["count"] + 1
+
+        def step(m, v):
+            c = count.to(m.dtype)
+            return (m / (1 - b1**c)) / (torch.sqrt(v / (1 - b2**c)) + eps)
+
+        return _map(step, mu, nu), {"count": count, "mu": mu, "nu": nu}
+
+    return GradientTransformation(init, update)
+
+
 def sgd(lr: float, momentum: Optional[float] = None) -> GradientTransformation:
     if momentum is None:
         return scale_by_learning_rate(lr)
     return chain(trace(momentum), scale_by_learning_rate(lr))
 
 
-def adam(lr: float) -> GradientTransformation:
-    return chain(scale_by_adam(), scale_by_learning_rate(lr))
+def adam(lr: float, b1: float = 0.9, b2: float = 0.999) -> GradientTransformation:
+    return chain(scale_by_adam(b1, b2), scale_by_learning_rate(lr))
 
 
 def adamw(lr: float, weight_decay: float = 1e-4) -> GradientTransformation:
@@ -134,6 +188,25 @@ _CLIENT_OPTS = {
         lr, weight_decay=getattr(args, "weight_decay", 0.0)
     ),
 }
+
+
+_SERVER_OPTS = {
+    "sgd": lambda lr, args: sgd(lr, momentum=(getattr(args, "server_momentum", 0.0) or None)),
+    "adam": lambda lr, args: adam(
+        lr, b1=getattr(args, "server_beta1", 0.9), b2=getattr(args, "server_beta2", 0.999)
+    ),
+    "adagrad": lambda lr, args: chain(scale_by_rss(), scale_by_learning_rate(lr)),
+    "yogi": lambda lr, args: chain(scale_by_yogi(), scale_by_learning_rate(lr)),
+}
+
+
+def create_server_optimizer(args) -> GradientTransformation:
+    """FedOpt's server optimizer ``args.server_optimizer`` at
+    ``args.server_lr`` (default 1.0)."""
+    name = str(getattr(args, "server_optimizer", "sgd")).lower()
+    if name not in _SERVER_OPTS:
+        raise ValueError(f"unknown server_optimizer {name!r}")
+    return _SERVER_OPTS[name](float(getattr(args, "server_lr", 1.0)), args)
 
 
 # -- schedules (optax's formulas) ---------------------------------------

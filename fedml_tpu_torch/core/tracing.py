@@ -11,7 +11,8 @@ Where the JAX package writes a ``jax.profiler`` trace, this writes a
 ``torch.profiler`` Chrome trace (``trace.json``) and a summary
 (``summary.json``): the window's wall seconds, the device's busy
 seconds (the union of its kernel, copy and set intervals), their plain
-sum, and device seconds by kernel name. On the CPU the
+sum, the number of device intervals (kernels, copies and sets), and
+device seconds and launches by kernel name. On the CPU the
 summary's device entries are empty.
 """
 
@@ -80,12 +81,13 @@ class RoundProfiler:
         prof, round_idx = self._prof, self._active
         prof.__exit__(None, None, None)
         self._prof, self._active = None, None
-        by_name, spans = {}, []
+        by_name, counts, spans = {}, {}, []
         for e in prof.events():
             # device work only: record_function ranges are mirrored onto
             # the device timeline as user annotations
             if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
                 by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
+                counts[e.name] = counts.get(e.name, 0) + 1
                 spans.append((e.time_range.start, e.time_range.end))
         path = os.path.join(self.out_dir, f"round_{round_idx:04d}")
         os.makedirs(path, exist_ok=True)
@@ -95,7 +97,9 @@ class RoundProfiler:
             "wall_s": wall,
             "device_busy_s": _union_us(spans) / 1e6,
             "device_kernel_s": sum(by_name.values()),
+            "device_launches": len(spans),
             "device_s_by_kernel": dict(sorted(by_name.items(), key=lambda kv: -kv[1])),
+            "device_launches_by_kernel": counts,
         }
         with open(os.path.join(path, "summary.json"), "w") as f:
             json.dump(summary, f)

@@ -2,9 +2,11 @@
 
 ``create(args, output_dim, device=...)`` builds the model ``args.model``
 names on ``device``. Ported so far: ``lr``, ``mlp``, ``cnn`` (the FEMNIST
-CNN, or the CIFAR one for RGB datasets) and ``transformer``; every other
-name raises ``NotImplementedError`` naming the slice of the port that
-brings it (ROADMAP.md, queue A).
+CNN, or the CIFAR one for RGB datasets), the GroupNorm CIFAR zoo
+(``resnet18``/``resnet18_gn``, ``resnet56``/``resnet``, ``vgg11``-``19``,
+``mobilenet``, ``mobilenet_v3``, ``efficientnet-b0``-``b4``) and
+``transformer``; every other name raises ``NotImplementedError`` naming
+the slice of the port that brings it (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -15,17 +17,17 @@ import torch
 
 from ..device import DeviceLike, get_device
 from .cnn import CNNCifar, CNNFedAvg
+from .efficientnet import efficientnet
 from .linear import MLP, LogisticRegression
+from .mobilenet import MobileNetV1, MobileNetV3Small
+from .resnet import resnet18_gn, resnet56
 from .spec import FedModel
+from .vgg import vgg
 
 __all__ = ["FedModel", "create"]
 
 # model name -> the port slice that brings it
 _LATER = {
-    **dict.fromkeys(
-        ("resnet18", "resnet18_gn", "resnet56", "resnet"),
-        "the dense-model slice (ResNet-18-GN in bf16)",
-    ),
     "moe_transformer": "the ring/Ulysses slice, with the expert-parallel planes",
 }
 
@@ -50,6 +52,24 @@ def _example_shape(args, default=(28, 28, 1)):
         hw = int(getattr(args, "image_size", 64) or 64)
         return (hw, hw, 3)
     return _IMAGE_SHAPES.get(ds, default)
+
+
+def _image_zoo(name: str):
+    """(canonical name, builder(output_dim, in_channels)) of the
+    GroupNorm CIFAR zoo, or None."""
+    if name in ("resnet18", "resnet18_gn"):
+        return "resnet18_gn", resnet18_gn
+    if name in ("resnet56", "resnet"):
+        return "resnet56", resnet56
+    if name == "mobilenet":
+        return "mobilenet", MobileNetV1
+    if name in ("mobilenet_v3", "mobilenetv3"):
+        return "mobilenet_v3", MobileNetV3Small
+    if name.startswith("vgg"):
+        return name, lambda out, in_channels: vgg(name, out, in_channels)
+    if name.startswith("efficientnet"):
+        return name, lambda out, in_channels: efficientnet(name, out, in_channels)
+    return None
 
 
 def create(args, output_dim: int, device: DeviceLike = "cuda") -> FedModel:
@@ -82,6 +102,15 @@ def create(args, output_dim: int, device: DeviceLike = "cuda") -> FedModel:
         return FedModel(
             name="cnn", module=CNNFedAvg(output_dim).to(dev), example_shape=(28, 28, 1)
         )
+    zoo = _image_zoo(name)
+    if zoo is not None:
+        canonical, build = zoo
+        shape = _example_shape(args, (32, 32, 3))
+        return FedModel(
+            name=canonical,
+            module=build(output_dim, in_channels=shape[-1]).to(dev),
+            example_shape=shape,
+        )
     if name == "transformer":
         from .transformer import TransformerLM
 
@@ -107,5 +136,7 @@ def create(args, output_dim: int, device: DeviceLike = "cuda") -> FedModel:
     later = _LATER.get(name, "a later slice")
     raise NotImplementedError(
         f"model {name!r} is not ported to PyTorch yet; it arrives with "
-        f"{later} (ROADMAP.md, queue A). Ported: 'lr', 'mlp', 'cnn', 'transformer'."
+        f"{later} (ROADMAP.md, queue A). Ported: 'lr', 'mlp', 'cnn', the GroupNorm "
+        "CIFAR zoo ('resnet18', 'resnet56', 'vgg*', 'mobilenet', 'mobilenet_v3', "
+        "'efficientnet-b*') and 'transformer'."
     )

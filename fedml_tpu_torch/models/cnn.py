@@ -14,11 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-
-def _to_nchw(x: torch.Tensor) -> torch.Tensor:
-    if x.dim() == 3:  # [B, H, W] -> [B, H, W, 1]
-        x = x[..., None]
-    return x.permute(0, 3, 1, 2)
+from .spec import to_nchw
 
 
 def _flatten_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -37,7 +33,7 @@ class CNNFedAvg(nn.Module):
         self.Dense_1 = nn.Linear(hidden, output_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = _to_nchw(x)
+        x = to_nchw(x)
         x = F.max_pool2d(F.relu(self.Conv_0(x)), 2)
         x = F.max_pool2d(F.relu(self.Conv_1(x)), 2)
         x = F.relu(self.Dense_0(_flatten_nhwc(x)))
@@ -58,7 +54,7 @@ class CNNCifar(nn.Module):
         self.Dense_1 = nn.Linear(64, output_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = _to_nchw(x)
+        x = to_nchw(x)
         for conv in (self.Conv_0, self.Conv_1, self.Conv_2):
             x = F.max_pool2d(F.relu(conv(x)), 2)
         x = F.relu(self.Dense_0(_flatten_nhwc(x)))

@@ -22,6 +22,20 @@ from ..core.losses import LOSSES
 
 Params = Dict[str, torch.Tensor]
 
+# standard deviation of a standard normal truncated to (-2, 2)
+_TRUNC_STD = 0.87962566103423978
+
+
+def to_nchw(x: torch.Tensor) -> torch.Tensor:
+    """NHWC (or NHW) images, as the packed federation stores them ->
+    NCHW for the convolutions; integer inputs become f32 and float
+    inputs keep their dtype (flax ``ensure_float``: bf16 stays bf16)."""
+    if x.dim() == 3:  # [B, H, W] -> [B, H, W, 1]
+        x = x[..., None]
+    if not x.is_floating_point():
+        x = x.to(torch.float32)
+    return x.permute(0, 3, 1, 2)
+
 
 @dataclasses.dataclass(frozen=True)
 class FedModel:
@@ -41,10 +55,17 @@ class FedModel:
 
     def init(self, generator: torch.Generator) -> Params:
         """Fresh params on the model's device, drawn from ``generator``
-        (a CPU generator): dense, convolution and embedding weights from
-        a normal with variance 1/fan_in (flax's lecun-normal family;
-        fan_in is the product of a weight's dims after the first),
-        biases zero, normalisation scales one."""
+        (a CPU generator) from flax's default distributions: dense and
+        convolution kernels lecun-normal (a normal truncated at two
+        standard deviations, scaled to variance 1/fan_in; fan_in is the
+        product of a weight's dims after the first), embeddings a plain
+        normal of variance 1/width, biases zero, normalisation scales
+        one."""
+        truncated = {
+            f"{name}.weight" if name else "weight"
+            for name, mod in self.module.named_modules()
+            if isinstance(mod, (nn.Linear, nn.Conv2d))
+        }
         out = {}
         for key, p in self.module.named_parameters():
             leaf = key.rsplit(".", 1)[-1]
@@ -52,9 +73,12 @@ class FedModel:
                 val = torch.zeros(p.shape)
             elif p.dim() == 1:
                 val = torch.ones(p.shape)
+            elif key in truncated:
+                std = math.prod(p.shape[1:]) ** -0.5 / _TRUNC_STD
+                val = nn.init.trunc_normal_(torch.empty(p.shape), 0.0, std, -2 * std,
+                                            2 * std, generator=generator)
             else:
-                fan_in = math.prod(p.shape[1:])
-                val = torch.randn(p.shape, generator=generator) * fan_in**-0.5
+                val = torch.randn(p.shape, generator=generator) * math.prod(p.shape[1:]) ** -0.5
             out[key.replace(".", "/")] = val.to(device=p.device, dtype=p.dtype)
         return out
 

@@ -12,9 +12,14 @@ Client sampling keeps the reference's determinism contract, bitwise:
 round's other randomness, the per-epoch shuffles, comes from one
 ``torch.Generator`` on the device seeded by ``args.random_seed``.
 
-Ported: ``FedAvgAPI`` with the ``vectorized`` and ``sequential`` modes
-and the synchronous loop, and ``FedProxAPI``. The knobs of later slices
-(the round pipeline, checkpoints, defenses, the client registry,
+The vectorized mode runs through the round pipeline
+(``core/round_pipeline.py``: ``pipeline_depth`` rounds in flight, pow2
+cohort buckets, metrics fetched at flushes only), as the JAX package's
+does; the synchronous loop serves the sequential mode.
+
+Ported: ``FedAvgAPI`` with the ``vectorized`` and ``sequential`` modes,
+``FedProxAPI``, ``FedOptAPI`` (server optimizers) and ``FedNovaAPI``.
+The knobs of later slices (checkpoints, defenses, the client registry,
 preemption, the stall watchdog, the metrics server) raise
 ``NotImplementedError`` instead of being ignored.
 """
@@ -22,7 +27,7 @@ preemption, the stall watchdog, the metrics server) raise
 from __future__ import annotations
 
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -34,9 +39,14 @@ from ..core.local_trainer import (
     make_eval_fn,
     make_local_train_fn,
 )
-from ..core.optimizers import create_client_optimizer, resolve_round_lr_schedule
+from ..core.optimizers import (
+    create_client_optimizer,
+    create_server_optimizer,
+    resolve_round_lr_schedule,
+)
+from ..core.round_pipeline import RoundPipeline
 from ..core.tracing import RoundProfiler
-from ..core.tracking import MetricsReporter
+from ..core.tracking import DeferredMetrics, MetricsReporter
 from ..core.types import Batches
 from ..data.loader import FederatedDataset
 from ..device import DeviceLike, get_device
@@ -46,7 +56,6 @@ Params = Dict[str, torch.Tensor]
 
 # knob -> (is it set?, the slice that brings it)
 _LATER_KNOBS = {
-    "pipeline_depth": (lambda v: int(v or 1) > 1, "the round-pipeline slice"),
     "checkpoint_dir": (bool, "the checkpoint/resume slice"),
     "defense_type": (bool, "the robust-aggregation planes (queue A item 5)"),
     "client_registry_size": (lambda v: int(v or 0) > 0, "the population planes (queue A item 5)"),
@@ -77,16 +86,24 @@ def _take(b: Batches, idx: torch.Tensor) -> Batches:
 def build_round_fn(local_train, aggregate):
     """The round engine as a pure function of its collaborators:
     ``round_fn(global_params, server_state, packed, nsamples, idx, rng,
-    lr_mult=None) -> (new_global, new_state, summed_metrics)``, every
-    tensor on the device. ``aggregate`` may be a bound method (the
-    algorithms' server step plugs in there)."""
+    lr_mult=None, valid=None) -> (new_global, new_state,
+    summed_metrics)``, every tensor on the device. ``aggregate`` may be
+    a bound method (the algorithms' server step plugs in there).
+
+    ``valid`` ([C] in {0, 1}) marks the real slots of a bucket-padded
+    cohort: a padded slot's batches are all masked, so local training
+    leaves its params as they were and counts nothing, and its
+    aggregation weight is zero."""
 
     def round_fn(global_params, server_state, packed: Batches, nsamples, idx, rng,
-                 lr_mult=None):
+                 lr_mult=None, valid=None):
         cohort = _take(packed, idx)
         ns = nsamples.index_select(0, idx)
+        if valid is not None:
+            vm = valid.reshape((-1,) + (1,) * (cohort.mask.dim() - 1))
+            cohort = Batches(x=cohort.x, y=cohort.y, mask=cohort.mask * vm.to(cohort.mask.dtype))
         new_stacked, train_metrics = local_train(global_params, cohort, rng, lr_mult)
-        weights = normalize_weights(ns)
+        weights = normalize_weights(ns, valid)
         new_global, new_state = aggregate(
             global_params, server_state, new_stacked, weights, cohort, rng
         )
@@ -134,6 +151,7 @@ class FedAvgAPI:
         self.model = model
         self.mode = getattr(args, "sim_mode", "vectorized")
         self.history: List[Dict[str, float]] = []
+        self.pipeline_stats: Dict[str, float] = {}
 
         seed = int(getattr(args, "random_seed", 0))
         self.global_params = model.init(torch.Generator().manual_seed(seed))
@@ -187,15 +205,22 @@ class FedAvgAPI:
             return None
         return float(np.float32(self._round_lr(round_idx) / float(self.args.learning_rate)))
 
-    def _shuffle_uniforms(self, cohort_size: int):
-        """The round's shuffle draws, ``[C, epochs, nb*bs]``, or None."""
+    def _shuffle_uniforms(self, cohort_size: int, bucket: Optional[int] = None):
+        """The round's shuffle draws, ``[bucket, epochs, nb*bs]``, or
+        None. Only the ``cohort_size`` real clients draw (so a padded
+        cohort sees the draws of the exact one, and the sequential mode
+        those of the vectorized); padded slots repeat the first row,
+        which their all-zero masks make inert."""
         if not self.shuffle:
             return None
         packed = self.dataset.packed_train
         n = packed.num_batches * packed.batch_size
-        return torch.rand(
+        u = torch.rand(
             (cohort_size, self.epochs, n), generator=self.generator, device=self.device
         )
+        if bucket is not None and bucket > cohort_size:
+            u = torch.cat([u, u[:1].expand((bucket - cohort_size,) + tuple(u.shape[1:]))])
+        return u
 
     # -- round loop ----------------------------------------------------
     def train(self) -> Dict[str, float]:
@@ -208,7 +233,9 @@ class FedAvgAPI:
         freq = max(1, int(getattr(args, "frequency_of_the_test", 5)))
         profiler = RoundProfiler(args, self.device)
         try:
-            return self._train_rounds_sync(packed, nsamples, comm_rounds, freq, profiler)
+            if self.mode == "sequential":
+                return self._train_rounds_sync(packed, nsamples, comm_rounds, freq, profiler)
+            return RoundPipeline(self).run(packed, nsamples, comm_rounds, freq, profiler)
         finally:
             profiler.close()
 
@@ -217,7 +244,8 @@ class FedAvgAPI:
             torch.cuda.synchronize(self.device)
 
     def _train_rounds_sync(self, packed, nsamples, comm_rounds, freq, profiler):
-        """The synchronous loop. A round that evaluates waits for the
+        """The synchronous loop of the sequential mode (a Python loop
+        over the cohort's clients). A round that evaluates waits for the
         card before its evaluation and records ``train_time_s`` (round
         start to training done on the device) beside ``round_time_s``
         (to the end of evaluation)."""
@@ -232,29 +260,18 @@ class FedAvgAPI:
             rng = self._shuffle_uniforms(len(idx))
             lr_mult = self._lr_mult(round_idx)
             with devtime.measure("simulation.round_fn", bucket=f"b{len(idx)}"):
-                if self.mode == "sequential":
-                    self.global_params, summed = self._sequential_round(
-                        idx, rng, lr_mult, nsamples
-                    )
-                else:
-                    idx_t = torch.as_tensor(idx, dtype=torch.int64, device=self.device)
-                    self.global_params, self.server_state, summed = self._round_fn(
-                        self.global_params, self.server_state, packed, nsamples,
-                        idx_t, rng, lr_mult,
-                    )
+                self.global_params, summed = self._sequential_round(
+                    idx, rng, lr_mult, nsamples
+                )
             if round_idx % freq == 0 or round_idx == comm_rounds - 1:
                 self._sync()
                 train_time = time.perf_counter() - t0
-                stats = self._local_test_on_all_clients(round_idx)
-                loss_sum, count = torch.stack(
-                    [summed["loss_sum"], summed["count"]]
-                ).tolist()
-                stats["round"] = round_idx
-                stats["round_time_s"] = time.perf_counter() - t0
-                stats["train_time_s"] = train_time
-                stats["train_loss_cohort"] = loss_sum / max(count, 1.0)
-                # real examples the cohort trained on in one epoch
-                stats["cohort_samples"] = count
+                ring = DeferredMetrics()
+                ring.push(round_idx, {"summed": summed, **self._eval_sums()})
+                (_, host), = ring.flush()
+                stats = self._stats_from_host(
+                    round_idx, host, time.perf_counter() - t0, train_time
+                )
                 self.history.append(stats)
                 final_stats = stats
                 self.metrics_reporter.report_server_training_metric(stats)
@@ -286,21 +303,35 @@ class FedAvgAPI:
         return new_global, sums
 
     # -- evaluation ----------------------------------------------------
-    def _local_test_on_all_clients(self, round_idx: int) -> Dict[str, float]:
-        # the eval function sums over every leading axis, so one call
-        # covers all clients (the JAX package vmaps it: build_eval_all)
-        train_sums = self._eval(self.global_params, self.dataset.packed_train)
-        test_sums = self._eval(self.global_params, self.dataset.packed_test)
-        keys = ("loss_sum", "correct", "count")
-        # one device-to-host copy for both sets
-        host = torch.stack([train_sums[k] for k in keys] + [test_sums[k] for k in keys]).tolist()
-        tr = self.model.metrics_from_sums(dict(zip(keys, host[:3])))
-        te = self.model.metrics_from_sums(dict(zip(keys, host[3:])))
+    def _eval_sums(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Summed metrics of the global model over every client's train
+        and test data, left on the device. The eval function sums over
+        every leading axis, so one call covers all clients (the JAX
+        package vmaps it: ``build_eval_all``)."""
+        return {
+            "train": self._eval(self.global_params, self.dataset.packed_train),
+            "test": self._eval(self.global_params, self.dataset.packed_test),
+        }
+
+    def _stats_from_host(self, round_idx: int, host, round_time_s, train_time_s):
+        """A round's history record from its fetched metrics: the global
+        model's train and test accuracy and loss, the round's wall
+        ``round_time_s`` and training ``train_time_s``, and the
+        cohort's mean training loss and real-example count over the
+        last local epoch (``train_loss_cohort``, ``cohort_samples``)."""
+        tr = self.model.metrics_from_sums(host["train"])
+        te = self.model.metrics_from_sums(host["test"])
+        summed = host["summed"]
         return {
             "train_acc": tr["acc"],
             "train_loss": tr["loss"],
             "test_acc": te["acc"],
             "test_loss": te["loss"],
+            "round": round_idx,
+            "round_time_s": round_time_s,
+            "train_time_s": train_time_s,
+            "train_loss_cohort": summed["loss_sum"] / max(summed["count"], 1.0),
+            "cohort_samples": summed["count"],
         }
 
     def evaluate_global(self) -> Dict[str, float]:
@@ -313,3 +344,48 @@ class FedProxAPI(FedAvgAPI):
     (``args.fedprox_mu``)."""
 
     algorithm = "FedProx"
+
+
+class FedOptAPI(FedAvgAPI):
+    """Server-side adaptive optimization (the reference's
+    ``FedOptAggregator``): the averaged client delta is a
+    pseudo-gradient fed to the server optimizer
+    (``args.server_optimizer``: sgd, momentum, adam, adagrad, yogi)."""
+
+    algorithm = "FedOpt"
+
+    def _init_server_state(self):
+        self._server_opt = create_server_optimizer(self.args)
+        return self._server_opt.init(self.global_params)
+
+    def _aggregate(self, global_params, server_state, new_stacked, weights, cohort, rng):
+        avg = weighted_average(new_stacked, weights)
+        pseudo_grad = {k: global_params[k] - avg[k] for k in global_params}
+        updates, new_state = self._server_opt.update(pseudo_grad, server_state, global_params)
+        return {k: global_params[k] + updates[k] for k in global_params}, new_state
+
+
+class FedNovaAPI(FedAvgAPI):
+    """Normalized averaging (the reference's ``fednova``): client deltas
+    are normalized by their local step counts a_i and recombined with
+    tau_eff = sum(p_i a_i): w+ = w - tau_eff * sum(p_i (w - w_i) / a_i),
+    a_i = epochs * (# non-empty batches), exact for plain-SGD clients.
+    Needs the cohort's masks, so only the vectorized mode runs it."""
+
+    algorithm = "FedNova"
+
+    def _aggregate(self, global_params, server_state, new_stacked, weights, cohort, rng):
+        if cohort is None:
+            raise NotImplementedError("FedNova requires vectorized mode")
+        epochs = float(self.args.epochs)
+        nonempty = (cohort.mask.sum(dim=-1) > 0).to(torch.float32).sum(dim=-1)
+        a_i = torch.clamp(epochs * nonempty, min=1.0)  # [C]
+        tau_eff = (weights * a_i).sum()
+
+        def combine(g, s):
+            shape = (-1,) + (1,) * g.dim()
+            w = weights.reshape(shape).to(g.dtype)
+            ai = a_i.reshape(shape).to(g.dtype)
+            return g - tau_eff.to(g.dtype) * (w * (g[None] - s) / ai).sum(dim=0)
+
+        return {k: combine(global_params[k], new_stacked[k]) for k in global_params}, server_state

@@ -7,13 +7,13 @@ multi-card slice.
 
 from __future__ import annotations
 
-from .fedavg_api import FedAvgAPI, FedProxAPI
+from .fedavg_api import FedAvgAPI, FedNovaAPI, FedOptAPI, FedProxAPI
 
-_ALGORITHMS = {"FedAvg": FedAvgAPI, "FedProx": FedProxAPI}
+_ALGORITHMS = {"FedAvg": FedAvgAPI, "FedProx": FedProxAPI, "FedOpt": FedOptAPI,
+               "FedNova": FedNovaAPI}
 
 # the JAX package's other algorithms, by the slice that brings them
 _LATER = {
-    **dict.fromkeys(("FedOpt", "FedNova"), "the FedAvg-family slice (FedOpt, FedNova)"),
     **dict.fromkeys(
         ("HierFedAvg", "DSGD", "PushSum", "SFedAvg", "HSFedAvg", "FedGAN",
          "TurboAggregate", "SplitNN", "FedGKT", "VFL", "FedNAS"),

@@ -38,6 +38,7 @@ from fedml_tpu_torch.data import load
 from fedml_tpu_torch.data.loader import FederatedDataset
 from fedml_tpu_torch.simulation import FedAvgAPI, FedProxAPI, SimulatorSingleProcess
 from fedml_tpu_torch.simulation.fedavg_api import deterministic_client_sampling
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "fedml_tpu_torch", "configs", "fedavg_femnist_cnn.yaml")
@@ -236,7 +237,9 @@ def test_run_simulation_on_the_cpu_writes_metrics_and_a_profile(tmp_path):
     assert stats["round"] == 1 and 0.0 <= stats["test_acc"] <= 1.0
     assert stats["round_time_s"] >= stats["train_time_s"] > 0
     lines = [json.loads(l) for l in (tmp_path / "metrics.jsonl").read_text().splitlines()]
-    assert [r["round"] for r in lines] == [0, 1]
+    assert [r["round"] for r in lines if r["kind"] == "server_train"] == [0, 1]
+    # the round pipeline's own record closes the file
+    assert lines[-1]["kind"] == "pipeline" and lines[-1]["rounds"] == 2
     summary = json.loads((tmp_path / "tel" / "profile" / "round_0001" / "summary.json").read_text())
     assert summary["round"] == 1 and summary["wall_s"] > 0
     assert summary["device_busy_s"] == 0.0  # no card: no device events
@@ -254,7 +257,7 @@ def test_run_simulation_needs_a_card_unless_told(monkeypatch):
 
 
 @pytest.mark.parametrize("knob, value, match", [
-    ("pipeline_depth", 2, "round-pipeline"),
+    ("client_registry_size", 8, "population"),
     ("checkpoint_dir", "/nonexistent", "checkpoint"),
     ("defense_type", "median", "robust"),
     ("preempt_signal", "round:1", "elastic"),
@@ -264,8 +267,8 @@ def test_later_knobs_raise(knob, value, match):
         _api(**dict(ORACLE, **{knob: value}))
 
 
-@pytest.mark.parametrize("name, exc", [("FedOpt", NotImplementedError),
-                                       ("FedNova", NotImplementedError),
+@pytest.mark.parametrize("name, exc", [("HierFedAvg", NotImplementedError),
+                                       ("DSGD", NotImplementedError),
                                        ("SplitNN", NotImplementedError),
                                        ("NoSuchAlg", ValueError)])
 def test_unported_algorithms_raise(name, exc):

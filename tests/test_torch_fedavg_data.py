@@ -22,6 +22,7 @@ from fedml_tpu_torch.arguments import Arguments
 from fedml_tpu_torch.core import partition
 from fedml_tpu_torch.core.types import Batches, flat_examples, rebatch
 from fedml_tpu_torch.data import load, packing, synthetic
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # per-class mean of the device twin's features against the class means
 # both packages share: sigma 1 noise averaged over >= MIN_PER_CLASS

@@ -19,6 +19,7 @@ from fedml_tpu.arguments import Arguments as JaxArguments
 from fedml_tpu_torch import models
 from fedml_tpu_torch.arguments import Arguments
 from fedml_tpu_torch.convert import params_from_flax
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # f32 in both packages from the same weights; logits and gradients
 # differ by summation order only

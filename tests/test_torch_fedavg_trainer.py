@@ -37,6 +37,7 @@ from fedml_tpu_torch.core.local_trainer import (
 )
 from fedml_tpu_torch.core.types import Batches
 from fedml_tpu_torch.data.packing import pack_clients
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # f32: params after 12 steps from the same start, differing by
 # summation order only

@@ -26,6 +26,7 @@ from fedml_tpu.ops.flash_attention import flash_attention as jax_flash
 from fedml_tpu.ops.flash_attention import pick_block as jax_pick_block
 from fedml_tpu_torch.ops import flash_attention as tfa
 from fedml_tpu_torch.parallel.sequence import full_attention
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, T, H, D = 2, 64, 4, 16
 BLOCK = 16

@@ -35,6 +35,7 @@ from fedml_tpu_torch.serving import (
     ServingEngine,
     ServingShedError,
 )
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 VOCAB, T = 40, 32
 # both engines compute in f32 from the same weights; answers differ by

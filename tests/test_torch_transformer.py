@@ -26,6 +26,7 @@ from fedml_tpu.cross_device.model_file import (
 from fedml_tpu_torch import models as torch_models
 from fedml_tpu_torch.arguments import Arguments, load_arguments
 from fedml_tpu_torch.convert import params_from_flax
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO_CONFIG = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -120,8 +121,8 @@ def test_slice_config_reads_the_same_in_both_packages():
 
 def test_create_names_the_slice_for_unported_models():
     a = Arguments()
-    a.model = "resnet18_gn"
-    with pytest.raises(NotImplementedError, match="dense-model slice"):
+    a.model = "moe_transformer"
+    with pytest.raises(NotImplementedError, match="ring/Ulysses slice"):
         torch_models.create(a, 10, device="cpu")
 
 
