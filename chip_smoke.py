@@ -18,9 +18,16 @@ version on the card:
   ``fedml_tpu_torch/configs/fedavg_cifar10_resnet18_bf16.yaml``, the
   repo's north-star cohort at full width (ResNet-18-GN on the CIFAR-10
   stand-in, 10 of 100 clients per round, batch 64, bf16 over f32
-  masters) through the round pipeline.
-The training paths run no hand-written kernel: their convolutions and
-matrix products are cuDNN's and cuBLAS's through PyTorch, as XLA
+  masters) through the round pipeline;
+- transformer FedAvg: ``run_simulation`` on
+  ``fedml_tpu_torch/configs/fedavg_shakespeare_transformer_flash_bf16.yaml``,
+  the flash TransformerLM at the repo's long-context point (embed 512,
+  8 heads of 64, T 4096, 2 layers) on the Shakespeare stand-in, 8 of 32
+  clients per round, batch 4, bf16 over f32 masters: the flash forward
+  and backward kernels, one launch each per layer per step for the
+  whole cohort.
+The CNN and ResNet paths run no hand-written kernel: their convolutions
+and matrix products are cuDNN's and cuBLAS's through PyTorch, as XLA
 generated them on the TPU.
 
 Phases, each of which fails the run:
@@ -28,12 +35,14 @@ Phases, each of which fails the run:
 1. card: CUDA present; the card's name and power limit from nvidia-smi;
 2. build: every kernel source of the path compiles (one nvcc each, in
    parallel);
-3. kernels: each kernel against its plain version at the path's shapes
+3. kernels: the flash forward and backward each against its plain
+   version at the paths' shapes (the forward at serving's and training's)
    and a few more (f32 and bf16, causal and not, head dims 16-128, a
    ragged length), with stated tolerances; kernel, plain and library
-   (one PyTorch call computing the same function) times, the library
-   call's own device kernel named from a short profiler window, and each
-   time's share of the kernel's bound;
+   (one PyTorch call computing the same function: SDPA, SDPA's backward)
+   times, the library call's own device kernel named from a short
+   profiler window, and each time's share of the kernel's bound; the
+   backward must repeat bitwise;
 4. slice: bursts of 8 requests through ``ServingEngine``; the answers
    have the right shape, are finite and match the same model with
    ``attention_impl: full``; the kernels' launch counts rose on the
@@ -57,7 +66,20 @@ Phases, each of which fails the run:
    launches by kernel kind; the train loss falls; then depth 4 against
    depth 1 (4 rounds, cuDNN deterministic for this check only): bitwise
    equal params and records, f32 masters, and depth 4's hot loop under
-   ``torch.cuda.set_sync_debug_mode("error")`` between flushes.
+   ``torch.cuda.set_sync_debug_mode("error")`` between flushes;
+7. transformer: one client's step (dense FLOPs by ``FlopCounterMode``
+   against 6 x weights x tokens; attention reckoned from the shapes;
+   launches by kind; the port's LayerNorm timed alone at a step's
+   shape, since its kernels are not told apart by name); depth 4 against depth 1 (4 rounds, under
+   ``torch.use_deterministic_algorithms`` for this check only), with the
+   flash launches of each run equal to layers x (steps, and evaluation's
+   forward passes); the configuration through ``run_simulation`` (round
+   0 warms up, rounds 1-3 are timed as a whole, round 4 is profiled,
+   round 5 evaluates): rounds/s, real tokens/s, FLOPs per round, the
+   share of the bf16 peak, peak memory, busy share, device time and
+   launches by kind; the loss falls; the profiled round launches one
+   flash forward and one backward per layer per step.
+Each phase's wall time is printed.
 
 Run from the repo root, on a machine with one CUDA card and the CUDA
 toolkit:  ``python3 chip_smoke.py``.  The last two lines of its output
@@ -70,7 +92,9 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -83,6 +107,8 @@ REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "fedml_tpu_torch" / "configs" / "serve_transformer_flash.yaml"
 FEDAVG_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "fedavg_femnist_cnn.yaml"
 DENSE_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "fedavg_cifar10_resnet18_bf16.yaml"
+TRANSFORMER_CONFIG = (REPO / "fedml_tpu_torch" / "configs"
+                      / "fedavg_shakespeare_transformer_flash_bf16.yaml")
 DEVICE = "cuda"
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit). A
@@ -98,9 +124,12 @@ PASSES = {torch.float32: 3, torch.bfloat16: 1}
 ROUTE = {torch.float32: "3xTF32", torch.bfloat16: "bf16"}
 
 # flash kernel cases: (B, T, H, D, dtype, causal). The first is the
-# serving path's own shape (serve_max_batch 8, T 4096, 8 heads of 64, f32).
+# serving path's own shape (serve_max_batch 8, T 4096, 8 heads of 64, f32),
+# the second the transformer-training path's (8 clients x batch 4 folded
+# into the batch, bf16).
 FLASH_CASES = [
     (8, 4096, 8, 64, torch.float32, True),
+    (32, 4096, 8, 64, torch.bfloat16, True),
     (8, 4096, 8, 64, torch.float32, False),
     (8, 4096, 8, 64, torch.bfloat16, True),
     (8, 4096, 8, 64, torch.bfloat16, False),
@@ -148,6 +177,45 @@ DENSE_PROFILED = 4
 # the pipeline check: 4 rounds, evaluation every 2 (records 0, 2, 3)
 DENSE_CHECK_ROUNDS, DENSE_CHECK_FREQ = 4, 2
 
+# backward kernel cases: (B, T, H, D, dtype, causal). The first is the
+# transformer-training path's shape (8 clients x batch 4 folded into the
+# batch, T 4096, 8 heads of 64, bf16).
+FLASH_BWD_CASES = [
+    (32, 4096, 8, 64, torch.bfloat16, True),
+    (8, 4096, 8, 64, torch.float32, True),
+    (4, 2048, 8, 64, torch.float32, False),
+    (4, 2048, 4, 16, torch.bfloat16, True),
+    (4, 2048, 4, 32, torch.float32, True),
+    (2, 2048, 4, 128, torch.bfloat16, False),
+    (2, 2048, 4, 128, torch.float32, True),
+    (2, 1000, 4, 64, torch.bfloat16, True),  # T not a multiple of the tile
+]
+# dQ, dK, dV against the plain version. f32: the JAX package's gradient
+# tolerance, 5e-4 absolute; the kernel's 3xTF32 keeps f32's accuracy.
+# bf16: both compute in f32 from the same bf16 inputs and round each
+# gradient once to bf16, so they may land one bf16 step apart (2^-8 of
+# the value): 1e-2 of the largest |gradient| of the output.
+BWD_F32_ATOL = 5e-4
+BWD_BF16_RTOL_OF_MAX = 1e-2
+
+# transformer phase, the configuration as it is (6 rounds, evaluation at
+# 0 and 5): round 0 warms up, rounds 1-3 are timed as a whole on the
+# card's clock, round 4 runs under torch.profiler (training only), round
+# 5 evaluates
+TRANSFORMER_TIMED = (1, 3)
+TRANSFORMER_PROFILED = 4
+TRANSFORMER_CHECK_ROUNDS, TRANSFORMER_CHECK_FREQ = 4, 2
+# device kernels of the transformer path by kind, first match wins. The
+# port's LayerNorm is written as elementwise ops and reductions, so its
+# time lands in those two kinds with the softmax, loss and metric sums.
+TRANSFORMER_KINDS = (
+    ("flash forward", ("flash_fwd_kernel",)),
+    ("flash backward", ("dkdv_kernel", "dq_kernel", "delta_kernel")),
+    ("GEMM", ("gemm", "gemv", "nvjet", "cutlass", "xmma")),
+    ("embedding", ("embedding", "index", "scatter", "gather", "radix", "sort")),
+    ("reductions (LayerNorm statistics, softmax, loss)", ("reduce", "softmax")),
+)
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -167,6 +235,23 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def flash_kernels():
+    from fedml_tpu_torch.ops.flash_attention import BWD_KERNEL, FWD_KERNEL
+
+    return FWD_KERNEL, BWD_KERNEL
+
+
+def reset_launches() -> None:
+    """Every hand-written kernel's launch count to 0, just before a path
+    runs."""
+    for kernel in flash_kernels():
+        kernel.reset_launches()
+
+
+def launch_counts() -> dict:
+    return {kernel.name: kernel.launches for kernel in flash_kernels()}
+
+
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean time of ``fn`` on the card, by CUDA events around ``iters``
     back-to-back calls after ``warmup`` calls."""
@@ -183,18 +268,45 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def flash_bound(B, T, H, D, dtype, causal):
-    """(bound_ms, bound_by) for one flash forward: 4·D flops per
-    unmasked (query, key) pair, in ``PASSES[dtype]`` tensor-core passes
-    at ``PEAK_FLOPS[dtype]``; every input read once, O and lse written
-    once."""
+# the plain versions materialize [B, H, T, T] f32 panels: they run on
+# batch slices of at most this many panel elements (4 GiB each)
+PLAIN_PANEL_ELEMENTS = 2**30
+
+
+def plain_in_slices(fn, tensors, rest):
+    """``fn(*tensors, *rest)`` of a plain version, run on batch slices
+    small enough for the card's memory and concatenated: the same
+    function on the same inputs, one slice at a time."""
+    B, T, H = tensors[0].shape[0], tensors[0].shape[1], tensors[0].shape[2]
+    step = max(1, PLAIN_PANEL_ELEMENTS // (H * T * T))
+    outs = [fn(*(x[i:i + step] for x in tensors), *rest) for i in range(0, B, step)]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def attention_bound(B, T, H, D, dtype, causal, products, tensors):
+    """(bound_ms, bound_by) of an attention kernel that does ``products``
+    [T, T]-by-D products, 2·D flops each per unmasked (query, key) pair,
+    in ``PASSES[dtype]`` tensor-core passes at ``PEAK_FLOPS[dtype]``, and
+    reads or writes ``tensors`` [B, T, H, D] tensors once each and the f32
+    lse [B, H, T] once."""
     pairs = T * (T + 1) / 2 if causal else T * T
-    flops = 4.0 * B * H * D * pairs
+    flops = 2.0 * products * B * H * D * pairs
     itemsize = torch.empty((), dtype=dtype).element_size()
-    nbytes = 4.0 * B * T * H * D * itemsize + 4.0 * B * H * T
+    nbytes = tensors * B * T * H * D * itemsize + 4.0 * B * H * T
     t_ops = PASSES[dtype] * flops / PEAK_FLOPS[dtype]
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def flash_bound(B, T, H, D, dtype, causal):
+    """The forward's bound: Q K^T and P V; q, k, v read, O written."""
+    return attention_bound(B, T, H, D, dtype, causal, products=2, tensors=4)
+
+
+def flash_bwd_bound(B, T, H, D, dtype, causal):
+    """The backward's bound: S, dP, dV, dK and dQ; q, k, v, O and dO read,
+    dQ, dK and dV written."""
+    return attention_bound(B, T, H, D, dtype, causal, products=5, tensors=8)
 
 
 def device_kernel_names(fn, windows: int = 3):
@@ -223,7 +335,7 @@ def device_kernel_names(fn, windows: int = 3):
 def build_kernels():
     from fedml_tpu_torch.ops import _build
 
-    names = ["flash_attention_fwd"]
+    names = ["flash_attention_fwd", "flash_attention_bwd"]
     t0 = time.perf_counter()
     _build.build(names)
     log(f"build: {names} in {time.perf_counter() - t0:.1f} s")
@@ -252,7 +364,7 @@ def check_flash_kernel():
         q, k, v = (t.view(B, T, H, D) for t in qkv.split(H * D, dim=-1))
         scale = D**-0.5
         o, lse = FWD_KERNEL(q, k, v, causal, scale)
-        o_ref, lse_ref = flash_attention_reference(q, k, v, causal, scale)
+        o_ref, lse_ref = plain_in_slices(flash_attention_reference, (q, k, v), (causal, scale))
         torch.cuda.synchronize()
         err_o = (o.float() - o_ref.float()).abs().max().item()
         err_lse = (lse - lse_ref).abs().max().item()
@@ -260,7 +372,8 @@ def check_flash_kernel():
         heavy = B * H * T * T >= 2**30
         ms = cuda_time_ms(lambda: FWD_KERNEL(q, k, v, causal, scale), 5 if heavy else 20)
         plain_ms = cuda_time_ms(
-            lambda: flash_attention_reference(q, k, v, causal, scale), 2 if heavy else 5, 1
+            lambda: plain_in_slices(flash_attention_reference, (q, k, v), (causal, scale)),
+            2 if heavy else 5, 1,
         )
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
@@ -296,16 +409,114 @@ def check_flash_kernel():
         del qkv, q, k, v, o, lse, o_ref, lse_ref
         torch.cuda.empty_cache()
     log(f"flash kernel launches while checking (not counted): {FWD_KERNEL.launches}")
-    main = cases[0]
+    main, training = cases[0], cases[1]
     return {
         "name": FWD_KERNEL.name,
         "route": "cuda",
         "source": "fedml_tpu_torch/ops/csrc/flash_attention_fwd.cu",
         "replaces": "fedml_tpu/ops/flash_attention.py:32",
-        "launches": None,  # filled from the slice's run
-        **{key: main[key] for key in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_route",
-            "library_ms", "library_kernel")},
+        "launches": None,  # filled from the paths' runs
+        **{key: main[key] for key in MAIN_KEYS},
+        "shape": main["shape"], "dtype": main["dtype"],
+        # the same numbers at the transformer-training path's shape
+        "fedavg_transformer": {key: training[key] for key in MAIN_KEYS + ("shape", "dtype")},
+        "cases": cases,
+    }
+
+
+MAIN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_route",
+             "library_ms", "library_kernel")
+
+
+def check_flash_backward():
+    """Every backward case against the plain version; returns the
+    kernel's ``kernels`` entry (main-path numbers from the first case).
+    The library call is SDPA's backward on the same inputs."""
+    import torch.nn.functional as F
+
+    from fedml_tpu_torch.ops.flash_attention import (
+        BWD_KERNEL,
+        FWD_KERNEL,
+        flash_attention_backward_reference,
+    )
+
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    cases = []
+    for B, T, H, D, dtype, causal in FLASH_BWD_CASES:
+        # q, k, v as views of one fused projection, O and lse from the
+        # forward kernel, as the training step hands them over
+        qkv = torch.randn((B, T, 3 * H * D), generator=gen, device=DEVICE).to(dtype)
+        q, k, v = (t.view(B, T, H, D) for t in qkv.split(H * D, dim=-1))
+        g = torch.randn((B, T, H, D), generator=gen, device=DEVICE).to(dtype)
+        scale = D**-0.5
+        o, lse = FWD_KERNEL(q, k, v, causal, scale)
+        inputs = (q, k, v, o, lse, g)
+
+        def kernel():
+            return BWD_KERNEL(*inputs, causal, scale)
+
+        def plain():
+            return plain_in_slices(flash_attention_backward_reference, inputs, (causal, scale))
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, want)]
+        peaks = [float(b.float().abs().max()) for b in want]
+        tols = [BWD_F32_ATOL if dtype == torch.float32 else BWD_BF16_RTOL_OF_MAX * p
+                for p in peaks]
+        finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+        deterministic = all(torch.equal(a, b) for a, b in zip(got, kernel()))
+        del want
+        heavy = B * H * T * T >= 2**30
+        ms = cuda_time_ms(kernel, 3 if heavy else 10)
+        plain_ms = cuda_time_ms(plain, 1 if heavy else 3, 1)
+        qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        gt = g.transpose(1, 2).contiguous()
+
+        def sdpa_backward():
+            return torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)
+
+        library_ms = cuda_time_ms(sdpa_backward, 10)
+        library_kernel = device_kernel_names(sdpa_backward)[:1] or ["not measured"]
+        bound_ms, bound_by = flash_bwd_bound(B, T, H, D, dtype, causal)
+        case = {
+            "shape": [B, T, H, D], "dtype": str(dtype).replace("torch.", ""),
+            "causal": causal, "max_abs_err": max(errs), "dq_dk_dv_max_abs_err": errs,
+            "dq_dk_dv_max_abs": peaks, "dq_dk_dv_atol": tols, "deterministic": deterministic,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_kernel": library_kernel[0],
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_route": ROUTE[dtype],
+        }
+        log(f"flash backward {case['shape']} {case['dtype']} causal={causal}: dQ/dK/dV err "
+            f"{'/'.join(f'{e:.3g}' for e in errs)} (atol "
+            f"{'/'.join(f'{t:.3g}' for t in tols)}; max |grad| "
+            f"{'/'.join(f'{p:.3g}' for p in peaks)}), bitwise repeatable {deterministic}; "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa backward {library_ms:.3f} ms "
+            f"({library_kernel[0][:90]}), bound {bound_ms:.3f} ms ({bound_by}, "
+            f"{ROUTE[dtype]}): {bound_ms / ms:.1%} of bound")
+        if not finite:
+            fail(f"flash backward {case['shape']} {case['dtype']}: non-finite gradients")
+        if any(e > t for e, t in zip(errs, tols)):
+            fail(f"flash backward {case['shape']} {case['dtype']} causal={causal}: errors "
+                 f"{errs} over tolerance {tols}")
+        if not deterministic:
+            fail(f"flash backward {case['shape']} {case['dtype']}: two launches differ")
+        if ms < bound_ms:
+            fail(f"flash backward {case['shape']}: {ms} ms beats its bound {bound_ms} ms, "
+                 "so the bound is wrong")
+        cases.append(case)
+        del qkv, q, k, v, g, o, lse, got, inputs, qt, kt, vt, out, gt
+        torch.cuda.empty_cache()
+    main = cases[0]
+    return {
+        "name": BWD_KERNEL.name,
+        "route": "cuda",
+        "source": "fedml_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+        "replaces": "fedml_tpu/ops/flash_attention.py:140",
+        "launches": None,  # filled from the paths' runs
+        **{key: main[key] for key in MAIN_KEYS},
         "shape": main["shape"], "dtype": main["dtype"],
         "cases": cases,
     }
@@ -420,7 +631,7 @@ def run_slice(kernels):
 
     endpoint = ModelEndpoint(model, params)
     engine = ServingEngine(endpoint, args).start()
-    FWD_KERNEL.reset_launches()  # count only the slice's own launches
+    reset_launches()  # count only the slice's own launches
     try:
         answers, _, first_wall = burst(engine, rows)
         lat, walls = [], []
@@ -434,16 +645,16 @@ def run_slice(kernels):
         swapped, _, _ = burst(engine, rows)
     finally:
         engine.stop()
-    launches = {FWD_KERNEL.name: FWD_KERNEL.launches}
+    launches = launch_counts()
     batches = engine.telemetry.get_counter("serving_batches_total", bucket=len(rows))
-    for entry in kernels:
-        entry["launches"] = launches[entry["name"]]
     log(f"slice: {int(batches)} micro-batches of {len(rows)}, kernel launches {launches}")
     if batches != TIMED_BURSTS + 3:
         fail(f"expected {TIMED_BURSTS + 3} micro-batches, the engine ran {batches}")
     if launches[FWD_KERNEL.name] != L * batches:
         fail(f"flash kernel launched {launches[FWD_KERNEL.name]} times for "
              f"{batches} micro-batches of a {L}-layer model (want {L * batches})")
+    if launches["flash_attention_bwd"] != 0:
+        fail(f"the flash backward ran {launches} on the serving path, which trains nothing")
 
     if answers.shape != (len(rows), T, vocab) or answers.dtype != np.float32:
         fail(f"answers {answers.shape} {answers.dtype}, want {(len(rows), T, vocab)} float32")
@@ -474,6 +685,7 @@ def run_slice(kernels):
         f"{tokens_per_s:.0f} tokens/s, serving.forward median "
         f"{np.median(fwd) * 1e3:.2f} ms")
     return {"p50_request_latency_ms": p50 * 1e3, "tokens_per_s": tokens_per_s,
+            "kernel_launches": launches,
             "serving_forward_ms": float(np.median(fwd)) * 1e3,
             "logits_max_abs_err": err, "params": n_params, "profile": profiled}
 
@@ -589,9 +801,9 @@ KERNEL_KINDS = (
 )
 
 
-def kernel_kind(name: str) -> str:
+def kernel_kind(name: str, kinds=KERNEL_KINDS) -> str:
     low = name.lower()
-    for kind, keys in KERNEL_KINDS:
+    for kind, keys in kinds:
         if any(k in low for k in keys):
             return kind
     return "elementwise, reductions, copies"
@@ -688,7 +900,7 @@ def fedavg_step_yardstick():
     return out
 
 
-def profile_summary(tag: str, summary: dict) -> dict:
+def profile_summary(tag: str, summary: dict, kind_table=KERNEL_KINDS) -> dict:
     """Print a ``profile_rounds`` summary (``core/tracing.py``): wall,
     device busy (the union of device intervals) and idle, kernel time by
     kind and by kernel; returns the numbers."""
@@ -697,9 +909,11 @@ def profile_summary(tag: str, summary: dict) -> dict:
     top = list(by_kernel.items())[:15]
     kinds, kind_launches = {}, {}
     for name, sec in by_kernel.items():
-        kinds[kernel_kind(name)] = kinds.get(kernel_kind(name), 0.0) + sec
+        kind = kernel_kind(name, kind_table)
+        kinds[kind] = kinds.get(kind, 0.0) + sec
     for name, n in summary["device_launches_by_kernel"].items():
-        kind_launches[kernel_kind(name)] = kind_launches.get(kernel_kind(name), 0) + n
+        kind = kernel_kind(name, kind_table)
+        kind_launches[kind] = kind_launches.get(kind, 0) + n
     if busy <= 0:
         log(f"{tag}: the profiler saw no device events; device time not measured")
         return {"wall_ms": window * 1e3, "device_busy_ms": None}
@@ -729,7 +943,6 @@ def run_fedavg():
 
     import fedml_tpu_torch
     from fedml_tpu_torch.arguments import load_arguments
-    from fedml_tpu_torch.ops.flash_attention import FWD_KERNEL
 
     oracle_err = fedavg_oracle()
     vec_seq_errs = fedavg_vectorized_vs_sequential()
@@ -745,13 +958,13 @@ def run_fedavg():
         args.profile_rounds = [profiled]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        FWD_KERNEL.reset_launches()  # this path runs no hand-written kernel
+        reset_launches()  # this path runs no hand-written kernel
         t0 = time.perf_counter()
         final = fedml_tpu_torch.run_simulation(device=DEVICE, args=args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
-        launches = {FWD_KERNEL.name: FWD_KERNEL.launches}
+        launches = launch_counts()
         rounds = [rec for rec in map(json.loads, (Path(tmp) / "metrics.jsonl").read_text()
                                      .splitlines()) if rec["kind"] == "server_train"]
         summary = json.loads((Path(tmp) / "profile" / f"round_{profiled:04d}"
@@ -787,8 +1000,8 @@ def run_fedavg():
              f"{CHANCE_FACTOR}x chance ({floor:.3f})")
     if final["round"] != rounds[-1]["round"]:
         fail("run_simulation's result is not the last round's stats")
-    if launches[FWD_KERNEL.name] != 0:
-        fail(f"the flash kernel ran {launches} times on the FedAvg path, which has no attention")
+    if any(launches.values()):
+        fail(f"the flash kernels ran {launches} times on the FedAvg path, which has no attention")
     return {
         "oracle_max_abs_err": oracle_err, "vectorized_vs_sequential_max_abs_err": vec_seq_errs,
         "rounds_per_s": rounds_per_s, "real_samples_per_s": samples * rounds_per_s,
@@ -801,7 +1014,7 @@ def run_fedavg():
 
 
 # -- phase 6 -----------------------------------------------------------
-def launches_by_kind(fn) -> dict:
+def launches_by_kind(fn, kind_table=KERNEL_KINDS) -> dict:
     """Device kernel launches of one call of ``fn``, by kind, from a
     ``torch.profiler`` window (after one warm-up call)."""
     from torch.autograd import DeviceType
@@ -815,7 +1028,8 @@ def launches_by_kind(fn) -> dict:
     out = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
-            out[kernel_kind(e.name)] = out.get(kernel_kind(e.name), 0) + 1
+            kind = kernel_kind(e.name, kind_table)
+            out[kind] = out.get(kind, 0) + 1
     return out
 
 
@@ -866,15 +1080,15 @@ def dense_step_census(model, epochs: int) -> dict:
             "step_launches_by_kind": kinds}
 
 
-def _dense_sim(depth: int, comm_round: int, freq: int):
-    """The dense configuration's simulator, as ``run_simulation`` builds
-    it, kept so that its trainer's params can be read afterwards."""
+def _sim(config: Path, depth: int, comm_round: int, freq: int):
+    """A configuration's simulator, as ``run_simulation`` builds it, kept
+    so that its trainer's params can be read afterwards."""
     import fedml_tpu_torch
     from fedml_tpu_torch import data, models
     from fedml_tpu_torch.arguments import load_arguments
     from fedml_tpu_torch.simulation import SimulatorSingleProcess
 
-    args = load_arguments(str(DENSE_CONFIG))
+    args = load_arguments(str(config))
     args.pipeline_depth, args.comm_round, args.frequency_of_the_test = depth, comm_round, freq
     args.log_metrics = False
     args = fedml_tpu_torch.init(args)
@@ -921,55 +1135,87 @@ def sync_debug_between_flushes():
         torch.cuda.set_sync_debug_mode("default")
 
 
-def dense_pipeline_check():
-    """Depth 4 against depth 1 on the dense configuration (4 rounds,
-    evaluation every 2), under deterministic cuDNN for this check only:
-    cuDNN's grouped kernels need not be bitwise reproducible otherwise.
-    The depth-4 run's hot loop runs under sync debug mode "error"."""
-    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+def eval_passes(dataset) -> int:
+    """Forward passes of one evaluation of the global model (every
+    client's train and test batches, ``make_eval_fn``'s chunking)."""
+    from fedml_tpu_torch.core.local_trainer import eval_batches_per_pass
+
+    total = 0
+    for b in (dataset.packed_train, dataset.packed_test):
+        batches = b.mask.numel() // b.batch_size
+        total += -(-batches // eval_batches_per_pass(b))
+    return total
+
+
+def depth_runs(config: Path, rounds: int, freq: int) -> dict:
+    """The configuration at pipeline depth 1, then depth 4 (its hot loop
+    under sync debug mode "error" between flushes): per depth the final
+    params, the records without their times, the pipeline stats, the
+    wall time, the flash kernels' launches and the forward passes of one
+    evaluation."""
     out = {}
-    try:
-        for depth in (1, 4):
-            sim = _dense_sim(depth, DENSE_CHECK_ROUNDS, DENSE_CHECK_FREQ)
-            t0 = time.perf_counter()
-            if depth == 4:
-                with sync_debug_between_flushes():
-                    sim.run()
-            else:
+    for depth in (1, 4):
+        sim = _sim(config, depth, rounds, freq)
+        reset_launches()
+        t0 = time.perf_counter()
+        if depth == 4:
+            with sync_debug_between_flushes():
                 sim.run()
-            torch.cuda.synchronize()
-            api = sim.fl_trainer
-            out[depth] = {
-                "params": {k: v.detach().clone() for k, v in api.global_params.items()},
-                "history": [{k: v for k, v in h.items()
-                             if k not in ("round_time_s", "train_time_s")} for h in api.history],
-                "stats": {k: v for k, v in api.pipeline_stats.items() if k != "round_spans_s"},
-                "wall_s": time.perf_counter() - t0,
-            }
-            del sim, api
-            torch.cuda.empty_cache()
-    finally:
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+        else:
+            sim.run()
+        torch.cuda.synchronize()
+        api = sim.fl_trainer
+        out[depth] = {
+            "params": {k: v.detach().clone() for k, v in api.global_params.items()},
+            "history": [{k: v for k, v in h.items()
+                         if k not in ("round_time_s", "train_time_s")} for h in api.history],
+            "stats": {k: v for k, v in api.pipeline_stats.items() if k != "round_spans_s"},
+            "wall_s": time.perf_counter() - t0,
+            "launches": launch_counts(),
+            "eval_passes": eval_passes(api.dataset),
+        }
+        del sim, api
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_depths(tag: str, out: dict, rounds: int) -> list:
+    """The gates on ``depth_runs``: depth 4 bitwise equal to depth 1
+    (params and records), f32 masters, and depth 4 fetching only at its
+    flushes. Returns the master dtypes."""
     p1, p4 = out[1]["params"], out[4]["params"]
     unequal = [k for k in p1 if not torch.equal(p1[k], p4[k])]
     dtypes = sorted({str(v.dtype) for v in p4.values()})
-    log(f"dense pipeline check (cuDNN deterministic for this check only): depth 1 "
-        f"{out[1]['stats']} in {out[1]['wall_s']:.1f} s; depth 4 {out[4]['stats']} in "
-        f"{out[4]['wall_s']:.1f} s, its hot loop under sync debug mode 'error' between "
-        f"flushes; params differing bitwise: {len(unequal)} of {len(p1)}; master dtypes "
-        f"{dtypes}")
+    log(f"{tag}: depth 1 {out[1]['stats']} in {out[1]['wall_s']:.1f} s; depth 4 "
+        f"{out[4]['stats']} in {out[4]['wall_s']:.1f} s, its hot loop under sync debug mode "
+        f"'error' between flushes; params differing bitwise: {len(unequal)} of {len(p1)}; "
+        f"master dtypes {dtypes}")
     if unequal:
         err = max(float((p1[k] - p4[k]).abs().max()) for k in unequal)
-        fail(f"depth 4 differs from depth 1 in {len(unequal)} params (max {err})")
+        fail(f"{tag}: depth 4 differs from depth 1 in {len(unequal)} params (max {err})")
     if out[1]["history"] != out[4]["history"]:
-        fail(f"depth 4's records differ from depth 1's: {out[1]['history']} vs "
+        fail(f"{tag}: depth 4's records differ from depth 1's: {out[1]['history']} vs "
              f"{out[4]['history']}")
     if dtypes != ["torch.float32"]:
-        fail(f"master params are {dtypes} after bf16 training, want float32")
+        fail(f"{tag}: master params are {dtypes} after bf16 training, want float32")
     s4 = out[4]["stats"]
-    if not (s4["host_syncs"] == s4["flushes"] < DENSE_CHECK_ROUNDS):
-        fail(f"depth 4 fetched {s4['host_syncs']} times in {s4['flushes']} flushes")
+    if not (s4["host_syncs"] == s4["flushes"] < rounds):
+        fail(f"{tag}: depth 4 fetched {s4['host_syncs']} times in {s4['flushes']} flushes")
+    return dtypes
+
+
+def dense_pipeline_check():
+    """Depth 4 against depth 1 on the dense configuration (4 rounds,
+    evaluation every 2), under deterministic cuDNN for this check only:
+    cuDNN's grouped kernels need not be bitwise reproducible otherwise."""
+    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        out = depth_runs(DENSE_CONFIG, DENSE_CHECK_ROUNDS, DENSE_CHECK_FREQ)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    dtypes = check_depths("dense pipeline check (cuDNN deterministic for this check only)",
+                          out, DENSE_CHECK_ROUNDS)
     return {"bitwise_equal": True, "master_dtypes": dtypes,
             "depth1": out[1]["stats"], "depth4": out[4]["stats"],
             "wall_s": {d: out[d]["wall_s"] for d in out}}
@@ -982,7 +1228,6 @@ def run_dense():
     import fedml_tpu_torch
     from fedml_tpu_torch import models
     from fedml_tpu_torch.arguments import load_arguments
-    from fedml_tpu_torch.ops.flash_attention import FWD_KERNEL
 
     args = load_arguments(str(DENSE_CONFIG))
     model = models.create(args, 10, device=DEVICE)
@@ -995,13 +1240,13 @@ def run_dense():
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        FWD_KERNEL.reset_launches()  # this path runs no hand-written kernel
+        reset_launches()  # this path runs no hand-written kernel
         t0 = time.perf_counter()
         final = fedml_tpu_torch.run_simulation(device=DEVICE, args=args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
-        launches = {FWD_KERNEL.name: FWD_KERNEL.launches}
+        launches = launch_counts()
         lines = [json.loads(line) for line in
                  (Path(tmp) / "metrics.jsonl").read_text().splitlines()]
         summary = json.loads((Path(tmp) / "profile" / f"round_{DENSE_PROFILED:04d}"
@@ -1057,8 +1302,8 @@ def run_dense():
         fail(f"dense train loss did not fall across the rounds: {losses}")
     if final["round"] != records[-1]["round"]:
         fail("run_simulation's result is not the last round's stats")
-    if launches[FWD_KERNEL.name] != 0:
-        fail(f"the flash kernel ran {launches} times on the dense path, which has no attention")
+    if any(launches.values()):
+        fail(f"the flash kernels ran {launches} times on the dense path, which has no attention")
     check = dense_pipeline_check()
     return {
         "card": card, "rounds_per_s": rounds_per_s, "timed_rounds_s": timed_s,
@@ -1071,6 +1316,234 @@ def run_dense():
         "peak_memory_bytes": peak, "train_loss": losses,
         "test_acc": [r["test_acc"] for r in records], "pipeline": pipe,
         "profile": {"round": DENSE_PROFILED, **profile}, "pipeline_check": check,
+        "kernel_launches": launches,
+    }
+
+
+# -- phase 7 -----------------------------------------------------------
+def transformer_step_census(model, args) -> dict:
+    """One local step of one client (a batch of ``batch_size`` sequences
+    of ``seq_len`` tokens) through the port's trainer, bf16 over f32
+    masters: the dense layers' FLOPs counted by ``FlopCounterMode`` (the
+    flash kernels are opaque to it; attention is reckoned from the
+    shapes) against the reckoning 6 x weights x tokens, and the device
+    launches by kind."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from fedml_tpu_torch.core import optimizers
+    from fedml_tpu_torch.core.local_trainer import make_local_train_fn
+    from fedml_tpu_torch.core.types import Batches
+
+    params = model.init(torch.Generator().manual_seed(0))
+    step = make_local_train_fn(model.apply, model.loss_fn, optimizers.sgd(0.05), epochs=1,
+                               shuffle=False, compute_dtype=torch.bfloat16)
+    bs, T, vocab = int(args.batch_size), int(args.seq_len), model.input_bound
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    x = torch.randint(0, vocab, (1, 1, bs, T), generator=gen, device=DEVICE, dtype=torch.int32)
+    y = torch.randint(0, vocab, (1, 1, bs, T), generator=gen, device=DEVICE)
+    batch = Batches(x=x, y=y, mask=torch.ones((1, 1, bs), device=DEVICE))
+    with FlopCounterMode(display=False) as counter:
+        step(params, batch)
+    counted = counter.get_total_flops()
+    weights = sum(int(v.numel()) for k, v in params.items()
+                  if "Dense" in k and k.endswith("weight"))
+    reckoned = 6.0 * weights * bs * T
+    L, H = int(args.num_layers), int(args.num_heads)
+    D = int(args.embed_dim) // H
+    # per layer: forward 2 products, backward 5, 2·D flops each per
+    # unmasked causal pair
+    attention = 14.0 * D * (T * (T + 1) / 2) * H * bs * L
+    kinds = launches_by_kind(lambda: step(params, batch), TRANSFORMER_KINDS)
+    log(f"transformer step of one client ({bs} x {T} tokens): dense FLOPs "
+        f"{counted / 1e9:.2f} G by FlopCounterMode, {reckoned / 1e9:.2f} G reckoned "
+        f"(6 x {weights} weights x {bs * T} tokens; ratio {counted / reckoned:.4f}); "
+        f"attention {attention / 1e9:.2f} G reckoned; launches by kind {kinds}")
+    if not 0.98 < counted / reckoned < 1.02:
+        fail(f"FlopCounterMode counts {counted} dense FLOPs per step, the reckoning {reckoned}")
+    return {"dense_counted": counted, "dense_reckoned": reckoned, "attention": attention,
+            "weights": weights, "step_launches_by_kind": kinds,
+            "layernorm_ms": layernorm_ms(args)}
+
+
+def layernorm_ms(args) -> float:
+    """The port's LayerNorm, forward and backward, timed alone on the
+    card at one step's activation shape (the cohort's clients vmapped
+    with their own bf16 params, [batch, T, embed] bf16 each). Its
+    kernels are elementwise ops and reductions that the profile cannot
+    tell from the others by name, so this is its share of the step."""
+    from fedml_tpu_torch.models.transformer import LayerNorm
+
+    clients, bs, T, E = (int(args.client_num_per_round), int(args.batch_size),
+                         int(args.seq_len), int(args.embed_dim))
+    ln = LayerNorm(E).to(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    x = torch.randn((clients, bs, T, E), generator=gen, device=DEVICE).to(torch.bfloat16)
+    w = torch.ones((clients, E), device=DEVICE, dtype=torch.bfloat16)
+    b = torch.zeros((clients, E), device=DEVICE, dtype=torch.bfloat16)
+
+    def loss(w, b, x):
+        y = torch.func.functional_call(ln, {"weight": w, "bias": b}, (x,))
+        return y.float().square().sum()
+
+    step = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2)))
+    return cuda_time_ms(lambda: step(w, b, x), 10)
+
+
+def transformer_pipeline_check(layers: int) -> dict:
+    """Depth 4 against depth 1 on the transformer configuration (4
+    rounds, evaluation every 2) under ``torch.use_deterministic_algorithms``
+    for this check only (the embedding's backward may sum with atomics
+    otherwise; cuBLAS needs its workspace setting for it). Also counts
+    the flash kernels' launches of each run against layers x (training
+    steps, and forward passes of evaluation)."""
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        out = depth_runs(TRANSFORMER_CONFIG, TRANSFORMER_CHECK_ROUNDS, TRANSFORMER_CHECK_FREQ)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    dtypes = check_depths("transformer pipeline check (deterministic algorithms for this check "
+                          "only)", out, TRANSFORMER_CHECK_ROUNDS)
+    for depth, run in out.items():
+        steps = TRANSFORMER_CHECK_ROUNDS * run["stats"]["num_batches"]
+        evals = len(run["history"])
+        want = {"flash_attention_fwd": layers * (steps + evals * run["eval_passes"]),
+                "flash_attention_bwd": layers * steps}
+        log(f"transformer pipeline check, depth {depth}: flash launches {run['launches']}, "
+            f"want {want} ({layers} layers x {steps} steps, + {evals} evaluations of "
+            f"{run['eval_passes']} forward passes)")
+        if run["launches"] != want:
+            fail(f"depth {depth}: flash launches {run['launches']}, want {want}")
+    return {"bitwise_equal": True, "master_dtypes": dtypes,
+            "depth1": out[1]["stats"], "depth4": out[4]["stats"],
+            "launches": {d: out[d]["launches"] for d in out},
+            "eval_passes": out[1]["eval_passes"],
+            "wall_s": {d: out[d]["wall_s"] for d in out}}
+
+
+def run_transformer():
+    """FedAvg of the flash TransformerLM at T 4096 through
+    ``run_simulation``, as configured."""
+    import tempfile
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch import models
+    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.ops.flash_attention import BWD_KERNEL, FWD_KERNEL
+
+    args = load_arguments(str(TRANSFORMER_CONFIG))
+    L, T = int(args.num_layers), int(args.seq_len)
+    model = models.create(args, 90, device=DEVICE)
+    census = transformer_step_census(model, args)
+    del model
+    check = transformer_pipeline_check(L)
+    with tempfile.TemporaryDirectory(prefix="transformer_smoke_") as tmp:
+        args.metrics_jsonl_path = str(Path(tmp) / "metrics.jsonl")
+        args.telemetry_dir = tmp
+        args.profile_rounds = [TRANSFORMER_PROFILED]
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # by earlier phases
+        reset_launches()
+        t0 = time.perf_counter()
+        final = fedml_tpu_torch.run_simulation(device=DEVICE, args=args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - held
+        launches = launch_counts()
+        lines = [json.loads(line) for line in
+                 (Path(tmp) / "metrics.jsonl").read_text().splitlines()]
+        summary = json.loads((Path(tmp) / "profile" / f"round_{TRANSFORMER_PROFILED:04d}"
+                              / "summary.json").read_text())
+    records = [r for r in lines if r["kind"] == "server_train"]
+    pipe = next(r for r in lines if r["kind"] == "pipeline")
+    spans = pipe["round_spans_s"]
+    first, last = TRANSFORMER_TIMED
+    timed_s = spans[last][1] - spans[first][0]
+    rounds_per_s = (last - first + 1) / timed_s
+    bucket, nb, bs = pipe["bucket"], pipe["num_batches"], int(args.batch_size)
+    epochs = int(args.epochs)
+    steps = nb * epochs
+    # real tokens of the timed rounds' cohorts, per round
+    tokens = float(np.mean(pipe["round_samples"][first:last + 1])) * T * epochs
+    computed_tokens = bucket * nb * bs * T * epochs
+    flops_step = bucket * (census["dense_counted"] + census["attention"])
+    flops_round = flops_step * steps
+    peak_flops = PEAK_FLOPS[torch.bfloat16]
+    card = card_line()
+    log(f"transformer: {args.model} ({args.attention_impl}), embed {args.embed_dim}, "
+        f"{args.num_heads} heads, {L} layers, T {T}, {args.client_num_per_round} of "
+        f"{args.client_num_in_total} clients per round (pow2 bucket {bucket}), batch {bs}, "
+        f"{epochs} epoch, {args.dtype}; {len(spans)} rounds in {wall:.1f} s (data, init and "
+        f"warm-up included); flash launches {launches}; pipeline "
+        f"{dict((k, v) for k, v in pipe.items() if k not in ('round_spans_s', 'ts', 'kind'))}")
+    for r, (a, b) in enumerate(spans):
+        log(f"  round {r}: {(b - a) * 1e3:.1f} ms on the card's clock")
+    for r in records:
+        log(f"  round {r['round']} record: train {r['train_time_s'] * 1e3:.1f} ms, with eval "
+            f"{r['round_time_s'] * 1e3:.1f} ms; train_loss {r['train_loss']:.4f}, train_acc "
+            f"{r['train_acc']:.4f}, test_loss {r['test_loss']:.4f}, test_acc "
+            f"{r['test_acc']:.4f}, cohort loss {r['train_loss_cohort']:.4f}, cohort tokens "
+            f"{r['cohort_samples']:.0f}")
+    log(f"transformer on {card}: rounds {first}-{last} timed as a whole on the card's clock: "
+        f"{timed_s:.4f} s, {rounds_per_s:.4f} rounds/s; {tokens * rounds_per_s:.0f} real "
+        f"tokens/s ({tokens:.0f} per round; {computed_tokens} computed); model FLOPs per "
+        f"round {flops_round / 1e12:.3f} TFLOP ({steps} steps of {flops_step / 1e12:.3f}: "
+        f"dense {bucket * census['dense_counted'] * steps / 1e12:.3f} by FlopCounterMode, "
+        f"attention {bucket * census['attention'] * steps / 1e12:.3f} reckoned); "
+        f"{flops_round * rounds_per_s / 1e12:.2f} TFLOP/s = "
+        f"{flops_round * rounds_per_s / peak_flops:.2%} of the {peak_flops / 1e12:.0f} TFLOP/s "
+        f"bf16 dense peak (NVIDIA H100 SXM data sheet); peak memory {peak / 2**20:.1f} MiB "
+        f"(torch.cuda.max_memory_allocated, less the {held / 2**20:.1f} MiB earlier phases "
+        f"still held)")
+    profile = profile_summary(
+        f"transformer profile of round {TRANSFORMER_PROFILED} (training only) on {card}",
+        summary, TRANSFORMER_KINDS)
+    norms = 2 * L + 1  # two per block and the final one
+    step_ms = 1e3 / rounds_per_s / steps
+    log(f"transformer on {card}: LayerNorm (forward and backward, timed alone at a step's "
+        f"shape) {census['layernorm_ms']:.3f} ms, x {norms} per step = "
+        f"{norms * census['layernorm_ms']:.1f} ms of a {step_ms:.1f} ms step "
+        f"({norms * census['layernorm_ms'] / step_ms:.1%}); in the profile it is part of "
+        f"'elementwise' and 'reductions'")
+    if profile.get("device_launches"):
+        per_kind = {k: round(n / steps, 1) for k, n in profile["launches_by_kind"].items()}
+        log(f"transformer on {card}: {profile['device_launches'] / steps:.0f} device launches "
+            f"per step ({steps} steps in the profiled round); per step by kind: {per_kind}")
+        if (profile["launches_by_kind"].get("flash forward") != L * steps
+                or profile["launches_by_kind"].get("flash backward") != 3 * L * steps):
+            fail(f"the profiled round launched {profile['launches_by_kind']}: want {L * steps} "
+                 f"flash forward and {3 * L * steps} flash backward kernels (3 per call), one "
+                 f"call per layer per step for the whole cohort")
+
+    losses = [r["train_loss"] for r in records]
+    if len(records) < 2 or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"transformer train loss did not fall across the rounds: {losses}")
+    if final["round"] != records[-1]["round"]:
+        fail("run_simulation's result is not the last round's stats")
+    all_steps = len(spans) * steps
+    want = {FWD_KERNEL.name: L * (all_steps + len(records) * check["eval_passes"]),
+            BWD_KERNEL.name: L * all_steps}
+    log(f"transformer: flash launches {launches}, want {want} ({L} layers x {all_steps} steps, "
+        f"+ {len(records)} evaluations of {check['eval_passes']} forward passes)")
+    if launches != want:
+        fail(f"flash launches {launches} on the transformer path, want {want}")
+    return {
+        "card": card, "rounds_per_s": rounds_per_s, "timed_rounds_s": timed_s,
+        "round_device_s": [b - a for a, b in spans],
+        "real_tokens_per_s": tokens * rounds_per_s,
+        "flops_per_round": flops_round, "step_census": census,
+        "bf16_peak_share": flops_round * rounds_per_s / peak_flops,
+        "peak_memory_bytes": peak, "train_loss": losses,
+        "test_acc": [r["test_acc"] for r in records], "pipeline": pipe,
+        "profile": {"round": TRANSFORMER_PROFILED, **profile}, "pipeline_check": check,
         "kernel_launches": launches,
     }
 
@@ -1093,20 +1566,36 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    build_kernels()
-    kernels = [check_flash_kernel()]
-    slice_numbers = run_slice(kernels)
+    walls = {}
+
+    def phase(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        walls[name] = time.perf_counter() - t0
+        log(f"phase {name}: {walls[name]:.1f} s wall")
+        return out
+
+    phase("build", build_kernels)
+    kernels = [phase("kernels: flash forward", check_flash_kernel),
+               phase("kernels: flash backward", check_flash_backward)]
+    slice_numbers = phase("serving", run_slice, kernels)
     log(f"slice numbers on {card}: {json.dumps(slice_numbers)}")
-    fedavg_numbers = run_fedavg()
+    fedavg_numbers = phase("fedavg", run_fedavg)
     log(f"fedavg numbers on {card}: {json.dumps(fedavg_numbers)}")
-    dense_numbers = run_dense()
+    dense_numbers = phase("dense", run_dense)
     log(f"dense numbers on {card}: {json.dumps(dense_numbers)}")
+    transformer_numbers = phase("transformer", run_transformer)
+    log(f"transformer numbers on {card}: {json.dumps(transformer_numbers)}")
+    log(f"phase wall times (s): {json.dumps(walls)}")
     for entry in kernels:  # each path's own count, reset just before it
+        name = entry["name"]
         entry["launches_by_path"] = {
-            "serving": entry["launches"],
-            "fedavg_headline": fedavg_numbers["kernel_launches"][entry["name"]],
-            "fedavg_dense": dense_numbers["kernel_launches"][entry["name"]],
+            "serving": slice_numbers["kernel_launches"][name],
+            "fedavg_headline": fedavg_numbers["kernel_launches"][name],
+            "fedavg_dense": dense_numbers["kernel_launches"][name],
+            "fedavg_transformer": transformer_numbers["kernel_launches"][name],
         }
+        entry["launches"] = sum(entry["launches_by_path"].values())
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -36,6 +36,12 @@ _DEFAULTS: Dict[str, Any] = {
     "packing_waste_cap": 4.0,
     "image_size": 64,  # H=W of the resized-image stand-ins
     "synthetic_sigma": 1.0,  # synthetic feature noise scale
+    # seq_len, synthetic_train_size and synthetic_test_size keep the JAX
+    # package's per-site fallbacks, so they have no entry here: a stand-in's
+    # size is min(the dataset's, 20000) for training and min(the dataset's,
+    # 4000) for testing (data/loader.py), a next-token stand-in's length is
+    # seq_len or else the dataset's own (shakespeare 80), and the
+    # transformer reads seq_len or else 64 (models/__init__.py)
     # training
     "federated_optimizer": constants.FED_OPTIMIZER_FEDAVG,
     "client_num_in_total": 10,
@@ -90,6 +96,8 @@ _DEFAULTS: Dict[str, Any] = {
     "embed_dim": 128,  # transformer model width
     "max_len": 512,  # positional-embedding capacity
     "attention_impl": "full",  # "full" | "flash"
+    # rematerialized transformer blocks: not ported (models raise on it)
+    "remat": False,
     # serving plane (fedml_tpu_torch/serving):
     # bounded request queue; a full queue sheds new requests
     # (serving_shed_total{reason=queue_full}) instead of growing
@@ -179,6 +187,9 @@ class Arguments:
             setattr(self, int_key, int(getattr(self, int_key)))
         for float_key in ("learning_rate", "server_lr", "partition_alpha", "fedprox_mu"):
             setattr(self, float_key, float(getattr(self, float_key)))
+        for size_key in ("seq_len", "synthetic_train_size", "synthetic_test_size"):
+            if getattr(self, size_key, None) is not None:
+                setattr(self, size_key, int(getattr(self, size_key)))
         if self.client_num_per_round > self.client_num_in_total:
             self.client_num_per_round = self.client_num_in_total
         if self.pipeline_depth < 1:

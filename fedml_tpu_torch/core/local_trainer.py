@@ -21,7 +21,8 @@ As in the JAX package:
 - ``args.dtype: bfloat16`` runs the forward and backward in bf16 over
   f32 master params (cast inside the loss, so gradients return to the
   f32 copy in f32); optimizer state, the loss reduction, the prox term
-  and the metric sums stay f32.
+  and the metric sums stay f32. Only floating inputs are cast: token ids
+  stay integers (``_cast_floats``, as the JAX package casts its leaves).
 
 The shuffle draws its permutations from uniforms the caller passes
 (``rng``: ``[C, epochs, nb*bs]``), drawn by the round engine from its
@@ -31,6 +32,7 @@ two packages agree on a shuffled run in distribution, not bitwise.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Optional
 
 import torch
@@ -45,8 +47,15 @@ Params = Dict[str, torch.Tensor]
 # small gradients to zero; bf16 keeps f32's exponent range
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
-# examples per forward pass in evaluation
+# One forward pass of evaluation takes at most EVAL_CHUNK examples and at
+# most EVAL_ELEMENTS of (examples x input elements x predicted positions).
+# An image is one prediction over its pixels; a sequence of T tokens is T
+# predictions over T inputs, so its cost grows as T^2, as attention's
+# does. The first limit binds for images up to the CIFAR size (4096
+# examples of 28x28x1 or 32x32x3 per pass); the second for long
+# sequences (at T 4096 one packed batch per pass).
 EVAL_CHUNK = 4096
+EVAL_ELEMENTS = 4096 * 32 * 32 * 3
 
 
 def compute_dtype_from_args(args) -> Optional[torch.dtype]:
@@ -61,8 +70,12 @@ def compute_dtype_from_args(args) -> Optional[torch.dtype]:
     return _DTYPES[name]
 
 
+def _cast_float(x: torch.Tensor, dtype) -> torch.Tensor:
+    return x.to(dtype) if x.is_floating_point() else x
+
+
 def _cast_floats(tree: Params, dtype) -> Params:
-    return {k: v.to(dtype) if v.is_floating_point() else v for k, v in tree.items()}
+    return {k: _cast_float(v, dtype) for k, v in tree.items()}
 
 
 def _shuffle_batches(b: Batches, u: torch.Tensor) -> Batches:
@@ -111,7 +124,7 @@ def make_local_train_fn(
     def batch_loss(params, global_params, x, y, mask):
         if compute_dtype is not None:
             logits = apply_fn(
-                _cast_floats(params, compute_dtype), x.to(compute_dtype)
+                _cast_floats(params, compute_dtype), _cast_float(x, compute_dtype)
             ).to(torch.float32)
         else:
             logits = apply_fn(params, x)
@@ -159,6 +172,17 @@ def make_local_train_fn(
     return local_train
 
 
+def eval_batches_per_pass(batches: Batches) -> int:
+    """Packed batches per forward pass of evaluation: as many as fit
+    ``EVAL_CHUNK`` examples and ``EVAL_ELEMENTS`` (examples x input
+    elements x predicted positions), at least one."""
+    lead = batches.mask.dim()
+    x_elems = math.prod(batches.x.shape[lead:])
+    y_elems = math.prod(batches.y.shape[lead:])
+    bs = batches.batch_size
+    return max(1, min(EVAL_CHUNK // bs, EVAL_ELEMENTS // (bs * x_elems * y_elems)))
+
+
 def make_eval_fn(
     apply_fn: Callable[[Params, torch.Tensor], torch.Tensor],
     loss_fn: Callable,
@@ -166,8 +190,8 @@ def make_eval_fn(
 ) -> Callable[[Params, Batches], Dict[str, torch.Tensor]]:
     """Build ``evaluate(params, batches) -> summed metrics`` over every
     packed batch of ``batches`` (any leading axes before ``[nb, bs]``),
-    ``EVAL_CHUNK`` examples per forward pass; the sums stay on the
-    device."""
+    ``eval_batches_per_pass`` batches per forward pass; the sums stay on
+    the device."""
 
     def evaluate(params: Params, batches: Batches) -> Dict[str, torch.Tensor]:
         bs = batches.batch_size
@@ -177,13 +201,13 @@ def make_eval_fn(
         mask = batches.mask.reshape(-1, bs)
         if compute_dtype is not None:
             params = _cast_floats(params, compute_dtype)
-        per = max(1, EVAL_CHUNK // bs)
+        per = eval_batches_per_pass(batches)
         parts = []
         with torch.no_grad():
             for i in range(0, mask.shape[0], per):
                 xb = x[i:i + per].flatten(0, 1)
                 if compute_dtype is not None:
-                    logits = apply_fn(params, xb.to(compute_dtype)).to(torch.float32)
+                    logits = apply_fn(params, _cast_float(xb, compute_dtype)).to(torch.float32)
                 else:
                     logits = apply_fn(params, xb)
                 loss, metrics = loss_fn(logits, y[i:i + per].flatten(0, 1),

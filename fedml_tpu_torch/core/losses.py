@@ -38,6 +38,18 @@ def softmax_cross_entropy(
     }
 
 
+def token_cross_entropy(
+    logits: Tensor, labels: Tensor, mask: Tensor
+) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Next-token prediction: logits [*, T, V], labels [*, T]. ``mask`` is
+    the per-example mask [*] (what the packed batches carry), broadcast
+    over time here, or a per-token mask [*, T]. Counts are in tokens."""
+    if mask.dim() == labels.dim() - 1:
+        mask = mask[..., None].expand(labels.shape)
+    return softmax_cross_entropy(logits, labels, mask)
+
+
 LOSSES = {
     "classification": softmax_cross_entropy,
+    "nwp": token_cross_entropy,
 }

@@ -5,16 +5,25 @@ reference's 8-tuple (``to_list()``) plus the packed federation on the
 device (``packed_train`` / ``packed_test``, leaves ``[C, nb, bs, ...]``)
 that the simulators consume.
 
-This slice ports the synthetic stand-ins of the classification
-datasets, the path the JAX package takes when no local copy exists:
-labels are drawn and partitioned on the host (numpy, bitwise the JAX
-package's), packed, and only they cross to the device, where the
-features are made (``synthetic_classification_device``). Images keep
-the JAX package's NHWC layout, ``x[C, nb, bs, 28, 28, 1]`` for MNIST.
+Ported: the synthetic stand-ins, the path the JAX package takes when no
+local copy exists.
+
+- Classification: labels are drawn and partitioned on the host (numpy,
+  bitwise the JAX package's), packed, and only they cross to the
+  device, where the features are made
+  (``synthetic_classification_device``). Images keep the JAX package's
+  NHWC layout, ``x[C, nb, bs, 28, 28, 1]`` for MNIST.
+- Next-token prediction (``shakespeare``, ``fed_shakespeare``,
+  ``stackoverflow_nwp``): the JAX package's host path, token streams
+  from ``synthetic_sequences`` (``args.seq_len`` sets their length),
+  partitioned, packed with int32 tokens, and copied to the device
+  whole; packed federation, masks and counts bitwise the JAX
+  package's.
+
 Every other source (real files on disk, VFL party CSVs, the client
-registry, poisoned worlds, ``synthetic`` FedProx data, sequence and
-segmentation tasks) raises ``NotImplementedError`` naming the slice that
-brings it.
+registry, poisoned worlds, ``synthetic`` FedProx data, tag-prediction
+and segmentation tasks) raises ``NotImplementedError`` naming the slice
+that brings it.
 """
 
 from __future__ import annotations
@@ -35,8 +44,8 @@ from ..core.partition import (
 )
 from ..core.types import Batches
 from ..device import DeviceLike, get_device
-from .packing import bucket_num_batches, pack_labels_np
-from .synthetic import synthetic_classification_device
+from .packing import bucket_num_batches, pack_clients, pack_labels_np, pack_one
+from .synthetic import synthetic_classification_device, synthetic_sequences
 
 _DATASET_META = {
     # name: (feature_shape, class_num, train_n, test_n, task)
@@ -132,15 +141,7 @@ def _device_synth_classification(
         np.int64
     )
 
-    method = getattr(args, "partition_method", constants.PARTITION_HETERO)
-    if method == constants.PARTITION_HOMO:
-        idx_map = homo_partition(train_n, client_num, seed)
-    else:
-        idx_map = non_iid_partition_with_dirichlet_distribution(
-            y_tr, client_num, class_num,
-            float(getattr(args, "partition_alpha", 0.5)), seed=seed,
-        )
-        record_data_stats(y_tr, idx_map)
+    idx_map = _partition(args, y_tr, client_num, class_num, seed)
     ys_tr = [y_tr[idx_map[i]] for i in range(client_num)]
     te_map = homo_partition(test_n, client_num, seed + 1)
     ys_te = [y_te[te_map[i]] for i in range(client_num)]
@@ -204,6 +205,82 @@ def _device_synth_classification(
     )
 
 
+def _partition(args, labels: np.ndarray, client_num: int, class_num: int, seed: int):
+    """The training split's client index map: ``homo``, else the LDA
+    partition on ``labels`` (the JAX package's, bitwise)."""
+    method = getattr(args, "partition_method", constants.PARTITION_HETERO)
+    if method == constants.PARTITION_HOMO:
+        return homo_partition(len(labels), client_num, seed)
+    idx_map = non_iid_partition_with_dirichlet_distribution(
+        labels, client_num, class_num,
+        float(getattr(args, "partition_alpha", 0.5)), seed=seed,
+    )
+    record_data_stats(labels, idx_map)
+    return idx_map
+
+
+def _host_synth_sequences(
+    args, name: str, client_num: int, batch_size: int, seed: int,
+    device: torch.device,
+) -> FederatedDataset:
+    """The next-token stand-ins on the JAX package's host path
+    (``_raw_data``'s ``nwp`` branch and ``load``'s partition and
+    packing): token streams partitioned, packed with int32 tokens and
+    int64 next-token labels, then copied to the device. Under ``hetero``
+    the LDA partition receives the [N, T] label matrix as the reference
+    hands it, so a sequence's index repeats once per token of each class
+    (ROADMAP.md §C records that fault of the reference; ``homo`` does not
+    meet it)."""
+    shape, class_num, train_n, test_n, task = _standin_shape_and_sizes(args, name)
+    logging.warning(
+        "dataset %s: no local copy under data_cache_dir; using synthetic "
+        "stand-in with identical shapes/classes", name,
+    )
+    seq_len = shape[0]
+    x_tr, y_tr = synthetic_sequences(train_n, seq_len, class_num, seed)
+    x_te, y_te = synthetic_sequences(test_n, seq_len, class_num, seed + 1)
+    idx_map = _partition(args, y_tr, client_num, class_num, seed)
+    xs_tr = [x_tr[idx_map[i]] for i in range(client_num)]
+    ys_tr = [y_tr[idx_map[i]] for i in range(client_num)]
+    te_map = homo_partition(len(y_te), client_num, seed + 1)
+    xs_te = [x_te[te_map[i]] for i in range(client_num)]
+    ys_te = [y_te[te_map[i]] for i in range(client_num)]
+
+    waste_cap = float(getattr(args, "packing_waste_cap", 4.0) or 4.0)
+    sizes = [len(x) for x in xs_tr]
+    tokens = dict(x_dtype=torch.int32, device=device)
+    packed_train, num_samples = pack_clients(
+        xs_tr, ys_tr, batch_size,
+        num_batches=bucket_num_batches(sizes, batch_size, waste_cap=waste_cap), **tokens,
+    )
+    packed_test, _ = pack_clients(
+        xs_te, ys_te, batch_size,
+        num_batches=bucket_num_batches([len(x) for x in xs_te], batch_size,
+                                       waste_cap=waste_cap), **tokens,
+    )
+    y_te_all = np.concatenate(ys_te)
+    return FederatedDataset(
+        train_data_num=int(sum(sizes)),
+        test_data_num=int(len(y_te_all)),
+        train_data_global=pack_one(np.concatenate(xs_tr), np.concatenate(ys_tr),
+                                   batch_size, **tokens),
+        test_data_global=pack_one(np.concatenate(xs_te), y_te_all, batch_size, **tokens),
+        train_data_local_num_dict={i: int(s) for i, s in enumerate(sizes)},
+        train_data_local_dict={
+            i: _client_view(packed_train, i) for i in range(client_num)
+        },
+        test_data_local_dict={
+            i: _client_view(packed_test, i) for i in range(client_num)
+        },
+        class_num=class_num,
+        packed_train=packed_train,
+        packed_num_samples=num_samples.cpu().numpy(),
+        packed_test=packed_test,
+        client_num=client_num,
+        task=task,
+    )
+
+
 def _has_local_copy(args, name: str) -> bool:
     cache = getattr(args, "data_cache_dir", None)
     d = os.path.join(cache, name) if cache else None
@@ -223,16 +300,16 @@ def load(args, device: DeviceLike = "cuda") -> FederatedDataset:
     if name.startswith("synthetic"):
         raise NotImplementedError(
             f"dataset {name!r}: the FedProx synthetic generator arrives with "
-            f"{_DATA_SLICE}; ported: the classification stand-ins "
-            f"{sorted(n for n, m in _DATASET_META.items() if m[4] == 'classification')}"
+            f"{_DATA_SLICE}; ported: the classification and next-token stand-ins "
+            f"{sorted(n for n, m in _DATASET_META.items() if m[4] in ('classification', 'nwp'))}"
         )
     if name not in _DATASET_META:
         raise ValueError(f"unknown dataset {name!r}")
     task = _DATASET_META[name][4]
-    if task != "classification":
+    if task not in ("classification", "nwp"):
         raise NotImplementedError(
-            f"dataset {name!r} (task {task!r}): only the classification "
-            "stand-ins are ported; sequence, tag and segmentation data "
+            f"dataset {name!r} (task {task!r}): only the classification and "
+            "next-token stand-ins are ported; tag and segmentation data "
             "arrive with the slices that train those models (ROADMAP.md, queue A)"
         )
     if _has_local_copy(args, name):
@@ -246,7 +323,8 @@ def load(args, device: DeviceLike = "cuda") -> FederatedDataset:
             "poison_type: poisoned worlds arrive with the robustness planes "
             "(ROADMAP.md, queue A item 5)"
         )
-    return _device_synth_classification(
+    build = _host_synth_sequences if task == "nwp" else _device_synth_classification
+    return build(
         args, name, int(args.client_num_in_total), int(args.batch_size),
         int(getattr(args, "random_seed", 0)), dev,
     )

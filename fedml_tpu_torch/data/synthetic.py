@@ -1,11 +1,14 @@
-"""Synthetic stand-ins for the classification datasets.
+"""Synthetic stand-ins for the classification and sequence datasets.
 
-The port of the classification part of ``fedml_tpu/data/synthetic.py``:
-class-conditional Gaussian blobs (each class has a mean vector, an
-example is mean + noise), shaped like the real dataset, so that models
-and their costs are those of the real one and no download is needed.
+The port of the classification and sequence parts of
+``fedml_tpu/data/synthetic.py``: class-conditional Gaussian blobs (each
+class has a mean vector, an example is mean + noise) and Markov-chain
+token streams, shaped like the real dataset, so that models and their
+costs are those of the real one and no download is needed.
 
 - :func:`synthetic_classification` is the host generator, numpy MT19937,
+  bitwise the JAX package's for the same seed.
+- :func:`synthetic_sequences` is the next-token stand-in, host numpy,
   bitwise the JAX package's for the same seed.
 - :func:`synthetic_classification_device` is its twin on the device:
   given packed labels it draws ``means[y] + sigma * noise`` where the
@@ -49,6 +52,26 @@ def synthetic_classification(
     y = rng.randint(0, num_classes, n_samples).astype(np.int64)
     x = means[y] + sigma * rng.normal(0, 1, (n_samples, dim)).astype(np.float32)
     return x.reshape((n_samples,) + feature_shape), y
+
+
+def synthetic_sequences(
+    n_samples: int,
+    seq_len: int,
+    vocab_size: int,
+    seed: int = 0,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Markov-chain token streams for next-token models: x = tokens[:-1],
+    y = tokens[1:], both int64 [n, seq_len]. The chain's sparse
+    transition matrix makes the next token learnable above chance."""
+    rng = np.random.RandomState(seed)
+    trans = rng.dirichlet(np.full(vocab_size, 0.05), size=vocab_size)
+    toks = np.zeros((n_samples, seq_len + 1), np.int64)
+    toks[:, 0] = rng.randint(0, vocab_size, n_samples)
+    for t in range(seq_len):
+        cum = trans[toks[:, t]].cumsum(axis=1)
+        u = rng.rand(n_samples, 1)
+        toks[:, t + 1] = (u > cum).sum(axis=1)
+    return toks[:, :-1], toks[:, 1:]
 
 
 def synthetic_classification_device(

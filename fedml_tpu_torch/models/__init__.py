@@ -114,6 +114,12 @@ def create(args, output_dim: int, device: DeviceLike = "cuda") -> FedModel:
     if name == "transformer":
         from .transformer import TransformerLM
 
+        if getattr(args, "remat", False):
+            raise NotImplementedError(
+                "remat: rematerialized transformer blocks are not ported yet; "
+                "they arrive with the ring/Ulysses slice (ROADMAP.md, queue A)"
+            )
+
         # class_num is the floor, so every label id is a valid token
         vocab = max(int(getattr(args, "vocab_size", 0) or 0), output_dim)
         seq_len = int(getattr(args, "seq_len", 64))
@@ -130,7 +136,7 @@ def create(args, output_dim: int, device: DeviceLike = "cuda") -> FedModel:
             module=module,
             task="nwp",
             example_shape=(seq_len,),
-            example_dtype=torch.int64,
+            example_dtype=torch.int32,
             input_bound=vocab,
         )
     later = _LATER.get(name, "a later slice")

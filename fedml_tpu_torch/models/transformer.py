@@ -52,8 +52,8 @@ def resolve_attention(name_or_fn) -> Callable:
 
 
 class LayerNorm(nn.Module):
-    """``flax.linen.LayerNorm``: statistics in f32, the fast variance
-    E[x²]−E[x]² clipped at zero, epsilon 1e-6."""
+    """``flax.linen.LayerNorm``: statistics in f32 (float64 for a float64
+    input), the fast variance E[x²]−E[x]² clipped at zero, epsilon 1e-6."""
 
     def __init__(self, dim: int, eps: float = 1e-6) -> None:
         super().__init__()
@@ -62,7 +62,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         mean = xf.mean(-1, keepdim=True)
         var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight

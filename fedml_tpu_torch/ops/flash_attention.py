@@ -1,4 +1,4 @@
-"""Flash attention, [B, T, H, D] layout: a hand-written Hopper kernel.
+"""Flash attention, [B, T, H, D] layout: hand-written Hopper kernels.
 
 The port of ``fedml_tpu/ops/flash_attention.py``. The forward is the CUDA
 C++ kernel in ``csrc/flash_attention_fwd.cu``, which replaces the Pallas
@@ -11,14 +11,26 @@ accuracy), bf16 inputs with their exact TF32 values; K/V tiles arrive
 by TMA through a ring of shared-memory stages. The source describes the
 design.
 
-Dispatch follows the tensor's device and nothing else: a CPU tensor takes
-the plain version, ``flash_attention_reference``; a CUDA tensor launches
-the kernel or raises. Every launch adds one to ``FWD_KERNEL.launches``.
+The backward is ``csrc/flash_attention_bwd.cu``, the port of the JAX
+package's ``_bwd`` (``:140-175``), which is plain array code there: a
+blockwise FlashAttention-2 recompute from the saved log-sum-exp. The
+kernel recomputes the scores tile by tile on the tensor cores, in f32
+arithmetic, with no atomics (each output element is summed in one fixed
+order). ``_flash_backward`` keeps ``_bwd``'s blockwise loop for CPU
+tensors, one [T, bk] score panel at a time, never the dense [T, T]
+matrix; ``flash_attention_backward_reference`` is the dense plain
+version the kernel is held against.
 
-The backward is the port of the JAX package's ``_bwd``, which is plain
-array code there too: a blockwise FlashAttention-2 recompute over key
-blocks that rebuilds one [T, bk] score panel at a time from the saved
-log-sum-exp, never the dense [T, T] matrix.
+Dispatch follows the tensor's device and nothing else: a CPU tensor takes
+the plain version; a CUDA tensor launches the kernel or raises. Every
+launch adds one to ``FWD_KERNEL.launches`` or ``BWD_KERNEL.launches``.
+
+Both autograd functions carry ``vmap`` rules, so ``torch.func.vmap``
+over ``torch.func.grad`` (the federated trainer's vmapped client step)
+runs through them: the rule folds the vmapped client axis into the batch
+(``[C, B, T, H, D] -> [C*B, T, H, D]``, a view where the strides allow)
+and calls the function once, so one kernel launch serves the whole
+cohort.
 """
 
 from __future__ import annotations
@@ -32,9 +44,12 @@ import torch
 from . import _build
 
 __all__ = [
+    "BWD_KERNEL",
     "FWD_KERNEL",
     "flash_attention",
+    "flash_attention_backward_reference",
     "flash_attention_reference",
+    "flash_backward",
     "flash_forward",
     "kernel_operand",
     "pick_block",
@@ -42,21 +57,22 @@ __all__ = [
 
 _NEG_INF = -1e30
 
-# torch dtype -> the kernel's dtype code
+# torch dtype -> the kernels' dtype code
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
-# TMA reads from a 16-byte-aligned base with 16-byte multiples as strides
+# TMA (and the backward's 16-byte loads) read from a 16-byte-aligned base
+# with 16-byte multiples as strides
 _TMA_ALIGN = 16
 
 
 def kernel_operand(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int, int]]:
-    """``x`` [B, T, H, D] as the kernel's TMA loads read it, with its
-    (batch, time, head) element strides.
+    """``x`` [B, T, H, D] as the kernels read it, with its (batch, time,
+    head) element strides.
 
-    TMA needs a 16-byte-aligned base address and a 16-byte multiple for
-    every stride it steps over. The q/k/v views of a fused projection
-    meet that as they are; a view that does not is copied to a
-    contiguous tensor. A dimension of size 1 is never stepped over, so
+    The kernels need a 16-byte-aligned base address and a 16-byte
+    multiple for every stride they step over. The q/k/v views of a fused
+    projection meet that as they are; a view that does not is copied to
+    a contiguous tensor. A dimension of size 1 is never stepped over, so
     its stride is given as the contiguous one."""
     size = x.element_size()
     steps = [x.stride(i) for i in range(3) if x.shape[i] > 1]
@@ -67,13 +83,18 @@ def kernel_operand(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int, int]]
     return x, tuple(x.stride(i) if x.shape[i] > 1 else dense[i] for i in range(3))
 
 
-class FlashForwardKernel:
-    """ctypes binding of ``flash_attention_fwd`` plus its launch count.
+class _Kernel:
+    """A ctypes binding of one of ``csrc/<name>.cu``'s entry points plus
+    its launch count.
 
     ``launches`` rises by one each time the kernel is launched, and
     nowhere else; callers reset it with ``reset_launches``."""
 
-    name = "flash_attention_fwd"
+    name = ""
+    # the C entry point's argument types, the stream last
+    argtypes: tuple = ()
+    # the library's error-code-to-message function
+    error_string = ""
 
     def __init__(self) -> None:
         self.launches = 0
@@ -88,19 +109,62 @@ class FlashForwardKernel:
     def _bind(self):
         if self._fn is None:
             lib = _build.load(self.name)
-            fn = lib.flash_attention_fwd
-            fn.argtypes = (
-                [ctypes.c_void_p] * 5
-                + [ctypes.c_int] * 5
-                + [ctypes.c_longlong] * 9
-                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-            )
+            fn = getattr(lib, self.name)
+            fn.argtypes = list(self.argtypes)
             fn.restype = ctypes.c_int
-            err = lib.flash_attention_error_string
+            err = getattr(lib, self.error_string)
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
             self._fn, self._err = fn, err
         return self._fn
+
+    def _check(self, named, like: torch.Tensor) -> None:
+        """Every named operand on a card, of ``like``'s dtype, shape and
+        device, unit-stride in D; the dtype and head dim are ones the
+        kernel takes."""
+        B, T, H, D = like.shape
+        for name, x in named:
+            if not x.is_cuda:
+                raise ValueError(f"{self.name}: {name} is on {x.device}, not CUDA")
+            if x.dtype != like.dtype or x.shape != like.shape or x.device != like.device:
+                raise ValueError(
+                    f"{self.name}: {name} is {x.dtype} {tuple(x.shape)} on {x.device}; "
+                    f"q is {like.dtype} {tuple(like.shape)} on {like.device}"
+                )
+            if x.stride(-1) != 1:
+                raise ValueError(f"{self.name}: {name}'s last dim is not unit-stride")
+        if like.dtype not in _DTYPE_CODES:
+            raise ValueError(
+                f"{self.name}: dtype {like.dtype} unsupported (float32 or bfloat16)"
+            )
+        if D not in _HEAD_DIMS:
+            raise ValueError(f"{self.name}: head dim {D} not in {_HEAD_DIMS}")
+        if B * H > 65535:
+            raise ValueError(f"{self.name}: batch*heads {B * H} exceeds 65535")
+
+    def _launch(self, device: torch.device, *args) -> None:
+        fn = self._bind()
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"{self.name} launch failed: CUDA error {rc} ({self._err(rc).decode()})"
+            )
+        with self._lock:
+            self.launches += 1
+
+
+class FlashForwardKernel(_Kernel):
+    """``flash_attention_fwd``: (O in q's dtype, lse f32 [B, H, T])."""
+
+    name = "flash_attention_fwd"
+    error_string = "flash_attention_error_string"
+    argtypes = (
+        (ctypes.c_void_p,) * 5
+        + (ctypes.c_int,) * 5
+        + (ctypes.c_longlong,) * 9
+        + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+    )
 
     def __call__(
         self,
@@ -111,47 +175,68 @@ class FlashForwardKernel:
         scale: float,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Launch on CUDA tensors; returns (O in q's dtype, lse f32 [B,H,T])."""
+        self._check((("q", q), ("k", k), ("v", v)), q)
         B, T, H, D = q.shape
-        for name, x in (("q", q), ("k", k), ("v", v)):
-            if not x.is_cuda:
-                raise ValueError(f"flash kernel: {name} is on {x.device}, not CUDA")
-            if x.dtype != q.dtype or x.shape != q.shape or x.device != q.device:
-                raise ValueError(
-                    f"flash kernel: {name} is {x.dtype} {tuple(x.shape)} on "
-                    f"{x.device}; q is {q.dtype} {tuple(q.shape)} on {q.device}"
-                )
-            if x.stride(-1) != 1:
-                raise ValueError(f"flash kernel: {name}'s last dim is not unit-stride")
-        if q.dtype not in _DTYPE_CODES:
-            raise ValueError(
-                f"flash kernel: dtype {q.dtype} unsupported (float32 or bfloat16)"
-            )
-        if D not in _HEAD_DIMS:
-            raise ValueError(f"flash kernel: head dim {D} not in {_HEAD_DIMS}")
-        if B * H > 65535:
-            raise ValueError(f"flash kernel: batch*heads {B * H} exceeds 65535")
-        fn = self._bind()
         (q, qs), (k, ks), (v, vs) = (kernel_operand(x) for x in (q, k, v))
         o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
         lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = fn(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                _DTYPE_CODES[q.dtype], B, T, H, D, *qs, *ks, *vs,
-                float(scale), int(bool(causal)), stream,
-            )
-        if rc != 0:
-            raise RuntimeError(
-                f"flash_attention_fwd launch failed: CUDA error {rc} "
-                f"({self._err(rc).decode()})"
-            )
-        with self._lock:
-            self.launches += 1
+        self._launch(
+            q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), _DTYPE_CODES[q.dtype], B, T, H, D, *qs, *ks, *vs,
+            float(scale), int(bool(causal)),
+        )
         return o, lse
 
 
+class FlashBackwardKernel(_Kernel):
+    """``flash_attention_bwd``: (dQ, dK, dV) in q's dtype, contiguous."""
+
+    name = "flash_attention_bwd"
+    error_string = "flash_attention_bwd_error_string"
+    argtypes = (
+        (ctypes.c_void_p,) * 10
+        + (ctypes.c_int,) * 5
+        + (ctypes.c_longlong,) * 15
+        + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+    )
+
+    def __call__(
+        self,
+        q: torch.Tensor,
+        k: torch.Tensor,
+        v: torch.Tensor,
+        o: torch.Tensor,
+        lse: torch.Tensor,
+        g: torch.Tensor,
+        causal: bool,
+        scale: float,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Launch on CUDA tensors: q, k, v, O and dO ``g`` [B, T, H, D]
+        of one dtype, lse f32 [B, H, T]. Returns (dQ, dK, dV)."""
+        self._check((("q", q), ("k", k), ("v", v), ("o", o), ("g", g)), q)
+        B, T, H, D = q.shape
+        if lse.dtype != torch.float32 or lse.shape != (B, H, T) or lse.device != q.device:
+            raise ValueError(
+                f"{self.name}: lse is {lse.dtype} {tuple(lse.shape)} on {lse.device}; "
+                f"want float32 {(B, H, T)} on {q.device}"
+            )
+        lse = lse.contiguous()
+        (q, qs), (k, ks), (v, vs), (o, os_), (g, gs) = (
+            kernel_operand(x) for x in (q, k, v, o, g)
+        )
+        grads = [torch.empty((B, T, H, D), dtype=q.dtype, device=q.device) for _ in range(3)]
+        delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+        self._launch(
+            q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), g.data_ptr(), *(x.data_ptr() for x in grads),
+            delta.data_ptr(), _DTYPE_CODES[q.dtype], B, T, H, D,
+            *qs, *ks, *vs, *os_, *gs, float(scale), int(bool(causal)),
+        )
+        return tuple(grads)
+
+
 FWD_KERNEL = FlashForwardKernel()
+BWD_KERNEL = FlashBackwardKernel()
 
 
 def pick_block(t: int, minimum: int = 8) -> Optional[int]:
@@ -165,6 +250,16 @@ def pick_block(t: int, minimum: int = 8) -> Optional[int]:
     return None
 
 
+def _causal_keep(T: int, device) -> torch.Tensor:
+    return torch.ones((T, T), dtype=torch.bool, device=device).tril()
+
+
+def _acc(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the plain versions' arithmetic type: f32, or float64 for
+    a float64 input (the kernels take f32 and bf16 only)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def flash_attention_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -172,17 +267,45 @@ def flash_attention_reference(
     causal: bool = True,
     scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: dense scores in f32, masked
-    with -1e30. Returns (O in q's dtype, lse f32 [B, H, T])."""
+    """Plain PyTorch version of the forward kernel: dense scores in f32,
+    masked with -1e30. Returns (O in q's dtype, lse f32 [B, H, T])."""
     T = q.shape[1]
     scale = scale or (q.shape[-1] ** -0.5)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = torch.einsum("bqhd,bkhd->bhqk", _acc(q), _acc(k)) * scale
     if causal:
-        keep = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
-        s = s.masked_fill(~keep, _NEG_INF)
+        s = s.masked_fill(~_causal_keep(T, q.device), _NEG_INF)
     lse = torch.logsumexp(s, dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v.float())
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), _acc(v))
     return o.to(q.dtype), lse
+
+
+def flash_attention_backward_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    g: torch.Tensor,
+    causal: bool = True,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward kernel: ``_bwd``'s
+    arithmetic on the dense [B, H, T, T] panel, in f32. Returns (dQ, dK,
+    dV) in q's dtype."""
+    T = q.shape[1]
+    sc = scale or (q.shape[-1] ** -0.5)
+    qf, kf, vf, of, gf = (_acc(x) for x in (q, k, v, o, g))
+    delta = (gf * of).sum(-1).transpose(1, 2)  # [B,H,T]
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * sc
+    if causal:
+        s = s.masked_fill(~_causal_keep(T, q.device), _NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    ds = p * (dp - delta[..., None]) * sc
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check_blocks(T: int, block_q: int, block_k: int) -> Tuple[int, int]:
@@ -222,7 +345,7 @@ def _flash_backward(q, k, v, o, lse, g, causal, scale, block_k):
     B, T, H, D = q.shape
     sc = scale or (D**-0.5)
     bk = min(block_k, T)
-    qf, kf, vf, of, gf = (x.float() for x in (q, k, v, o, g))
+    qf, kf, vf, of, gf = (_acc(x) for x in (q, k, v, o, g))
     d_sum = (gf * of).sum(-1).transpose(1, 2)  # D_i = do_i · o_i  [B,H,T]
     q_pos = torch.arange(T, device=q.device)
     dq = torch.zeros_like(qf)
@@ -247,23 +370,89 @@ def _flash_backward(q, k, v, o, lse, g, causal, scale, block_k):
     )
 
 
+def flash_backward(q, k, v, o, lse, g, causal=True, scale=None, block_k=128):
+    """(dQ, dK, dV) of flash attention from the forward's O and lse and
+    the output's gradient ``g``: the blockwise plain loop on the CPU, the
+    backward kernel on a card."""
+    scale = scale or (q.shape[-1] ** -0.5)
+    if q.device.type == "cpu":
+        return _flash_backward(q, k, v, o, lse, g, causal, scale, block_k)
+    if q.device.type == "cuda":
+        return BWD_KERNEL(q, k, v, o, lse, g, causal, scale)
+    raise ValueError(f"flash attention: no path for device {q.device}")
+
+
+# -- vmap: fold the vmapped axis into the batch ---------------------------------
+
+
+def _fold(x: torch.Tensor, bdim: Optional[int], n: int) -> torch.Tensor:
+    """A vmapped operand as one batch: the vmapped dim ``bdim`` (None:
+    unbatched, so broadcast) moved to the front and merged with the
+    batch dim, a view wherever the strides allow."""
+    x = x.movedim(bdim, 0) if bdim is not None else x.expand((n,) + tuple(x.shape))
+    return x.flatten(0, 1)
+
+
+def _unfold(x: torch.Tensor, n: int) -> torch.Tensor:
+    return x.unflatten(0, (n, -1))
+
+
 class FlashAttention(torch.autograd.Function):
-    """Flash attention with the blockwise recompute backward."""
+    """Flash attention, returning (O, lse); its backward is
+    :class:`FlashAttentionBackward`. Usable under ``torch.func``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, block_q, block_k):
-        o, lse = flash_forward(q, k, v, causal, scale, block_q, block_k)
+    def forward(q, k, v, causal, scale, block_q, block_k):
+        return flash_forward(q, k, v, causal, scale, block_q, block_k)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, scale, _, block_k = inputs
+        o, lse = output
         ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mark_non_differentiable(lse)
         ctx.causal, ctx.scale, ctx.block_k = causal, scale, block_k
-        return o
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, _g_lse):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_backward(
+        dq, dk, dv = FlashAttentionBackward.apply(
             q, k, v, o, lse, g, ctx.causal, ctx.scale, ctx.block_k
         )
         return dq, dk, dv, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, scale, block_q, block_k):
+        n = info.batch_size
+        folded = [_fold(x, d, n) for x, d in zip((q, k, v), in_dims)]
+        o, lse = FlashAttention.apply(*folded, causal, scale, block_q, block_k)
+        return (_unfold(o, n), _unfold(lse, n)), (0, 0)
+
+
+class FlashAttentionBackward(torch.autograd.Function):
+    """(dQ, dK, dV) as a function of its own, so that the backward, which
+    ``torch.func.grad`` runs under the enclosing ``vmap``, folds the
+    vmapped axis too and never hands the kernel a batched tensor. Not
+    differentiable itself."""
+
+    @staticmethod
+    def forward(q, k, v, o, lse, g, causal, scale, block_k):
+        return flash_backward(q, k, v, o, lse, g, causal, scale, block_k)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("flash attention has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, o, lse, g, causal, scale, block_k):
+        n = info.batch_size
+        folded = [_fold(x, d, n) for x, d in zip((q, k, v, o, lse, g), in_dims)]
+        grads = FlashAttentionBackward.apply(*folded, causal, scale, block_k)
+        return tuple(_unfold(x, n) for x in grads), (0, 0, 0)
 
 
 def flash_attention(
@@ -275,5 +464,6 @@ def flash_attention(
     block_q: int = 128,
     block_k: int = 128,
 ) -> torch.Tensor:
-    """Flash attention, [B, T, H, D] layout. Differentiable."""
-    return FlashAttention.apply(q, k, v, causal, scale, block_q, block_k)
+    """Flash attention, [B, T, H, D] layout. Differentiable, and
+    vmappable under ``torch.func`` (grad included)."""
+    return FlashAttention.apply(q, k, v, causal, scale, block_q, block_k)[0]

@@ -171,7 +171,7 @@ def test_device_twin_features_follow_the_class_means():
 
 @pytest.mark.parametrize("knob, value, match", [
     ("dataset", "synthetic", "FedProx synthetic"),
-    ("dataset", "shakespeare", "task 'nwp'"),
+    ("dataset", "pascal_voc", "task 'segmentation'"),
     ("client_registry_size", 100, "registry"),
     ("poison_type", "label_flip", "poisoned"),
 ])

@@ -8,6 +8,8 @@ gradients of the loss then agree.
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -123,6 +125,10 @@ def test_port_init_matches_module_layout(model, dataset, classes):
 
 
 def test_unported_task_loss_raises():
+    # next-token prediction is ported (token_cross_entropy); segmentation
+    # is not
     tm = models.create(_args(Arguments, "transformer", "shakespeare"), 10, device="cpu")
-    with pytest.raises(NotImplementedError, match="task 'nwp'"):
-        tm.loss_fn
+    assert tm.task == "nwp" and tm.loss_fn is not None
+    seg = dataclasses.replace(tm, task="segmentation")
+    with pytest.raises(NotImplementedError, match="task 'segmentation'"):
+        seg.loss_fn
