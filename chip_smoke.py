@@ -37,8 +37,9 @@ Phases, each of which fails the run:
    parallel);
 3. kernels: the flash forward and backward each against its plain
    version at the paths' shapes (the forward at serving's and training's)
-   and a few more (f32 and bf16, causal and not, head dims 16-128, a
-   ragged length), with stated tolerances; kernel, plain and library
+   and a few more (f32 and bf16, causal and not, head dims 16-128 and
+   the zero-padded 48 and 96, a ragged length, batch x heads 65,536),
+   with stated tolerances; kernel, plain and library
    (one PyTorch call computing the same function: SDPA, SDPA's backward)
    times, the library call's own device kernel named from a short
    profiler window, and each time's share of the kernel's bound; the
@@ -138,6 +139,11 @@ FLASH_CASES = [
     (2, 2048, 4, 128, torch.float32, True),  # most registers per thread in f32
     (2, 1024, 4, 16, torch.float32, False),
     (2, 1000, 4, 64, torch.float32, True),  # T not a multiple of the tile
+    # evaluation's own shape at 16 heads (4,096 sequences of T 48 at
+    # once): batch x heads 65,536, T not a multiple of the tile
+    (4096, 48, 16, 32, torch.bfloat16, True),
+    (2, 1024, 4, 48, torch.bfloat16, True),  # head dims the wrapper zero-pads
+    (2, 1024, 4, 96, torch.float32, False),
 ]
 # O and lse against the plain version. f32: the kernel's 3xTF32 products
 # keep f32's accuracy, so the two differ by f32 rounding and summation
@@ -189,7 +195,15 @@ FLASH_BWD_CASES = [
     (2, 2048, 4, 128, torch.bfloat16, False),
     (2, 2048, 4, 128, torch.float32, True),
     (2, 1000, 4, 64, torch.bfloat16, True),  # T not a multiple of the tile
+    (4096, 48, 16, 32, torch.bfloat16, True),  # batch x heads 65,536 (evaluation's)
+    (2, 1024, 4, 48, torch.bfloat16, True),  # head dims the wrapper zero-pads
+    (2, 1024, 4, 96, torch.float32, False),
 ]
+# tensor-core passes each backward route makes, against the 5 products
+# the bound counts: bf16 (wgmma) S, dP twice and the products with P and
+# dS as bf16 hi + lo, 1 + 1 + 2 + 2 in the dK/dV kernel and 1 + 1 + 2 in
+# the dQ kernel; f32 (mma.sync) 3xTF32 on all seven products
+BWD_ROUTE_PASSES = {torch.bfloat16: 10, torch.float32: 21}
 # dQ, dK, dV against the plain version. f32: the JAX package's gradient
 # tolerance, 5e-4 absolute; the kernel's 3xTF32 keeps f32's accuracy.
 # bf16: both compute in f32 from the same bf16 inputs and round each
@@ -210,7 +224,8 @@ TRANSFORMER_CHECK_ROUNDS, TRANSFORMER_CHECK_FREQ = 4, 2
 # time lands in those two kinds with the softmax, loss and metric sums.
 TRANSFORMER_KINDS = (
     ("flash forward", ("flash_fwd_kernel",)),
-    ("flash backward", ("dkdv_kernel", "dq_kernel", "delta_kernel")),
+    ("flash backward", ("dkdv_kernel", "dq_kernel", "dkdv_wgmma_kernel", "dq_wgmma_kernel",
+                        "delta_kernel")),
     ("GEMM", ("gemm", "gemv", "nvjet", "cutlass", "xmma")),
     ("embedding", ("embedding", "index", "scatter", "gather", "radix", "sort")),
     ("reductions (LayerNorm statistics, softmax, loss)", ("reduce", "softmax")),
@@ -488,6 +503,7 @@ def check_flash_backward():
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library_kernel": library_kernel[0],
             "bound_ms": bound_ms, "bound_by": bound_by, "bound_route": ROUTE[dtype],
+            "route_passes": BWD_ROUTE_PASSES[dtype],
         }
         log(f"flash backward {case['shape']} {case['dtype']} causal={causal}: dQ/dK/dV err "
             f"{'/'.join(f'{e:.3g}' for e in errs)} (atol "
@@ -495,7 +511,8 @@ def check_flash_backward():
             f"{'/'.join(f'{p:.3g}' for p in peaks)}), bitwise repeatable {deterministic}; "
             f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa backward {library_ms:.3f} ms "
             f"({library_kernel[0][:90]}), bound {bound_ms:.3f} ms ({bound_by}, "
-            f"{ROUTE[dtype]}): {bound_ms / ms:.1%} of bound")
+            f"{ROUTE[dtype]}): {bound_ms / ms:.1%} of bound, the route making "
+            f"{BWD_ROUTE_PASSES[dtype]} passes where the bound counts 5")
         if not finite:
             fail(f"flash backward {case['shape']} {case['dtype']}: non-finite gradients")
         if any(e > t for e, t in zip(errs, tols)):

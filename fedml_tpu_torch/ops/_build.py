@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` compiles on its own with ``nvcc`` for Hopper
 kernel's wrapper loads with ``ctypes``. Nothing here includes PyTorch's
 headers, so a build takes seconds, not minutes.
 
-The library's file name carries a hash of its source and flags, so an
-edited source is rebuilt and an unchanged one is reused. Several
+The library's file name carries a hash of its source, the shared
+headers and the flags, so an edited source is rebuilt and an unchanged
+one is reused. Several
 sources build in parallel (one ``nvcc`` each, all started together).
 The output lands in ``ops/build/``, which git ignores; it is written to
 a temporary name first and renamed, so concurrent builders never load a
@@ -55,8 +56,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
+    """Where ``csrc/<name>.cu`` builds to, keyed by its source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -45,18 +45,16 @@
 //   n-tiles at once, the n-tiles taking O's columns in the order that
 //   makes those loads conflict-free.
 // - 64-key tiles in two stages (32 keys in three at D 128): two blocks
-//   fit on an SM. The grid launches each head's longest causal query
-//   tiles first.
+//   fit on an SM. The grid puts batch*head on x and the query tile on y,
+//   so any batch*head up to 2^31 - 1 launches; `block_work` hands blocks
+//   out a few heads at a time, longest causal tiles first. TMA, mbarrier,
+//   tensor-map and block-order helpers come from hopper.cuh.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
-#include <cstdio>
-#include <type_traits>
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int kBlockQ = 64;
 constexpr int kConsumerWarps = kBlockQ / 16;
@@ -64,9 +62,6 @@ constexpr int kThreads = (kConsumerWarps + 1) * 32;
 constexpr float kNegInf = -1e30f;
 constexpr float kLn2 = 0.693147180559945309f;
 constexpr double kLog2e = 1.44269504088896340736;
-// A barrier wait that spins this many clocks (~9 s) means a lost
-// arrival: trap, so a bug fails the launch instead of hanging the card.
-constexpr long long kSpinClocks = 1ll << 34;
 
 template <typename T, int D>
 struct Cfg {
@@ -88,51 +83,6 @@ struct Cfg {
 };
 
 // ---- PTX wrappers ----------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  for (long long start = 0;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) start = clock64();
-    else if (clock64() - start > kSpinClocks) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                         int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(smem_u32(bar))
-      : "memory");
-}
 
 // four 8x8 b16 matrices, read here as four 8-row x 4-float tiles: lane
 // 8m + r gives the address of row r of matrix m and gets word lane % 4 of
@@ -156,14 +106,6 @@ __device__ __forceinline__ uint32_t tf32(float x) {
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = tf32(x);
   lo = tf32(x - __uint_as_float(hi));
-}
-
-// 2^x; flushes results below 2^-126 (weights next to the row's max of 1)
-// to zero
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
-  return r;
 }
 
 // d += a * b on one 16x8x8 tile, f32 accumulate
@@ -193,19 +135,6 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
-// Byte offset of element (row, col) in a tile that TMA stored as boxes
-// of kChunk columns, each kRows rows of kRowBytes, with the swizzle that
-// XORs the 16-byte unit with bits 7.. of the offset (CU_TENSOR_MAP_
-// SWIZZLE_32B/64B/128B for 32/64/128-byte rows). Boxes start
-// 1024-aligned, so the XOR depends only on row & 7.
-template <typename T, int kChunk, int kRows>
-__device__ __forceinline__ int tile_off(int row, int col) {
-  constexpr int kRowBytes = kChunk * (int)sizeof(T);
-  const int swz = ((((row & 7) * kRowBytes) >> 7) & (kRowBytes / 16 - 1)) << 4;
-  return (col / kChunk) * (kRows * kRowBytes) + row * kRowBytes +
-         (((col % kChunk) * (int)sizeof(T)) ^ swz);
-}
-
 template <typename T, int kChunk, int kRows>
 __device__ __forceinline__ float tile_at(const unsigned char* tile, int row, int col) {
   return to_f32(*reinterpret_cast<const T*>(tile + tile_off<T, kChunk, kRows>(row, col)));
@@ -233,8 +162,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   uint64_t* empty = bars + 1 + kStages;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;  // longest causal tiles first
-  const int bh = blockIdx.y;
+  int bh, rank;  // high query tiles walk the most key tiles
+  block_work(bh, rank);
+  const int q0 = (gridDim.y - 1 - rank) * kBlockQ;
   const int b = bh / heads, h = bh - b * heads;
   int n_kt = (seq_len + BK - 1) / BK;
   if (causal) n_kt = min(n_kt, (q0 + kBlockQ + BK - 1) / BK);  // later tiles fully masked
@@ -487,60 +417,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
 
 // ---- host side -------------------------------------------------------------
 
-// error codes beside cudaError_t's (which are >= 0)
-constexpr int kErrNoEncoder = -1;   // libcuda has no cuTensorMapEncodeTiled (before CUDA 12)
-constexpr int kErrEncode = -1000;   // minus the CUresult of a failed encode
-
-using EncodeFn = decltype(&cuTensorMapEncodeTiled);
-
-EncodeFn tensor_map_encoder() {
-  static const EncodeFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeFn>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-struct Strides {
-  long long b, t, h;  // element strides of batch, time and head; D is unit-stride
-};
-
-// A 4-D map over [B, T, H, D] (innermost first: D, H, T, B) whose box is
-// `rows` time steps of one (batch, head) and `chunk` columns.
-template <typename T>
-int encode(CUtensorMap* map, const void* base, int batch, int seq_len, int heads, int head_dim,
-           Strides st, int chunk, int rows) {
-  EncodeFn fn = tensor_map_encoder();
-  if (fn == nullptr) return kErrNoEncoder;
-  constexpr long long es = sizeof(T);
-  const cuuint64_t dims[4] = {(cuuint64_t)head_dim, (cuuint64_t)heads, (cuuint64_t)seq_len,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)(st.h * es), (cuuint64_t)(st.t * es),
-                                 (cuuint64_t)(st.b * es)};
-  const cuuint32_t box[4] = {(cuuint32_t)chunk, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const int row_bytes = chunk * (int)es;
-  const CUtensorMapSwizzle swizzle = row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                       : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = fn(
-      map, std::is_same<T, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      4, const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrEncode - (int)r;
-}
-
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
            int seq_len, int heads, Strides qs, Strides ks, Strides vs, float scale,
@@ -554,7 +430,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((seq_len + kBlockQ - 1) / kBlockQ, batch * heads);
+  const dim3 grid(batch * heads, (seq_len + kBlockQ - 1) / kBlockQ);
   flash_fwd_kernel<T, D><<<grid, kThreads, C::kSmemBytes, stream>>>(
       q_map, k_map, v_map, static_cast<T*>(o), lse, seq_len, heads,
       (float)(scale * kLog2e), causal);
@@ -605,14 +481,6 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, vo
   return (int)cudaErrorInvalidValue;
 }
 
-const char* flash_attention_error_string(int code) {
-  if (code == kErrNoEncoder) return "libcuda has no cuTensorMapEncodeTiled (CUDA 12 or later needed)";
-  if (code <= kErrEncode) {
-    static thread_local char msg[80];
-    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed with CUresult %d", kErrEncode - code);
-    return msg;
-  }
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+const char* flash_attention_error_string(int code) { return hopper::error_string(code); }
 
 }  // extern "C"

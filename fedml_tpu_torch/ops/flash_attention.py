@@ -14,9 +14,10 @@ design.
 The backward is ``csrc/flash_attention_bwd.cu``, the port of the JAX
 package's ``_bwd`` (``:140-175``), which is plain array code there: a
 blockwise FlashAttention-2 recompute from the saved log-sum-exp. The
-kernel recomputes the scores tile by tile on the tensor cores, in f32
+kernels recompute the scores tile by tile on the tensor cores, in f32
 arithmetic, with no atomics (each output element is summed in one fixed
-order). ``_flash_backward`` keeps ``_bwd``'s blockwise loop for CPU
+order): bf16 inputs on ``wgmma`` with TMA-fed bf16 tiles (P and dS as
+bf16 hi + lo), f32 inputs as 3xTF32 on ``mma.sync``. ``_flash_backward`` keeps ``_bwd``'s blockwise loop for CPU
 tensors, one [T, bk] score panel at a time, never the dense [T, T]
 matrix; ``flash_attention_backward_reference`` is the dense plain
 version the kernel is held against.
@@ -24,6 +25,10 @@ version the kernel is held against.
 Dispatch follows the tensor's device and nothing else: a CPU tensor takes
 the plain version; a CUDA tensor launches the kernel or raises. Every
 launch adds one to ``FWD_KERNEL.launches`` or ``BWD_KERNEL.launches``.
+The kernels take head dims 16, 32, 64 and 128; the wrappers run any
+other D up to 128 at the next of those, zero-padded (the padded columns
+leave S, P and every real output column as they were), and refuse
+D > 128. Any batch x heads launches: it is the kernels' grid x.
 
 Both autograd functions carry ``vmap`` rules, so ``torch.func.vmap``
 over ``torch.func.grad`` (the federated trainer's vmapped client step)
@@ -51,7 +56,11 @@ __all__ = [
     "flash_attention_reference",
     "flash_backward",
     "flash_forward",
+    "check_shape",
+    "kernel_head_dim",
     "kernel_operand",
+    "padded_backward",
+    "padded_forward",
     "pick_block",
 ]
 
@@ -60,9 +69,68 @@ _NEG_INF = -1e30
 # torch dtype -> the kernels' dtype code
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
+# queries or keys per tile: the kernels' grid y counts tiles, up to 65535
+_TILE = 64
+_GRID_Y = 65535
 # TMA (and the backward's 16-byte loads) read from a 16-byte-aligned base
 # with 16-byte multiples as strides
 _TMA_ALIGN = 16
+
+
+def kernel_head_dim(D: int) -> int:
+    """The head dim the kernels run a D-wide head at: D where they take
+    it, else the next one up (the wrapper zero-pads). Raises above 128."""
+    for dim in _HEAD_DIMS:
+        if D <= dim:
+            return dim
+    raise ValueError(f"flash attention: head dim {D} exceeds the kernels' limit of "
+                     f"{_HEAD_DIMS[-1]}")
+
+
+def check_shape(shape, dtype: torch.dtype, name: str = "flash attention") -> None:
+    """Raises unless the kernels take a [B, T, H, D] operand of ``dtype``:
+    f32 or bf16, D one of the kernels' head dims, T at most 65535 tiles.
+    Batch x heads is not limited (the grid's x dimension)."""
+    _, T, _, D = shape
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name}: dtype {dtype} unsupported (float32 or bfloat16)")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {D} not in {_HEAD_DIMS}")
+    if -(-T // _TILE) > _GRID_Y:
+        raise ValueError(f"{name}: seq len {T} exceeds {_GRID_Y} tiles of {_TILE}")
+
+
+def _pad_head(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` [..., D] zero-padded to ``dim`` columns (itself if D == dim)."""
+    D = x.shape[-1]
+    return x if D == dim else torch.nn.functional.pad(x, (0, dim - D))
+
+
+def _cut_head(x: torch.Tensor, D: int) -> torch.Tensor:
+    return x if x.shape[-1] == D else x[..., :D].contiguous()
+
+
+def padded_forward(forward, q, k, v, causal, scale):
+    """``forward(q, k, v, causal, scale)`` -> (O, lse) run at the kernels'
+    head dim: q, k and v zero-padded to ``kernel_head_dim(D)`` and O cut
+    back to D. ``scale`` is the caller's, the original D's. The padded
+    columns add zeros to every score, so the result is the same
+    function."""
+    D = q.shape[-1]
+    dim = kernel_head_dim(D)
+    o, lse = forward(*(_pad_head(x, dim) for x in (q, k, v)), causal, scale)
+    return _cut_head(o, D), lse
+
+
+def padded_backward(backward, q, k, v, o, lse, g, causal, scale):
+    """``backward(q, k, v, o, lse, g, causal, scale)`` -> (dQ, dK, dV)
+    run at the kernels' head dim, as ``padded_forward`` runs the forward:
+    zero columns of O and dO leave delta as it is, and the gradients'
+    padded columns, cut off here, are zero."""
+    D = q.shape[-1]
+    dim = kernel_head_dim(D)
+    q, k, v, o, g = (_pad_head(x, dim) for x in (q, k, v, o, g))
+    return tuple(_cut_head(x, D) for x in backward(q, k, v, o, lse, g, causal, scale))
 
 
 def kernel_operand(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int, int]]:
@@ -120,9 +188,8 @@ class _Kernel:
 
     def _check(self, named, like: torch.Tensor) -> None:
         """Every named operand on a card, of ``like``'s dtype, shape and
-        device, unit-stride in D; the dtype and head dim are ones the
-        kernel takes."""
-        B, T, H, D = like.shape
+        device, unit-stride in D; the shape and dtype are ones the kernel
+        takes (``check_shape``)."""
         for name, x in named:
             if not x.is_cuda:
                 raise ValueError(f"{self.name}: {name} is on {x.device}, not CUDA")
@@ -133,14 +200,7 @@ class _Kernel:
                 )
             if x.stride(-1) != 1:
                 raise ValueError(f"{self.name}: {name}'s last dim is not unit-stride")
-        if like.dtype not in _DTYPE_CODES:
-            raise ValueError(
-                f"{self.name}: dtype {like.dtype} unsupported (float32 or bfloat16)"
-            )
-        if D not in _HEAD_DIMS:
-            raise ValueError(f"{self.name}: head dim {D} not in {_HEAD_DIMS}")
-        if B * H > 65535:
-            raise ValueError(f"{self.name}: batch*heads {B * H} exceeds 65535")
+        check_shape(like.shape, like.dtype, self.name)
 
     def _launch(self, device: torch.device, *args) -> None:
         fn = self._bind()
@@ -174,7 +234,11 @@ class FlashForwardKernel(_Kernel):
         causal: bool,
         scale: float,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Launch on CUDA tensors; returns (O in q's dtype, lse f32 [B,H,T])."""
+        """Launch on CUDA tensors; returns (O in q's dtype, lse f32 [B,H,T]).
+        A head dim the kernel lacks runs zero-padded to the next one."""
+        return padded_forward(self._run, q, k, v, causal, scale)
+
+    def _run(self, q, k, v, causal, scale):
         self._check((("q", q), ("k", k), ("v", v)), q)
         B, T, H, D = q.shape
         (q, qs), (k, ks), (v, vs) = (kernel_operand(x) for x in (q, k, v))
@@ -212,7 +276,11 @@ class FlashBackwardKernel(_Kernel):
         scale: float,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Launch on CUDA tensors: q, k, v, O and dO ``g`` [B, T, H, D]
-        of one dtype, lse f32 [B, H, T]. Returns (dQ, dK, dV)."""
+        of one dtype, lse f32 [B, H, T]. Returns (dQ, dK, dV). A head dim
+        the kernel lacks runs zero-padded to the next one."""
+        return padded_backward(self._run, q, k, v, o, lse, g, causal, scale)
+
+    def _run(self, q, k, v, o, lse, g, causal, scale):
         self._check((("q", q), ("k", k), ("v", v), ("o", o), ("g", g)), q)
         B, T, H, D = q.shape
         if lse.dtype != torch.float32 or lse.shape != (B, H, T) or lse.device != q.device:

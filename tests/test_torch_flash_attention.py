@@ -249,3 +249,68 @@ def test_kernel_operand_ignores_strides_of_length_one_dims():
     got, strides = tfa.kernel_operand(x)
     assert got is x
     assert strides == (T * D, D, D)
+
+
+# -- the shapes the wrapper hands the kernels ---------------------------------
+
+
+@pytest.mark.parametrize("shape", [
+    (4096, 48, 16, 32),  # evaluation's shape: 4,096 sequences x 16 heads
+    (65536, 64, 1, 64),
+    (1, 128, 70000, 128),
+    (2, 64 * 65535, 1, 16),  # the most query tiles the grid's y takes
+])
+def test_check_shape_takes_any_batch_times_heads(shape):
+    """batch x heads is the kernels' grid x (up to 2**31 - 1): the check
+    refuses none, on shapes alone, without a card."""
+    for dtype in (torch.float32, torch.bfloat16):
+        tfa.check_shape(shape, dtype)
+
+
+@pytest.mark.parametrize("shape, dtype, match", [
+    ((2, 64, 4, 48), torch.float32, "head dim 48"),  # the wrapper pads it first
+    ((2, 64, 4, 64), torch.float16, "unsupported"),
+    ((1, 64 * 65535 + 1, 1, 64), torch.bfloat16, "65535 tiles"),
+])
+def test_check_shape_refuses_what_the_kernels_lack(shape, dtype, match):
+    with pytest.raises(ValueError, match=match):
+        tfa.check_shape(shape, dtype)
+
+
+def test_kernel_head_dim_pads_up_to_128():
+    want = {1: 16, 16: 16, 24: 32, 32: 32, 48: 64, 64: 64, 80: 128, 96: 128, 128: 128}
+    assert {d: tfa.kernel_head_dim(d) for d in want} == want
+
+
+@pytest.mark.parametrize("D", [129, 160, 256])
+def test_head_dim_over_128_raises(D):
+    with pytest.raises(ValueError, match="limit of 128"):
+        tfa.kernel_head_dim(D)
+    q = torch.zeros((1, 16, 1, D))
+    with pytest.raises(ValueError, match="limit of 128"):
+        tfa.FWD_KERNEL(q, q, q, True, D**-0.5)
+    with pytest.raises(ValueError, match="limit of 128"):
+        tfa.BWD_KERNEL(q, q, q, q, torch.zeros((1, 1, 16)), q, True, D**-0.5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [24, 48, 80, 96])
+def test_zero_padded_head_dim_computes_the_same_function(D, causal):
+    """The route the wrappers take for a head dim the kernels lack: pad
+    q, k, v (O and dO) with zero columns up to the next kernel dim, run,
+    cut back. Through the plain versions it matches the unpadded call."""
+    rng = np.random.default_rng(D)
+    q, k, v, g = (torch.tensor(rng.normal(size=(B, T, H, D)).astype(np.float32))
+                  for _ in range(4))
+    scale = D**-0.5
+    o, lse = tfa.flash_attention_reference(q, k, v, causal, scale)
+    got_o, got_lse = tfa.padded_forward(tfa.flash_attention_reference, q, k, v, causal, scale)
+    assert got_o.shape == (B, T, H, D) and got_o.is_contiguous()
+    np.testing.assert_allclose(got_o.numpy(), o.numpy(), atol=1e-6)
+    np.testing.assert_allclose(got_lse.numpy(), lse.numpy(), atol=1e-6)
+    want = tfa.flash_attention_backward_reference(q, k, v, o, lse, g, causal, scale)
+    got = tfa.padded_backward(tfa.flash_attention_backward_reference, q, k, v, o, lse, g,
+                              causal, scale)
+    for x, w in zip(got, want):
+        assert x.shape == (B, T, H, D) and x.is_contiguous()
+        np.testing.assert_allclose(x.numpy(), w.numpy(), atol=1e-6)

@@ -6,8 +6,10 @@ interpret mode and the ``custom_vjp`` backward ``_bwd``. On CPU tensors
 the port's functions take their plain versions (the blockwise
 ``_flash_backward`` and the dense ``flash_attention_backward_reference``);
 the CUDA kernel is held against the dense version on the card by
-``chip_smoke.py``. Here a numpy emulation of the kernel's TF32 arithmetic
-is held against ``_bwd``, and the ``vmap`` rules are checked to fold the
+``chip_smoke.py``. Here numpy emulations of the kernels' arithmetic (3xTF32
+for f32 inputs, bf16 ``wgmma`` passes with P and dS split into bf16 hi +
+lo for bf16 inputs) are held against ``_bwd``, and the ``vmap`` rules are
+checked to fold the
 vmapped client axis into one call on a strided view, which is what makes
 one kernel launch serve a whole cohort on the card.
 """
@@ -126,39 +128,109 @@ def _tf32_product(a, b, split_a, split_b):
     return out + mm(a_hi, b_hi)
 
 
-def _emulated_kernel_backward(q, k, v, o, lse, g, causal, exact):
-    """(dQ, dK, dV) computed as the CUDA kernel computes them, in f32:
-    S and dP one TF32 pass when the inputs are exact in TF32 (bf16
-    values), else 3xTF32; P and dS always split hi + lo."""
+def _bf16(x):
+    """Round to bf16 (8 mantissa bits), to nearest with ties to even, as
+    the kernel's ``__floats2bfloat162_rn`` does; returned as f32."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    rounded = bits + np.uint32(0x7FFF) + ((bits >> np.uint32(16)) & np.uint32(1))
+    return (rounded & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+def _bf16_rna(x):
+    """Round to bf16, to nearest with ties away from zero, as the kernels
+    round the lo part ((bits + 0x8000) & 0xffff0000); returned as f32."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x8000)) & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+def _bf16_product(a, b, split_a):
+    """a @ b as the bf16 kernels' ``wgmma`` computes it: b holds exact
+    bf16 values; a is one too (``split_a`` False) or an f32 operand split
+    into bf16 hi = bf16(a) (ties to even) and lo = bf16(a - hi) (ties
+    away), two passes into one f32 accumulator, lo first."""
+    def mm(x, y):
+        return np.matmul(x, y, dtype=np.float32)
+
+    if not split_a:
+        return mm(_bf16(a), b)
+    hi = _bf16(a)
+    return mm(_bf16_rna(a - hi), b) + mm(hi, b)
+
+
+def _emulated_kernel_backward(q, k, v, o, lse, g, causal, exact, split=True):
+    """(dQ, dK, dV) computed as the CUDA kernels compute them, in f32.
+    f32 inputs (``exact`` False): every product 3xTF32 on ``mma.sync``.
+    bf16 inputs (``exact``: the arrays hold bf16 values): S and dP one
+    bf16 pass each, the products with the f32 P and dS two (bf16 hi +
+    lo), or one when ``split`` is False (P and dS rounded to bf16, as
+    SDPA keeps them)."""
     qf, kf, vf, of, gf = (x.transpose(0, 2, 1, 3) for x in (q, k, v, o, g))
-    split = not exact
     scale = np.float32(D**-0.5)
     delta = (gf * of).sum(-1, dtype=np.float32)
-    s = _tf32_product(qf, kf.swapaxes(-1, -2), split, split)
-    dp = _tf32_product(gf, vf.swapaxes(-1, -2), split, split)
+    if exact:
+        def product(a, b, first):
+            return _bf16_product(a, b, split_a=split and not first)
+    else:
+        def product(a, b, first):
+            return _tf32_product(a, b, True, True)
+    s = product(qf, kf.swapaxes(-1, -2), True)
+    dp = product(gf, vf.swapaxes(-1, -2), True)
     keep = np.tril(np.ones((T, T), bool)) if causal else np.ones((T, T), bool)
     p = np.where(keep, np.exp(s * scale - lse[..., None]), np.float32(0))
-    ds = p * (dp - delta[..., None]) * scale
-    dv = _tf32_product(p.swapaxes(-1, -2), gf, True, split)
-    dk = _tf32_product(ds.swapaxes(-1, -2), qf, True, split)
-    dq = _tf32_product(ds, kf, True, split)
+    if exact:  # the bf16 kernels scale dK and dQ once, after the sums
+        ds = p * (dp - delta[..., None])
+        dv = product(p.swapaxes(-1, -2), gf, False)
+        dk = product(ds.swapaxes(-1, -2), qf, False) * scale
+        dq = product(ds, kf, False) * scale
+    else:
+        ds = p * (dp - delta[..., None]) * scale
+        dv = product(p.swapaxes(-1, -2), gf, False)
+        dk = product(ds.swapaxes(-1, -2), qf, False)
+        dq = product(ds, kf, False)
     return [x.transpose(0, 2, 1, 3) for x in (dq, dk, dv)]
 
 
-@pytest.mark.parametrize("exact", [False, True], ids=["f32", "bf16_values"])
-@pytest.mark.parametrize("causal", [True, False])
-def test_kernel_arithmetic_matches_jax_bwd(causal, exact):
-    """The kernel's TF32 passes keep ``_bwd``'s f32 result: 3xTF32 for
-    f32 inputs; for bf16 inputs (exact in TF32) one pass for S and dP and
-    two for the products with the f32 P and dS."""
+def _kernel_arithmetic_case(causal, exact, split=True):
+    """(emulated (dQ, dK, dV), ``_bwd``'s) on the file's seeded inputs,
+    rounded to bf16 values when ``exact``."""
     arrays = [_normal(s, (B, T, H, D)) for s in (11, 12, 13, 14)]
     if exact:
         arrays = [np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32)) for a in arrays]
     q, k, v, g = arrays
     (rq, rk, rv, ro, lse), want = _jax_residuals(q, k, v, g, causal)
-    got = _emulated_kernel_backward(rq, rk, rv, ro, lse, g, causal, exact)
+    return _emulated_kernel_backward(rq, rk, rv, ro, lse, g, causal, exact, split), want
+
+
+@pytest.mark.parametrize("exact", [False, True], ids=["f32", "bf16_values"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_kernel_arithmetic_matches_jax_bwd(causal, exact):
+    """The kernels keep ``_bwd``'s f32 result: 3xTF32 for f32 inputs; for
+    bf16 inputs one bf16 pass for S and dP and two (bf16 hi + lo) for the
+    products with the f32 P and dS."""
+    got, want = _kernel_arithmetic_case(causal, exact)
     for x, w in zip(got, want):
         np.testing.assert_allclose(x, w, atol=GRAD_ATOL)
+
+
+def test_bf16_rounding_is_to_nearest_even():
+    ulp = 2.0**-7  # bf16's spacing in [1, 2)
+    x = np.array([1 + ulp / 4, 1 + ulp / 2, 1 + 3 * ulp / 2, 1 + 3 * ulp / 4, -(1 + ulp / 2)],
+                 np.float32)
+    np.testing.assert_array_equal(
+        _bf16(x), np.array([1, 1, 1 + 2 * ulp, 1 + ulp, -1], np.float32))
+    assert not (_bf16(x).view(np.uint32) & 0xFFFF).any()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_hi_lo_split_is_needed(causal):
+    """One bf16 pass for the products with P and dS moves the gradients
+    past hi + lo's error by an order of magnitude (PERF.md records both,
+    from this file run as a script)."""
+    split, want = _kernel_arithmetic_case(causal, True)
+    one, _ = _kernel_arithmetic_case(causal, True, split=False)
+    err_split = max(np.abs(x - w).max() for x, w in zip(split, want))
+    err_one = max(np.abs(x - w).max() for x, w in zip(one, want))
+    assert err_one > 10 * err_split
 
 
 def test_vmap_rules_fold_the_client_axis_into_one_call(monkeypatch):
@@ -240,3 +312,15 @@ def test_backward_bound_counts_five_products(shape, dtype, want_ms):
     bound_ms, bound_by = _chip_smoke().flash_bwd_bound(*shape, dtype, True)
     assert bound_by == "operations"
     assert bound_ms == pytest.approx(want_ms, abs=5e-4)
+
+
+if __name__ == "__main__":
+    # the max |error| against _bwd of the bf16 kernels' arithmetic, with P
+    # and dS split into bf16 hi + lo (the kernels) and as one bf16 pass
+    for causal in (True, False):
+        for split in (True, False):
+            got, want = _kernel_arithmetic_case(causal, True, split)
+            errs = [float(np.abs(x - w).max()) for x, w in zip(got, want)]
+            print(f"causal={causal} {'hi + lo' if split else 'one pass'}: max |err| dQ/dK/dV "
+                  f"{' / '.join(f'{e:.3g}' for e in errs)} (tolerance {GRAD_ATOL}; max |grad| "
+                  f"{max(float(np.abs(w).max()) for w in want):.3g})")
