@@ -70,9 +70,9 @@
 // end. `block_work` orders the blocks so that those in flight stream the
 // tiles of a few heads, which stay in L2.
 //
-// f32 route: the same three kernels in `mma.sync` m16n8k8 TF32, operands
-// converted to f32 in shared memory tiles loaded by all threads, P and dS
-// through shared memory. f32 inputs take 3xTF32 everywhere (lo*hi + hi*lo
+// f32 route: the same three kernels in `mma.sync` m16n8k8 TF32, f32
+// operands in shared-memory tiles loaded by all threads, P and dS through
+// shared memory. Every product is 3xTF32 (lo*hi + hi*lo
 // + hi*hi of x = hi + lo, both TF32), which keeps f32's accuracy where
 // one TF32 pass would not. Shared-memory rows are padded (Q, K, V, dO by 4
 // floats; P and dS by 8 in the dK/dV kernel, where they are read
@@ -128,28 +128,22 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// An operand fragment read from an f32 tile: its TF32 hi part and, where
-// the value is not exact in TF32, its lo part.
+// An operand fragment read from an f32 tile: its TF32 hi and lo parts.
 template <int N>
 struct Frag {
   uint32_t hi[N], lo[N];
 };
 
-template <bool kSplit, int N>
+template <int N>
 __device__ __forceinline__ void make_frag(Frag<N>& f, const float (&x)[N]) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    if constexpr (kSplit) split(x[i], f.hi[i], f.lo[i]);
-    else f.hi[i] = __float_as_uint(x[i]);  // exact in TF32 (a bf16 value)
-  }
+  for (int i = 0; i < N; ++i) split(x[i], f.hi[i], f.lo[i]);
 }
 
-// d += a * b, the small terms first. kSplitA / kSplitB: that operand is
-// not exact in TF32, so its lo part takes a pass of its own (both: 3xTF32).
-template <bool kSplitA, bool kSplitB>
+// d += a * b in 3xTF32, the small terms first
 __device__ __forceinline__ void mma_x(float (&d)[4], const Frag<4>& a, const Frag<2>& b) {
-  if constexpr (kSplitA) mma(d, a.lo, b.hi[0], b.hi[1]);
-  if constexpr (kSplitB) mma(d, a.hi, b.lo[0], b.lo[1]);
+  mma(d, a.lo, b.hi[0], b.hi[1]);
+  mma(d, a.hi, b.lo[0], b.lo[1]);
   mma(d, a.hi, b.hi[0], b.hi[1]);
 }
 
@@ -163,34 +157,22 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
 __device__ __forceinline__ float load1(const float* p) { return *p; }
 __device__ __forceinline__ float load1(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 
-// 16 bytes of an f32 input
-__device__ __forceinline__ void unpack(const uint4& raw, const float*, float* out) {
-  *reinterpret_cast<float4*>(out) = make_float4(__uint_as_float(raw.x), __uint_as_float(raw.y),
-                                                __uint_as_float(raw.z), __uint_as_float(raw.w));
-}
-
 // ---- f32 route: tiles -----------------------------------------------------------
 
-// Rows t0 .. t0+63 of (b, h) of a [B, T, H, D] input into an f32 tile of
+// Rows t0 .. t0+63 of (b, h) of a [B, T, H, D] f32 input into a tile of
 // row stride kLd; rows at or past seq_len are zero. The wrapper guarantees
 // a 16-byte-aligned base and 16-byte-multiple strides.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, Strides s,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, Strides s,
                                           int b, int h, int t0, int seq_len) {
-  constexpr int kVec = 16 / (int)sizeof(T);
-  constexpr int kPerRow = D / kVec;
-  const T* base = src + b * s.b + h * s.h;
+  constexpr int kPerRow = D / 4;
+  const float* base = src + b * s.b + h * s.h;
   for (int i = threadIdx.x; i < kTile * kPerRow; i += kThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
-    float* out = dst + r * Cfg<D>::kLd + c;
+    const int r = i / kPerRow, c = (i % kPerRow) * 4;
     const int t = t0 + r;
-    if (t < seq_len) {
-      unpack(*reinterpret_cast<const uint4*>(base + t * s.t + c), base, out);
-    } else {
-#pragma unroll
-      for (int e = 0; e < kVec; e += 4)
-        *reinterpret_cast<float4*>(out + e) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
+    *reinterpret_cast<float4*>(dst + r * Cfg<D>::kLd + c) =
+        t < seq_len ? *reinterpret_cast<const float4*>(base + t * s.t + c)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
@@ -210,7 +192,7 @@ __device__ __forceinline__ void load_rows(float* lse_s, float* delta_s,
 // (qr0 ..) x 32 keys (kc0 ..) of the tile pair, S = Q K^T and dP = dO V^T,
 // then P and dS in place of them. Rows and keys are tile-local; q0, k0
 // place the tiles in the sequence.
-template <bool kSplit, int D>
+template <int D>
 __device__ __forceinline__ void scores(const float* q_s, const float* k_s, const float* do_s,
                                        const float* v_s, const float* lse_s,
                                        const float* delta_s, int qr0, int kc0, int q0, int k0,
@@ -232,8 +214,8 @@ __device__ __forceinline__ void scores(const float* q_s, const float* k_s, const
       xdo[i] = do_s[off];
     }
     Frag<4> aq, ado;
-    make_frag<kSplit>(aq, xq);
-    make_frag<kSplit>(ado, xdo);
+    make_frag(aq, xq);
+    make_frag(ado, xdo);
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
       float xk[2], xv[2];
@@ -244,10 +226,10 @@ __device__ __forceinline__ void scores(const float* q_s, const float* k_s, const
         xv[j] = v_s[off];
       }
       Frag<2> bk, bv;
-      make_frag<kSplit>(bk, xk);
-      make_frag<kSplit>(bv, xv);
-      mma_x<kSplit, kSplit>(p[n], aq, bk);   // S
-      mma_x<kSplit, kSplit>(ds[n], ado, bv); // dP
+      make_frag(bk, xk);
+      make_frag(bv, xv);
+      mma_x(p[n], aq, bk);   // S
+      mma_x(ds[n], ado, bv); // dP
     }
   }
 #pragma unroll
@@ -286,15 +268,15 @@ delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restr
 }
 
 // dK and dV of one 64-key tile of one (b, h)
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, Cfg<D>::kMinBlocks)
-dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-            const T* __restrict__ dout, const float* __restrict__ lse,
-            const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ dout,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            float* __restrict__ dk, float* __restrict__ dv,
             Strides qs, Strides ks, Strides vs, Strides dos, int seq_len, int heads,
             float scale, int causal) {
   using C = Cfg<D>;
-  constexpr bool kSplit = std::is_same<T, float>::value;
   extern __shared__ __align__(16) float smem[];
   float* k_s = smem;
   float* v_s = k_s + kTile * C::kLd;
@@ -314,8 +296,8 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   const int n_qt = (seq_len + kTile - 1) / kTile;
   const int qt0 = causal ? kt : 0;  // earlier query tiles see none of these keys
 
-  load_tile<T, D>(k_s, k, ks, b, h, k0, seq_len);
-  load_tile<T, D>(v_s, v, vs, b, h, k0, seq_len);
+  load_tile<D>(k_s, k, ks, b, h, k0, seq_len);
+  load_tile<D>(v_s, v, vs, b, h, k0, seq_len);
 
   // phase A: query rows qa0.., keys kc0..; phase B: keys kb0.., columns dc0..
   const int qa0 = (warp & 3) * 16, kc0 = (warp >> 2) * 32;
@@ -328,13 +310,13 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 
   for (int qt = qt0; qt < n_qt; ++qt) {
     const int q0 = qt * kTile;
-    load_tile<T, D>(q_s, q, qs, b, h, q0, seq_len);
-    load_tile<T, D>(do_s, dout, dos, b, h, q0, seq_len);
+    load_tile<D>(q_s, q, qs, b, h, q0, seq_len);
+    load_tile<D>(do_s, dout, dos, b, h, q0, seq_len);
     load_rows(lse_s, delta_s, lse, delta, bh, q0, seq_len);
     __syncthreads();
 
     float p[4][4], ds[4][4];
-    scores<kSplit, D>(q_s, k_s, do_s, v_s, lse_s, delta_s, qa0, kc0, q0, k0, seq_len, causal,
+    scores<D>(q_s, k_s, do_s, v_s, lse_s, delta_s, qa0, kc0, q0, k0, seq_len, causal,
                       scale, p, ds);
 #pragma unroll
     for (int n = 0; n < 4; ++n)
@@ -358,8 +340,8 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
         xds[i] = ds_s[off];
       }
       Frag<4> ap, ads;
-      make_frag<true>(ap, xp);
-      make_frag<true>(ads, xds);
+      make_frag(ap, xp);
+      make_frag(ads, xds);
 #pragma unroll
       for (int n = 0; n < C::kNt; ++n) {
         float xdo[2], xq[2];
@@ -370,10 +352,10 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
           xq[j] = q_s[off];
         }
         Frag<2> bdo, bq;
-        make_frag<kSplit>(bdo, xdo);
-        make_frag<kSplit>(bq, xq);
-        mma_x<true, kSplit>(acc_dv[n], ap, bdo);
-        mma_x<true, kSplit>(acc_dk[n], ads, bq);
+        make_frag(bdo, xdo);
+        make_frag(bq, xq);
+        mma_x(acc_dv[n], ap, bdo);
+        mma_x(acc_dk[n], ads, bq);
       }
     }
     __syncthreads();  // the next tile overwrites Q, dO, P and dS
@@ -394,14 +376,14 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 }
 
 // dQ of one 64-query tile of one (b, h)
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, Cfg<D>::kMinBlocks)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          const T* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ delta, T* __restrict__ dq, Strides qs, Strides ks,
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const float* __restrict__ dout,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          float* __restrict__ dq, Strides qs, Strides ks,
           Strides vs, Strides dos, int seq_len, int heads, float scale, int causal) {
   using C = Cfg<D>;
-  constexpr bool kSplit = std::is_same<T, float>::value;
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;
   float* do_s = q_s + kTile * C::kLd;
@@ -420,8 +402,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const int q0 = qt * kTile;
   const int n_kt = causal ? qt + 1 : (seq_len + kTile - 1) / kTile;
 
-  load_tile<T, D>(q_s, q, qs, b, h, q0, seq_len);
-  load_tile<T, D>(do_s, dout, dos, b, h, q0, seq_len);
+  load_tile<D>(q_s, q, qs, b, h, q0, seq_len);
+  load_tile<D>(do_s, dout, dos, b, h, q0, seq_len);
   load_rows(lse_s, delta_s, lse, delta, bh, q0, seq_len);
 
   // phase A: query rows qa0.., keys kc0..; phase C: query rows qa0.., columns dc0..
@@ -434,12 +416,12 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kTile;
-    load_tile<T, D>(k_s, k, ks, b, h, k0, seq_len);
-    load_tile<T, D>(v_s, v, vs, b, h, k0, seq_len);
+    load_tile<D>(k_s, k, ks, b, h, k0, seq_len);
+    load_tile<D>(v_s, v, vs, b, h, k0, seq_len);
     __syncthreads();
 
     float p[4][4], ds[4][4];
-    scores<kSplit, D>(q_s, k_s, do_s, v_s, lse_s, delta_s, qa0, kc0, q0, k0, seq_len, causal,
+    scores<D>(q_s, k_s, do_s, v_s, lse_s, delta_s, qa0, kc0, q0, k0, seq_len, causal,
                       scale, p, ds);
 #pragma unroll
     for (int n = 0; n < 4; ++n)
@@ -458,15 +440,15 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       for (int i = 0; i < 4; ++i)
         xds[i] = ds_s[(qa0 + g + (i & 1) * 8) * C::kSLd + kk * 8 + t + (i >> 1) * 4];
       Frag<4> ads;
-      make_frag<true>(ads, xds);
+      make_frag(ads, xds);
 #pragma unroll
       for (int n = 0; n < C::kNt; ++n) {
         float xk[2];
 #pragma unroll
         for (int j = 0; j < 2; ++j) xk[j] = k_s[(kk * 8 + t + j * 4) * C::kLd + dc0 + n * 8 + g];
         Frag<2> bk;
-        make_frag<kSplit>(bk, xk);
-        mma_x<true, kSplit>(acc[n], ads, bk);
+        make_frag(bk, xk);
+        mma_x(acc[n], ads, bk);
       }
     }
     __syncthreads();  // the next tile overwrites K, V and dS
@@ -476,7 +458,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   for (int j = 0; j < 2; ++j) {
     const int row = q0 + qa0 + g + 8 * j;
     if (row >= seq_len) continue;
-    T* out = dq + (((long long)b * seq_len + row) * heads + h) * D;
+    float* out = dq + (((long long)b * seq_len + row) * heads + h) * D;
 #pragma unroll
     for (int n = 0; n < C::kNt; ++n) {
       const int col = dc0 + n * 8 + 2 * t;
@@ -916,19 +898,19 @@ int launch_f32(const Args& a) {
   const float* dout = static_cast<const float*>(a.dout);
   const float* lse = static_cast<const float*>(a.lse);
   const float* delta = static_cast<const float*>(a.delta);
-  cudaError_t err = cudaFuncSetAttribute(dkdv_kernel<float, D>,
+  cudaError_t err = cudaFuncSetAttribute(dkdv_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          C::kDkdvSmem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(dq_kernel<float, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                C::kDqSmem);
   if (err != cudaSuccess) return (int)err;
   launch_delta<float, D>(a);
   const dim3 grid(a.batch * a.heads, (a.seq_len + kTile - 1) / kTile);
-  dkdv_kernel<float, D><<<grid, kThreads, C::kDkdvSmem, a.stream>>>(
+  dkdv_kernel<D><<<grid, kThreads, C::kDkdvSmem, a.stream>>>(
       q, k, v, dout, lse, delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.qs,
       a.ks, a.vs, a.dos, a.seq_len, a.heads, a.scale, a.causal);
-  dq_kernel<float, D><<<grid, kThreads, C::kDqSmem, a.stream>>>(
+  dq_kernel<D><<<grid, kThreads, C::kDqSmem, a.stream>>>(
       q, k, v, dout, lse, delta, static_cast<float*>(a.dq), a.qs, a.ks, a.vs, a.dos, a.seq_len,
       a.heads, a.scale, a.causal);
   return (int)cudaGetLastError();

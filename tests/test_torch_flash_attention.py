@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from fedml_tpu.ops.flash_attention import _flash_forward
+from fedml_tpu.ops.flash_attention import _bwd, _flash_forward, _fwd
 from fedml_tpu.ops.flash_attention import flash_attention as jax_flash
 from fedml_tpu.ops.flash_attention import pick_block as jax_pick_block
 from fedml_tpu_torch.ops import flash_attention as tfa
@@ -314,3 +314,26 @@ def test_zero_padded_head_dim_computes_the_same_function(D, causal):
     for x, w in zip(got, want):
         assert x.shape == (B, T, H, D) and x.is_contiguous()
         np.testing.assert_allclose(x.numpy(), w.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [24, 48, 80, 96])
+def test_zero_padded_head_dim_matches_jax_kernel_and_bwd(D, causal):
+    """The padded route against the reference itself, which takes any D:
+    the forward against the Pallas kernel (interpret mode), the backward
+    against ``_bwd`` on that kernel's residuals."""
+    rng = np.random.default_rng(100 + D)
+    q, k, v, g = (rng.normal(size=(B, T, H, D)).astype(np.float32) for _ in range(4))
+    want_o, res = _fwd(*(jnp.asarray(x) for x in (q, k, v)), causal, None, BLOCK, BLOCK)
+    want_lse = res[4]
+    want = _bwd(causal, None, BLOCK, BLOCK, res, jnp.asarray(g))
+    scale = D**-0.5
+    got_o, got_lse = tfa.padded_forward(tfa.flash_attention_reference, *_torch(q, k, v),
+                                        causal, scale)
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), atol=ATOL)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), atol=ATOL)
+    got = tfa.padded_backward(tfa.flash_attention_backward_reference,
+                              *_torch(*(np.asarray(r) for r in res), g), causal, scale)
+    for x, w in zip(got, want):
+        assert x.shape == (B, T, H, D)
+        np.testing.assert_allclose(x.numpy(), np.asarray(w), atol=GRAD_ATOL)
