@@ -43,7 +43,7 @@ Phases, each of which fails the run:
    (one PyTorch call computing the same function: SDPA, SDPA's backward)
    times, the library call's own device kernel named from a short
    profiler window, and each time's share of the kernel's bound; the
-   backward must repeat bitwise;
+   forward and the backward must each repeat bitwise;
 4. slice: bursts of 8 requests through ``ServingEngine``; the answers
    have the right shape, are finite and match the same model with
    ``attention_impl: full``; the kernels' launch counts rose on the
@@ -144,7 +144,20 @@ FLASH_CASES = [
     (4096, 48, 16, 32, torch.bfloat16, True),
     (2, 1024, 4, 48, torch.bfloat16, True),  # head dims the wrapper zero-pads
     (2, 1024, 4, 96, torch.float32, False),
+    # the bf16 wgmma kernel at its edges: T not a multiple of the tile, the
+    # narrowest and the widest head dim without the causal skip
+    (2, 1000, 4, 64, torch.bfloat16, True),
+    (4, 2048, 4, 16, torch.bfloat16, False),
+    (2, 2048, 4, 128, torch.bfloat16, False),
 ]
+# tensor-core passes each forward route makes a tile, against the two
+# products the bound counts: bf16 (wgmma) S once and P V twice (P as bf16
+# hi + lo), against 2 at the bf16 peak; f32 (mma.sync) 3xTF32 on both
+# products, 6, which the bound counts as they are (PASSES)
+FWD_ROUTE_PASSES = {torch.bfloat16: (3, 2), torch.float32: (6, 6)}
+# exponentials (MUFU ex2) per clock per SM (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0)
+EX2_PER_CLOCK_PER_SM = 16
 # O and lse against the plain version. f32: the kernel's 3xTF32 products
 # keep f32's accuracy, so the two differ by f32 rounding and summation
 # order over up to 4096 keys (~1e-5 at T 4096), so 1e-4.
@@ -153,6 +166,21 @@ FLASH_CASES = [
 # in both cases.
 O_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LSE_ATOL = 1e-4
+# bf16 O, element by element, against the plain version's f32 O (o32)
+# before its rounding: the kernel rounds its f32 O once, which moves it by
+# at most 2**-8 |o32|, so |o - o32| - 2**-8 |o32| is what its own
+# arithmetic added. Any rounding of P by a relative eps moves O by at most
+# eps * a32, a32 = sum_k p_k |v_k| (the plain version's softmax against
+# |V|), so that excess is read in units of a32. P as bf16 hi + lo leaves
+# ~2**-17 a term, one bf16 pass 2**-9: a numpy emulation of both (bf16
+# inputs, shapes (heads, T, D) (2, 2048, 64) causal, (2, 2048, 16) and
+# (1, 2048, 128) not, (4, 48, 32) causal) read 2**-22.6 to 2**-20.6 for hi
+# + lo and 2**-11.7 to 2**-8.9 for one pass. So the limit is 2**-15.
+BF16_O_EXCESS = 2.0**-15
+# the share of O's elements that differ from bf16(o32): in the same
+# emulation 0.15-0.25% for hi + lo and 33.5-43.0% for one pass. A dropped,
+# doubled or zeroed lo pass reads as one pass; the limit sits between.
+BF16_O_MISMATCH = 0.03
 # served logits, flash vs full attention: the same f32 weights and
 # inputs; the two paths differ only in attention's f32 rounding and
 # summation order
@@ -224,7 +252,7 @@ TRANSFORMER_CHECK_ROUNDS, TRANSFORMER_CHECK_FREQ = 4, 2
 # port's LayerNorm is written as elementwise ops and reductions, so its
 # time lands in those two kinds with the softmax, loss and metric sums.
 TRANSFORMER_KINDS = (
-    ("flash forward", ("flash_fwd_kernel",)),
+    ("flash forward", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel")),
     ("flash backward", ("dkdv_kernel", "dq_kernel", "dkdv_wgmma_kernel", "dq_wgmma_kernel",
                         "delta_kernel")),
     ("GEMM", ("gemm", "gemv", "nvjet", "cutlass", "xmma")),
@@ -319,6 +347,57 @@ def flash_bound(B, T, H, D, dtype, causal):
     return attention_bound(B, T, H, D, dtype, causal, products=2, tensors=4)
 
 
+def plain_bf16_readings(q, k, v, causal, scale):
+    """The plain version's O in f32 before its rounding (o32), its error
+    scale a32 = sum_k p_k |v_k|, and the one-pass control: O with the
+    unnormalised P = exp(s - max) rounded once to bf16 for P V, divided by
+    the f32 row sum, as a kernel that drops P's lo pass computes it. All
+    f32 [B, T, H, D]."""
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if causal:
+        T = q.shape[1]
+        keep = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o32 = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    a32 = torch.einsum("bhqk,bkhd->bqhd", p, vf.abs())
+    del p
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    rows = e.sum(dim=-1).transpose(1, 2)[..., None]
+    o_one = torch.einsum("bhqk,bkhd->bqhd", e.to(torch.bfloat16).float(), vf) / rows
+    return o32, a32, o_one
+
+
+def bf16_o_readings(o, o32, a32):
+    """(max over elements of (|o - o32| - 2**-8 |o32|) / a32, the share
+    of elements unequal to bf16(o32), mean |o - o32|) of a bf16 O against
+    the plain version's f32 O."""
+    of = o.float()
+    excess = ((of - o32).abs() - 2.0**-8 * o32.abs()) / a32.clamp_min(1e-30)
+    mismatch = (o != o32.to(torch.bfloat16)).float().mean()
+    return excess.max().item(), mismatch.item(), (of - o32).abs().mean().item()
+
+
+def mufu_floor_ms(B, T, H, causal, sm_count, sm_clock_hz):
+    """The least time the card's special-function units take for one
+    exponential per unmasked (query, key) pair: a floor under the
+    forward beside its bound, not part of it."""
+    pairs = T * (T + 1) / 2 if causal else T * T
+    return B * H * pairs / (EX2_PER_CLOCK_PER_SM * sm_count * sm_clock_hz) * 1e3
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, from nvidia-smi."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if out.returncode != 0 or not out.stdout.strip():
+        fail(f"nvidia-smi clocks.max.sm: exit {out.returncode}: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
 def flash_bwd_bound(B, T, H, D, dtype, causal):
     """The backward's bound: S, dP, dV, dK and dQ; q, k, v, O and dO read,
     dQ, dK and dV written."""
@@ -373,6 +452,7 @@ def check_flash_kernel():
     )
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
+    sms, clock = torch.cuda.get_device_properties(0).multi_processor_count, sm_clock_hz()
     cases = []
     for B, T, H, D, dtype, causal in FLASH_CASES:
         # q, k, v as views of one fused projection, as the model cuts them
@@ -385,6 +465,18 @@ def check_flash_kernel():
         err_o = (o.float() - o_ref.float()).abs().max().item()
         err_lse = (lse - lse_ref).abs().max().item()
         finite = bool(torch.isfinite(o.float()).all()) and bool(torch.isfinite(lse).all())
+        o2, lse2 = FWD_KERNEL(q, k, v, causal, scale)
+        deterministic = torch.equal(o, o2) and torch.equal(lse, lse2)
+        del o2, lse2
+        bf16 = {}
+        if dtype == torch.bfloat16:
+            # the kernel and the one-pass control on the same inputs
+            o32, a32, o_one = plain_in_slices(plain_bf16_readings, (q, k, v), (causal, scale))
+            for name, got in (("kernel", o), ("one_pass", o_one.to(torch.bfloat16))):
+                excess, mismatch, mean_err = bf16_o_readings(got, o32, a32)
+                bf16[name] = {"o_excess_a32": excess, "o_mismatch_share": mismatch,
+                              "o_mean_abs_err": mean_err}
+            del o32, a32, o_one
         heavy = B * H * T * T >= 2**30
         ms = cuda_time_ms(lambda: FWD_KERNEL(q, k, v, causal, scale), 5 if heavy else 20)
         plain_ms = cuda_time_ms(
@@ -399,25 +491,52 @@ def check_flash_kernel():
         library_ms = cuda_time_ms(sdpa, 10)
         library_kernel = device_kernel_names(sdpa)[:1] or ["not measured"]
         bound_ms, bound_by = flash_bound(B, T, H, D, dtype, causal)
+        mufu_ms = mufu_floor_ms(B, T, H, causal, sms, clock)
+        passes, bound_passes = FWD_ROUTE_PASSES[dtype]
         case = {
             "shape": [B, T, H, D], "dtype": str(dtype).replace("torch.", ""),
             "causal": causal, "max_abs_err": err_o, "lse_max_abs_err": err_lse,
-            "o_atol": O_ATOL[dtype], "lse_atol": LSE_ATOL,
+            "o_atol": O_ATOL[dtype], "lse_atol": LSE_ATOL, "deterministic": deterministic,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library_kernel": library_kernel[0],
             "bound_ms": bound_ms, "bound_by": bound_by, "bound_route": ROUTE[dtype],
         }
+        if bf16:
+            case["bf16_o"] = {**bf16, "o_excess_limit": BF16_O_EXCESS,
+                              "o_mismatch_limit": BF16_O_MISMATCH}
+            log(f"flash {case['shape']} bf16 causal={causal}: O against the plain f32 O, "
+                f"kernel / one-pass control: excess over one bf16 step "
+                f"{bf16['kernel']['o_excess_a32']:.3g} / {bf16['one_pass']['o_excess_a32']:.3g}"
+                f" a32 (limit {BF16_O_EXCESS:.3g}), share unequal to bf16(o32) "
+                f"{bf16['kernel']['o_mismatch_share']:.4%} / "
+                f"{bf16['one_pass']['o_mismatch_share']:.4%} (limit {BF16_O_MISMATCH:.0%}), "
+                f"mean |err| {bf16['kernel']['o_mean_abs_err']:.3g} / "
+                f"{bf16['one_pass']['o_mean_abs_err']:.3g}")
         log(f"flash {case['shape']} {case['dtype']} causal={causal}: "
             f"O err {err_o:.3g} (atol {O_ATOL[dtype]}), lse err {err_lse:.3g} "
-            f"(atol {LSE_ATOL}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"sdpa {library_ms:.3f} ms ({library_kernel[0][:90]}), bound "
-            f"{bound_ms:.3f} ms ({bound_by}, {ROUTE[dtype]}): "
-            f"{bound_ms / ms:.1%} of bound")
+            f"(atol {LSE_ATOL}), bitwise repeatable {deterministic}; kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, sdpa {library_ms:.3f} ms ({library_kernel[0][:90]}), "
+            f"bound {bound_ms:.3f} ms ({bound_by}, {ROUTE[dtype]}): "
+            f"{bound_ms / ms:.1%} of bound, the route making {passes} passes where the "
+            f"bound counts {bound_passes}; exponentials' floor {mufu_ms:.3f} ms "
+            f"({EX2_PER_CLOCK_PER_SM} ex2 a clock on each of {sms} SMs at "
+            f"{clock / 1e6:.0f} MHz)")
         if not finite:
             fail(f"flash {case['shape']} {case['dtype']}: non-finite output")
+        if not deterministic:
+            fail(f"flash {case['shape']} {case['dtype']}: two launches differ")
         if err_o > O_ATOL[dtype] or err_lse > LSE_ATOL:
             fail(f"flash {case['shape']} {case['dtype']} causal={causal}: "
                  f"O err {err_o} / lse err {err_lse} over tolerance")
+        if bf16 and (bf16["kernel"]["o_excess_a32"] > BF16_O_EXCESS
+                     or bf16["kernel"]["o_mismatch_share"] > BF16_O_MISMATCH):
+            fail(f"flash {case['shape']} bf16 causal={causal}: O off the plain f32 O by more "
+                 f"than one bf16 step and P's rounding allows: {bf16['kernel']}")
+        if bf16 and (bf16["one_pass"]["o_excess_a32"] <= BF16_O_EXCESS
+                     or bf16["one_pass"]["o_mismatch_share"] <= BF16_O_MISMATCH):
+            fail(f"flash {case['shape']} bf16 causal={causal}: the one-pass control passes "
+                 f"the bf16 O limits, so they cannot tell P's hi + lo from one pass: "
+                 f"{bf16['one_pass']}")
         if ms < bound_ms:
             fail(f"flash {case['shape']} {case['dtype']}: {ms} ms beats its bound "
                  f"{bound_ms} ms, so the bound is wrong")

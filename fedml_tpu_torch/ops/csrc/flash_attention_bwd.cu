@@ -474,8 +474,8 @@ constexpr float kLog2eF = 1.44269504088896340736f;
 
 template <int D>
 struct Sm90Cfg {
-  static constexpr int kChunk = D > 64 ? 64 : D;  // columns per TMA box: rows of <= 128 bytes
-  static constexpr int kRowBytes = kChunk * 2;
+  static constexpr int kChunk = Bf16Tile<D>::kChunk;
+  static constexpr int kRowBytes = Bf16Tile<D>::kRowBytes;
   static constexpr int kBK = 64;                   // keys per tile
   static constexpr int kBQ = 64;                   // queries per tile of the dQ kernel
   static constexpr int kBQKV = D == 128 ? 32 : 64; // queries per tile of the dK/dV kernel
@@ -496,75 +496,6 @@ struct Sm90Cfg {
   static_assert(kBQKV * kRowBytes % 1024 == 0 && kBK * kRowBytes % 1024 == 0,
                 "every box must start on a 1024-byte swizzle boundary");
 };
-
-// Descriptor of k-step `ks` (16 columns) of a [kRows, D] tile read
-// K-major: the reduction runs along D.
-template <int D, int kRows>
-__device__ __forceinline__ uint64_t kmajor_desc(const unsigned char* tile, int ks) {
-  using C = Sm90Cfg<D>;
-  const int col = ks * 16;
-  return smem_desc(tile + (col / C::kChunk) * kRows * C::kRowBytes + (col % C::kChunk) * 2,
-                   C::kRowBytes, 16, 8 * C::kRowBytes);
-}
-
-// Descriptor of k-step `kk` (rows 16kk .. 16kk+15) of a [kRows, D] tile
-// read MN-major: the reduction runs along the rows, D is the output's
-// columns.
-template <int D, int kRows>
-__device__ __forceinline__ uint64_t mnmajor_desc(const unsigned char* tile, int kk) {
-  using C = Sm90Cfg<D>;
-  return smem_desc(tile + kk * 16 * C::kRowBytes, C::kRowBytes, kRows * C::kRowBytes,
-                   8 * C::kRowBytes);
-}
-
-// (x, y) = hi + lo as bf16 pairs, x in the low half: hi = bf16(x)
-// rounded to nearest even (one conversion for the pair), lo = bf16(x - hi)
-// rounded to nearest, ties away from zero, by integer ops (x - hi is exact
-// in f32): the conversion unit (16 results a clock per SM) is this
-// kernel's scarcest pipe after the exponentials
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  const float rx = x - __uint_as_float(hi << 16), ry = y - __uint_as_float(hi & 0xffff0000u);
-  lo = __byte_perm(__float_as_uint(rx) + 0x8000u, __float_as_uint(ry) + 0x8000u, 0x7632);
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) d[i] = 0.f;
-}
-
-// Block-start set-up of both kernels: one barrier for the resident
-// tiles and one `full` barrier per ring stage, which completes on the TMA
-// bytes and, with kRowVectors, the four warps' arrivals after they have
-// stored the tile's lse and delta.
-template <int kStages, bool kRowVectors>
-__device__ __forceinline__ void init_barriers(const unsigned char* smem, uint64_t* bars) {
-  if (threadIdx.x == 0) {
-    if (smem_u32(smem) & 1023) __trap();  // the swizzle assumes 1024-byte boxes
-    mbar_init(bars, 1);
-    for (int s = 0; s < kStages; ++s) mbar_init(&bars[1 + s], kRowVectors ? 1 + 4 : 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-}
-
-// Thread 0: rows `row` .. `row` + kRows - 1 of (b, h) of a_map and of
-// b_map, one after the other from `dst`, by TMA on barrier `bar`
-template <int D, int kRows>
-__device__ __forceinline__ void load_pair(const CUtensorMap* a_map, const CUtensorMap* b_map,
-                                          unsigned char* dst, uint64_t* bar, int b, int h,
-                                          int row) {
-  using C = Sm90Cfg<D>;
-  constexpr int kBytes = kRows * D * 2;
-  mbar_expect_tx(bar, 2 * kBytes);
-#pragma unroll
-  for (int c = 0; c < D / C::kChunk; ++c) {
-    tma_load(dst + c * kRows * C::kRowBytes, a_map, bar, c * C::kChunk, h, row, b);
-    tma_load(dst + kBytes + c * kRows * C::kRowBytes, b_map, bar, c * C::kChunk, h, row, b);
-  }
-}
 
 // The value thread x of the warpgroup stores into a dK/dV stage's row
 // vectors for the query tile at q0: lse (times log2 e) of query q0 + x
@@ -615,7 +546,7 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int qt0 = causal ? k0 / BQ : 0;  // earlier query tiles see none of these keys
   const int n_tiles = (seq_len + BQ - 1) / BQ - qt0;
   const long long lrow = (long long)bh * seq_len;
-  init_barriers<kStages, true>(smem, bars);
+  init_barriers<kStages, 1 + 4>(smem, bars);
   auto stage = [&](int i) { return ring + (i % kStages) * C::kDkdvStage; };
   auto rows_of = [&](int i) { return reinterpret_cast<float*>(stage(i) + 2 * C::kQTileKV); };
   // the ring's first tiles; each later one is loaded when its stage is
@@ -763,7 +694,7 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int q0 = (gridDim.y - 1 - rank) * BQ;
   int n_tiles = (seq_len + BK - 1) / BK;
   if (causal) n_tiles = min(n_tiles, (q0 + BQ + BK - 1) / BK);  // later tiles fully masked
-  init_barriers<kStages, false>(smem, bars);
+  init_barriers<kStages, 1>(smem, bars);
   auto stage = [&](int i) { return ring + (i % kStages) * 2 * C::kKTile; };
   // the ring's first tiles; each later one is loaded when its stage is
   // freed at the end of the loop body

@@ -272,6 +272,109 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(kTransB));
 }
 
+// ---- bf16 tiles for wgmma -------------------------------------------------------
+
+// A [rows, D] bf16 tile as TMA stores it: boxes of kChunk columns (rows
+// of at most 128 bytes), each swizzled by its row bytes.
+template <int D>
+struct Bf16Tile {
+  static constexpr int kChunk = D > 64 ? 64 : D;
+  static constexpr int kRowBytes = kChunk * 2;
+};
+
+// Byte offset of k-step `ks` (16 columns) in a [kRows, D] tile read
+// K-major, and of k-step `kk` (rows 16kk .. 16kk+15) in one read MN-major
+template <int D, int kRows>
+__host__ __device__ constexpr int kmajor_step(int ks) {
+  return (ks * 16 / Bf16Tile<D>::kChunk) * kRows * Bf16Tile<D>::kRowBytes +
+         (ks * 16 % Bf16Tile<D>::kChunk) * 2;
+}
+template <int D>
+__host__ __device__ constexpr int mnmajor_step(int kk) {
+  return kk * 16 * Bf16Tile<D>::kRowBytes;
+}
+
+// Descriptor of k-step `ks` of a [kRows, D] tile read K-major: the
+// reduction runs along D.
+template <int D, int kRows>
+__device__ __forceinline__ uint64_t kmajor_desc(const unsigned char* tile, int ks) {
+  using C = Bf16Tile<D>;
+  return smem_desc(tile + kmajor_step<D, kRows>(ks), C::kRowBytes, 16, 8 * C::kRowBytes);
+}
+
+// Descriptor of k-step `kk` of a [kRows, D] tile read MN-major: the
+// reduction runs along the rows, D is the output's columns.
+template <int D, int kRows>
+__device__ __forceinline__ uint64_t mnmajor_desc(const unsigned char* tile, int kk) {
+  using C = Bf16Tile<D>;
+  return smem_desc(tile + mnmajor_step<D>(kk), C::kRowBytes, kRows * C::kRowBytes,
+                   8 * C::kRowBytes);
+}
+
+// A descriptor moved by `bytes` (a multiple of 16) within shared memory:
+// the start address is its low 14 bits, in 16-byte units, and shared
+// memory ends below 2^18 bytes, so the sum never carries out of them
+__device__ __forceinline__ uint64_t desc_add(uint64_t desc, int bytes) {
+  return desc + (uint64_t)(bytes >> 4);
+}
+
+// (x, y) = hi + lo as bf16 pairs, x in the low half: hi = bf16(x)
+// rounded to nearest even (one conversion for the pair), lo = bf16(x - hi)
+// rounded to nearest, ties away from zero, by integer ops (x - hi is exact
+// in f32): the conversion unit (16 results a clock per SM) is the
+// kernels' scarcest pipe after the exponentials
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  const float rx = x - __uint_as_float(hi << 16), ry = y - __uint_as_float(hi & 0xffff0000u);
+  lo = __byte_perm(__float_as_uint(rx) + 0x8000u, __float_as_uint(ry) + 0x8000u, 0x7632);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+// Block-start set-up of the wgmma kernels: one barrier for the resident
+// tiles and one `full` barrier per ring stage, which completes on the TMA
+// bytes and kStageArrivals arrivals (thread 0's expect_tx, plus any the
+// kernel adds, as the backward's four warps after they have stored a
+// tile's lse and delta).
+template <int kStages, int kStageArrivals>
+__device__ __forceinline__ void init_barriers(const unsigned char* smem, uint64_t* bars) {
+  if (threadIdx.x == 0) {
+    if (smem_u32(smem) & 1023) __trap();  // the swizzle assumes 1024-byte boxes
+    mbar_init(bars, 1);
+    for (int s = 0; s < kStages; ++s) mbar_init(&bars[1 + s], kStageArrivals);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// Thread 0: rows `row` .. `row` + kRows - 1 of (b, h) of a_map into `dst`
+// by TMA on barrier `bar`, whose expected bytes the caller has set
+template <int D, int kRows>
+__device__ __forceinline__ void tma_tile(const CUtensorMap* map, unsigned char* dst,
+                                          uint64_t* bar, int b, int h, int row) {
+  using C = Bf16Tile<D>;
+#pragma unroll
+  for (int c = 0; c < D / C::kChunk; ++c)
+    tma_load(dst + c * kRows * C::kRowBytes, map, bar, c * C::kChunk, h, row, b);
+}
+
+// Thread 0: the same rows of a_map and of b_map, one after the other from
+// `dst`, on barrier `bar`
+template <int D, int kRows>
+__device__ __forceinline__ void load_pair(const CUtensorMap* a_map, const CUtensorMap* b_map,
+                                          unsigned char* dst, uint64_t* bar, int b, int h,
+                                          int row) {
+  constexpr int kBytes = kRows * D * 2;
+  mbar_expect_tx(bar, 2 * kBytes);
+  tma_tile<D, kRows>(a_map, dst, bar, b, h, row);
+  tma_tile<D, kRows>(b_map, dst + kBytes, bar, b, h, row);
+}
+
 // ---- tensor maps (host) -------------------------------------------------------
 
 // error codes beside cudaError_t's (which are >= 0)

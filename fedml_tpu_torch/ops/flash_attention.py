@@ -1,15 +1,24 @@
 """Flash attention, [B, T, H, D] layout: hand-written Hopper kernels.
 
-The port of ``fedml_tpu/ops/flash_attention.py``. The forward is the CUDA
-C++ kernel in ``csrc/flash_attention_fwd.cu``, which replaces the Pallas
-TPU kernel ``_flash_kernel`` (``fedml_tpu/ops/flash_attention.py:32``).
-Causal attention at the serving shapes is bound by operations on an H100.
-Both products run on the tensor cores: f32 inputs as 3xTF32 (each f32
-product is three TF32 products of a hi/lo split, so the bound is three
-passes at the 495 TFLOP/s TF32 peak and the result keeps f32's
-accuracy), bf16 inputs with their exact TF32 values; K/V tiles arrive
-by TMA through a ring of shared-memory stages. The source describes the
-design.
+The port of ``fedml_tpu/ops/flash_attention.py``. The forward is
+``csrc/flash_attention_fwd.cu``, CUDA C++ for Hopper, which replaces the
+Pallas TPU kernel ``_flash_kernel`` (``fedml_tpu/ops/flash_attention.py:32``).
+Causal attention at the paths' shapes is bound by operations on an H100,
+and both products run on the tensor cores, with K/V tiles arriving by
+TMA through a ring of shared-memory stages, in two routes that keep the
+JAX kernel's f32 arithmetic:
+
+- bf16 inputs (the training path): ``flash_fwd_wgmma_kernel``, bf16
+  ``wgmma`` on bf16 tiles in shared memory. S = Q K^T is one pass; P
+  stays in registers as the A operand of P V, split into bf16 hi + lo
+  (two passes into one f32 accumulator); the softmax of one key tile runs
+  while the products of the one before are in flight.
+- f32 inputs (serving): ``flash_fwd_kernel``, 3xTF32 on ``mma.sync``
+  (each f32 product is three TF32 products of a hi/lo split, so the bound
+  is three passes at the 495 TFLOP/s TF32 peak and the result keeps f32's
+  accuracy).
+
+The source describes both designs.
 
 The backward is ``csrc/flash_attention_bwd.cu``, the port of the JAX
 package's ``_bwd`` (``:140-175``), which is plain array code there: a

@@ -5,15 +5,20 @@ On a CPU tensor the port's wrapper takes the kernel's plain version, so
 these tests hold that version, the autograd function around it and the
 blockwise backward against the JAX kernel on the same inputs. The CUDA
 kernel itself is held against the same plain version on the card by
-``chip_smoke.py``; here a numpy emulation of its 3xTF32 arithmetic is
-held against the JAX kernel, and the rules the wrapper applies before a
-launch are checked.
+``chip_smoke.py``; here numpy emulations of its two routes' arithmetic
+(f32 inputs as 3xTF32, bf16 inputs as bf16 ``wgmma`` passes with P split
+into bf16 hi + lo) are held against the JAX kernel, and the rules the
+wrapper applies before a launch are checked. Run as a script, the file
+prints the bf16 route's errors against the JAX kernel, with P split and
+as one bf16 pass.
 """
 
 from __future__ import annotations
 
 import importlib.util
 import os
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -190,6 +195,110 @@ def test_3xtf32_emulation_matches_jax_kernel(causal):
     assert np.abs(one_lse - want_lse).max() > ATOL
 
 
+def _bf16(x):
+    """Round to bf16 (8 mantissa bits), to nearest with ties to even, as
+    the kernel's ``__floats2bfloat162_rn`` does; returned as f32."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    rounded = bits + np.uint32(0x7FFF) + ((bits >> np.uint32(16)) & np.uint32(1))
+    return (rounded & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+def _bf16_rna(x):
+    """Round to bf16, to nearest with ties away from zero, as the kernel
+    rounds P's lo part ((bits + 0x8000) & 0xffff0000); returned as f32."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x8000)) & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+_BK = 64  # the bf16 kernel's key tile
+
+
+def _emulated_wgmma_kernel(q, k, v, causal, split=True):
+    """(O, lse) computed as the bf16 ``wgmma`` kernel computes them from
+    bf16-valued inputs: S one bf16 pass (exact products, f32 sums), the
+    online softmax over 64-key tiles in log2 units (masked scores -1e30,
+    the running max of the raw scores, P = exp2(s * scale_log2 - m *
+    scale_log2)), P V as bf16 hi + lo passes into one f32 accumulator, lo
+    first (one bf16 pass when ``split`` is False), O = acc / max(l, 1e-30),
+    lse = m * scale_log2 * ln 2 + log(max(l, 1e-30))."""
+    qf, kf, vf = (x.transpose(0, 2, 1, 3) for x in (q, k, v))
+    scale_log2 = np.float32(D**-0.5 * np.log2(np.e))
+
+    def mm(x, y):
+        return np.matmul(x, y, dtype=np.float32)
+
+    neg = np.float32(-1e30)
+    m = np.full(qf.shape[:-1] + (1,), neg, np.float32)
+    l = np.zeros_like(m)
+    acc = np.zeros(qf.shape, np.float32)
+    rows = np.arange(T)[:, None]
+    for k0 in range(0, T, _BK):
+        s = mm(qf, kf[..., k0:k0 + _BK, :].swapaxes(-1, -2))
+        if causal:
+            s = np.where(k0 + np.arange(s.shape[-1])[None, :] > rows, neg, s)
+        mx = np.maximum(m, s.max(axis=-1, keepdims=True))
+        corr = np.exp2((m - mx) * scale_log2)
+        p = np.exp2(s * scale_log2 - mx * scale_log2)
+        l = l * corr + p.sum(axis=-1, keepdims=True, dtype=np.float32)
+        vt = vf[..., k0:k0 + _BK, :]
+        if split:
+            hi = _bf16(p)
+            pv = mm(_bf16_rna(p - hi), vt) + mm(hi, vt)
+        else:
+            pv = mm(_bf16(p), vt)
+        acc = acc * corr + pv
+        m = mx
+    l = np.maximum(l, np.float32(1e-30))
+    lse = m[..., 0] * scale_log2 * np.float32(np.log(2.0)) + np.log(l[..., 0])
+    return (acc / l).transpose(0, 2, 1, 3), lse
+
+
+def _bf16_kernel_case(causal, split=True):
+    """(emulated (O, lse), the Pallas kernel's in interpret mode) on the
+    file's seeded inputs rounded to bf16 values, held as f32."""
+    q, k, v = (_bf16(x) for x in _qkv(17))
+    want_o, want_lse = _flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                      causal, None, BLOCK, BLOCK, True)
+    return _emulated_wgmma_kernel(q, k, v, causal, split), (np.asarray(want_o),
+                                                            np.asarray(want_lse))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_wgmma_emulation_matches_jax_kernel(causal):
+    """The bf16 kernel's arithmetic (one bf16 pass for S, P as bf16 hi +
+    lo) keeps the JAX kernel's f32 result within the file's tolerance."""
+    (o, lse), (want_o, want_lse) = _bf16_kernel_case(causal)
+    np.testing.assert_allclose(o, want_o, atol=ATOL)
+    np.testing.assert_allclose(lse, want_lse, atol=ATOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_one_pass_for_p_exceeds_the_tolerance(causal):
+    """P rounded once to bf16 (one pass for P V) moves O past the file's
+    tolerance; lse does not depend on it."""
+    (o, lse), (want_o, want_lse) = _bf16_kernel_case(causal, split=False)
+    assert np.abs(o - want_o).max() > ATOL
+    np.testing.assert_allclose(lse, want_lse, atol=ATOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_chip_smoke_bf16_limits_pass_hi_lo_and_fail_one_pass(causal):
+    """chip_smoke.py's element-wise limits on the kernel's bf16 O hold the
+    emulated hi + lo route and refuse the emulated one-pass route, both
+    rounded once to bf16 as the kernel rounds O, on the same inputs."""
+    chip_smoke = _chip_smoke()
+    q, k, v = (_bf16(x) for x in _qkv(17))
+    o32, a32, _ = chip_smoke.plain_bf16_readings(*_torch(q, k, v), causal, D**-0.5)
+    readings = {}
+    for split in (True, False):
+        o, _ = _emulated_wgmma_kernel(q, k, v, causal, split)
+        readings[split] = chip_smoke.bf16_o_readings(torch.tensor(o).to(torch.bfloat16),
+                                                     o32, a32)
+    (excess, mismatch, _), (one_excess, one_mismatch, _) = readings[True], readings[False]
+    assert excess <= chip_smoke.BF16_O_EXCESS and mismatch <= chip_smoke.BF16_O_MISMATCH
+    assert one_excess > chip_smoke.BF16_O_EXCESS and one_mismatch > chip_smoke.BF16_O_MISMATCH
+
+
 def test_tf32_rounding_is_to_nearest_ties_away():
     """The kernel's rounding, (bits + 0x1000) & 0xffffe000, is the one
     cvt.rna.tf32.f32 defines: to nearest, ties away from zero."""
@@ -221,6 +330,26 @@ def test_flash_bound_counts_the_route(dtype, want_ms):
     bound_ms, bound_by = _chip_smoke().flash_bound(8, 4096, 8, 64, dtype, True)
     assert bound_by == "operations"
     assert bound_ms == pytest.approx(want_ms, abs=5e-4)
+
+
+_KERNEL_SOURCES = Path(tfa.__file__).resolve().parent / "csrc"
+
+
+@pytest.mark.parametrize("source, kind", [("flash_attention_fwd.cu", "flash forward"),
+                                          ("flash_attention_bwd.cu", "flash backward")])
+def test_every_kernel_of_the_sources_counts_as_its_flash_kind(source, kind):
+    """Every ``__global__`` kernel in a flash source lands in its flash
+    kind of chip_smoke.py's profile (first match wins; an unmatched name
+    would count as elementwise work and fail the profiled round's launch
+    gate), under the name the profiler gives it."""
+    chip_smoke = _chip_smoke()
+    text = (_KERNEL_SOURCES / source).read_text()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+                       text)
+    assert len(names) == text.count("__global__") >= 2
+    for name in names:
+        profiled = f"void (anonymous namespace)::{name}<64>(CUtensorMap_st, CUtensorMap_st)"
+        assert chip_smoke.kernel_kind(profiled, chip_smoke.TRANSFORMER_KINDS) == kind, name
 
 
 # -- what the wrapper hands the kernel's TMA loads ----------------------------
@@ -337,3 +466,16 @@ def test_zero_padded_head_dim_matches_jax_kernel_and_bwd(D, causal):
     for x, w in zip(got, want):
         assert x.shape == (B, T, H, D)
         np.testing.assert_allclose(x.numpy(), np.asarray(w), atol=GRAD_ATOL)
+
+
+if __name__ == "__main__":
+    # the max |error| against the Pallas kernel (interpret mode) of the bf16
+    # route's arithmetic, with P as bf16 hi + lo (the kernel) and as one
+    # bf16 pass
+    for causal in (True, False):
+        for split in (True, False):
+            (o, lse), (want_o, want_lse) = _bf16_kernel_case(causal, split)
+            print(f"causal={causal} {'hi + lo' if split else 'one pass'}: max |err| O "
+                  f"{float(np.abs(o - want_o).max()):.3g}, lse "
+                  f"{float(np.abs(lse - want_lse).max()):.3g} (tolerance {ATOL}; max |O| "
+                  f"{float(np.abs(want_o).max()):.3g})")

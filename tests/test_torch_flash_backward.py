@@ -25,7 +25,7 @@ import torch
 from fedml_tpu.ops.flash_attention import _bwd, _fwd
 from fedml_tpu.ops.flash_attention import flash_attention as jax_flash
 from fedml_tpu_torch.ops import flash_attention as tfa
-from test_torch_flash_attention import _chip_smoke, _tf32
+from test_torch_flash_attention import _bf16, _bf16_rna, _chip_smoke, _tf32
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 C, B, T, H, D = 2, 2, 32, 2, 16
@@ -126,21 +126,6 @@ def _tf32_product(a, b, split_a, split_b):
     if split_b:
         out = out + mm(a_hi, _tf32(b - b_hi))
     return out + mm(a_hi, b_hi)
-
-
-def _bf16(x):
-    """Round to bf16 (8 mantissa bits), to nearest with ties to even, as
-    the kernel's ``__floats2bfloat162_rn`` does; returned as f32."""
-    bits = np.asarray(x, np.float32).view(np.uint32)
-    rounded = bits + np.uint32(0x7FFF) + ((bits >> np.uint32(16)) & np.uint32(1))
-    return (rounded & np.uint32(0xFFFF0000)).view(np.float32)
-
-
-def _bf16_rna(x):
-    """Round to bf16, to nearest with ties away from zero, as the kernels
-    round the lo part ((bits + 0x8000) & 0xffff0000); returned as f32."""
-    bits = np.asarray(x, np.float32).view(np.uint32)
-    return ((bits + np.uint32(0x8000)) & np.uint32(0xFFFF0000)).view(np.float32)
 
 
 def _bf16_product(a, b, split_a):

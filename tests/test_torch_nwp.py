@@ -96,6 +96,42 @@ def test_hetero_repeats_sequences_as_the_reference_does():
     np.testing.assert_array_equal(got.packed_num_samples, want.packed_num_samples)
 
 
+def _sequences(batches) -> set:
+    """The real (unmasked) sequences of a packed split, as tuples."""
+    x, mask = np.asarray(batches.x), np.asarray(batches.mask).astype(bool)
+    return {tuple(row) for row in x[mask]}
+
+
+def _unseen_bigram_share(train: np.ndarray, test: np.ndarray) -> float:
+    """The share of the token bigrams of ``test`` that ``train`` never has."""
+    def bigrams(x):
+        return {(a, b) for row in x for a, b in zip(row[:-1], row[1:])}
+
+    seen, wanted = bigrams(train), bigrams(test)
+    return len(wanted - seen) / len(wanted)
+
+
+def test_standin_test_split_comes_from_another_chain_as_the_reference_does():
+    """Both packages draw the stand-in's train sequences from the Markov
+    chain of ``seed`` and its test sequences from the chain of ``seed +
+    1`` (``fedml_tpu/data/loader.py:469-470``). ``synthetic_sequences``
+    draws its transition matrix from the seed, so the test split follows
+    other transitions: 96% of its bigrams never occur in the train split,
+    where test sequences from the train chain leave 40% unseen. The
+    reference's fault, pinned (ROADMAP.md §C): nothing learned on the
+    train split transfers to the test split."""
+    seed = 2  # _args' random_seed
+    x_tr, _ = synthetic.synthetic_sequences(TRAIN_N, SEQ_LEN, 90, seed)
+    x_te, _ = synthetic.synthetic_sequences(TEST_N, SEQ_LEN, 90, seed + 1)
+    for got in (load(_args(Arguments, "shakespeare", "homo"), device="cpu"),
+                jax_load(_args(JaxArguments, "shakespeare", "homo"))):
+        assert _sequences(got.train_data_global) == {tuple(r) for r in x_tr}
+        assert _sequences(got.test_data_global) == {tuple(r) for r in x_te}
+    assert _unseen_bigram_share(x_tr, x_te) > 0.9
+    same_chain, _ = synthetic.synthetic_sequences(TRAIN_N + TEST_N, SEQ_LEN, 90, seed)
+    assert _unseen_bigram_share(x_tr, same_chain[TRAIN_N:]) < 0.5
+
+
 @pytest.mark.parametrize("per_token", [False, True])
 def test_token_cross_entropy_matches_jax(per_token):
     rng = np.random.default_rng(3)
