@@ -25,10 +25,17 @@ version on the card:
   8 heads of 64, T 4096, 2 layers) on the Shakespeare stand-in, 8 of 32
   clients per round, batch 4, bf16 over f32 masters: the flash forward
   and backward kernels, one launch each per layer per step for the
-  whole cohort.
-The CNN and ResNet paths run no hand-written kernel: their convolutions
-and matrix products are cuDNN's and cuBLAS's through PyTorch, as XLA
-generated them on the TPU.
+  whole cohort;
+- the fifth slice: FedAvg of the federated RNNs through
+  ``run_simulation`` on ``fedml_tpu_torch/configs/fedavg_shakespeare_rnn.yaml``
+  (the McMahan et al. Shakespeare LSTM, 10 of 715 clients per round,
+  batch 4, T 80) and ``fedavg_stackoverflow_rnn.yaml`` (the Stack
+  Overflow LSTM, vocab 10,004, 50 of 1,000 clients per round, batch 16),
+  custom operators passed positionally to ``run_simulation``, a
+  checkpointed run resumed, and the transformer with ``remat: true``.
+The CNN, ResNet and RNN paths run no hand-written kernel: their
+convolutions and matrix products are cuDNN's and cuBLAS's through
+PyTorch, as XLA generated them on the TPU.
 
 Phases, each of which fails the run:
 
@@ -79,7 +86,32 @@ Phases, each of which fails the run:
    round 5 evaluates): rounds/s, real tokens/s, FLOPs per round, the
    share of the bf16 peak, peak memory, busy share, device time and
    launches by kind; the loss falls; the profiled round launches one
-   flash forward and one backward per layer per step.
+   flash forward and one backward per layer per step;
+8. rnn: the Shakespeare configuration as it is through
+   ``run_simulation`` (rounds 1-3 timed on the card's clock, round 4
+   profiled): rounds/s, real tokens/s, peak memory, busy share and
+   launches per step by kind; the train loss falls; depth 4 against
+   depth 1 bitwise (4 rounds, deterministic algorithms for this check
+   only);
+9. rnn stackoverflow: the Stack Overflow configuration at full width, 2
+   rounds, evaluation after each: the train loss is finite and falls;
+10. seam: on the Shakespeare RNN configuration (2 rounds), a frozen
+   trainer passed positionally to ``run_simulation`` leaves the global
+   model as it was (to the reference's tolerance: the weighted mean of
+   identical copies rounds; whether it is bitwise is printed), an
+   aggregator that keeps the global model keeps it bitwise, the default
+   trainer passed explicitly is bitwise the stock engine, and a
+   half-step trainer changes training;
+11. resume: on the Shakespeare RNN and the transformer configurations, a
+   depth-4 run with ``checkpoint_freq: 2`` stopped after round 2 and
+   restored to round 6 is bitwise a straight depth-1 run, params and
+   records (deterministic algorithms); save and restore times and the
+   checkpoint's bytes are printed;
+12. remat: the transformer configuration with ``remat: true``: the
+   params after one round bitwise those without remat; 3 rounds of each
+   through ``run_simulation``: peak memory (below the run without
+   remat), rounds/s, and two flash forwards and one backward per layer
+   per step for the whole cohort.
 Each phase's wall time is printed.
 
 Run from the repo root, on a machine with one CUDA card and the CUDA
@@ -110,6 +142,8 @@ FEDAVG_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "fedavg_femnist_cnn.yaml"
 DENSE_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "fedavg_cifar10_resnet18_bf16.yaml"
 TRANSFORMER_CONFIG = (REPO / "fedml_tpu_torch" / "configs"
                       / "fedavg_shakespeare_transformer_flash_bf16.yaml")
+RNN_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "fedavg_shakespeare_rnn.yaml"
+SO_RNN_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "fedavg_stackoverflow_rnn.yaml"
 DEVICE = "cuda"
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit). A
@@ -259,6 +293,31 @@ TRANSFORMER_KINDS = (
     ("embedding", ("embedding", "index", "scatter", "gather", "radix", "sort")),
     ("reductions (LayerNorm statistics, softmax, loss)", ("reduce", "softmax")),
 )
+
+
+# RNN phase, the Shakespeare configuration as it is (6 rounds, evaluation
+# at 0 and 5): round 0 warms up, rounds 1-3 are timed as a whole on the
+# card's clock, round 4 runs under torch.profiler, round 5 evaluates
+RNN_TIMED = (1, 3)
+RNN_PROFILED = 4
+RNN_CHECK_ROUNDS, RNN_CHECK_FREQ = 4, 2
+# device kernels of the RNN path by kind, first match wins
+RNN_KINDS = (
+    ("GEMM", ("gemm", "gemv", "nvjet", "cutlass", "xmma")),
+    ("LSTM gates (sigmoid, tanh and their backward)", ("sigmoid", "tanh")),
+    ("embedding", ("embedding", "index", "scatter", "gather", "radix", "sort")),
+    ("reductions (softmax, loss, metric sums)", ("reduce", "softmax")),
+    ("copies (stack, cat, slices)", ("copy", "cat", "stack")),
+)
+SO_RNN_ROUNDS = 2  # Stack Overflow at full width: 2 rounds, evaluation after each
+SEAM_ROUNDS = 2
+# a frozen trainer under the default (weighted-mean) aggregation: the
+# reference's own tolerance (np.allclose's rtol, tests/test_operator_seam.py),
+# since the weighted mean of identical copies rounds
+FROZEN_RTOL = 1e-5
+# resume: stopped after round 2, restored to round 6, evaluation every 2
+RESUME_ROUNDS, RESUME_FREQ = 6, 2
+REMAT_ROUNDS = 3
 
 
 def log(msg: str) -> None:
@@ -1216,9 +1275,11 @@ def dense_step_census(model, epochs: int) -> dict:
             "step_launches_by_kind": kinds}
 
 
-def _sim(config: Path, depth: int, comm_round: int, freq: int):
-    """A configuration's simulator, as ``run_simulation`` builds it, kept
-    so that its trainer's params can be read afterwards."""
+def _sim(config: Path, depth: int, comm_round: int, freq: int, client_trainer=None,
+         server_aggregator=None, **knobs):
+    """A configuration's simulator, as ``run_simulation`` builds it
+    (custom operators and other ``knobs`` passed through), kept so that
+    its trainer's params can be read afterwards."""
     import fedml_tpu_torch
     from fedml_tpu_torch import data, models
     from fedml_tpu_torch.arguments import load_arguments
@@ -1227,10 +1288,13 @@ def _sim(config: Path, depth: int, comm_round: int, freq: int):
     args = load_arguments(str(config))
     args.pipeline_depth, args.comm_round, args.frequency_of_the_test = depth, comm_round, freq
     args.log_metrics = False
+    for knob, value in knobs.items():
+        setattr(args, knob, value)
     args = fedml_tpu_torch.init(args)
     dataset = data.load(args, device=DEVICE)
     model = models.create(args, dataset.class_num, device=DEVICE)
-    return SimulatorSingleProcess(args, DEVICE, dataset, model)
+    return SimulatorSingleProcess(args, DEVICE, dataset, model, client_trainer=client_trainer,
+                                  server_aggregator=server_aggregator)
 
 
 @contextlib.contextmanager
@@ -1525,24 +1589,31 @@ def layernorm_ms(args) -> float:
     return cuda_time_ms(lambda: step(w, b, x), 10)
 
 
-def transformer_pipeline_check(layers: int) -> dict:
-    """Depth 4 against depth 1 on the transformer configuration (4
-    rounds, evaluation every 2) under ``torch.use_deterministic_algorithms``
-    for this check only (the embedding's backward may sum with atomics
-    otherwise; cuBLAS needs its workspace setting for it). Also counts
-    the flash kernels' launches of each run against layers x (training
-    steps, and forward passes of evaluation)."""
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms`` for a bitwise check only
+    (the embedding's backward may sum with atomics otherwise; cuBLAS
+    needs its workspace setting for it)."""
     env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     torch.use_deterministic_algorithms(True)
     try:
-        out = depth_runs(TRANSFORMER_CONFIG, TRANSFORMER_CHECK_ROUNDS, TRANSFORMER_CHECK_FREQ)
+        yield
     finally:
         torch.use_deterministic_algorithms(False)
         if env is None:
             os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
         else:
             os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+
+
+def transformer_pipeline_check(layers: int) -> dict:
+    """Depth 4 against depth 1 on the transformer configuration (4
+    rounds, evaluation every 2) under ``deterministic()`` for this check
+    only. Also counts the flash kernels' launches of each run against
+    layers x (training steps, and forward passes of evaluation)."""
+    with deterministic():
+        out = depth_runs(TRANSFORMER_CONFIG, TRANSFORMER_CHECK_ROUNDS, TRANSFORMER_CHECK_FREQ)
     dtypes = check_depths("transformer pipeline check (deterministic algorithms for this check "
                           "only)", out, TRANSFORMER_CHECK_ROUNDS)
     for depth, run in out.items():
@@ -1684,6 +1755,395 @@ def run_transformer():
     }
 
 
+# -- phases 8-12: the fifth slice ---------------------------------------
+def measured_run(args, profiled=None) -> dict:
+    """``run_simulation`` on ``args`` as a user calls it, with its metrics
+    written (and round ``profiled`` under ``torch.profiler``): the
+    result, the history records, the pipeline record, the profile
+    summary, the wall time, the peak memory less what earlier phases
+    still hold, and the flash kernels' launches."""
+    import tempfile
+
+    import fedml_tpu_torch
+
+    with tempfile.TemporaryDirectory(prefix="smoke_") as tmp:
+        args.metrics_jsonl_path = str(Path(tmp) / "metrics.jsonl")
+        args.log_metrics = False
+        if profiled is not None:
+            args.telemetry_dir = tmp
+            args.profile_rounds = [profiled]
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        reset_launches()
+        t0 = time.perf_counter()
+        final = fedml_tpu_torch.run_simulation(device=DEVICE, args=args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - held
+        launches = launch_counts()
+        lines = [json.loads(line) for line in
+                 (Path(tmp) / "metrics.jsonl").read_text().splitlines()]
+        summary = None if profiled is None else json.loads(
+            (Path(tmp) / "profile" / f"round_{profiled:04d}" / "summary.json").read_text())
+    records = [r for r in lines if r["kind"] == "server_train"]
+    if final["round"] != records[-1]["round"]:
+        fail("run_simulation's result is not the last round's stats")
+    return {"final": final, "records": records,
+            "pipe": next(r for r in lines if r["kind"] == "pipeline"), "summary": summary,
+            "wall_s": wall, "peak_bytes": peak, "held_bytes": held, "launches": launches}
+
+
+def timed_rounds(pipe: dict, first: int, last: int):
+    """Rounds ``first``-``last`` as a whole on the card's clock: (seconds,
+    rounds/s, the mean real examples a round's cohort holds)."""
+    spans = pipe["round_spans_s"]
+    timed_s = spans[last][1] - spans[first][0]
+    return timed_s, (last - first + 1) / timed_s, float(
+        np.mean(pipe["round_samples"][first:last + 1]))
+
+
+def log_records(tag: str, run: dict) -> list:
+    """Print a run's round spans and records; returns the train losses,
+    failing unless they are finite and fell."""
+    for r, (a, b) in enumerate(run["pipe"]["round_spans_s"]):
+        log(f"  {tag} round {r}: {(b - a) * 1e3:.1f} ms on the card's clock")
+    for r in run["records"]:
+        log(f"  {tag} round {r['round']} record: train {r['train_time_s'] * 1e3:.1f} ms, with "
+            f"eval {r['round_time_s'] * 1e3:.1f} ms; train_loss {r['train_loss']:.4f}, "
+            f"train_acc {r['train_acc']:.4f}, test_loss {r['test_loss']:.4f}, test_acc "
+            f"{r['test_acc']:.4f}, cohort loss {r['train_loss_cohort']:.4f}, cohort tokens "
+            f"{r['cohort_samples']:.0f}")
+    losses = [r["train_loss"] for r in run["records"]]
+    if len(losses) < 2 or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"{tag} train loss did not fall across the rounds: {losses}")
+    return losses
+
+
+def run_rnn():
+    """FedAvg of the Shakespeare LSTM through ``run_simulation``, as
+    configured: rounds 1-3 timed on the card's clock, round 4 profiled;
+    then depth 4 against depth 1 under ``deterministic()``."""
+    from fedml_tpu_torch.arguments import load_arguments
+
+    args = load_arguments(str(RNN_CONFIG))
+    T, bs, epochs = int(args.seq_len), int(args.batch_size), int(args.epochs)
+    run = measured_run(args, RNN_PROFILED)
+    pipe = run["pipe"]
+    first, last = RNN_TIMED
+    timed_s, rounds_per_s, seqs = timed_rounds(pipe, first, last)
+    tokens = seqs * T * epochs
+    steps = pipe["num_batches"] * epochs
+    card = card_line()
+    log(f"rnn (Shakespeare): {args.model}, {args.client_num_per_round} of "
+        f"{args.client_num_in_total} clients per round (pow2 bucket {pipe['bucket']}), batch "
+        f"{bs}, T {T}, {epochs} epoch, {args.dtype}, {steps} steps a round; "
+        f"{len(pipe['round_spans_s'])} rounds in {run['wall_s']:.1f} s (data, init and "
+        f"warm-up included); flash launches {run['launches']}")
+    losses = log_records("rnn", run)
+    log(f"rnn on {card}: rounds {first}-{last} timed as a whole on the card's clock: "
+        f"{timed_s:.4f} s, {rounds_per_s:.4f} rounds/s; {tokens * rounds_per_s:.0f} real "
+        f"tokens/s ({tokens:.0f} per round); peak memory {run['peak_bytes'] / 2**20:.1f} MiB")
+    profile = profile_summary(f"rnn profile of round {RNN_PROFILED} (training only) on {card}",
+                              run["summary"], RNN_KINDS)
+    if profile.get("device_launches"):
+        per_kind = {k: round(n / steps, 1) for k, n in profile["launches_by_kind"].items()}
+        log(f"rnn on {card}: {profile['device_launches'] / steps:.0f} device launches per step "
+            f"({steps} steps in the profiled round, {T} time steps each); per step by kind: "
+            f"{per_kind}")
+    if any(run["launches"].values()):
+        fail(f"the flash kernels ran {run['launches']} times on the RNN path, which has no "
+             f"attention")
+    with deterministic():
+        out = depth_runs(RNN_CONFIG, RNN_CHECK_ROUNDS, RNN_CHECK_FREQ)
+    check_depths("rnn pipeline check (deterministic algorithms for this check only)", out,
+                 RNN_CHECK_ROUNDS)
+    return {"card": card, "rounds_per_s": rounds_per_s, "timed_rounds_s": timed_s,
+            "real_tokens_per_s": tokens * rounds_per_s, "steps_per_round": steps,
+            "peak_memory_bytes": run["peak_bytes"], "train_loss": losses,
+            "pipeline": pipe, "profile": {"round": RNN_PROFILED, **profile},
+            "depth_check_wall_s": {d: out[d]["wall_s"] for d in out},
+            "kernel_launches": run["launches"]}
+
+
+def run_rnn_stackoverflow():
+    """FedAvg of the Stack Overflow LSTM at full width through
+    ``run_simulation``, 2 rounds, evaluation after each."""
+    from fedml_tpu_torch.arguments import load_arguments
+
+    args = load_arguments(str(SO_RNN_CONFIG))
+    args.comm_round, args.frequency_of_the_test = SO_RNN_ROUNDS, 1
+    run = measured_run(args)
+    pipe = run["pipe"]
+    T, epochs = int(args.seq_len), int(args.epochs)
+    _, rounds_per_s, seqs = timed_rounds(pipe, 1, SO_RNN_ROUNDS - 1)
+    card = card_line()
+    log(f"rnn (Stack Overflow): {args.client_num_per_round} of {args.client_num_in_total} "
+        f"clients per round (pow2 bucket {pipe['bucket']}), batch {args.batch_size}, T {T}, "
+        f"{pipe['num_batches'] * epochs} steps a round; {SO_RNN_ROUNDS} rounds in "
+        f"{run['wall_s']:.1f} s (the stand-in's data made on the host included)")
+    losses = log_records("rnn stackoverflow", run)
+    log(f"rnn stackoverflow on {card}: round 1 on the card's clock: {rounds_per_s:.4f} rounds/s, "
+        f"{seqs * T * epochs * rounds_per_s:.0f} real tokens/s; peak memory "
+        f"{run['peak_bytes'] / 2**20:.1f} MiB")
+    if any(run["launches"].values()):
+        fail(f"the flash kernels ran {run['launches']} times on the Stack Overflow RNN path")
+    return {"card": card, "rounds_per_s": rounds_per_s, "train_loss": losses,
+            "wall_s": run["wall_s"], "peak_memory_bytes": run["peak_bytes"],
+            "kernel_launches": run["launches"]}
+
+
+def _seam_operators():
+    """The trainers and aggregators of ``tests/test_operator_seam.py``,
+    written for the port, and a default aggregator that keeps its last
+    result (so that a run through ``run_simulation`` can be read)."""
+    from fedml_tpu_torch.core.frame import DefaultClientTrainer, DefaultServerAggregator
+
+    class FrozenTrainer(DefaultClientTrainer):
+        def make_train_fn(self, args):
+            inner = super().make_train_fn(args)
+
+            def train(params, batches, rng):
+                _, metrics = inner(params, batches, rng)
+                return params, metrics
+
+            return train
+
+    class HalfStepTrainer(DefaultClientTrainer):
+        def make_train_fn(self, args):
+            inner = super().make_train_fn(args)
+
+            def train(params, batches, rng):
+                new, metrics = inner(params, batches, rng)
+                return {k: params[k] + 0.5 * (new[k] - params[k]) for k in params}, metrics
+
+            return train
+
+    class Recording(DefaultServerAggregator):
+        def aggregate(self, global_params, stacked_params, weights, rng):
+            self.last = super().aggregate(global_params, stacked_params, weights, rng)
+            return self.last
+
+    class GlobalKeepAggregator(Recording):
+        def aggregate(self, global_params, stacked_params, weights, rng):
+            self.last = global_params
+            return global_params
+
+    return DefaultClientTrainer, FrozenTrainer, HalfStepTrainer, Recording, GlobalKeepAggregator
+
+
+def run_seam():
+    """The operator seam on the Shakespeare RNN configuration (2 rounds):
+    a frozen trainer and a keep-the-global aggregator passed positionally
+    to ``run_simulation``; the default trainer passed explicitly against
+    the stock engine, and a half-step trainer, through the simulator."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch import constants
+    from fedml_tpu_torch.arguments import load_arguments
+
+    Default, Frozen, HalfStep, Recording, GlobalKeep = _seam_operators()
+    t0 = time.perf_counter()
+
+    def through_run_simulation(trainer, aggregator):
+        args = load_arguments(str(RNN_CONFIG))
+        args.comm_round, args.log_metrics = SEAM_ROUNDS, False
+        fedml_tpu_torch.run_simulation(constants.FEDML_SIMULATION_TYPE_SP, trainer, aggregator,
+                                       device=DEVICE, args=args)
+        init = aggregator.model.init(torch.Generator().manual_seed(int(args.random_seed)))
+        return {k: v.to(DEVICE) for k, v in init.items()}, aggregator.last
+
+    reset_launches()
+    init, frozen = through_run_simulation(Frozen(None), Recording(None))
+    frozen_err = max(float((frozen[k] - init[k]).abs().max()) for k in init)
+    frozen_rel = max(float(((frozen[k] - init[k]).abs() / init[k].abs().clamp_min(1e-30)).max())
+                     for k in init)
+    frozen_bitwise = all(torch.equal(frozen[k], init[k]) for k in init)
+    log(f"seam: FrozenTrainer through run_simulation (positional), default aggregation: global "
+        f"params bitwise unchanged: {frozen_bitwise}; max |change| {frozen_err:.3e}, max "
+        f"relative {frozen_rel:.3e} (the weighted mean of identical copies rounds)")
+    if not frozen_rel <= FROZEN_RTOL:
+        fail(f"FrozenTrainer moved the global model by {frozen_rel} (relative), past "
+             f"{FROZEN_RTOL}")
+    init, kept = through_run_simulation(None, GlobalKeep(None))
+    if not all(torch.equal(kept[k], init[k]) for k in init):
+        fail("a custom aggregator that keeps the global model did not keep it")
+    log("seam: GlobalKeepAggregator through run_simulation (positional): the global params "
+        "bitwise the initial ones")
+
+    runs = {}
+    with deterministic():
+        for name, trainer in (("stock", None), ("default", Default(None)),
+                              ("half", HalfStep(None))):
+            sim = _sim(RNN_CONFIG, 1, SEAM_ROUNDS, 5, client_trainer=trainer)
+            sim.run()
+            api = sim.fl_trainer
+            runs[name] = ({k: v.detach().clone() for k, v in api.global_params.items()},
+                          [{k: v for k, v in h.items()
+                            if k not in ("round_time_s", "train_time_s")} for h in api.history])
+            del sim, api
+    stock, default, half = runs["stock"], runs["default"], runs["half"]
+    if not all(torch.equal(stock[0][k], default[0][k]) for k in stock[0]):
+        fail("the default trainer passed explicitly differs from the stock engine")
+    if stock[1] != default[1]:
+        fail(f"the default trainer's records differ from the stock engine's: {default[1]} vs "
+             f"{stock[1]}")
+    half_moved = max(float((half[0][k] - stock[0][k]).abs().max()) for k in stock[0])
+    if not half_moved > 0:
+        fail("HalfStepTrainer trained exactly as the stock engine")
+    launches = launch_counts()
+    log(f"seam: the default trainer passed explicitly is bitwise the stock engine (params and "
+        f"records, deterministic algorithms); HalfStepTrainer ends {half_moved:.3e} from it; "
+        f"flash launches {launches}; {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return {"frozen_bitwise": frozen_bitwise, "frozen_max_abs_change": frozen_err,
+            "frozen_max_rel_change": frozen_rel, "half_vs_stock_max_abs": half_moved,
+            "kernel_launches": launches}
+
+
+@contextlib.contextmanager
+def timed_calls(cls, *names):
+    """Wall time of every call of the methods ``names`` of ``cls`` (a
+    ``torch.cuda.synchronize`` first, so that queued work is not
+    counted), collected per name while the context is open."""
+    real = {n: getattr(cls, n) for n in names}
+    times = {n: [] for n in names}
+
+    def timed(n):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[n](*a, **kw)
+            times[n].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    for n in names:
+        setattr(cls, n, timed(n))
+    try:
+        yield times
+    finally:
+        for n in names:
+            setattr(cls, n, real[n])
+
+
+def resume_check(tag: str, config: Path) -> dict:
+    """Depth 4 with ``checkpoint_freq: 2`` run 2 rounds, then started again
+    to run to round 6 from the checkpoint of round 2, against a straight
+    depth-1 run of 6 rounds (evaluation every 2), under
+    ``deterministic()``: params bitwise equal, and the resumed run's
+    records equal the straight run's of the same rounds."""
+    import tempfile
+
+    from fedml_tpu_torch.core.checkpoint import RoundCheckpointer
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="resume_smoke_") as ckdir, \
+            timed_calls(RoundCheckpointer, "save", "restore") as times, deterministic():
+        for name, depth, rounds, knobs in (
+                ("stopped", 4, 2, {"checkpoint_dir": ckdir, "checkpoint_freq": 2}),
+                ("resumed", 4, RESUME_ROUNDS, {"checkpoint_dir": ckdir, "checkpoint_freq": 2}),
+                ("straight", 1, RESUME_ROUNDS, {})):
+            sim = _sim(config, depth, rounds, RESUME_FREQ, **knobs)
+            sim.run()
+            api = sim.fl_trainer
+            out[name] = ({k: v.detach().clone() for k, v in api.global_params.items()},
+                         [{k: v for k, v in h.items()
+                           if k not in ("round_time_s", "train_time_s")} for h in api.history])
+            del sim, api
+            torch.cuda.empty_cache()
+        ckpt = RoundCheckpointer(ckdir)
+        steps = ckpt.steps()
+        step_bytes = sum(f.stat().st_size for f in (Path(ckdir) / str(steps[-1])).iterdir())
+    resumed, straight = out["resumed"], out["straight"]
+    unequal = [k for k in straight[0] if not torch.equal(resumed[0][k], straight[0][k])]
+    tail = [h for h in straight[1] if h["round"] >= 2]
+    log(f"resume ({tag}): stopped after round 2 (depth 4, checkpoint_freq 2), restored and run "
+        f"to round {RESUME_ROUNDS}; against a straight depth-1 run: params differing bitwise "
+        f"{len(unequal)} of {len(straight[0])}; resumed records rounds "
+        f"{[h['round'] for h in resumed[1]]}; steps kept {steps}; checkpoint {step_bytes} bytes; "
+        f"saves {['%.4f' % t for t in times['save']]} s, restores "
+        f"{['%.4f' % t for t in times['restore']]} s")
+    if unequal:
+        err = max(float((resumed[0][k] - straight[0][k]).abs().max()) for k in unequal)
+        fail(f"resume ({tag}): the resumed run differs from the straight one in {len(unequal)} "
+             f"params (max {err})")
+    if resumed[1] != tail or not tail:
+        fail(f"resume ({tag}): the resumed run's records {resumed[1]} differ from the straight "
+             f"run's {tail}")
+    return {"bitwise_equal": True, "checkpoint_bytes": step_bytes, "steps_kept": steps,
+            "save_s": times["save"], "restore_s": times["restore"]}
+
+
+def run_resume():
+    reset_launches()
+    out = {"rnn": resume_check("Shakespeare RNN", RNN_CONFIG),
+           "transformer": resume_check("transformer", TRANSFORMER_CONFIG)}
+    out["kernel_launches"] = launch_counts()
+    log(f"resume: flash launches {out['kernel_launches']}")
+    return out
+
+
+def run_remat(passes: int):
+    """The transformer configuration with ``remat: true``: one round
+    bitwise against the same round without remat (``deterministic()``),
+    then 3 rounds of each through ``run_simulation``: peak memory,
+    rounds/s, and the flash launches of the remat run (two forwards and
+    one backward per layer per step for the whole cohort; ``passes``
+    forward passes per evaluation)."""
+    from fedml_tpu_torch.arguments import load_arguments
+
+    params = {}
+    with deterministic():
+        for remat in (False, True):
+            sim = _sim(TRANSFORMER_CONFIG, 1, 1, 5, remat=remat)
+            sim.run()
+            params[remat] = {k: v.detach().clone() for k, v in sim.fl_trainer.global_params.items()}
+            del sim
+            torch.cuda.empty_cache()
+    unequal = [k for k in params[False] if not torch.equal(params[False][k], params[True][k])]
+    log(f"remat: params after round 0 (one round), with and without remat: differing bitwise "
+        f"{len(unequal)} of {len(params[False])}")
+    if unequal:
+        fail(f"remat changes the trained params: {unequal}")
+    del params
+
+    runs = {}
+    for remat in (False, True):
+        args = load_arguments(str(TRANSFORMER_CONFIG))
+        args.comm_round, args.remat = REMAT_ROUNDS, remat
+        runs[remat] = measured_run(args)
+    card = card_line()
+    L = int(args.num_layers)
+    out = {}
+    for remat, run in runs.items():
+        _, rounds_per_s, _ = timed_rounds(run["pipe"], 1, REMAT_ROUNDS - 1)
+        out["remat" if remat else "plain"] = {
+            "rounds_per_s": rounds_per_s, "peak_memory_bytes": run["peak_bytes"],
+            "train_loss": [r["train_loss"] for r in run["records"]]}
+        log(f"remat on {card}: remat {remat}: rounds 1-{REMAT_ROUNDS - 1} {rounds_per_s:.4f} "
+            f"rounds/s on the card's clock; peak memory {run['peak_bytes'] / 2**20:.1f} MiB "
+            f"(less the {run['held_bytes'] / 2**20:.1f} MiB earlier phases still held); "
+            f"flash launches {run['launches']}")
+    run = runs[True]
+    steps = REMAT_ROUNDS * run["pipe"]["num_batches"] * int(args.epochs)
+    evals = len(run["records"])
+    want = {"flash_attention_fwd": L * (2 * steps + evals * passes),
+            "flash_attention_bwd": L * steps}
+    log(f"remat: flash launches {run['launches']}, want {want} ({L} layers x {steps} steps x "
+        f"(2 forwards, 1 backward), + {evals} evaluations of {passes} forward passes)")
+    if run["launches"] != want:
+        fail(f"remat: flash launches {run['launches']}, want {want}")
+    if not runs[True]["peak_bytes"] < runs[False]["peak_bytes"]:
+        fail(f"remat: peak memory {runs[True]['peak_bytes']} is not below the run without remat "
+             f"({runs[False]['peak_bytes']})")
+    if not all(np.isfinite(out["remat"]["train_loss"])):
+        fail(f"remat: train loss {out['remat']['train_loss']}")
+    torch.cuda.empty_cache()
+    return {"card": card, "bitwise_equal": True, **out, "kernel_launches": run["launches"]}
+
+
 def main() -> int:
     sys.path.insert(0, str(REPO))
     try:
@@ -1722,6 +2182,16 @@ def main() -> int:
     log(f"dense numbers on {card}: {json.dumps(dense_numbers)}")
     transformer_numbers = phase("transformer", run_transformer)
     log(f"transformer numbers on {card}: {json.dumps(transformer_numbers)}")
+    rnn_numbers = phase("rnn", run_rnn)
+    log(f"rnn numbers on {card}: {json.dumps(rnn_numbers)}")
+    so_numbers = phase("rnn stackoverflow", run_rnn_stackoverflow)
+    log(f"rnn stackoverflow numbers on {card}: {json.dumps(so_numbers)}")
+    seam_numbers = phase("seam", run_seam)
+    log(f"seam numbers on {card}: {json.dumps(seam_numbers)}")
+    resume_numbers = phase("resume", run_resume)
+    log(f"resume numbers on {card}: {json.dumps(resume_numbers)}")
+    remat_numbers = phase("remat", run_remat, transformer_numbers["pipeline_check"]["eval_passes"])
+    log(f"remat numbers on {card}: {json.dumps(remat_numbers)}")
     log(f"phase wall times (s): {json.dumps(walls)}")
     for entry in kernels:  # each path's own count, reset just before it
         name = entry["name"]
@@ -1730,6 +2200,11 @@ def main() -> int:
             "fedavg_headline": fedavg_numbers["kernel_launches"][name],
             "fedavg_dense": dense_numbers["kernel_launches"][name],
             "fedavg_transformer": transformer_numbers["kernel_launches"][name],
+            "fedavg_rnn": rnn_numbers["kernel_launches"][name],
+            "fedavg_rnn_stackoverflow": so_numbers["kernel_launches"][name],
+            "seam": seam_numbers["kernel_launches"][name],
+            "resume": resume_numbers["kernel_launches"][name],
+            "fedavg_transformer_remat": remat_numbers["kernel_launches"][name],
         }
         entry["launches"] = sum(entry["launches_by_path"].values())
     print(card)

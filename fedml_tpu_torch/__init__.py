@@ -11,8 +11,14 @@ Ported so far: the serving path of the flash-attention TransformerLM
 (``serving.ServingEngine`` over ``serving.ModelEndpoint``,
 ``models.create`` and the flash-attention forward kernel), and FedAvg
 training through ``run_simulation()`` (``init`` -> ``data.load`` ->
-``models.create`` -> ``SimulatorSingleProcess`` -> ``FedAvgAPI.train``).
-ROADMAP.md lists the slices still to come.
+``models.create`` -> ``SimulatorSingleProcess`` -> ``FedAvgAPI.train``)
+of the CNNs, the GroupNorm CIFAR zoo and the flash TransformerLM (with
+``remat``). The fifth slice adds the reference's entry with custom
+operators, ``run_simulation(backend, client_trainer,
+server_aggregator)`` (``core/frame.py``), checkpoint and resume
+(``checkpoint_dir``, ``core/checkpoint.py``) and the federated RNNs of
+Shakespeare and Stack Overflow (``models/rnn.py``). ROADMAP.md lists
+the slices still to come.
 """
 
 from __future__ import annotations
@@ -58,13 +64,18 @@ def init(args: Optional[Arguments] = None) -> Arguments:
 
 def run_simulation(
     backend: str = constants.FEDML_SIMULATION_TYPE_SP,
+    client_trainer=None,
+    server_aggregator=None,
+    *,
     device: DeviceLike = "cuda",
     args: Optional[Arguments] = None,
 ):
     """One-line simulation entry: trains ``args.comm_round`` rounds of
     the configured algorithm on ``device`` and returns the last
     evaluated round's stats. ``args`` defaults to ``--cf <yaml>`` from
-    the command line. Only the single-process backend is ported."""
+    the command line. Custom L3 operators (``core.frame``) plug in as
+    ``client_trainer`` / ``server_aggregator``, positionally as in the
+    reference. Only the single-process backend is ported."""
     dev = get_device(device)
     if backend in (constants.FEDML_SIMULATION_TYPE_MESH, constants.FEDML_SIMULATION_TYPE_NCCL):
         raise NotImplementedError(
@@ -79,4 +90,7 @@ def run_simulation(
     args = init(args)
     dataset = data.load(args, device=dev)
     model = models.create(args, dataset.class_num, device=dev)
-    return SimulatorSingleProcess(args, dev, dataset, model).run()
+    return SimulatorSingleProcess(
+        args, dev, dataset, model,
+        client_trainer=client_trainer, server_aggregator=server_aggregator,
+    ).run()

@@ -80,6 +80,12 @@ _DEFAULTS: Dict[str, Any] = {
     # next power of two (zero-weight, fully masked padding), "exact"
     # keeps its size
     "pipeline_bucket": "pow2",
+    # checkpoint/resume (core/checkpoint.py): directory of the round
+    # checkpoints, None disables them; a run whose directory holds one
+    # resumes after its latest step
+    "checkpoint_dir": None,
+    # save every N completed rounds (and after the last); None = every 10
+    "checkpoint_freq": None,
     # metrics and profiling
     "log_metrics": True,  # mirror round metrics into the log
     "metrics_jsonl_path": None,  # also append them as JSON lines here
@@ -96,7 +102,9 @@ _DEFAULTS: Dict[str, Any] = {
     "embed_dim": 128,  # transformer model width
     "max_len": 512,  # positional-embedding capacity
     "attention_impl": "full",  # "full" | "flash"
-    # rematerialized transformer blocks: not ported (models raise on it)
+    # rematerialize each transformer block: its activations are dropped
+    # after the forward and recomputed in the backward (less memory, one
+    # more forward per block; gradients bitwise the same)
     "remat": False,
     # serving plane (fedml_tpu_torch/serving):
     # bounded request queue; a full queue sheds new requests

@@ -9,7 +9,11 @@ This maps each parameter onto the port's module of the same name:
   ``[out, in, kh, kw]``;
 - ``Dense.bias`` and ``LayerNorm.bias`` -> ``bias``;
 - ``LayerNorm.scale`` -> ``weight``;
-- ``Embed.embedding`` -> ``Embedding.weight``.
+- ``Embed.embedding`` -> ``Embedding.weight``;
+- an ``OptimizedLSTMCell_<k>``'s gate kernels ``{ii,if,ig,io}/kernel``
+  ``[in, H]`` -> ``ih.weight`` ``[4H, in]`` and ``{hi,hf,hg,ho}/kernel``
+  ``[H, H]`` and ``/bias`` -> ``hh.weight`` ``[4H, H]`` and ``hh.bias``
+  ``[4H]``, each stacked in i, f, g, o order (``models/rnn.py``).
 
 With it, both packages compute the same function from the same weights.
 """
@@ -25,6 +29,13 @@ _SEP = "/"
 
 # flax leaf name -> torch leaf name (Dense kernels are also transposed)
 _LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
+_LSTM_CELL = "OptimizedLSTMCell_"
+_GATES = "ifgo"
+# an LSTM cell's flax leaves, (gate module, leaf): the input kernels have
+# no bias
+_LSTM_LEAVES = {(f"i{g}", "kernel") for g in _GATES} | {
+    (f"h{g}", leaf) for g in _GATES for leaf in ("kernel", "bias")
+}
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -43,7 +54,14 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     arrays) -> the port's ``{slash/joined/key: Tensor}`` params on the
     CPU. Raises ``ValueError`` on a leaf this mapping does not know."""
     out: Dict[str, torch.Tensor] = {}
+    cells: Dict[str, Dict[tuple, np.ndarray]] = {}
     for key, val in _flatten(tree).items():
+        parts = key.split(_SEP)
+        if len(parts) >= 3 and parts[-3].startswith(_LSTM_CELL):
+            if (parts[-2], parts[-1]) not in _LSTM_LEAVES:
+                raise ValueError(f"flax param {key!r}: unknown LSTM cell leaf")
+            cells.setdefault(_SEP.join(parts[:-2]), {})[(parts[-2], parts[-1])] = np.asarray(val)
+            continue
         path, _, leaf = key.rpartition(_SEP)
         if leaf not in _LEAVES:
             raise ValueError(f"flax param {key!r}: unknown leaf {leaf!r}")
@@ -60,4 +78,15 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 )
         name = f"{path}{_SEP}{_LEAVES[leaf]}" if path else _LEAVES[leaf]
         out[name] = torch.tensor(np.ascontiguousarray(arr))
+    for cell, leaves in cells.items():
+        missing = sorted(_SEP.join(k) for k in _LSTM_LEAVES - set(leaves))
+        if missing:
+            raise ValueError(f"flax LSTM cell {cell!r}: missing {missing}")
+
+        def stack(kind, leaf):
+            return np.concatenate([leaves[(f"{kind}{g}", leaf)].T for g in _GATES])
+
+        out[f"{cell}{_SEP}ih{_SEP}weight"] = torch.tensor(stack("i", "kernel"))
+        out[f"{cell}{_SEP}hh{_SEP}weight"] = torch.tensor(stack("h", "kernel"))
+        out[f"{cell}{_SEP}hh{_SEP}bias"] = torch.tensor(stack("h", "bias"))
     return out

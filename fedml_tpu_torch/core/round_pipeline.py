@@ -41,6 +41,17 @@ loop:
 round waits for its own event and every record is flushed at its own
 evaluation, with the same history records.
 
+**Checkpoints** (``checkpoint_dir``). The API's checkpointer saves at
+every round r with ``(r + 1) % checkpoint_freq == 0`` and at the last
+round, right after r is dispatched and after the deferred records up to
+r are flushed; the save's device-to-host copy is its own wait for the
+card. A restored run starts at ``start_round`` and precomputes the
+horizon from there. The generator is drawn in dispatch order, so its
+state right after round r is dispatched is the one round r + 1 draws
+from, and the resumed run is bitwise the run that never stopped.
+Without ``checkpoint_dir`` nothing here changes: the hot loop fetches
+only at its flushes.
+
 A round's ``train_time_s`` is its training time on the card, read from
 CUDA events before and after its dispatch when the record is flushed
 (on the CPU, where every op runs before it returns, the host clock
@@ -97,17 +108,19 @@ class RoundPipeline:
         self.depth = max(1, int(getattr(api.args, "pipeline_depth", 1)))
         self.bucket_policy = str(getattr(api.args, "pipeline_bucket", "pow2"))
         self.deferred = DeferredMetrics()
+        self.checkpoints = 0  # saves made (each a host sync of its own)
         self.stats: Dict[str, Any] = {}
 
-    def _precompute(self, comm_rounds: int, bucket: int):
-        """Cohort indices and validity ``[R, bucket]`` on the device
-        (one copy each), the real cohort sizes, the real examples each
-        cohort holds (host counts) and the LR multipliers."""
+    def _precompute(self, rounds: range, bucket: int):
+        """For the ``rounds`` to run: cohort indices and validity
+        ``[R, bucket]`` on the device (one copy each), the real cohort
+        sizes, the real examples each cohort holds (host counts) and the
+        LR multipliers."""
         api = self.api
         per_round = int(api.args.client_num_per_round)
         plans = [
             pad_cohort_idx(api._client_sampling(r, api.dataset.client_num, per_round), bucket)
-            for r in range(comm_rounds)
+            for r in rounds
         ]
         sizes = [int(valid.sum()) for _, valid in plans]
         counts = np.asarray(api.dataset.packed_num_samples)
@@ -115,19 +128,24 @@ class RoundPipeline:
         idx = torch.as_tensor(np.stack([p for p, _ in plans]), dtype=torch.int64,
                               device=api.device)
         valid = torch.as_tensor(np.stack([v for _, v in plans]), device=api.device)
-        lr_plan = [api._lr_mult(r) for r in range(comm_rounds)]
+        lr_plan = [api._lr_mult(r) for r in rounds]
         return idx, valid, sizes, samples, lr_plan
 
-    def run(self, packed, nsamples, comm_rounds: int, freq: int, profiler) -> Dict[str, float]:
+    def run(self, packed, nsamples, comm_rounds: int, freq: int, profiler, ckpt=None,
+            start_round: int = 0) -> Dict[str, float]:
+        """Rounds ``start_round`` to ``comm_rounds - 1``; with ``ckpt``
+        (the API's checkpointer) the state is saved every
+        ``api._ckpt_freq`` rounds and after the last."""
         api = self.api
         cuda = api.device.type == "cuda"
         bucket = bucket_cohort(int(api.args.client_num_per_round), self.bucket_policy,
                                max_size=int(api.dataset.client_num))
         final_stats: Dict[str, float] = {}
-        if comm_rounds <= 0:
+        rounds = range(start_round, comm_rounds)
+        if len(rounds) == 0:
             self._finish(bucket, 0)
             return final_stats
-        idx_plan, valid_plan, sizes, samples, lr_plan = self._precompute(comm_rounds, bucket)
+        idx_plan, valid_plan, sizes, samples, lr_plan = self._precompute(rounds, bucket)
 
         inflight: deque = deque()
         # per round: (start, end) CUDA events, or host clock readings on
@@ -149,24 +167,23 @@ class RoundPipeline:
                     # only the round just dispatched (K=1 flushes in the
                     # same iteration): round start to now
                     dt = time.perf_counter() - t0r
-                stats = api._stats_from_host(r, host, dt, _seconds(*spans[r]))
+                stats = api._stats_from_host(r, host, dt, _seconds(*spans[r - start_round]))
                 api.history.append(stats)
                 final_stats = stats
                 api.metrics_reporter.report_server_training_metric(stats)
 
-        for round_idx in range(comm_rounds):
+        for i, round_idx in enumerate(rounds):
             profiler.tick(round_idx)
             t0 = time.perf_counter()
             if prev_round is not None and prev_round in t_dispatch:
                 durations[prev_round] = t0 - t_dispatch[prev_round]
             prev_round = None
-            rng = api._shuffle_uniforms(sizes[round_idx], bucket)
+            rng = api._shuffle_uniforms(sizes[i], bucket)
             start = _mark(cuda)
             with devtime.measure("simulation.round_fn", bucket=f"b{bucket}"):
                 api.global_params, api.server_state, summed = api._round_fn(
                     api.global_params, api.server_state, packed, nsamples,
-                    idx_plan[round_idx], rng, lr_plan[round_idx],
-                    valid=valid_plan[round_idx],
+                    idx_plan[i], rng, lr_plan[i], valid=valid_plan[i],
                 )
             end = _mark(cuda)
             spans.append((start, end))
@@ -187,11 +204,19 @@ class RoundPipeline:
                 # waits on a round in flight (K=1: this round's record)
                 flush(round_idx - (self.depth - 1))
 
+            if ckpt is not None and ((round_idx + 1) % api._ckpt_freq == 0
+                                     or round_idx == comm_rounds - 1):
+                # the records up to this round out first, then the save
+                # copies the state to the host (a wait for the card)
+                flush(None)
+                api._save_checkpoint(ckpt, round_idx)
+                self.checkpoints += 1
+
         flush(None)  # drain
         if cuda:
             spans[-1][1].synchronize()  # the drain's fetch has waited already
         origin = spans[0][0]
-        self._finish(bucket, comm_rounds, {
+        self._finish(bucket, len(rounds), {
             "num_batches": packed.num_batches,
             "round_samples": samples,
             "round_spans_s": [[_seconds(origin, a), _seconds(origin, b)] for a, b in spans],
@@ -208,6 +233,7 @@ class RoundPipeline:
             "flushes": self.deferred.flushes,
             "host_syncs": self.deferred.host_syncs,
             "host_syncs_per_round": round(self.deferred.host_syncs / max(1, rounds), 4),
+            "checkpoints": self.checkpoints,
             **(timings or {}),
         }
         self.api.pipeline_stats = self.stats

@@ -4,9 +4,11 @@
 names on ``device``. Ported so far: ``lr``, ``mlp``, ``cnn`` (the FEMNIST
 CNN, or the CIFAR one for RGB datasets), the GroupNorm CIFAR zoo
 (``resnet18``/``resnet18_gn``, ``resnet56``/``resnet``, ``vgg11``-``19``,
-``mobilenet``, ``mobilenet_v3``, ``efficientnet-b0``-``b4``) and
-``transformer``; every other name raises ``NotImplementedError`` naming
-the slice of the port that brings it (ROADMAP.md, queue A).
+``mobilenet``, ``mobilenet_v3``, ``efficientnet-b0``-``b4``),
+``transformer`` (``remat`` included) and ``rnn`` (the Shakespeare LSTM,
+or the Stack Overflow one for ``stackoverflow*`` datasets); every other
+name raises ``NotImplementedError`` naming the slice of the port that
+brings it (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ __all__ = ["FedModel", "create"]
 # model name -> the port slice that brings it
 _LATER = {
     "moe_transformer": "the ring/Ulysses slice, with the expert-parallel planes",
+    **dict.fromkeys(("deeplab", "darts"), "the other simulation algorithms (queue A item 8)"),
 }
 
 _IMAGE_SHAPES = {
@@ -80,7 +83,7 @@ def create(args, output_dim: int, device: DeviceLike = "cuda") -> FedModel:
     if ds == "stackoverflow_lr" and name in ("lr", "mlp"):
         raise NotImplementedError(
             "tag prediction (stackoverflow_lr) is not ported yet; it arrives "
-            "with the data-ingestion slice (ROADMAP.md, queue A item 5)"
+            "with the data-ingestion slice (ROADMAP.md, queue A item 6)"
         )
     if name in ("lr", "mlp"):
         shape = _example_shape(args)
@@ -114,12 +117,6 @@ def create(args, output_dim: int, device: DeviceLike = "cuda") -> FedModel:
     if name == "transformer":
         from .transformer import TransformerLM
 
-        if getattr(args, "remat", False):
-            raise NotImplementedError(
-                "remat: rematerialized transformer blocks are not ported yet; "
-                "they arrive with the ring/Ulysses slice (ROADMAP.md, queue A)"
-            )
-
         # class_num is the floor, so every label id is a valid token
         vocab = max(int(getattr(args, "vocab_size", 0) or 0), output_dim)
         seq_len = int(getattr(args, "seq_len", 64))
@@ -130,10 +127,32 @@ def create(args, output_dim: int, device: DeviceLike = "cuda") -> FedModel:
             embed_dim=int(getattr(args, "embed_dim", 128)),
             max_len=max(seq_len, int(getattr(args, "max_len", 512))),
             attention=getattr(args, "attention_impl", "full"),
+            remat=bool(getattr(args, "remat", False)),
         ).to(dev)
         return FedModel(
             name="transformer_lm",
             module=module,
+            task="nwp",
+            example_shape=(seq_len,),
+            example_dtype=torch.int32,
+            input_bound=vocab,
+        )
+    if name == "rnn":
+        from .rnn import RNNOriginalFedAvg, RNNStackOverflow
+
+        # the vocab covers the dataset's token ids (class_num is the
+        # floor); an explicit vocab_size still wins over the default
+        if "stackoverflow" in ds:
+            vocab = max(int(getattr(args, "vocab_size", 0) or 10004), output_dim)
+            canonical, module = "rnn_stackoverflow", RNNStackOverflow(vocab_size=vocab)
+            seq_len = int(getattr(args, "seq_len", 20))
+        else:
+            vocab = max(int(getattr(args, "vocab_size", 0) or 90), output_dim)
+            canonical, module = "rnn_fedavg", RNNOriginalFedAvg(vocab_size=vocab)
+            seq_len = int(getattr(args, "seq_len", 80))
+        return FedModel(
+            name=canonical,
+            module=module.to(dev),
             task="nwp",
             example_shape=(seq_len,),
             example_dtype=torch.int32,
@@ -144,5 +163,5 @@ def create(args, output_dim: int, device: DeviceLike = "cuda") -> FedModel:
         f"model {name!r} is not ported to PyTorch yet; it arrives with "
         f"{later} (ROADMAP.md, queue A). Ported: 'lr', 'mlp', 'cnn', the GroupNorm "
         "CIFAR zoo ('resnet18', 'resnet56', 'vgg*', 'mobilenet', 'mobilenet_v3', "
-        "'efficientnet-b*') and 'transformer'."
+        "'efficientnet-b*'), 'transformer' and 'rnn'."
     )

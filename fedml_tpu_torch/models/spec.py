@@ -37,6 +37,16 @@ def to_nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
+def _orthogonal(rows: int, cols: int, generator: torch.Generator) -> torch.Tensor:
+    """flax's ``orthogonal`` initializer: Q of the QR decomposition of a
+    standard normal matrix, its columns' signs fixed by R's diagonal,
+    ``[rows, cols]`` with orthonormal rows or columns."""
+    a = torch.randn((max(rows, cols), min(rows, cols)), generator=generator)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    return q if rows >= cols else q.T
+
+
 @dataclasses.dataclass(frozen=True)
 class FedModel:
     name: str
@@ -60,16 +70,26 @@ class FedModel:
         standard deviations, scaled to variance 1/fan_in; fan_in is the
         product of a weight's dims after the first), embeddings a plain
         normal of variance 1/width, biases zero, normalisation scales
-        one."""
+        one; a weight a module lists in ``orthogonal_blocks`` (the LSTM's
+        hidden kernels) orthogonal, block by block of that many rows."""
         truncated = {
             f"{name}.weight" if name else "weight"
             for name, mod in self.module.named_modules()
             if isinstance(mod, (nn.Linear, nn.Conv2d))
         }
+        orthogonal = {
+            f"{name}.{key}" if name else key: rows
+            for name, mod in self.module.named_modules()
+            for key, rows in getattr(mod, "orthogonal_blocks", {}).items()
+        }
         out = {}
         for key, p in self.module.named_parameters():
             leaf = key.rsplit(".", 1)[-1]
-            if leaf == "bias":
+            if key in orthogonal:
+                rows = orthogonal[key]
+                val = torch.cat([_orthogonal(rows, p.shape[1], generator)
+                                 for _ in range(p.shape[0] // rows)])
+            elif leaf == "bias":
                 val = torch.zeros(p.shape)
             elif p.dim() == 1:
                 val = torch.ones(p.shape)

@@ -13,6 +13,13 @@ worth a small but real mismatch otherwise: ``LayerNorm`` uses epsilon
 1e-6 and the fast variance E[x²]−E[x]²; ``gelu`` is the tanh
 approximation; ``Dense_0``'s output splits into q, k, v in that order
 along the last axis, each then viewed as [B, T, H, D].
+
+``remat=True`` rematerializes each block (the JAX package's
+``nn.remat(Block)``, with the same parameter names): the block runs
+under :class:`Rematerialize`, which keeps only the block's inputs for
+the backward and recomputes its forward there. ``torch.utils.checkpoint``
+cannot serve: its saved-tensor hooks are refused under ``torch.func.grad``,
+which the trainer's vmapped step is.
 """
 
 from __future__ import annotations
@@ -102,6 +109,57 @@ class Block(nn.Module):
         return x + self.Dense_3(h)
 
 
+class Rematerialize(torch.autograd.Function):
+    """``fn(x, params)`` with nothing saved for the backward but its
+    inputs: the backward runs ``fn`` again under ``torch.func.vjp`` and
+    pulls the gradient through that recomputation. A new-style function
+    with a generated ``vmap`` rule, so it runs under the trainer's
+    ``vmap(grad)``; inside, the flash functions' own ``vmap`` rules
+    still fold the cohort into one kernel launch (per layer: the
+    forward, the recomputed forward, and the backward). The recomputed
+    forward is the same arithmetic on the same inputs, so the gradients
+    are bitwise those without remat.
+
+    ``apply(fn, names, x, *tensors)``: ``params = dict(zip(names,
+    tensors))``."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, names, x, *tensors):
+        return fn(x, dict(zip(names, tensors)))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        fn, names, x, *tensors = inputs
+        ctx.fn, ctx.names = fn, names
+        ctx.save_for_backward(x, *tensors)
+
+    @staticmethod
+    def backward(ctx, g):
+        # detached: the recomputation is differentiated by its own vjp
+        # only. Left attached, the enclosing autograd (which torch.func.grad
+        # runs with create_graph) would record it too and keep every
+        # block's recomputed activations alive to the end of the backward
+        x, *tensors = (t.detach() for t in ctx.saved_tensors)
+        _, pull = torch.func.vjp(
+            lambda x, ts: ctx.fn(x, dict(zip(ctx.names, ts))), x, tuple(tensors)
+        )
+        gx, gts = pull(g)
+        return (None, None, gx, *gts)
+
+
+def remat_block(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``block(x)`` under :class:`Rematerialize`, its current parameters
+    (the tensors a ``functional_call`` put in) passed in explicitly so
+    that their gradients flow."""
+    names, tensors = zip(*block.named_parameters())
+    return Rematerialize.apply(
+        lambda x, params: torch.func.functional_call(block, params, (x,), strict=True),
+        names, x, *tensors,
+    )
+
+
 class TransformerLM(nn.Module):
     """Causal LM: tokens [B, T] -> logits [B, T, vocab]."""
 
@@ -114,10 +172,12 @@ class TransformerLM(nn.Module):
         max_len: int = 512,
         attention: str = "full",
         attn_fn: Optional[Callable] = None,
+        remat: bool = False,
     ) -> None:
         super().__init__()
         attn = attn_fn or resolve_attention(attention)
         self.num_layers = num_layers
+        self.remat = remat
         self.Embed_0 = nn.Embedding(vocab_size, embed_dim)
         self.Embed_1 = nn.Embedding(max_len, embed_dim)
         for i in range(num_layers):
@@ -130,5 +190,6 @@ class TransformerLM(nn.Module):
         x = self.Embed_0(tokens)
         x = x + self.Embed_1(torch.arange(T, device=tokens.device))[None]
         for i in range(self.num_layers):
-            x = getattr(self, f"Block_{i}")(x)
+            block = getattr(self, f"Block_{i}")
+            x = remat_block(block, x) if self.remat else block(x)
         return self.Dense_0(self.LayerNorm_0(x))

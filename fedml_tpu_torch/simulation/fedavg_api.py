@@ -18,22 +18,28 @@ cohort buckets, metrics fetched at flushes only), as the JAX package's
 does; the synchronous loop serves the sequential mode.
 
 Ported: ``FedAvgAPI`` with the ``vectorized`` and ``sequential`` modes,
-``FedProxAPI``, ``FedOptAPI`` (server optimizers) and ``FedNovaAPI``.
-The knobs of later slices (checkpoints, defenses, the client registry,
-preemption, the stall watchdog, the metrics server) raise
-``NotImplementedError`` instead of being ignored.
+``FedProxAPI``, ``FedOptAPI`` (server optimizers) and ``FedNovaAPI``;
+custom operators (``client_trainer``/``server_aggregator``,
+``core/frame.py``); checkpoint and resume (``checkpoint_dir``, every
+``checkpoint_freq`` rounds, ``core/checkpoint.py``): a resumed run is
+bitwise the run that was never stopped. The knobs of later slices
+(defenses, the client registry, preemption, the stall watchdog, the
+metrics server) raise ``NotImplementedError`` instead of being ignored.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from ..core import devtime
 from ..core.aggregation import normalize_weights, stack_pytrees, weighted_average
+from ..core.frame import bind_operator, cohort_train_fn
 from ..core.local_trainer import (
     compute_dtype_from_args,
     make_eval_fn,
@@ -56,8 +62,7 @@ Params = Dict[str, torch.Tensor]
 
 # knob -> (is it set?, the slice that brings it)
 _LATER_KNOBS = {
-    "checkpoint_dir": (bool, "the checkpoint/resume slice"),
-    "defense_type": (bool, "the robust-aggregation planes (queue A item 5)"),
+    "defense_type": (bool, "the robust-aggregation planes (queue A item 7)"),
     "client_registry_size": (lambda v: int(v or 0) > 0, "the population planes (queue A item 5)"),
     "preempt_signal": (lambda v: str(v or "none").lower() != "none", "the elastic-mesh slice"),
     "stall_timeout_s": (lambda v: float(v or 0) > 0, "the telemetry exporters"),
@@ -133,9 +138,19 @@ class FedAvgAPI:
 
     ``args.sim_mode``: ``"vectorized"`` (default; the cohort trains as
     one vmapped batch of clients) or ``"sequential"`` (a Python loop
-    over clients, each a cohort of one)."""
+    over clients, each a cohort of one).
+
+    ``client_trainer`` / ``server_aggregator`` (``core/frame.py``)
+    replace the stock local training and aggregation: the trainer's
+    per-client function is vmapped over the cohort (called per client in
+    the sequential mode), and the aggregator reduces the stacked cohort
+    inside the round function."""
 
     algorithm = "FedAvg"
+    # algorithms whose server step IS the algorithm (FedOpt's optimizer,
+    # FedNova's normalized combine) turn this off, so that a custom
+    # server_aggregator raises instead of being dropped
+    _accepts_custom_aggregator = True
 
     def __init__(
         self,
@@ -143,12 +158,21 @@ class FedAvgAPI:
         device: DeviceLike,
         dataset: FederatedDataset,
         model: FedModel,
+        client_trainer=None,
+        server_aggregator=None,
     ) -> None:
         _reject_later_knobs(args)
+        if server_aggregator is not None and not self._accepts_custom_aggregator:
+            raise ValueError(
+                f"{self.algorithm} defines its own server aggregation; a "
+                "custom server_aggregator would be ignored — not supported"
+            )
         self.args = args
         self.device = get_device(device)
         self.dataset = dataset
         self.model = model
+        self.client_trainer = bind_operator(client_trainer, model, args)
+        self.server_aggregator = bind_operator(server_aggregator, model, args)
         self.mode = getattr(args, "sim_mode", "vectorized")
         self.history: List[Dict[str, float]] = []
         self.pipeline_stats: Dict[str, float] = {}
@@ -161,21 +185,37 @@ class FedAvgAPI:
         # round-indexed LR schedule (decay across rounds, constant within
         # one local fit): None for lr_schedule=constant
         self._round_lr = resolve_round_lr_schedule(args)
-        prox_mu = float(getattr(args, "fedprox_mu", 0.0)) if self.algorithm == "FedProx" else 0.0
         self.shuffle = bool(getattr(args, "shuffle", True))
         self.epochs = int(args.epochs)
-        self._local_train = make_local_train_fn(
-            model.apply,
-            model.loss_fn,
-            create_client_optimizer(
-                args,
-                lr=float(args.learning_rate) if self._round_lr is not None else None,
-            ),
-            epochs=self.epochs,
-            prox_mu=prox_mu,
-            shuffle=self.shuffle,
-            compute_dtype=compute_dtype_from_args(args),
-        )
+        # the per-client function of a custom trainer (the sequential
+        # mode calls it per client), or None for the stock trainer
+        self._client_train = None
+        if client_trainer is not None:
+            if self._round_lr is not None:
+                raise ValueError(
+                    "lr_schedule with a custom client_trainer: the trainer owns "
+                    "its optimizer, so the engine cannot apply the round-indexed "
+                    "LR — implement the schedule inside the trainer or use "
+                    "lr_schedule=constant"
+                )
+            client_trainer.set_id(0)
+            self._client_train = client_trainer.make_train_fn(args)
+            self._local_train = cohort_train_fn(self._client_train)
+        else:
+            prox_mu = (float(getattr(args, "fedprox_mu", 0.0))
+                       if self.algorithm == "FedProx" else 0.0)
+            self._local_train = make_local_train_fn(
+                model.apply,
+                model.loss_fn,
+                create_client_optimizer(
+                    args,
+                    lr=float(args.learning_rate) if self._round_lr is not None else None,
+                ),
+                epochs=self.epochs,
+                prox_mu=prox_mu,
+                shuffle=self.shuffle,
+                compute_dtype=compute_dtype_from_args(args),
+            )
         self._eval = make_eval_fn(
             model.apply, model.loss_fn, compute_dtype=compute_dtype_from_args(args)
         )
@@ -188,7 +228,11 @@ class FedAvgAPI:
         return ()
 
     def _aggregate(self, global_params, server_state, new_stacked, weights, cohort, rng):
-        """FedAvg: the weighted average."""
+        """FedAvg: the weighted average, or the custom aggregator's
+        reduction."""
+        if self.server_aggregator is not None:
+            return (self.server_aggregator.aggregate(global_params, new_stacked, weights, rng),
+                    server_state)
         return weighted_average(new_stacked, weights), server_state
 
     # -- reference-parity sampling ------------------------------------
@@ -231,27 +275,83 @@ class FedAvgAPI:
         )
         comm_rounds = int(args.comm_round)
         freq = max(1, int(getattr(args, "frequency_of_the_test", 5)))
+        ckpt, start_round = self._maybe_restore()
         profiler = RoundProfiler(args, self.device)
         try:
             if self.mode == "sequential":
-                return self._train_rounds_sync(packed, nsamples, comm_rounds, freq, profiler)
-            return RoundPipeline(self).run(packed, nsamples, comm_rounds, freq, profiler)
+                return self._train_rounds_sync(packed, nsamples, comm_rounds, freq, profiler,
+                                               ckpt, start_round)
+            return RoundPipeline(self).run(packed, nsamples, comm_rounds, freq, profiler,
+                                           ckpt, start_round)
         finally:
             profiler.close()
+            if ckpt is not None:
+                ckpt.close()
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _train_rounds_sync(self, packed, nsamples, comm_rounds, freq, profiler):
+    # -- checkpoint / resume -------------------------------------------
+    def _maybe_restore(self):
+        """``(checkpointer, start_round)``: ``(None, 0)`` without
+        ``checkpoint_dir``; else the checkpointer, and the round after
+        the latest saved step, whose params, server state and generator
+        state are now the API's (0 when there is no step yet)."""
+        ckpt_dir = getattr(self.args, "checkpoint_dir", None)
+        if not ckpt_dir:
+            return None, 0
+        from ..core.checkpoint import RoundCheckpointer
+
+        # None = every 10 rounds, the JAX package's cadence
+        self._ckpt_freq = max(1, int(getattr(self.args, "checkpoint_freq", None) or 10))
+        ckpt = RoundCheckpointer(ckpt_dir)
+        state = ckpt.restore()
+        if state is None:
+            return ckpt, 0
+        params = state["params"]
+        if set(params) != set(self.global_params):
+            raise ValueError(
+                f"checkpoint under {ckpt.dir} holds params {sorted(params)}, the model "
+                f"has {sorted(self.global_params)}"
+            )
+        self.global_params = {k: v.to(self.device) for k, v in params.items()}
+        leaves, spec = pytree.tree_flatten(self.server_state)
+        saved = state["server_state"]
+        if len(saved) != len(leaves):
+            raise ValueError(
+                f"checkpoint under {ckpt.dir} holds {len(saved)} server-state leaves, "
+                f"{self.algorithm} has {len(leaves)}"
+            )
+        self.server_state = pytree.tree_unflatten([v.to(self.device) for v in saved], spec)
+        self.generator.set_state(state["generator"])
+        start_round = int(state["round_idx"]) + 1
+        logging.info("resuming from round %d", start_round)
+        return ckpt, start_round
+
+    def _save_checkpoint(self, ckpt, round_idx: int) -> None:
+        """Round ``round_idx``'s state: the global params, the server
+        state's leaves, and the generator's state after the round's
+        draws (the state the next round draws from)."""
+        ckpt.save(round_idx, {
+            "params": self.global_params,
+            "server_state": pytree.tree_leaves(self.server_state),
+            "generator": self.generator.get_state(),
+            "round_idx": int(round_idx),
+        })
+
+    def _train_rounds_sync(self, packed, nsamples, comm_rounds, freq, profiler,
+                           ckpt=None, start_round=0):
         """The synchronous loop of the sequential mode (a Python loop
         over the cohort's clients). A round that evaluates waits for the
         card before its evaluation and records ``train_time_s`` (round
         start to training done on the device) beside ``round_time_s``
-        (to the end of evaluation)."""
+        (to the end of evaluation). With a checkpointer, rounds run from
+        ``start_round`` and the state is saved every ``checkpoint_freq``
+        rounds and after the last."""
         args = self.args
         final_stats: Dict[str, float] = {}
-        for round_idx in range(comm_rounds):
+        for round_idx in range(start_round, comm_rounds):
             profiler.tick(round_idx)
             t0 = time.perf_counter()
             idx = self._client_sampling(
@@ -275,23 +375,37 @@ class FedAvgAPI:
                 self.history.append(stats)
                 final_stats = stats
                 self.metrics_reporter.report_server_training_metric(stats)
+            if ckpt is not None and (
+                (round_idx + 1) % self._ckpt_freq == 0 or round_idx == comm_rounds - 1
+            ):
+                self._save_checkpoint(ckpt, round_idx)
         return final_stats
 
     def _sequential_round(self, idx: np.ndarray, rng, lr_mult, nsamples):
         """Reference shape: a Python loop over the sampled clients, each
-        trained as a cohort of one with its slice of the round's
-        shuffle draws."""
+        with its slice of the round's shuffle draws: the stock trainer
+        trains it as a cohort of one, a custom trainer's per-client
+        function takes it alone."""
         stacked, sums = [], None
         packed = self.dataset.packed_train
         for j, i in enumerate(idx):
-            client = Batches(
-                x=packed.x[i:i + 1], y=packed.y[i:i + 1], mask=packed.mask[i:i + 1]
-            )
-            p, m = self._local_train(
-                self.global_params, client, None if rng is None else rng[j:j + 1], lr_mult
-            )
-            stacked.append({k: v[0] for k, v in p.items()})
-            m = {k: v[0] for k, v in m.items()}
+            if self._client_train is not None:
+                p, m = self._client_train(
+                    self.global_params,
+                    Batches(x=packed.x[i], y=packed.y[i], mask=packed.mask[i]),
+                    None if rng is None else rng[j],
+                )
+                stacked.append(p)
+            else:
+                client = Batches(
+                    x=packed.x[i:i + 1], y=packed.y[i:i + 1], mask=packed.mask[i:i + 1]
+                )
+                p, m = self._local_train(
+                    self.global_params, client, None if rng is None else rng[j:j + 1],
+                    lr_mult,
+                )
+                stacked.append({k: v[0] for k, v in p.items()})
+                m = {k: v[0] for k, v in m.items()}
             sums = m if sums is None else {k: sums[k] + m[k] for k in sums}
         ns = nsamples.index_select(
             0, torch.as_tensor(idx, dtype=torch.int64, device=self.device)
@@ -353,6 +467,7 @@ class FedOptAPI(FedAvgAPI):
     (``args.server_optimizer``: sgd, momentum, adam, adagrad, yogi)."""
 
     algorithm = "FedOpt"
+    _accepts_custom_aggregator = False
 
     def _init_server_state(self):
         self._server_opt = create_server_optimizer(self.args)
@@ -373,6 +488,7 @@ class FedNovaAPI(FedAvgAPI):
     Needs the cohort's masks, so only the vectorized mode runs it."""
 
     algorithm = "FedNova"
+    _accepts_custom_aggregator = False
 
     def _aggregate(self, global_params, server_state, new_stacked, weights, cohort, rng):
         if cohort is None:

@@ -261,6 +261,12 @@ def test_config_runs_shrunk_on_the_cpu(tmp_path):
 
 
 def test_remat_is_not_ported():
+    """The name is kept from when ``remat`` raised; it is ported now: the
+    factory builds the rematerialized model, with the plain model's
+    parameter names (``tests/test_torch_remat.py`` holds its numbers)."""
     args = _set(Arguments(), model="transformer", remat=True)
-    with pytest.raises(NotImplementedError, match="remat"):
-        models.create(args, 90, device="cpu")
+    model = models.create(args, 90, device="cpu")
+    assert model.module.remat is True
+    plain = models.create(_set(Arguments(), model="transformer"), 90, device="cpu")
+    assert [k for k, _ in model.module.named_parameters()] == [
+        k for k, _ in plain.module.named_parameters()]
