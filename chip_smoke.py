@@ -32,7 +32,14 @@ version on the card:
   batch 4, T 80) and ``fedavg_stackoverflow_rnn.yaml`` (the Stack
   Overflow LSTM, vocab 10,004, 50 of 1,000 clients per round, batch 16),
   custom operators passed positionally to ``run_simulation``, a
-  checkpointed run resumed, and the transformer with ``remat: true``.
+  checkpointed run resumed, and the transformer with ``remat: true``;
+- the sixth slice: the registry-backed population plane through
+  ``run_simulation`` on ``fedml_tpu_torch/configs/fedavg_planet_lr.yaml``
+  (the bench's planet configuration: a 1,000,000-client registry, 10,000
+  clients a round, 4 edge aggregators, logistic regression over 60-dim
+  synthetic features), whose cohort features come from the keyed
+  feature kernel and whose aggregation folds through the exact fold
+  kernel.
 The CNN, ResNet and RNN paths run no hand-written kernel: their
 convolutions and matrix products are cuDNN's and cuBLAS's through
 PyTorch, as XLA generated them on the TPU.
@@ -50,7 +57,14 @@ Phases, each of which fails the run:
    (one PyTorch call computing the same function: SDPA, SDPA's backward)
    times, the library call's own device kernel named from a short
    profiler window, and each time's share of the kernel's bound; the
-   forward and the backward must each repeat bitwise;
+   forward and the backward must each repeat bitwise; the exact fold
+   bitwise its plain version at the planet path's shape and at
+   ResNet-18-GN's (one term and three), its weighted-mean entry at 16
+   clients f32 and 10 bf16; the keyed feature kernel's Philox words
+   bitwise and its features within 1e-5 of its plain version at the
+   planet path's largest group and at FEMNIST-sized rows; each repeats
+   bitwise (no PyTorch call computes either function: library time
+   none);
 4. slice: bursts of 8 requests through ``ServingEngine``; the answers
    have the right shape, are finite and match the same model with
    ``attention_impl: full``; the kernels' launch counts rose on the
@@ -111,7 +125,18 @@ Phases, each of which fails the run:
    params after one round bitwise those without remat; 3 rounds of each
    through ``run_simulation``: peak memory (below the run without
    remat), rounds/s, and two flash forwards and one backward per layer
-   per step for the whole cohort.
+   per step for the whole cohort;
+13. planet: the planet configuration through ``run_simulation``, 5
+   rounds (round 0 warms up, rounds 1-3 are timed as a whole on the
+   card's clock, round 4 is profiled; evaluation after rounds 0 and 4):
+   rounds/s, clients/s, registry bytes, shape keys against their budget,
+   waste fraction, peak memory, busy share and launches by kind; the
+   exact-fold launches equal the (group, edge) folds with weight > 0
+   plus the root merges, reckoned from the registry, and the feature
+   kernel launches once a group; the evaluation loss falls; a warm
+   re-run's host RSS at a 1M registry within 64 MiB of a 100k one's;
+   the two-tier tree bitwise the flat fold, and a run stopped after
+   round 1 and resumed bitwise the straight one.
 Each phase's wall time is printed.
 
 Run from the repo root, on a machine with one CUDA card and the CUDA
@@ -338,21 +363,31 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def flash_kernels():
+def all_kernels():
+    """Every hand-written kernel entry of the port with a launch count:
+    the flash forward and backward, the exact fold and its weighted-mean
+    entry, and the keyed feature generator."""
+    from fedml_tpu_torch.ops.exact_fold import FOLD_KERNEL, MEAN_KERNEL
     from fedml_tpu_torch.ops.flash_attention import BWD_KERNEL, FWD_KERNEL
+    from fedml_tpu_torch.ops.synth_features import SYNTH_KERNEL
 
-    return FWD_KERNEL, BWD_KERNEL
+    return FWD_KERNEL, BWD_KERNEL, FOLD_KERNEL, MEAN_KERNEL, SYNTH_KERNEL
 
 
 def reset_launches() -> None:
     """Every hand-written kernel's launch count to 0, just before a path
     runs."""
-    for kernel in flash_kernels():
+    for kernel in all_kernels():
         kernel.reset_launches()
 
 
 def launch_counts() -> dict:
-    return {kernel.name: kernel.launches for kernel in flash_kernels()}
+    return {kernel.name: kernel.launches for kernel in all_kernels()}
+
+
+def no_launches() -> dict:
+    """Every kernel's name with a count of 0."""
+    return {kernel.name: 0 for kernel in all_kernels()}
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -489,7 +524,7 @@ def device_kernel_names(fn, windows: int = 3):
 def build_kernels():
     from fedml_tpu_torch.ops import _build
 
-    names = ["flash_attention_fwd", "flash_attention_bwd"]
+    names = ["flash_attention_fwd", "flash_attention_bwd", "exact_fold", "synth_features"]
     t0 = time.perf_counter()
     _build.build(names)
     log(f"build: {names} in {time.perf_counter() - t0:.1f} s")
@@ -1619,7 +1654,8 @@ def transformer_pipeline_check(layers: int) -> dict:
     for depth, run in out.items():
         steps = TRANSFORMER_CHECK_ROUNDS * run["stats"]["num_batches"]
         evals = len(run["history"])
-        want = {"flash_attention_fwd": layers * (steps + evals * run["eval_passes"]),
+        want = {**no_launches(),
+                "flash_attention_fwd": layers * (steps + evals * run["eval_passes"]),
                 "flash_attention_bwd": layers * steps}
         log(f"transformer pipeline check, depth {depth}: flash launches {run['launches']}, "
             f"want {want} ({layers} layers x {steps} steps, + {evals} evaluations of "
@@ -1736,7 +1772,8 @@ def run_transformer():
     if final["round"] != records[-1]["round"]:
         fail("run_simulation's result is not the last round's stats")
     all_steps = len(spans) * steps
-    want = {FWD_KERNEL.name: L * (all_steps + len(records) * check["eval_passes"]),
+    want = {**no_launches(),
+            FWD_KERNEL.name: L * (all_steps + len(records) * check["eval_passes"]),
             BWD_KERNEL.name: L * all_steps}
     log(f"transformer: flash launches {launches}, want {want} ({L} layers x {all_steps} steps, "
         f"+ {len(records)} evaluations of {check['eval_passes']} forward passes)")
@@ -2129,7 +2166,7 @@ def run_remat(passes: int):
     run = runs[True]
     steps = REMAT_ROUNDS * run["pipe"]["num_batches"] * int(args.epochs)
     evals = len(run["records"])
-    want = {"flash_attention_fwd": L * (2 * steps + evals * passes),
+    want = {**no_launches(), "flash_attention_fwd": L * (2 * steps + evals * passes),
             "flash_attention_bwd": L * steps}
     log(f"remat: flash launches {run['launches']}, want {want} ({L} layers x {steps} steps x "
         f"(2 forwards, 1 backward), + {evals} evaluations of {passes} forward passes)")
@@ -2142,6 +2179,376 @@ def run_remat(passes: int):
         fail(f"remat: train loss {out['remat']['train_loss']}")
     torch.cuda.empty_cache()
     return {"card": card, "bitwise_equal": True, **out, "kernel_launches": run["launches"]}
+
+
+# -- the sixth slice: the exact fold (K1), the keyed features (K2), planet -
+# f32 operations outside the tensor cores (H100 SXM data sheet, 700 W):
+# the rate the fold's adds and the feature generator's float work run at
+F32_FLOPS = 67e12
+# K1 cases, (N, K): the planet path's (logistic regression, 60 x 10 + 10
+# = 610 params, one term a fold), then ResNet-18-GN's 11,173,962 params
+# with one term (a streaming fold) and three (a limb-set merge)
+FOLD_CASES = [(610, 1), (11_173_962, 1), (11_173_962, 3)]
+# exact_weighted_mean, (C, N, dtype): 16 clients of ResNet-18-GN in f32,
+# 10 of the flash TransformerLM (8,495,194 params) in bf16
+MEAN_CASES = [(16, 11_173_962, torch.float32), (10, 8_495_194, torch.bfloat16)]
+# K2 cases, (C, S, dim): one of the planet path's two largest groups
+# (4,096 clients x 4 batches of 32, 60 features), then FEMNIST-sized rows
+SYNTH_CASES = [(4096, 128, 60), (64, 512, 784)]
+# K2 against its plain version: the Philox words bitwise; the features
+# (|x| below ~10) to 1e-5, the kernel's logf, sqrtf, sinf and cosf
+# against PyTorch's (both IEEE-rounded adds and products otherwise)
+SYNTH_ATOL = 1e-5
+# planet phase: the configuration through run_simulation for 5 rounds:
+# round 0 warms up, rounds 1-3 are timed as a whole on the card's clock,
+# round 4 runs under torch.profiler; evaluation after rounds 0 and 4
+PLANET_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "fedavg_planet_lr.yaml"
+PLANET_ROUNDS, PLANET_TIMED, PLANET_PROFILED = 5, (1, 3), 4
+# host RSS of a warm re-run (every shape seen) at a 10x smaller registry:
+# the 1M registry's must stay within 64 MiB of it (bench.py:2717-2725)
+PLANET_SMALL_REGISTRY = 100_000
+PLANET_RSS_SLACK = 64 * 2**20
+# tree vs flat and resume: 3 rounds, stopped after round 1 and resumed
+PLANET_CHECK_ROUNDS = 3
+PLANET_KINDS = (
+    ("exact fold", ("fold_kernel",)),
+    ("synth features", ("synth_kernel",)),
+    ("GEMM", ("gemm", "gemv", "nvjet", "cutlass", "xmma")),
+    ("reductions", ("reduce",)),
+    ("copies, fills", ("copy", "memcpy", "memset", "fill")),
+)
+_INT_VIEW = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.view(_INT_VIEW[a.dtype]), b.view(_INT_VIEW[b.dtype])))
+
+
+def bytes_bound(nbytes: float, f32_ops: float):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over
+    the memory rate and the f32 operations over the f32 rate."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, f32_ops / F32_FLOPS * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def spread(shape, gen) -> torch.Tensor:
+    """f32 values with exponents over [-30, 30] and random signs."""
+    m = torch.rand(shape, generator=gen, device=DEVICE) + 1.0
+    e = torch.randint(-30, 31, shape, generator=gen, device=DEVICE).to(torch.float32)
+    sign = torch.where(torch.rand(shape, generator=gen, device=DEVICE) < 0.5, -1.0, 1.0)
+    return sign * m * torch.exp2(e)
+
+
+def _timing_iters(nbytes: float) -> int:
+    return 200 if nbytes < 2**24 else 20
+
+
+def kernel_entry(case: dict, **fixed) -> dict:
+    return {**fixed, "launches": None,  # filled from the paths' runs
+            **{key: case[key] for key in MAIN_KEYS}, "shape": case["shape"],
+            "dtype": case["dtype"]}
+
+
+def check_exact_fold():
+    """K1 against its plain version, bitwise, at FOLD_CASES and (its
+    weighted-mean entry) MEAN_CASES; each repeats bitwise. Returns the
+    kernel's ``kernels`` entry (main numbers from the planet path's
+    shape)."""
+    from fedml_tpu_torch.ops import exact_fold as ef
+
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    folds, means = [], []
+    for n, k in FOLD_CASES:
+        limbs, terms = spread((3, n), gen), spread((k, n), gen)
+        got, want, again = limbs.clone(), limbs.clone(), limbs.clone()
+        ef.FOLD_KERNEL(got, terms)
+        ef.fold_reference(want, terms)
+        ef.FOLD_KERNEL(again, terms)
+        torch.cuda.synchronize()
+        if not bits_equal(got, want):
+            fail(f"exact fold [{n}] K {k}: the kernel differs from its plain version "
+                 f"(max {float((got - want).abs().max())})")
+        if not bits_equal(got, again):
+            fail(f"exact fold [{n}] K {k}: two launches differ")
+        nbytes = (6 + k) * n * 4
+        iters = _timing_iters(nbytes)
+        ms = cuda_time_ms(lambda: ef.FOLD_KERNEL(got, terms), iters)
+        plain_ms = cuda_time_ms(lambda: ef.fold_reference(want, terms), max(2, iters // 10))
+        bound_ms, bound_by = bytes_bound(nbytes, 13 * k * n)
+        case = {"shape": [3, n], "terms": k, "dtype": "float32", "max_abs_err": 0.0,
+                "bitwise": True, "repeats_bitwise": True, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "bound_route": "f32 (no tensor cores)",
+                "share_of_bound": bound_ms / ms, "library_ms": None, "library_kernel": None}
+        log(f"exact fold [3, {n}] += [{k}, {n}] f32: bitwise its plain version and repeatable; "
+            f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), "
+            f"{bound_ms / ms:.1%} of it; plain {plain_ms:.4f} ms; library: none (no PyTorch "
+            f"call computes an exact fold)")
+        folds.append(case)
+        del limbs, terms, got, want, again
+    for c, n, dtype in MEAN_CASES:
+        x = spread((c, n), gen).to(dtype)
+        w = torch.rand(c, generator=gen, device=DEVICE)
+        w = w / w.sum()
+        got, want, again = ef.MEAN_KERNEL(x, w), ef.weighted_mean_reference(x, w), ef.MEAN_KERNEL(x, w)
+        torch.cuda.synchronize()
+        if not bits_equal(got, want):
+            fail(f"exact weighted mean [{c}, {n}] {dtype}: the kernel differs from its plain "
+                 f"version (max {float((got.float() - want.float()).abs().max())})")
+        if not bits_equal(got, again):
+            fail(f"exact weighted mean [{c}, {n}] {dtype}: two launches differ")
+        size = x.element_size()
+        nbytes = c * n * size + c * 4 + n * size
+        ms = cuda_time_ms(lambda: ef.MEAN_KERNEL(x, w), 20)
+        plain_ms = cuda_time_ms(lambda: ef.weighted_mean_reference(x, w), 3)
+        scale_ms = cuda_time_ms(lambda: w.to(dtype) @ x, 20)
+        bound_ms, bound_by = bytes_bound(nbytes, 14 * c * n + 2 * n)
+        log(f"exact weighted mean [{c}, {n}] {str(dtype).split('.')[-1]}: bitwise its plain "
+            f"version and repeatable; kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{bound_ms / ms:.1%} of it; plain {plain_ms:.4f} ms; for scale only, NOT the same "
+            f"function (one rounded product over the clients): w @ x {scale_ms:.4f} ms")
+        means.append({"shape": [c, n], "dtype": str(dtype).split(".")[-1], "bitwise": True,
+                      "repeats_bitwise": True, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+                      "library_ms": None, "w_matmul_ms_not_the_same_function": scale_ms})
+        del x, got, want, again
+    torch.cuda.empty_cache()
+    log(f"exact fold launches while checking (not counted): {ef.FOLD_KERNEL.launches} fold, "
+        f"{ef.MEAN_KERNEL.launches} weighted mean")
+    return {**kernel_entry(folds[0], name=ef.FOLD_KERNEL.name, route="cuda",
+                           source="fedml_tpu_torch/ops/csrc/exact_fold.cu",
+                           replaces="fedml_tpu/core/aggregation.py:201",
+                           kind="not a TPU kernel (XLA-generated in the reference)"),
+            "cases": folds, "weighted_mean_cases": means}
+
+
+def check_synth_features():
+    """K2 against its plain version at SYNTH_CASES: the Philox words
+    bitwise, the features to SYNTH_ATOL (bitwise is reported), each
+    repeating bitwise. Returns the kernel's ``kernels`` entry (main
+    numbers from the planet path's group)."""
+    from fedml_tpu_torch.ops import synth_features as sf
+
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    cases = []
+    for C, S, dim in SYNTH_CASES:
+        classes = 10
+        y = torch.randint(0, classes, (C, S), generator=gen, device=DEVICE)
+        means = torch.randn((classes, dim), generator=gen, device=DEVICE)
+        seeds = torch.randint(0, 2**31 - 1, (C,), generator=gen, device=DEVICE)
+        got, again = sf.SYNTH_KERNEL(y, means, seeds, 1.0), sf.SYNTH_KERNEL(y, means, seeds, 1.0)
+        want = sf.synth_features_reference(y, means, seeds, 1.0)
+        blocks4 = -(-dim // 4)
+        words = sf.WORDS_KERNEL(seeds, S, blocks4)
+        words_ref = sf.philox_words_reference(seeds, S, blocks4)
+        torch.cuda.synchronize()
+        if not torch.equal(words, words_ref):
+            fail(f"synth features [{C}, {S}, {dim}]: the kernel's Philox words differ from the "
+                 "plain version's")
+        err = float((got - want).abs().max())
+        if not err <= SYNTH_ATOL:
+            fail(f"synth features [{C}, {S}, {dim}]: max abs err {err} > {SYNTH_ATOL}")
+        if not bits_equal(got, again):
+            fail(f"synth features [{C}, {S}, {dim}]: two launches differ")
+        nbytes = C * S * dim * 4 + C * S * 8 + C * 4 + classes * dim * 4
+        ms = cuda_time_ms(lambda: sf.SYNTH_KERNEL(y, means, seeds, 1.0), 20)
+        plain_ms = cuda_time_ms(lambda: sf.synth_features_reference(y, means, seeds, 1.0), 3)
+        bound_ms, bound_by = bytes_bound(nbytes, 8 * C * S * dim)
+        bitwise = bits_equal(got, want)
+        log(f"synth features [{C}, {S}, {dim}] f32: Philox words bitwise, features max abs err "
+            f"{err:.3g} (atol {SYNTH_ATOL}; bitwise: {bitwise}), repeatable; kernel {ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), "
+            f"{bound_ms / ms:.1%} of it; plain {plain_ms:.4f} ms; library: none (torch.randn "
+            f"does not key a draw by sample)")
+        cases.append({"shape": [C, S, dim], "dtype": "float32", "max_abs_err": err,
+                      "bitwise": bitwise, "words_bitwise": True, "repeats_bitwise": True,
+                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                      "bound_route": "HBM write", "share_of_bound": bound_ms / ms,
+                      "library_ms": None, "library_kernel": None})
+        del y, means, seeds, got, again, want, words, words_ref
+        torch.cuda.empty_cache()
+    log(f"synth features launches while checking (not counted): {sf.SYNTH_KERNEL.launches}")
+    return {**kernel_entry(cases[0], name=sf.SYNTH_KERNEL.name, route="cuda",
+                           source="fedml_tpu_torch/ops/csrc/synth_features.cu",
+                           replaces="fedml_tpu/data/synthetic.py:150",
+                           kind="not a TPU kernel (XLA-generated in the reference)"),
+            "cases": cases}
+
+
+def planet_args(**knobs):
+    """The planet configuration's args, ``knobs`` set over the YAML."""
+    from fedml_tpu_torch.arguments import load_arguments
+
+    args = load_arguments(str(PLANET_CONFIG))
+    args.log_metrics = False
+    for knob, value in knobs.items():
+        setattr(args, knob, value)
+    args._validate()
+    return args
+
+
+def planet_api(**knobs):
+    """The configuration's FedAvg API, as ``run_simulation`` builds it,
+    kept so that its params and stats can be read and ``train()`` called
+    again."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch import data, models
+    from fedml_tpu_torch.simulation import SimulatorSingleProcess
+
+    args = fedml_tpu_torch.init(planet_args(**knobs))
+    dataset = data.load(args, device=DEVICE)
+    model = models.create(args, dataset.class_num, device=DEVICE)
+    return SimulatorSingleProcess(args, DEVICE, dataset, model).fl_trainer
+
+
+def planet_launches_wanted(args, rounds):
+    """(fold launches, feature launches) a round, reckoned on the host
+    from the registry alone: each group folds once per edge whose weight
+    is > 0, the tree merges each edge that received a fold, and each
+    group's features are one launch."""
+    from fedml_tpu_torch.scale import ClientRegistry, pack_cohort
+
+    reg = ClientRegistry(int(args.client_registry_size), seed=int(args.random_seed))
+    E = max(1, int(args.edge_num))
+    tree = int(args.edge_num) >= 2 and not bool(args.edge_flat_fold)
+    folds, groups = [], []
+    for r in rounds:
+        idx = reg.sample_cohort(r, int(args.cohort_size or args.client_num_per_round))
+        plan = pack_cohort(reg.num_samples[idx], idx, int(args.batch_size),
+                           speed_tier=reg.speed_tier[idx], waste_cap=float(args.packing_waste_cap))
+        touched, n = set(), 0
+        for g in plan.groups:
+            w = np.zeros(E)
+            np.add.at(w, g.client_idx % E, g.num_samples.astype(np.float64) * g.valid)
+            hit = np.nonzero(w > 0)[0]
+            n += len(hit)
+            touched |= set(hit.tolist())
+        folds.append(n + (len(touched) if tree else 0))
+        groups.append(len(plan.groups))
+    return folds, groups
+
+
+def run_planet():
+    """The registry-backed population plane at full size: the planet
+    configuration through ``run_simulation`` (timed, profiled, launches
+    of K1 and K2 reckoned against the registry), the host RSS of a warm
+    re-run at 100k and 1M registries, tree == flat bitwise, and a run
+    stopped and resumed bitwise the straight one."""
+    import tempfile
+
+    from fedml_tpu_torch.core.sys_stats import current_rss_bytes, peak_rss_bytes
+
+    card = card_line()
+    args = planet_args(comm_round=PLANET_ROUNDS, frequency_of_the_test=PLANET_ROUNDS - 1)
+    run = measured_run(args, PLANET_PROFILED)
+    pipe, launches = run["pipe"], run["launches"]
+    first, last = PLANET_TIMED
+    timed_s, rounds_per_s, samples = timed_rounds(pipe, first, last)
+    cohort = int(args.cohort_size)
+    folds_want, groups_want = planet_launches_wanted(args, range(PLANET_ROUNDS))
+    log(f"planet: registry {pipe['registry_clients']} clients ({pipe['registry_bytes']} bytes "
+        f"of columns), cohort {cohort}, {pipe['edge_num']} edges; {PLANET_ROUNDS} rounds in "
+        f"{run['wall_s']:.1f} s (registry, holdouts and warm-up included); groups a round "
+        f"{pipe['round_groups']}, folds a round {pipe['round_folds']} (reckoned from the "
+        f"registry: {folds_want}); kernel launches {launches}")
+    for r, (a, b) in enumerate(pipe["round_spans_s"]):
+        log(f"  planet round {r}: {(b - a) * 1e3:.1f} ms on the card's clock, "
+            f"{pipe['round_samples'][r]} packed samples")
+    if pipe["round_folds"] != folds_want or pipe["round_groups"] != groups_want:
+        fail(f"planet: folds {pipe['round_folds']} / groups {pipe['round_groups']} a round, "
+             f"the registry gives {folds_want} / {groups_want}")
+    if launches["exact_fold"] != sum(folds_want):
+        fail(f"planet: {launches['exact_fold']} exact-fold launches, want {sum(folds_want)}")
+    if launches["synth_features"] != sum(groups_want):
+        fail(f"planet: {launches['synth_features']} feature launches, want {sum(groups_want)}")
+    others = {k: v for k, v in launches.items() if k not in ("exact_fold", "synth_features")}
+    if any(others.values()):
+        fail(f"planet: kernels off the path launched: {others}")
+    losses = [r["test_loss"] for r in run["records"]]
+    for r in run["records"]:
+        log(f"  planet round {r['round']} record: train {r['train_time_s'] * 1e3:.1f} ms, with "
+            f"eval {r['round_time_s'] * 1e3:.1f} ms; test_loss {r['test_loss']:.4f}, test_acc "
+            f"{r['test_acc']:.4f}, train_loss {r['train_loss']:.4f}, cohort loss "
+            f"{r['train_loss_cohort']:.4f}, cohort samples {r['cohort_samples']:.0f}")
+    if len(losses) < 2 or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"planet: the evaluation loss did not fall: {losses}")
+    max_nb = max(nb for _, nb in pipe["shape_keys"])
+    budget = (cohort.bit_length() + 1) * (int(max_nb).bit_length() + 1)
+    if pipe["trace_count"] != len(pipe["shape_keys"]) or pipe["trace_count"] > budget:
+        fail(f"planet: {pipe['trace_count']} first calls for {len(pipe['shape_keys'])} shape keys "
+             f"(budget {budget})")
+    log(f"planet on {card}: rounds {first}-{last} timed as a whole on the card's clock: "
+        f"{timed_s:.4f} s, {rounds_per_s:.4f} rounds/s, {cohort * rounds_per_s:.1f} clients/s, "
+        f"{samples * rounds_per_s:.0f} packed samples/s; shape keys {pipe['shape_keys']} "
+        f"({pipe['trace_count']} first calls, budget {budget}); waste fraction "
+        f"{pipe['waste_frac_mean']:.4f}; peak memory {run['peak_bytes'] / 2**20:.1f} MiB; "
+        f"{sum(folds_want) / PLANET_ROUNDS:.1f} exact-fold and {sum(groups_want) / PLANET_ROUNDS:.1f} "
+        f"feature launches a round")
+    profile = profile_summary(f"planet profile of round {PLANET_PROFILED} (with evaluation) on "
+                              f"{card}", run["summary"], PLANET_KINDS)
+
+    deltas = {}
+    for size in (PLANET_SMALL_REGISTRY, int(args.client_registry_size)):
+        api = planet_api(client_registry_size=size, client_num_in_total=size)
+        api.train()  # warm: every (bucket, nb) shape of these rounds seen
+        torch.cuda.synchronize()
+        gc.collect()
+        rss0 = current_rss_bytes()
+        t0 = time.perf_counter()
+        api.train()
+        torch.cuda.synchronize()
+        deltas[size] = {"rss_delta_bytes": max(0, current_rss_bytes() - rss0),
+                        "wall_s": time.perf_counter() - t0, "rss_bytes": rss0,
+                        "rounds": api.pipeline_stats["rounds"]}
+        del api
+        gc.collect()
+        torch.cuda.empty_cache()
+    small, big = deltas[PLANET_SMALL_REGISTRY], deltas[int(args.client_registry_size)]
+    log(f"planet: warm re-run host RSS delta: registry {PLANET_SMALL_REGISTRY}: "
+        f"{small['rss_delta_bytes'] / 2**20:.1f} MiB ({small['rounds']} rounds in "
+        f"{small['wall_s']:.2f} s), registry {args.client_registry_size}: "
+        f"{big['rss_delta_bytes'] / 2**20:.1f} MiB ({big['wall_s']:.2f} s); process RSS "
+        f"{big['rss_bytes'] / 2**20:.1f} MiB, peak {peak_rss_bytes() / 2**20:.1f} MiB")
+    if not big["rss_bytes"] > 0:
+        fail("planet: the host RSS is not measurable here")
+    if big["rss_delta_bytes"] > small["rss_delta_bytes"] + PLANET_RSS_SLACK:
+        fail(f"planet: warm re-run RSS grew with the registry: {big['rss_delta_bytes']} against "
+             f"{small['rss_delta_bytes']} + {PLANET_RSS_SLACK}")
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="planet_resume_") as ckdir:
+        for name, knobs in (
+                ("tree", {"comm_round": PLANET_CHECK_ROUNDS}),
+                ("flat", {"comm_round": PLANET_CHECK_ROUNDS, "edge_flat_fold": True}),
+                ("stopped", {"comm_round": 2, "checkpoint_dir": ckdir, "checkpoint_freq": 1}),
+                ("resumed", {"comm_round": PLANET_CHECK_ROUNDS, "checkpoint_dir": ckdir,
+                             "checkpoint_freq": 1})):
+            api = planet_api(**knobs)
+            api.train()
+            torch.cuda.synchronize()
+            out[name] = ({k: v.detach().clone() for k, v in api.global_params.items()},
+                         api.pipeline_stats["round_folds"], api.history)
+            del api
+            torch.cuda.empty_cache()
+    checks = {}
+    for name in ("flat", "resumed"):
+        unequal = [k for k in out["tree"][0] if not torch.equal(out[name][0][k], out["tree"][0][k])]
+        checks[name] = not unequal
+        log(f"planet: {name} against the straight tree run ({PLANET_CHECK_ROUNDS} rounds): params "
+            f"differing bitwise {len(unequal)} of {len(out['tree'][0])}; folds a round "
+            f"{out[name][1]} (tree {out['tree'][1]})")
+        if unequal:
+            err = max(float((out[name][0][k] - out["tree"][0][k]).abs().max()) for k in unequal)
+            fail(f"planet: the {name} run differs from the tree run (max {err})")
+    return {"card": card, "rounds_per_s": rounds_per_s, "timed_rounds_s": timed_s,
+            "clients_per_s": cohort * rounds_per_s, "packed_samples_per_s": samples * rounds_per_s,
+            "registry_bytes": pipe["registry_bytes"], "shape_keys": pipe["shape_keys"],
+            "trace_count": pipe["trace_count"], "trace_budget": budget,
+            "waste_frac_mean": pipe["waste_frac_mean"], "peak_memory_bytes": run["peak_bytes"],
+            "test_loss": losses, "folds_per_round": folds_want, "groups_per_round": groups_want,
+            "profile": {"round": PLANET_PROFILED, **profile}, "warm_rerun": deltas,
+            "tree_equals_flat": checks["flat"], "resume_bitwise": checks["resumed"],
+            "pipeline": pipe, "kernel_launches": launches}
 
 
 def main() -> int:
@@ -2173,7 +2580,9 @@ def main() -> int:
 
     phase("build", build_kernels)
     kernels = [phase("kernels: flash forward", check_flash_kernel),
-               phase("kernels: flash backward", check_flash_backward)]
+               phase("kernels: flash backward", check_flash_backward),
+               phase("kernels: exact fold", check_exact_fold),
+               phase("kernels: synth features", check_synth_features)]
     slice_numbers = phase("serving", run_slice, kernels)
     log(f"slice numbers on {card}: {json.dumps(slice_numbers)}")
     fedavg_numbers = phase("fedavg", run_fedavg)
@@ -2192,6 +2601,8 @@ def main() -> int:
     log(f"resume numbers on {card}: {json.dumps(resume_numbers)}")
     remat_numbers = phase("remat", run_remat, transformer_numbers["pipeline_check"]["eval_passes"])
     log(f"remat numbers on {card}: {json.dumps(remat_numbers)}")
+    planet_numbers = phase("planet", run_planet)
+    log(f"planet numbers on {card}: {json.dumps(planet_numbers)}")
     log(f"phase wall times (s): {json.dumps(walls)}")
     for entry in kernels:  # each path's own count, reset just before it
         name = entry["name"]
@@ -2205,6 +2616,7 @@ def main() -> int:
             "seam": seam_numbers["kernel_launches"][name],
             "resume": resume_numbers["kernel_launches"][name],
             "fedavg_transformer_remat": remat_numbers["kernel_launches"][name],
+            "fedavg_planet": planet_numbers["kernel_launches"][name],
         }
         entry["launches"] = sum(entry["launches_by_path"].values())
     print(card)

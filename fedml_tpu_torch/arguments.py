@@ -106,6 +106,24 @@ _DEFAULTS: Dict[str, Any] = {
     # after the forward and recomputed in the backward (less memory, one
     # more forward per block; gradients bitwise the same)
     "remat": False,
+    "training_type": constants.FEDML_TRAINING_PLATFORM_SIMULATION,
+    # planet-scale population plane (scale/): a registry of N clients as
+    # columnar state, cohorts sampled and materialized on demand
+    # (0 = the eager federation)
+    "client_registry_size": 0,
+    # clients a registry round samples (0 = client_num_per_round)
+    "cohort_size": 0,
+    # edge aggregators of the two-tier fold tree (0 or 1 = flat)
+    "edge_num": 0,
+    # where the edge tier runs: "inproc" (the in-process tree); "ranks"
+    # (edge aggregators as real ranks) arrives with cross_silo/
+    "edge_plane": "inproc",
+    # keep the registry's columns in <dir>/<name>.npy memmaps (None =
+    # host RAM)
+    "registry_dir": None,
+    # fold the per-edge terms into one flat accumulator instead of the
+    # tree: the A/B baseline the tree's bit-identity is held against
+    "edge_flat_fold": False,
     # serving plane (fedml_tpu_torch/serving):
     # bounded request queue; a full queue sheds new requests
     # (serving_shed_total{reason=queue_full}) instead of growing
@@ -231,6 +249,55 @@ class Arguments:
         if self.serve_bucket not in ("pow2", "exact"):
             raise ValueError(
                 f"serve_bucket {self.serve_bucket!r}: pick 'pow2' or 'exact'"
+            )
+        self._validate_population()
+
+    def _validate_population(self) -> None:
+        """The planet-scale knobs, as the JAX package validates them."""
+        for int_key in ("client_registry_size", "cohort_size", "edge_num"):
+            raw = getattr(self, int_key)
+            try:
+                setattr(self, int_key, int(raw or 0))
+            except (TypeError, ValueError):
+                raise ValueError(
+                    f"{int_key}={raw!r}: must be an integer"
+                ) from None
+            if getattr(self, int_key) < 0:
+                raise ValueError(
+                    f"{int_key}={getattr(self, int_key)}: must be >= 0 "
+                    "(0 disables)"
+                )
+        t = getattr(self, "training_type", constants.FEDML_TRAINING_PLATFORM_SIMULATION)
+        if self.client_registry_size > 0:
+            if t != constants.FEDML_TRAINING_PLATFORM_SIMULATION:
+                raise ValueError(
+                    "client_registry_size applies to training_type="
+                    "simulation only (the cross-silo edge tier is the "
+                    f"edge_num knob); got training_type={t!r}"
+                )
+            cohort = self.cohort_size or self.client_num_per_round
+            if cohort > self.client_registry_size:
+                raise ValueError(
+                    f"cohort_size={cohort} exceeds "
+                    f"client_registry_size={self.client_registry_size}"
+                )
+            if self.edge_num > cohort:
+                raise ValueError(
+                    f"edge_num={self.edge_num} exceeds the cohort size "
+                    f"{cohort}: an edge tier wider than its cohort is a "
+                    "misconfiguration, not a topology"
+                )
+        plane = str(getattr(self, "edge_plane", "inproc") or "inproc")
+        if plane not in ("inproc", "ranks"):
+            raise ValueError(
+                f"edge_plane={plane!r}: pick 'inproc' (the in-process "
+                "tree) or 'ranks' (edge aggregators as real ranks)"
+            )
+        self.edge_plane = plane
+        if plane == "ranks":
+            raise NotImplementedError(
+                "edge_plane='ranks' (edge aggregators as real ranks) is not ported to "
+                "PyTorch yet; it arrives with cross_silo/ (ROADMAP.md, queue A item 11)"
             )
 
 

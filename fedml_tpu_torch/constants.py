@@ -16,3 +16,6 @@ PARTITION_HETERO = "hetero"
 
 # federated optimizers
 FED_OPTIMIZER_FEDAVG = "FedAvg"
+
+# training platforms
+FEDML_TRAINING_PLATFORM_SIMULATION = "simulation"

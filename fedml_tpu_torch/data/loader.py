@@ -20,10 +20,14 @@ local copy exists.
   whole; packed federation, masks and counts bitwise the JAX
   package's.
 
-Every other source (real files on disk, VFL party CSVs, the client
-registry, poisoned worlds, ``synthetic`` FedProx data, tag-prediction
-and segmentation tasks) raises ``NotImplementedError`` naming the slice
-that brings it.
+- The client registry (``client_registry_size > 0``,
+  ``_registry_dataset``): the population is not materialized here; the
+  dataset carries the task's geometry and fixed-size global evaluation
+  holdouts only, and ``scale/`` makes each round's cohort on demand.
+
+Every other source (real files on disk, VFL party CSVs, poisoned
+worlds, ``synthetic`` FedProx data, tag-prediction and segmentation
+tasks) raises ``NotImplementedError`` naming the slice that brings it.
 """
 
 from __future__ import annotations
@@ -45,7 +49,11 @@ from ..core.partition import (
 from ..core.types import Batches
 from ..device import DeviceLike, get_device
 from .packing import bucket_num_batches, pack_clients, pack_labels_np, pack_one
-from .synthetic import synthetic_classification_device, synthetic_sequences
+from .synthetic import (
+    synthetic_classification,
+    synthetic_classification_device,
+    synthetic_sequences,
+)
 
 _DATASET_META = {
     # name: (feature_shape, class_num, train_n, test_n, task)
@@ -281,6 +289,69 @@ def _host_synth_sequences(
     )
 
 
+def _registry_dataset(args, device: torch.device) -> FederatedDataset:
+    """Slim dataset for the registry path (``scale/``): no per-client
+    arrays, no packed federation, no local dicts proportional to
+    ``client_registry_size``. It carries the task's geometry (class
+    count; feature shape through the evaluation packs) and fixed-size
+    global holdouts on ``device``, bitwise the JAX package's."""
+    name = str(getattr(args, "dataset", "synthetic")).lower()
+    seed = int(getattr(args, "random_seed", 0))
+    registry_size = int(args.client_registry_size)
+    if getattr(args, "poison_type", None):
+        raise ValueError(
+            "poison_type is not supported with client_registry_size: "
+            "registry cohorts synthesize data on demand and the "
+            "attacks mutate eagerly-materialized shards"
+        )
+    if name.startswith("synthetic"):
+        shape = (int(getattr(args, "input_dim", 60)),)
+        class_num = int(getattr(args, "output_dim", 10))
+    else:
+        if name not in _DATASET_META:
+            raise ValueError(f"unknown dataset {name!r}")
+        shape, class_num, _, _, task = _standin_shape_and_sizes(args, name)
+        if task != "classification":
+            raise ValueError(
+                f"client_registry_size supports classification datasets "
+                f"only (dataset {name!r} is task={task!r})"
+            )
+    # fixed-size eval holdouts (a registry run's eval cost must not
+    # scale with the population); synthetic_*_size caps still win down
+    train_n = min(int(getattr(args, "synthetic_train_size", 4096)), 4096)
+    test_n = min(int(getattr(args, "synthetic_test_size", 2048)), 2048)
+    sigma = float(getattr(args, "synthetic_sigma", 1.0) or 1.0)
+    x_tr, y_tr = synthetic_classification(train_n, class_num, shape, seed=seed + 3, sigma=sigma)
+    x_te, y_te = synthetic_classification(test_n, class_num, shape, seed=seed + 4, sigma=sigma)
+    x_dtype = (
+        torch.bfloat16
+        if str(getattr(args, "dtype", "float32") or "float32") == "bfloat16"
+        else torch.float32
+    )
+    batch_size = int(args.batch_size)
+    logging.warning(
+        "dataset %s: client_registry_size=%d active — population lives "
+        "as columnar registry state, per-round cohorts are materialized "
+        "on demand; this dataset object carries eval holdouts only",
+        name, registry_size,
+    )
+    return FederatedDataset(
+        train_data_num=train_n,
+        test_data_num=test_n,
+        train_data_global=pack_one(x_tr, y_tr, batch_size, x_dtype=x_dtype, device=device),
+        test_data_global=pack_one(x_te, y_te, batch_size, x_dtype=x_dtype, device=device),
+        train_data_local_num_dict={},
+        train_data_local_dict={},
+        test_data_local_dict={},
+        class_num=class_num,
+        packed_train=None,
+        packed_num_samples=None,
+        packed_test=None,
+        client_num=registry_size,
+        task="classification",
+    )
+
+
 def _has_local_copy(args, name: str) -> bool:
     cache = getattr(args, "data_cache_dir", None)
     d = os.path.join(cache, name) if cache else None
@@ -293,10 +364,9 @@ def load(args, device: DeviceLike = "cuda") -> FederatedDataset:
     dev = get_device(device)
     name = str(getattr(args, "dataset", "synthetic")).lower()
     if int(getattr(args, "client_registry_size", 0) or 0) > 0:
-        raise NotImplementedError(
-            "client_registry_size: the client-registry population plane is "
-            "not ported yet (ROADMAP.md, queue A item 5)"
-        )
+        # the planet-scale registry (scale/): NEVER build per-client
+        # state proportional to the registered population
+        return _registry_dataset(args, dev)
     if name.startswith("synthetic"):
         raise NotImplementedError(
             f"dataset {name!r}: the FedProx synthetic generator arrives with "

@@ -116,20 +116,25 @@ def pack_labels_np(
     num_batches: Optional[int] = None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Host-side federation packing of labels only: ``(y[C, nb, bs],
-    mask[C, nb, bs], num_samples[C])`` numpy arrays, through the same
-    pad/truncate as :func:`pack_clients` (labels in the x slot)."""
+    mask[C, nb, bs], num_samples[C])`` numpy arrays, the pad/truncate of
+    :func:`pack_clients` (labels in the x slot), written into
+    preallocated arrays in one copy a client."""
     if num_batches is None:
         num_batches = max(max(1, -(-len(y) // batch_size)) for y in ys)
     _warn_truncation("pack_labels_np", [len(y) for y in ys], num_batches, batch_size)
-    packed = [
-        _pack_one_np(y, y, batch_size, num_batches, allow_truncate=True)
-        for y in ys
-    ]
     cap = num_batches * batch_size
+    first = np.asarray(ys[0])
+    dtype = np.result_type(*[np.asarray(y).dtype for y in ys])
+    y_p = np.zeros((len(ys), cap) + first.shape[1:], dtype=dtype)
+    mask = np.zeros((len(ys), cap), dtype=np.float32)
+    for c, y in enumerate(ys):
+        n = min(len(y), cap)
+        y_p[c, :n] = y[:n]
+        mask[c, :n] = 1.0
     num_samples = np.asarray([min(len(y), cap) for y in ys], dtype=np.float32)
     return (
-        np.stack([p[0] for p in packed]),
-        np.stack([p[2] for p in packed]),
+        y_p.reshape((len(ys), num_batches, batch_size) + first.shape[1:]),
+        mask.reshape(len(ys), num_batches, batch_size),
         num_samples,
     )
 

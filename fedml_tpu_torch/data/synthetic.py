@@ -15,6 +15,11 @@ costs are those of the real one and no download is needed.
   data will be used, from a seeded ``torch.Generator``. The class means
   are the host generator's (``_class_means``), so the distribution is
   the same; the noise stream is PyTorch's, not JAX's threefry.
+- :func:`synthetic_classification_device_per_client` is the registry
+  path's twin: one row of labels per client, each row's noise keyed by
+  (that client's seed, sample index), so a client's features are a
+  function of the client alone (``ops/synth_features.py``: a
+  hand-written kernel on the card, Philox4x32-10 + Box-Muller).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, get_device
+from ..ops.synth_features import synth_features
 
 
 def _class_means(num_classes: int, dim: int, means_seed: int) -> np.ndarray:
@@ -97,3 +103,31 @@ def synthetic_classification_device(
     noise = torch.randn(tuple(y.shape) + (dim,), generator=gen, device=dev)
     x = means[y] + sigma * noise
     return x.reshape(tuple(y.shape) + tuple(feature_shape)).to(dtype or torch.float32)
+
+
+def synthetic_classification_device_per_client(
+    y_packed,
+    feature_shape: Tuple[int, ...],
+    num_classes: int,
+    client_seeds,
+    sigma: float = 1.0,
+    means_seed: int = 1234,
+    dtype: Optional[torch.dtype] = None,
+    device: DeviceLike = "cuda",
+) -> torch.Tensor:
+    """Features for ``y_packed`` ``[C, ...]`` (one leading row per
+    client), made on ``device``: ``x[c, ..., *feature_shape] =
+    means[y] + sigma * noise``, where ``client_seeds[c]`` keys row ``c``'s
+    noise per sample index (the row's flat position), so sample ``s`` of
+    a client keeps its features whatever slot, group shape or cohort the
+    client lands in. Same class means as the host generator. One kernel
+    launch on the card."""
+    dev = get_device(device)
+    dim = int(np.prod(feature_shape))
+    means = torch.as_tensor(_class_means(num_classes, dim, means_seed), device=dev)
+    y = torch.as_tensor(y_packed, dtype=torch.int64, device=dev)
+    seeds = torch.as_tensor(np.asarray(client_seeds, dtype=np.int64), device=dev)
+    C = y.shape[0]
+    x = synth_features(y.reshape(C, -1), means, seeds, float(sigma), dtype or torch.float32)
+    return x.reshape(tuple(y.shape) + tuple(feature_shape))
+

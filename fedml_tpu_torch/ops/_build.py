@@ -112,3 +112,71 @@ def load(name: str) -> ctypes.CDLL:
             path = build([name])[name]
             lib = _loaded[name] = ctypes.CDLL(str(path))
         return lib
+
+
+def cuda_device(name: str, **tensors):
+    """The one CUDA device all ``tensors`` share; raises ``ValueError``
+    naming the kernel and the operands' devices otherwise."""
+    devices = {t.device for t in tensors.values()}
+    if any(not t.is_cuda for t in tensors.values()) or len(devices) != 1:
+        raise ValueError(
+            f"{name}: operands on {({k: str(t.device) for k, t in tensors.items()})}; "
+            "the kernel takes tensors on one CUDA device"
+        )
+    return devices.pop()
+
+
+class Kernel:
+    """A ctypes binding of one entry point of ``csrc/<library>.cu``
+    (``library`` defaults to the entry's ``name``) plus its launch
+    count.
+
+    ``launches`` rises by one each time the kernel is launched, and
+    nowhere else; callers reset it with ``reset_launches``. The entry
+    point returns 0 or an error code, which ``error_string`` (a
+    function of the same library) turns into a message."""
+
+    name = ""
+    library = ""
+    # the C entry point's argument types, the stream last
+    argtypes: tuple = ()
+    # the library's error-code-to-message function
+    error_string = ""
+
+    def __init__(self) -> None:
+        self.launches = 0
+        self._lock = threading.Lock()
+        self._fn = None
+        self._err = None
+
+    def reset_launches(self) -> None:
+        with self._lock:
+            self.launches = 0
+
+    def _bind(self):
+        if self._fn is None:
+            lib = load(self.library or self.name)
+            fn = getattr(lib, self.name)
+            fn.argtypes = list(self.argtypes)
+            fn.restype = ctypes.c_int
+            err = getattr(lib, self.error_string)
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            self._fn, self._err = fn, err
+        return self._fn
+
+    def _launch(self, device, *args) -> None:
+        """Call the entry point on ``device``'s current stream; raises on
+        a nonzero return, else counts the launch."""
+        import torch
+
+        fn = self._bind()
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"{self.name} launch failed: CUDA error {rc} ({self._err(rc).decode()})"
+            )
+        with self._lock:
+            self.launches += 1
+

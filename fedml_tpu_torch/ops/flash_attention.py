@@ -50,7 +50,6 @@ cohort.
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Optional, Tuple
 
 import torch
@@ -160,40 +159,9 @@ def kernel_operand(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int, int]]
     return x, tuple(x.stride(i) if x.shape[i] > 1 else dense[i] for i in range(3))
 
 
-class _Kernel:
-    """A ctypes binding of one of ``csrc/<name>.cu``'s entry points plus
-    its launch count.
-
-    ``launches`` rises by one each time the kernel is launched, and
-    nowhere else; callers reset it with ``reset_launches``."""
-
-    name = ""
-    # the C entry point's argument types, the stream last
-    argtypes: tuple = ()
-    # the library's error-code-to-message function
-    error_string = ""
-
-    def __init__(self) -> None:
-        self.launches = 0
-        self._lock = threading.Lock()
-        self._fn = None
-        self._err = None
-
-    def reset_launches(self) -> None:
-        with self._lock:
-            self.launches = 0
-
-    def _bind(self):
-        if self._fn is None:
-            lib = _build.load(self.name)
-            fn = getattr(lib, self.name)
-            fn.argtypes = list(self.argtypes)
-            fn.restype = ctypes.c_int
-            err = getattr(lib, self.error_string)
-            err.argtypes = [ctypes.c_int]
-            err.restype = ctypes.c_char_p
-            self._fn, self._err = fn, err
-        return self._fn
+class _Kernel(_build.Kernel):
+    """A flash entry point: ``_build.Kernel`` plus the operand checks
+    every flash wrapper shares."""
 
     def _check(self, named, like: torch.Tensor) -> None:
         """Every named operand on a card, of ``like``'s dtype, shape and
@@ -210,17 +178,6 @@ class _Kernel:
             if x.stride(-1) != 1:
                 raise ValueError(f"{self.name}: {name}'s last dim is not unit-stride")
         check_shape(like.shape, like.dtype, self.name)
-
-    def _launch(self, device: torch.device, *args) -> None:
-        fn = self._bind()
-        with torch.cuda.device(device):
-            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(
-                f"{self.name} launch failed: CUDA error {rc} ({self._err(rc).decode()})"
-            )
-        with self._lock:
-            self.launches += 1
 
 
 class FlashForwardKernel(_Kernel):

@@ -22,9 +22,13 @@ Ported: ``FedAvgAPI`` with the ``vectorized`` and ``sequential`` modes,
 custom operators (``client_trainer``/``server_aggregator``,
 ``core/frame.py``); checkpoint and resume (``checkpoint_dir``, every
 ``checkpoint_freq`` rounds, ``core/checkpoint.py``): a resumed run is
-bitwise the run that was never stopped. The knobs of later slices
-(defenses, the client registry, preemption, the stall watchdog, the
-metrics server) raise ``NotImplementedError`` instead of being ignored.
+bitwise the run that was never stopped; the registry-backed population
+plane (``client_registry_size > 0``): ``train()`` hands the rounds to a
+``scale.engine.PlanetRoundLoop`` cached on the API (``_planet_loop``),
+which samples each cohort from a columnar client registry and folds it
+through the exact aggregation. The knobs of later slices (defenses,
+preemption, the stall watchdog, the metrics server) raise
+``NotImplementedError`` instead of being ignored.
 """
 
 from __future__ import annotations
@@ -57,13 +61,13 @@ from ..core.types import Batches
 from ..data.loader import FederatedDataset
 from ..device import DeviceLike, get_device
 from ..models.spec import FedModel
+from ..scale.engine import PlanetRoundLoop, planet_knobs_active
 
 Params = Dict[str, torch.Tensor]
 
 # knob -> (is it set?, the slice that brings it)
 _LATER_KNOBS = {
     "defense_type": (bool, "the robust-aggregation planes (queue A item 7)"),
-    "client_registry_size": (lambda v: int(v or 0) > 0, "the population planes (queue A item 5)"),
     "preempt_signal": (lambda v: str(v or "none").lower() != "none", "the elastic-mesh slice"),
     "stall_timeout_s": (lambda v: float(v or 0) > 0, "the telemetry exporters"),
     "metrics_port": (lambda v: int(v or 0) > 0, "the telemetry exporters"),
@@ -249,16 +253,20 @@ class FedAvgAPI:
             return None
         return float(np.float32(self._round_lr(round_idx) / float(self.args.learning_rate)))
 
-    def _shuffle_uniforms(self, cohort_size: int, bucket: Optional[int] = None):
-        """The round's shuffle draws, ``[bucket, epochs, nb*bs]``, or
-        None. Only the ``cohort_size`` real clients draw (so a padded
-        cohort sees the draws of the exact one, and the sequential mode
-        those of the vectorized); padded slots repeat the first row,
-        which their all-zero masks make inert."""
+    def _shuffle_uniforms(self, cohort_size: int, bucket: Optional[int] = None,
+                          examples: Optional[int] = None):
+        """The round's shuffle draws, ``[bucket, epochs, examples]``, or
+        None; ``examples`` defaults to the packed federation's nb*bs.
+        Only the ``cohort_size`` real clients draw (so a padded cohort
+        sees the draws of the exact one, and the sequential mode those
+        of the vectorized); padded slots repeat the first row, which
+        their all-zero masks make inert."""
         if not self.shuffle:
             return None
-        packed = self.dataset.packed_train
-        n = packed.num_batches * packed.batch_size
+        if examples is None:
+            packed = self.dataset.packed_train
+            examples = packed.num_batches * packed.batch_size
+        n = examples
         u = torch.rand(
             (cohort_size, self.epochs, n), generator=self.generator, device=self.device
         )
@@ -269,15 +277,27 @@ class FedAvgAPI:
     # -- round loop ----------------------------------------------------
     def train(self) -> Dict[str, float]:
         args = self.args
-        packed = self.dataset.packed_train
-        nsamples = torch.as_tensor(
-            self.dataset.packed_num_samples, dtype=torch.float32, device=self.device
-        )
+        planet = planet_knobs_active(args)
+        if planet:
+            # the registry-backed plane: no eager federation to pack
+            packed = nsamples = None
+        else:
+            packed = self.dataset.packed_train
+            nsamples = torch.as_tensor(
+                self.dataset.packed_num_samples, dtype=torch.float32, device=self.device
+            )
         comm_rounds = int(args.comm_round)
         freq = max(1, int(getattr(args, "frequency_of_the_test", 5)))
         ckpt, start_round = self._maybe_restore()
         profiler = RoundProfiler(args, self.device)
         try:
+            if planet:
+                # the loop (registry, shape census) persists across
+                # train() calls, so a warm re-run replays its shapes
+                if getattr(self, "_planet_loop", None) is None:
+                    self._planet_loop = PlanetRoundLoop(self)
+                return self._planet_loop.run(packed, nsamples, comm_rounds, freq, profiler,
+                                             ckpt, start_round)
             if self.mode == "sequential":
                 return self._train_rounds_sync(packed, nsamples, comm_rounds, freq, profiler,
                                                ckpt, start_round)

@@ -257,7 +257,7 @@ def test_run_simulation_needs_a_card_unless_told(monkeypatch):
 
 
 @pytest.mark.parametrize("knob, value, match", [
-    ("client_registry_size", 8, "population"),
+    ("metrics_port", 9100, "telemetry"),
     ("stall_timeout_s", 5.0, "telemetry"),
     ("defense_type", "median", "robust"),
     ("preempt_signal", "round:1", "elastic"),

@@ -172,7 +172,7 @@ def test_device_twin_features_follow_the_class_means():
 @pytest.mark.parametrize("knob, value, match", [
     ("dataset", "synthetic", "FedProx synthetic"),
     ("dataset", "pascal_voc", "task 'segmentation'"),
-    ("client_registry_size", 100, "registry"),
+    ("dataset", "stackoverflow_lr", "task 'tag_prediction'"),
     ("poison_type", "label_flip", "poisoned"),
 ])
 def test_unported_sources_raise(knob, value, match):
