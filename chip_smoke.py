@@ -26,6 +26,10 @@ version on the card:
   clients per round, batch 4, bf16 over f32 masters: the flash forward
   and backward kernels, one launch each per layer per step for the
   whole cohort;
+- the same transformer at the reference's default dtype, f32:
+  ``run_simulation`` on
+  ``fedml_tpu_torch/configs/fedavg_shakespeare_transformer_flash.yaml``
+  (full width, 3 rounds): the f32 flash forward and backward kernels;
 - the fifth slice: FedAvg of the federated RNNs through
   ``run_simulation`` on ``fedml_tpu_torch/configs/fedavg_shakespeare_rnn.yaml``
   (the McMahan et al. Shakespeare LSTM, 10 of 715 clients per round,
@@ -101,32 +105,39 @@ Phases, each of which fails the run:
    share of the bf16 peak, peak memory, busy share, device time and
    launches by kind; the loss falls; the profiled round launches one
    flash forward and one backward per layer per step;
-8. rnn: the Shakespeare configuration as it is through
+8. transformer f32: the f32 configuration through ``run_simulation``, 3
+   rounds (round 1 profiled, round 2's training timed on the card's clock):
+   rounds/s, real tokens/s, peak memory, busy share and launches by
+   kind; the loss falls; the f32 flash forward and backward launch once
+   a layer and step for the whole cohort (the forward also once a layer
+   per forward pass of each evaluation), the profiled round's device
+   kernels agree, and no plain version of them runs;
+9. rnn: the Shakespeare configuration as it is through
    ``run_simulation`` (rounds 1-3 timed on the card's clock, round 4
    profiled): rounds/s, real tokens/s, peak memory, busy share and
    launches per step by kind; the train loss falls; depth 4 against
    depth 1 bitwise (4 rounds, deterministic algorithms for this check
    only);
-9. rnn stackoverflow: the Stack Overflow configuration at full width, 2
+10. rnn stackoverflow: the Stack Overflow configuration at full width, 2
    rounds, evaluation after each: the train loss is finite and falls;
-10. seam: on the Shakespeare RNN configuration (2 rounds), a frozen
+11. seam: on the Shakespeare RNN configuration (2 rounds), a frozen
    trainer passed positionally to ``run_simulation`` leaves the global
    model as it was (to the reference's tolerance: the weighted mean of
    identical copies rounds; whether it is bitwise is printed), an
    aggregator that keeps the global model keeps it bitwise, the default
    trainer passed explicitly is bitwise the stock engine, and a
    half-step trainer changes training;
-11. resume: on the Shakespeare RNN and the transformer configurations, a
+12. resume: on the Shakespeare RNN and the transformer configurations, a
    depth-4 run with ``checkpoint_freq: 2`` stopped after round 2 and
    restored to round 6 is bitwise a straight depth-1 run, params and
    records (deterministic algorithms); save and restore times and the
    checkpoint's bytes are printed;
-12. remat: the transformer configuration with ``remat: true``: the
+13. remat: the transformer configuration with ``remat: true``: the
    params after one round bitwise those without remat; 3 rounds of each
    through ``run_simulation``: peak memory (below the run without
    remat), rounds/s, and two flash forwards and one backward per layer
    per step for the whole cohort;
-13. planet: the planet configuration through ``run_simulation``, 5
+14. planet: the planet configuration through ``run_simulation``, 5
    rounds (round 0 warms up, rounds 1-3 are timed as a whole on the
    card's clock, round 4 is profiled; evaluation after rounds 0 and 4):
    rounds/s, clients/s, registry bytes, shape keys against their budget,
@@ -167,6 +178,8 @@ FEDAVG_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "fedavg_femnist_cnn.yaml"
 DENSE_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "fedavg_cifar10_resnet18_bf16.yaml"
 TRANSFORMER_CONFIG = (REPO / "fedml_tpu_torch" / "configs"
                       / "fedavg_shakespeare_transformer_flash_bf16.yaml")
+TRANSFORMER_F32_CONFIG = (REPO / "fedml_tpu_torch" / "configs"
+                          / "fedavg_shakespeare_transformer_flash.yaml")
 RNN_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "fedavg_shakespeare_rnn.yaml"
 SO_RNN_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "fedavg_stackoverflow_rnn.yaml"
 DEVICE = "cuda"
@@ -208,6 +221,8 @@ FLASH_CASES = [
     (2, 1000, 4, 64, torch.bfloat16, True),
     (4, 2048, 4, 16, torch.bfloat16, False),
     (2, 2048, 4, 128, torch.bfloat16, False),
+    # the f32 transformer-training path's shape (8 clients x batch 4, f32)
+    (32, 4096, 8, 64, torch.float32, True),
 ]
 # tensor-core passes each forward route makes a tile, against the two
 # products the bound counts: bf16 (wgmma) S once and P V twice (P as bf16
@@ -286,11 +301,16 @@ FLASH_BWD_CASES = [
     (4096, 48, 16, 32, torch.bfloat16, True),  # batch x heads 65,536 (evaluation's)
     (2, 1024, 4, 48, torch.bfloat16, True),  # head dims the wrapper zero-pads
     (2, 1024, 4, 96, torch.float32, False),
+    # the f32 transformer-training path's shape (8 clients x batch 4, f32)
+    (32, 4096, 8, 64, torch.float32, True),
+    (2, 1000, 4, 64, torch.float32, True),  # T not a multiple of the tile
+    (1, 300, 2, 128, torch.float32, True),  # T not a multiple of the f32 kernels' 8-query steps
+    (2, 1000, 4, 16, torch.float32, False),
 ]
 # tensor-core passes each backward route makes, against the 5 products
 # the bound counts: bf16 (wgmma) S, dP twice and the products with P and
 # dS as bf16 hi + lo, 1 + 1 + 2 + 2 in the dK/dV kernel and 1 + 1 + 2 in
-# the dQ kernel; f32 (mma.sync) 3xTF32 on all seven products
+# the dQ kernel; f32 (TF32 wgmma) 3xTF32 on all seven products
 BWD_ROUTE_PASSES = {torch.bfloat16: 10, torch.float32: 21}
 # dQ, dK, dV against the plain version. f32: the JAX package's gradient
 # tolerance, 5e-4 absolute; the kernel's 3xTF32 keeps f32's accuracy.
@@ -312,8 +332,8 @@ TRANSFORMER_CHECK_ROUNDS, TRANSFORMER_CHECK_FREQ = 4, 2
 # time lands in those two kinds with the softmax, loss and metric sums.
 TRANSFORMER_KINDS = (
     ("flash forward", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel")),
-    ("flash backward", ("dkdv_kernel", "dq_kernel", "dkdv_wgmma_kernel", "dq_wgmma_kernel",
-                        "delta_kernel")),
+    ("flash backward", ("dkdv_tf32_kernel", "dq_tf32_kernel", "dkdv_wgmma_kernel",
+                        "dq_wgmma_kernel", "delta_kernel")),
     ("GEMM", ("gemm", "gemv", "nvjet", "cutlass", "xmma")),
     ("embedding", ("embedding", "index", "scatter", "gather", "radix", "sort")),
     ("reductions (LayerNorm statistics, softmax, loss)", ("reduce", "softmax")),
@@ -639,6 +659,7 @@ def check_flash_kernel():
         torch.cuda.empty_cache()
     log(f"flash kernel launches while checking (not counted): {FWD_KERNEL.launches}")
     main, training = cases[0], cases[1]
+    training_f32 = path_case(cases, F32_TRAINING_SHAPE, "float32")
     return {
         "name": FWD_KERNEL.name,
         "route": "cuda",
@@ -647,14 +668,24 @@ def check_flash_kernel():
         "launches": None,  # filled from the paths' runs
         **{key: main[key] for key in MAIN_KEYS},
         "shape": main["shape"], "dtype": main["dtype"],
-        # the same numbers at the transformer-training path's shape
+        # the same numbers at the transformer-training paths' shapes
         "fedavg_transformer": {key: training[key] for key in MAIN_KEYS + ("shape", "dtype")},
+        "fedavg_transformer_f32": {key: training_f32[key]
+                                   for key in MAIN_KEYS + ("shape", "dtype")},
         "cases": cases,
     }
 
 
 MAIN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_route",
              "library_ms", "library_kernel")
+# the f32 transformer-training path's flash shape: 8 clients x batch 4
+# folded into the batch, T 4096, 8 heads of 64
+F32_TRAINING_SHAPE = [32, 4096, 8, 64]
+
+
+def path_case(cases, shape, dtype) -> dict:
+    """The kernel case at a path's shape and dtype."""
+    return next(c for c in cases if c["shape"] == shape and c["dtype"] == dtype)
 
 
 def check_flash_backward():
@@ -740,6 +771,7 @@ def check_flash_backward():
         del qkv, q, k, v, g, o, lse, got, inputs, qt, kt, vt, out, gt
         torch.cuda.empty_cache()
     main = cases[0]
+    training_f32 = path_case(cases, F32_TRAINING_SHAPE, "float32")
     return {
         "name": BWD_KERNEL.name,
         "route": "cuda",
@@ -748,6 +780,9 @@ def check_flash_backward():
         "launches": None,  # filled from the paths' runs
         **{key: main[key] for key in MAIN_KEYS},
         "shape": main["shape"], "dtype": main["dtype"],
+        # the same numbers at the f32 transformer-training path's shape
+        "fedavg_transformer_f32": {key: training_f32[key]
+                                   for key in MAIN_KEYS + ("shape", "dtype")},
         "cases": cases,
     }
 
@@ -1059,6 +1094,26 @@ def device_busy_ms(fn, calls: int = 5):
     if not spans:
         return None, 0
     return _union_us(spans) / 1e3 / calls, len(spans) / calls
+
+
+def kernel_device_ms(fn, name: str, calls: int) -> float:
+    """Mean device time of the device kernel whose name contains
+    ``name`` over ``calls`` calls of ``fn`` under ``torch.profiler``
+    (after a warm-up call); fails if the profiler saw none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name]
+    if not times:
+        fail(f"the profiler saw no {name} on the card")
+    return sum(times) / len(times) / 1e3
 
 
 def fedavg_step_yardstick():
@@ -1792,7 +1847,104 @@ def run_transformer():
     }
 
 
-# -- phases 8-12: the fifth slice ---------------------------------------
+# -- phase 8: the reference's default dtype -------------------------------
+# the f32 transformer: 3 rounds (evaluation at 0 and 2): round 0 warms up,
+# round 1 runs under torch.profiler (training only: no evaluation in it),
+# round 2's training is timed on the card's clock (a round's span holds
+# its training, not its evaluation)
+TRANSFORMER_F32_ROUNDS = 3
+TRANSFORMER_F32_TIMED = (2, 2)
+TRANSFORMER_F32_PROFILED = 1
+
+
+@contextlib.contextmanager
+def plain_flash_calls():
+    """Counts the calls of the flash plain versions (the dense forward
+    and the blockwise backward) while it is open: a path on the card
+    must make none."""
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    calls = {"forward": 0, "backward": 0}
+    real = {"forward": fa.flash_attention_reference, "backward": fa._flash_backward}
+
+    def counted(kind):
+        def call(*a, **kw):
+            calls[kind] += 1
+            return real[kind](*a, **kw)
+        return call
+
+    fa.flash_attention_reference = counted("forward")
+    fa._flash_backward = counted("backward")
+    try:
+        yield calls
+    finally:
+        fa.flash_attention_reference, fa._flash_backward = real["forward"], real["backward"]
+
+
+def run_transformer_f32(passes: int):
+    """FedAvg of the flash TransformerLM in f32, the reference's default
+    dtype, through ``run_simulation``: 3 rounds of the configuration
+    (round 1 profiled, round 2 timed). The f32 flash kernels launch once
+    a layer and step for the whole cohort (forward also once a layer per
+    forward pass of each evaluation, ``passes`` of them), no plain version
+    runs, and the loss falls."""
+    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.ops.flash_attention import BWD_KERNEL, FWD_KERNEL
+
+    args = load_arguments(str(TRANSFORMER_F32_CONFIG))
+    args.comm_round = TRANSFORMER_F32_ROUNDS
+    L, T, epochs = int(args.num_layers), int(args.seq_len), int(args.epochs)
+    with plain_flash_calls() as plain:
+        run = measured_run(args, TRANSFORMER_F32_PROFILED)
+    card = card_line()
+    losses = log_records("transformer f32", run)
+    pipe = run["pipe"]
+    first, last = TRANSFORMER_F32_TIMED
+    timed_s, rounds_per_s, samples = timed_rounds(pipe, first, last)
+    steps = pipe["num_batches"] * epochs
+    tokens = samples * T * epochs
+    log(f"transformer f32 on {card}: {args.model} ({args.attention_impl}), embed "
+        f"{args.embed_dim}, {args.num_heads} heads, {L} layers, T {T}, "
+        f"{args.client_num_per_round} of {args.client_num_in_total} clients (pow2 bucket "
+        f"{pipe['bucket']}), batch {args.batch_size}, {args.dtype}, matmul_precision "
+        f"{args.matmul_precision}: round {first} on the card's clock {timed_s:.4f} s, "
+        f"{rounds_per_s:.4f} rounds/s, {tokens * rounds_per_s:.0f} real tokens/s ({tokens:.0f} "
+        f"a round); peak memory {run['peak_bytes'] / 2**20:.1f} MiB (less the "
+        f"{run['held_bytes'] / 2**20:.1f} MiB earlier phases still held); {len(pipe['round_spans_s'])}"
+        f" rounds in {run['wall_s']:.1f} s (data, init and warm-up included)")
+    profile = profile_summary(
+        f"transformer f32 profile of round {TRANSFORMER_F32_PROFILED} (training only) on {card}",
+        run["summary"], TRANSFORMER_KINDS)
+    if profile.get("device_launches"):
+        per_kind = {k: round(n / steps, 1) for k, n in profile["launches_by_kind"].items()}
+        log(f"transformer f32 on {card}: {profile['device_launches'] / steps:.0f} device "
+            f"launches per step ({steps} steps in the profiled round); per step by kind: "
+            f"{per_kind}")
+        if (profile["launches_by_kind"].get("flash forward") != L * steps
+                or profile["launches_by_kind"].get("flash backward") != 3 * L * steps):
+            fail(f"transformer f32: the profiled round launched {profile['launches_by_kind']}: "
+                 f"want {L * steps} flash forward and {3 * L * steps} flash backward kernels")
+    all_steps = len(pipe["round_spans_s"]) * steps
+    evals = len(run["records"])
+    want = {**no_launches(), FWD_KERNEL.name: L * (all_steps + evals * passes),
+            BWD_KERNEL.name: L * all_steps}
+    log(f"transformer f32: flash launches {run['launches']}, want {want} ({L} layers x "
+        f"{all_steps} steps, + {evals} evaluations of {passes} forward passes); plain "
+        f"versions called {plain}")
+    if run["launches"] != want:
+        fail(f"transformer f32: flash launches {run['launches']}, want {want}")
+    if any(plain.values()):
+        fail(f"transformer f32: the flash plain versions ran on the card path: {plain}")
+    torch.cuda.empty_cache()
+    return {"card": card, "rounds_per_s": rounds_per_s, "timed_rounds_s": timed_s,
+            "real_tokens_per_s": tokens * rounds_per_s, "peak_memory_bytes": run["peak_bytes"],
+            "train_loss": losses, "test_acc": [r["test_acc"] for r in run["records"]],
+            "round_device_s": [b - a for a, b in pipe["round_spans_s"]],
+            "profile": {"round": TRANSFORMER_F32_PROFILED, **profile}, "pipeline": pipe,
+            "plain_calls": plain, "kernel_launches": run["launches"]}
+
+
+# -- phases 9-13: the fifth slice ---------------------------------------
 def measured_run(args, profiled=None) -> dict:
     """``run_simulation`` on ``args`` as a user calls it, with its metrics
     written (and round ``profiled`` under ``torch.profiler``): the
@@ -2193,12 +2345,21 @@ FOLD_CASES = [(610, 1), (11_173_962, 1), (11_173_962, 3)]
 # 10 of the flash TransformerLM (8,495,194 params) in bf16
 MEAN_CASES = [(16, 11_173_962, torch.float32), (10, 8_495_194, torch.bfloat16)]
 # K2 cases, (C, S, dim): one of the planet path's two largest groups
-# (4,096 clients x 4 batches of 32, 60 features), then FEMNIST-sized rows
-SYNTH_CASES = [(4096, 128, 60), (64, 512, 784)]
+# (4,096 clients x 4 batches of 32, 60 features), FEMNIST-sized rows,
+# then samples a client that are not a power of two (100), so that the
+# kernels' multiply-high for a row's client is not a shift
+SYNTH_CASES = [(4096, 128, 60), (64, 512, 784), (3000, 100, 60)]
 # K2 against its plain version: the Philox words bitwise; the features
-# (|x| below ~10) to 1e-5, the kernel's logf, sqrtf, sinf and cosf
-# against PyTorch's (both IEEE-rounded adds and products otherwise)
+# (|x| below ~10) to 1e-5, the kernel's logf, sqrtf and sincosf against
+# PyTorch's log, sqrt, sin and cos (both IEEE-rounded adds and products
+# otherwise)
 SYNTH_ATOL = 1e-5
+# K2's time ("ms"), as every kernel's here: CUDA events around 20
+# back-to-back calls through its wrapper. A call is under 0.1 ms, near
+# what the wrapper's host work takes, so that can read the host as well;
+# the kernel's own device time under torch.profiler over 200 calls is
+# printed beside it ("device_ms")
+SYNTH_TIMED, SYNTH_PROFILED = 20, 200
 # planet phase: the configuration through run_simulation for 5 rounds:
 # round 0 warms up, rounds 1-3 are timed as a whole on the card's clock,
 # round 4 runs under torch.profiler; evaluation after rounds 0 and 4
@@ -2350,20 +2511,26 @@ def check_synth_features():
             fail(f"synth features [{C}, {S}, {dim}]: max abs err {err} > {SYNTH_ATOL}")
         if not bits_equal(got, again):
             fail(f"synth features [{C}, {S}, {dim}]: two launches differ")
-        nbytes = C * S * dim * 4 + C * S * 8 + C * 4 + classes * dim * 4
-        ms = cuda_time_ms(lambda: sf.SYNTH_KERNEL(y, means, seeds, 1.0), 20)
+        nbytes = C * S * dim * 4 + C * S * 8 + C * 8 + classes * dim * 4
+        call = lambda: sf.SYNTH_KERNEL(y, means, seeds, 1.0)  # noqa: E731
+        ms = cuda_time_ms(call, SYNTH_TIMED)
+        device_ms = kernel_device_ms(call, "synth_kernel", SYNTH_PROFILED)
         plain_ms = cuda_time_ms(lambda: sf.synth_features_reference(y, means, seeds, 1.0), 3)
         bound_ms, bound_by = bytes_bound(nbytes, 8 * C * S * dim)
         bitwise = bits_equal(got, want)
         log(f"synth features [{C}, {S}, {dim}] f32: Philox words bitwise, features max abs err "
-            f"{err:.3g} (atol {SYNTH_ATOL}; bitwise: {bitwise}), repeatable; kernel {ms:.4f} ms, "
+            f"{err:.3g} (atol {SYNTH_ATOL}; bitwise: {bitwise}), repeatable; kernel {ms:.4f} ms "
+            f"a call through the wrapper, by events ({device_ms:.4f} ms device time), "
             f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), "
-            f"{bound_ms / ms:.1%} of it; plain {plain_ms:.4f} ms; library: none (torch.randn "
-            f"does not key a draw by sample)")
+            f"{bound_ms / ms:.1%} of it ({bound_ms / device_ms:.1%} of the device time); "
+            f"plain {plain_ms:.4f} ms; library: none (torch.randn does not key a draw by "
+            f"sample)")
         cases.append({"shape": [C, S, dim], "dtype": "float32", "max_abs_err": err,
                       "bitwise": bitwise, "words_bitwise": True, "repeats_bitwise": True,
-                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                      "bound_route": "HBM write", "share_of_bound": bound_ms / ms,
+                      "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "bound_route": "HBM write",
+                      "share_of_bound": bound_ms / ms,
+                      "device_share_of_bound": bound_ms / device_ms,
                       "library_ms": None, "library_kernel": None})
         del y, means, seeds, got, again, want, words, words_ref
         torch.cuda.empty_cache()
@@ -2372,7 +2539,7 @@ def check_synth_features():
                            source="fedml_tpu_torch/ops/csrc/synth_features.cu",
                            replaces="fedml_tpu/data/synthetic.py:150",
                            kind="not a TPU kernel (XLA-generated in the reference)"),
-            "cases": cases}
+            "device_ms": cases[0]["device_ms"], "cases": cases}
 
 
 def planet_args(**knobs):
@@ -2591,6 +2758,9 @@ def main() -> int:
     log(f"dense numbers on {card}: {json.dumps(dense_numbers)}")
     transformer_numbers = phase("transformer", run_transformer)
     log(f"transformer numbers on {card}: {json.dumps(transformer_numbers)}")
+    transformer_f32_numbers = phase("transformer f32", run_transformer_f32,
+                                    transformer_numbers["pipeline_check"]["eval_passes"])
+    log(f"transformer f32 numbers on {card}: {json.dumps(transformer_f32_numbers)}")
     rnn_numbers = phase("rnn", run_rnn)
     log(f"rnn numbers on {card}: {json.dumps(rnn_numbers)}")
     so_numbers = phase("rnn stackoverflow", run_rnn_stackoverflow)
@@ -2611,6 +2781,7 @@ def main() -> int:
             "fedavg_headline": fedavg_numbers["kernel_launches"][name],
             "fedavg_dense": dense_numbers["kernel_launches"][name],
             "fedavg_transformer": transformer_numbers["kernel_launches"][name],
+            "fedavg_transformer_f32": transformer_f32_numbers["kernel_launches"][name],
             "fedavg_rnn": rnn_numbers["kernel_launches"][name],
             "fedavg_rnn_stackoverflow": so_numbers["kernel_launches"][name],
             "seam": seam_numbers["kernel_launches"][name],

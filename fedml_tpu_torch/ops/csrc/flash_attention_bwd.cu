@@ -70,15 +70,69 @@
 // end. `block_work` orders the blocks so that those in flight stream the
 // tiles of a few heads, which stay in L2.
 //
-// f32 route: the same three kernels in `mma.sync` m16n8k8 TF32, f32
-// operands in shared-memory tiles loaded by all threads, P and dS through
-// shared memory. Every product is 3xTF32 (lo*hi + hi*lo
-// + hi*hi of x = hi + lo, both TF32), which keeps f32's accuracy where
-// one TF32 pass would not. Shared-memory rows are padded (Q, K, V, dO by 4
-// floats; P and dS by 8 in the dK/dV kernel, where they are read
-// transposed; dS by 4 in the dQ kernel), so each fragment load of a warp
-// touches 32 distinct banks where the access is row-major and at most 2
-// lanes share a bank where it is transposed.
+// f32 route (the reference's default dtype; serving's f32 and the f32
+// training path): `dkdv_tf32_kernel` and `dq_tf32_kernel`, the bf16
+// route's structure on TF32 `wgmma` (m64nNk8, f32 accumulators) with TMA
+// loads. What held the earlier `mma.sync` design back (19% of the bound,
+// slower than SDPA's backward), and what this one does about each:
+// - TF32 `mma.sync` with fragments loaded by every thread, 8 warps a
+//   block: every product is `wgmma.mma_async` .tf32 by a warpgroup of 64
+//   rows. A block is two warpgroups that share the resident tiles (K and
+//   V in the dK/dV kernel, Q and dO in the dQ kernel) and take the
+//   streamed steps in turn, each with its own stage and its own partial
+//   sums, added in one fixed order at the end (`combine_partials`): while
+//   one warpgroup runs its staging pass or its softmax, the other's
+//   products hold the tensor cores.
+// - Synchronous loads by every thread into padded tiles: Q, K, V and dO
+//   arrive by TMA (4-D tensor maps, 32-float boxes, 128-byte swizzle);
+//   a warpgroup's next step is loaded into its stage as soon as the
+//   step's natural tiles are read, while its dV/dK (or dQ) products run.
+// - P and dS through shared memory, read back transposed: as in the bf16
+//   route, the dK/dV kernel forms P^T and dS^T in its accumulators (keys
+//   as rows) and the dQ kernel dS; they feed the next product as register
+//   A operands. tf32 `wgmma` has no transpose bits (PTX allows them for
+//   f16/bf16 only), so both shared-memory operands are K-major, and the
+//   three products that contract over a tile's rows (dV += P^T dO and
+//   dK += dS^T Q over queries, dQ += dS K over keys) read B from copies
+//   that `transpose_tile` writes while the step's S and dP products run.
+//   An accumulator reused as A holds columns 2t, 2t + 1 where A's k order
+//   wants t, t + 4, so the transposed copies store row 2t at column t and
+//   2t + 1 at t + 4 within each 8 (`kpos`): the permutation costs nothing
+//   where the copy is written anyway.
+// - Accuracy: 3xTF32 throughout, x = hi + lo with hi = tf32(x) and lo =
+//   tf32(x - hi), both rounded to nearest (ties away), and three passes
+//   into one accumulator, lo*hi + hi*lo + hi*hi. Every operand the tensor
+//   cores read is an exact TF32 value, so how they treat the low 13 bits
+//   does not matter. Where the split happens: `stage_tile`, one
+//   thread-cooperative sweep over each tile TMA lands, rewrites it as hi
+//   in place and writes lo beside it (the resident tiles once a block; Q
+//   and dO a step in the dK/dV kernel, K and V a step in the dQ kernel);
+//   `transpose_tile` copies Q's and dO's (dK/dV) and K's (dQ) hi and lo
+//   transposed; P^T, dS^T and dS are split in registers. Where the
+//   registers allow (`kDkdvRegA`, `kDqRegA`), the resident tiles' hi A
+//   operands stay in registers for the block's life, so that the S and
+//   dP products' two hi passes read only B from shared memory.
+// - Passes: 7 products x 3 = 21 (S^T, dP^T, dV, dK; S, dP, dQ), against
+//   the bound's 5 x 3 = 15: this design's floor is 21/15 of the bound,
+//   2.92 ms at [8, 4096, 8, 64] causal (2.083 ms bound), 11.66 ms at [32,
+//   4096, 8, 64] (8.332 ms).
+// - Shared memory (227 KB a block) decides the tiles. The dK/dV kernel
+//   keeps K hi/lo and V hi/lo resident (4 x 64 x D x 4 bytes) and a stage
+//   holds Q and dO as hi, lo, transposed hi and transposed lo (8 x kQS x
+//   D x 4) with the step's lse and delta; the dQ kernel keeps Q and dO
+//   hi/lo and a stage holds K as hi, lo and transposed hi/lo and V as hi,
+//   lo (6 x kKS x D x 4). Steps of kQS = 64 / 32 / 8 queries and kKS =
+//   64 / 32 / 16 keys at D <= 32 / 64 / 128, one stage for each of the
+//   two warpgroups, give 82-194 KB and 64-224 KB: one block an SM.
+// - The softmax scale is applied to dK and dQ once, at the end; P is
+//   exp2(S scale log2 e - lse log2 e), as in the bf16 route.
+// What bounds it now is not the tensor cores alone. Reckoned from the
+// code at D 64 (a dK/dV step of 32 queries): its staging and transposing
+// passes, the S/dP products' lo pass from shared memory and the dV/dK
+// products' B operands move ~240 KB of shared memory (~1,900 clocks at
+// 128 bytes a clock) against ~1,500 clocks of TF32 products, and each
+// thread issues ~870 instructions, with two warps a scheduler to hide
+// their latency. PERF.md has the measurements.
 
 #include "hopper.cuh"
 
@@ -86,66 +140,10 @@ namespace {
 
 using namespace hopper;
 
-constexpr int kTile = 64;  // queries and keys per tile
-constexpr int kWarps = 8;
+constexpr int kWarps = 8;  // the delta kernel: one warp per row
 constexpr int kThreads = kWarps * 32;
 
-template <int D>
-struct Cfg {
-  static constexpr int kLd = D + 4;      // row stride (floats) of the Q, K, V, dO tiles
-  static constexpr int kPLd = kTile + 8; // P, dS rows in the dK/dV kernel (read transposed)
-  static constexpr int kSLd = kTile + 4; // dS rows in the dQ kernel (read row-wise)
-  static constexpr int kNt = D / 16;     // n-tiles of 8 columns per warp: half of D
-  static constexpr int kTileBytes = kTile * kLd * 4;
-  static constexpr int kDkdvSmem = 4 * kTileBytes + 2 * kTile * kPLd * 4 + 2 * kTile * 4;
-  static constexpr int kDqSmem = 4 * kTileBytes + kTile * kSLd * 4 + 2 * kTile * 4;
-  static constexpr int kMinBlocks = D <= 64 ? 2 : 1;
-};
-
-// ---- f32 route: arithmetic ------------------------------------------------------
-
-// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
-// zero (cvt.rna's rounding; two integer instructions)
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo to ~2^-22 relative, both exact TF32 values
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-// d += a * b on one 16x8x8 tile, f32 accumulate. Fragments (g, t) =
-// (lane / 4, lane % 4): A holds (row, col) (g, t), (g+8, t), (g, t+4),
-// (g+8, t+4); B holds (k, n) (t, g), (t+4, g); C holds (g, 2t), (g, 2t+1),
-// (g+8, 2t), (g+8, 2t+1).
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32"
-      " {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// An operand fragment read from an f32 tile: its TF32 hi and lo parts.
-template <int N>
-struct Frag {
-  uint32_t hi[N], lo[N];
-};
-
-template <int N>
-__device__ __forceinline__ void make_frag(Frag<N>& f, const float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) split(x[i], f.hi[i], f.lo[i]);
-}
-
-// d += a * b in 3xTF32, the small terms first
-__device__ __forceinline__ void mma_x(float (&d)[4], const Frag<4>& a, const Frag<2>& b) {
-  mma(d, a.lo, b.hi[0], b.hi[1]);
-  mma(d, a.hi, b.lo[0], b.lo[1]);
-  mma(d, a.hi, b.hi[0], b.hi[1]);
-}
+// ---- stores and loads shared by the routes ------------------------------------
 
 __device__ __forceinline__ void store2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
@@ -157,95 +155,7 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
 __device__ __forceinline__ float load1(const float* p) { return *p; }
 __device__ __forceinline__ float load1(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 
-// ---- f32 route: tiles -----------------------------------------------------------
-
-// Rows t0 .. t0+63 of (b, h) of a [B, T, H, D] f32 input into a tile of
-// row stride kLd; rows at or past seq_len are zero. The wrapper guarantees
-// a 16-byte-aligned base and 16-byte-multiple strides.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, Strides s,
-                                          int b, int h, int t0, int seq_len) {
-  constexpr int kPerRow = D / 4;
-  const float* base = src + b * s.b + h * s.h;
-  for (int i = threadIdx.x; i < kTile * kPerRow; i += kThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * 4;
-    const int t = t0 + r;
-    *reinterpret_cast<float4*>(dst + r * Cfg<D>::kLd + c) =
-        t < seq_len ? *reinterpret_cast<const float4*>(base + t * s.t + c)
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-// lse and delta of rows t0 .. t0+63 of row block `bh` ([B, H, T] f32)
-__device__ __forceinline__ void load_rows(float* lse_s, float* delta_s,
-                                          const float* __restrict__ lse,
-                                          const float* __restrict__ delta, long long bh,
-                                          int t0, int seq_len) {
-  for (int r = threadIdx.x; r < kTile; r += kThreads) {
-    const int t = t0 + r;
-    lse_s[r] = t < seq_len ? lse[bh * seq_len + t] : 0.f;
-    delta_s[r] = t < seq_len ? delta[bh * seq_len + t] : 0.f;
-  }
-}
-
-// Phase A, shared by the dK/dV and dQ kernels: this warp's 16 query rows
-// (qr0 ..) x 32 keys (kc0 ..) of the tile pair, S = Q K^T and dP = dO V^T,
-// then P and dS in place of them. Rows and keys are tile-local; q0, k0
-// place the tiles in the sequence.
-template <int D>
-__device__ __forceinline__ void scores(const float* q_s, const float* k_s, const float* do_s,
-                                       const float* v_s, const float* lse_s,
-                                       const float* delta_s, int qr0, int kc0, int q0, int k0,
-                                       int seq_len, int causal, float scale,
-                                       float (&p)[4][4], float (&ds)[4][4]) {
-  constexpr int ld = Cfg<D>::kLd;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) p[n][i] = ds[n][i] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < D / 8; ++ks) {
-    float xq[4], xdo[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int off = (qr0 + g + (i & 1) * 8) * ld + ks * 8 + t + (i >> 1) * 4;
-      xq[i] = q_s[off];
-      xdo[i] = do_s[off];
-    }
-    Frag<4> aq, ado;
-    make_frag(aq, xq);
-    make_frag(ado, xdo);
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      float xk[2], xv[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int off = (kc0 + n * 8 + g) * ld + ks * 8 + t + j * 4;
-        xk[j] = k_s[off];
-        xv[j] = v_s[off];
-      }
-      Frag<2> bk, bv;
-      make_frag(bk, xk);
-      make_frag(bv, xv);
-      mma_x(p[n], aq, bk);   // S
-      mma_x(ds[n], ado, bv); // dP
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = qr0 + g + (i >> 1) * 8;  // tile-local query row
-      const int row = q0 + r, key = k0 + kc0 + n * 8 + 2 * t + (i & 1);
-      const bool keep = row < seq_len && key < seq_len && (!causal || key <= row);
-      const float pv = keep ? expf(p[n][i] * scale - lse_s[r]) : 0.f;
-      p[n][i] = pv;
-      ds[n][i] = pv * (ds[n][i] - delta_s[r]) * scale;
-    }
-}
-
-// ---- kernels: delta and the f32 route -------------------------------------------
+// ---- delta -----------------------------------------------------------------------
 
 // delta[b, h, t] = sum_d dO[b, t, h, d] * O[b, t, h, d]: one warp per row
 template <typename T, int D>
@@ -265,206 +175,6 @@ delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restr
 #pragma unroll
   for (int m = 16; m >= 1; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
   if (lane == 0) delta[((long long)b * heads + h) * seq_len + t] = acc;
-}
-
-// dK and dV of one 64-key tile of one (b, h)
-template <int D>
-__global__ void __launch_bounds__(kThreads, Cfg<D>::kMinBlocks)
-dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, const float* __restrict__ dout,
-            const float* __restrict__ lse, const float* __restrict__ delta,
-            float* __restrict__ dk, float* __restrict__ dv,
-            Strides qs, Strides ks, Strides vs, Strides dos, int seq_len, int heads,
-            float scale, int causal) {
-  using C = Cfg<D>;
-  extern __shared__ __align__(16) float smem[];
-  float* k_s = smem;
-  float* v_s = k_s + kTile * C::kLd;
-  float* q_s = v_s + kTile * C::kLd;
-  float* do_s = q_s + kTile * C::kLd;
-  float* p_s = do_s + kTile * C::kLd;
-  float* ds_s = p_s + kTile * C::kPLd;
-  float* lse_s = ds_s + kTile * C::kPLd;
-  float* delta_s = lse_s + kTile;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  int bh, kt;  // low key tiles walk the most causal query tiles
-  block_work(bh, kt);
-  const int b = bh / heads, h = bh - b * heads;
-  const int k0 = kt * kTile;
-  const int n_qt = (seq_len + kTile - 1) / kTile;
-  const int qt0 = causal ? kt : 0;  // earlier query tiles see none of these keys
-
-  load_tile<D>(k_s, k, ks, b, h, k0, seq_len);
-  load_tile<D>(v_s, v, vs, b, h, k0, seq_len);
-
-  // phase A: query rows qa0.., keys kc0..; phase B: keys kb0.., columns dc0..
-  const int qa0 = (warp & 3) * 16, kc0 = (warp >> 2) * 32;
-  const int kb0 = (warp & 3) * 16, dc0 = (warp >> 2) * (D / 2);
-  float acc_dk[C::kNt][4], acc_dv[C::kNt][4];
-#pragma unroll
-  for (int n = 0; n < C::kNt; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc_dk[n][i] = acc_dv[n][i] = 0.f;
-
-  for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * kTile;
-    load_tile<D>(q_s, q, qs, b, h, q0, seq_len);
-    load_tile<D>(do_s, dout, dos, b, h, q0, seq_len);
-    load_rows(lse_s, delta_s, lse, delta, bh, q0, seq_len);
-    __syncthreads();
-
-    float p[4][4], ds[4][4];
-    scores<D>(q_s, k_s, do_s, v_s, lse_s, delta_s, qa0, kc0, q0, k0, seq_len, causal,
-                      scale, p, ds);
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int off = (qa0 + g + 8 * j) * C::kPLd + kc0 + n * 8 + 2 * t;
-        store2(p_s + off, p[n][2 * j], p[n][2 * j + 1]);
-        store2(ds_s + off, ds[n][2 * j], ds[n][2 * j + 1]);
-      }
-    __syncthreads();
-
-    // phase B: dV += P^T dO and dK += dS^T Q over the tile's 64 queries.
-    // A[m = key][k = query] = P[query][key]; B[k = query][n = col] = dO / Q.
-#pragma unroll 2
-    for (int kk = 0; kk < kTile / 8; ++kk) {
-      float xp[4], xds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int off = (kk * 8 + t + (i >> 1) * 4) * C::kPLd + kb0 + g + (i & 1) * 8;
-        xp[i] = p_s[off];
-        xds[i] = ds_s[off];
-      }
-      Frag<4> ap, ads;
-      make_frag(ap, xp);
-      make_frag(ads, xds);
-#pragma unroll
-      for (int n = 0; n < C::kNt; ++n) {
-        float xdo[2], xq[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int off = (kk * 8 + t + j * 4) * C::kLd + dc0 + n * 8 + g;
-          xdo[j] = do_s[off];
-          xq[j] = q_s[off];
-        }
-        Frag<2> bdo, bq;
-        make_frag(bdo, xdo);
-        make_frag(bq, xq);
-        mma_x(acc_dv[n], ap, bdo);
-        mma_x(acc_dk[n], ads, bq);
-      }
-    }
-    __syncthreads();  // the next tile overwrites Q, dO, P and dS
-  }
-
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int key = k0 + kb0 + g + 8 * j;
-    if (key >= seq_len) continue;
-    const long long row = (((long long)b * seq_len + key) * heads + h) * D;
-#pragma unroll
-    for (int n = 0; n < C::kNt; ++n) {
-      const int col = dc0 + n * 8 + 2 * t;
-      store2(dk + row + col, acc_dk[n][2 * j], acc_dk[n][2 * j + 1]);
-      store2(dv + row + col, acc_dv[n][2 * j], acc_dv[n][2 * j + 1]);
-    }
-  }
-}
-
-// dQ of one 64-query tile of one (b, h)
-template <int D>
-__global__ void __launch_bounds__(kThreads, Cfg<D>::kMinBlocks)
-dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, const float* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ delta,
-          float* __restrict__ dq, Strides qs, Strides ks,
-          Strides vs, Strides dos, int seq_len, int heads, float scale, int causal) {
-  using C = Cfg<D>;
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;
-  float* do_s = q_s + kTile * C::kLd;
-  float* k_s = do_s + kTile * C::kLd;
-  float* v_s = k_s + kTile * C::kLd;
-  float* ds_s = v_s + kTile * C::kLd;
-  float* lse_s = ds_s + kTile * C::kSLd;
-  float* delta_s = lse_s + kTile;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  int bh, rank;
-  block_work(bh, rank);
-  const int b = bh / heads, h = bh - b * heads;
-  const int qt = gridDim.y - 1 - rank;  // high query tiles walk the most key tiles
-  const int q0 = qt * kTile;
-  const int n_kt = causal ? qt + 1 : (seq_len + kTile - 1) / kTile;
-
-  load_tile<D>(q_s, q, qs, b, h, q0, seq_len);
-  load_tile<D>(do_s, dout, dos, b, h, q0, seq_len);
-  load_rows(lse_s, delta_s, lse, delta, bh, q0, seq_len);
-
-  // phase A: query rows qa0.., keys kc0..; phase C: query rows qa0.., columns dc0..
-  const int qa0 = (warp & 3) * 16, kc0 = (warp >> 2) * 32, dc0 = (warp >> 2) * (D / 2);
-  float acc[C::kNt][4];
-#pragma unroll
-  for (int n = 0; n < C::kNt; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    load_tile<D>(k_s, k, ks, b, h, k0, seq_len);
-    load_tile<D>(v_s, v, vs, b, h, k0, seq_len);
-    __syncthreads();
-
-    float p[4][4], ds[4][4];
-    scores<D>(q_s, k_s, do_s, v_s, lse_s, delta_s, qa0, kc0, q0, k0, seq_len, causal,
-                      scale, p, ds);
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        store2(ds_s + (qa0 + g + 8 * j) * C::kSLd + kc0 + n * 8 + 2 * t, ds[n][2 * j],
-               ds[n][2 * j + 1]);
-    __syncthreads();
-
-    // phase C: dQ += dS K over the tile's 64 keys.
-    // A[m = query][k = key] = dS; B[k = key][n = col] = K.
-#pragma unroll 2
-    for (int kk = 0; kk < kTile / 8; ++kk) {
-      float xds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        xds[i] = ds_s[(qa0 + g + (i & 1) * 8) * C::kSLd + kk * 8 + t + (i >> 1) * 4];
-      Frag<4> ads;
-      make_frag(ads, xds);
-#pragma unroll
-      for (int n = 0; n < C::kNt; ++n) {
-        float xk[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) xk[j] = k_s[(kk * 8 + t + j * 4) * C::kLd + dc0 + n * 8 + g];
-        Frag<2> bk;
-        make_frag(bk, xk);
-        mma_x(acc[n], ads, bk);
-      }
-    }
-    __syncthreads();  // the next tile overwrites K, V and dS
-  }
-
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int row = q0 + qa0 + g + 8 * j;
-    if (row >= seq_len) continue;
-    float* out = dq + (((long long)b * seq_len + row) * heads + h) * D;
-#pragma unroll
-    for (int n = 0; n < C::kNt; ++n) {
-      const int col = dc0 + n * 8 + 2 * t;
-      store2(out + col, acc[n][2 * j], acc[n][2 * j + 1]);
-    }
-  }
 }
 
 // ---- bf16 route: wgmma + TMA ----------------------------------------------------
@@ -800,6 +510,577 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
+// ---- f32 route: TF32 wgmma + TMA ------------------------------------------------
+
+// A [kRows, kCols] f32 tile as TMA stores it (and as the staging pass
+// writes its copies): boxes of kChunk columns (rows of at most 128
+// bytes), each swizzled by its row bytes
+template <int kCols>
+struct F32Tile {
+  static constexpr int kChunk = kCols > 32 ? 32 : kCols;
+  static constexpr int kRowBytes = kChunk * 4;
+};
+
+template <int kRows, int kCols>
+__device__ __forceinline__ int f32_off(int row, int col) {
+  return tile_off<float, F32Tile<kCols>::kChunk, kRows>(row, col);
+}
+
+// Descriptor of k-step `ks` (columns 8ks .. 8ks + 7) of a [kRows, kCols]
+// f32 tile read K-major (the reduction runs along the row)
+template <int kRows, int kCols>
+__device__ __forceinline__ uint64_t tf32_desc(const unsigned char* tile, int ks) {
+  using C = F32Tile<kCols>;
+  return smem_desc(tile + (ks * 8 / C::kChunk) * kRows * C::kRowBytes + (ks * 8 % C::kChunk) * 4,
+                   C::kRowBytes, 16, 8 * C::kRowBytes);
+}
+
+// Thread 0: rows `row` .. `row` + kRows - 1 of (b, h) of a [B, T, H, D]
+// f32 map into `dst` by TMA on `bar`, whose expected bytes the caller sets
+template <int D, int kRows>
+__device__ __forceinline__ void tma_f32(const CUtensorMap* map, unsigned char* dst, uint64_t* bar,
+                                        int b, int h, int row) {
+  using C = F32Tile<D>;
+#pragma unroll
+  for (int c = 0; c < D / C::kChunk; ++c)
+    tma_load(dst + c * kRows * C::kRowBytes, map, bar, c * C::kChunk, h, row, b);
+}
+
+// The column of a transposed copy that row r of a streamed tile goes to:
+// within each 8, rows 2t and 2t + 1 go to columns t and t + 4, the k
+// order in which wgmma reads an accumulator fed back as its A operand
+// (accumulator columns 2t, 2t + 1 as A's k t, t + 4)
+__device__ __forceinline__ int kpos(int r) {
+  return (r & ~7) | ((r & 7) >> 1) | ((r & 1) << 2);
+}
+
+// The staging pass over a [kRows, D] f32 tile that TMA wrote at `hi`, by
+// kThreadsN threads (`tid` this one's index among them): each x becomes
+// hi = tf32(x) in place and lo = tf32(x - hi) at `lo` (the same layout).
+// A warp's lanes take consecutive rows of one 4-column unit, so its
+// 16-byte loads and stores touch every bank once; the loop is unrolled
+// whole, so that all of a thread's loads are in flight at once (two warps
+// a scheduler hide little latency).
+template <int D, int kRows, int kThreadsN>
+__device__ __forceinline__ void stage_tile(unsigned char* hi, unsigned char* lo, int tid) {
+  constexpr int kUnits = kRows * D / 4;
+#pragma unroll
+  for (int u = tid; u < kUnits; u += kThreadsN) {
+    const int off = f32_off<kRows, D>(u % kRows, u / kRows * 4);
+    const float4 x = *reinterpret_cast<const float4*>(hi + off);
+    uint32_t h[4], l[4];
+    split(x.x, h[0], l[0]);
+    split(x.y, h[1], l[1]);
+    split(x.z, h[2], l[2]);
+    split(x.w, h[3], l[3]);
+    *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// The transposing pass, after stage_tile, by the same threads: hi and lo
+// of the [kRows, D] tile copied to the [D, kRows] tiles `thi` and `tlo`,
+// rows placed by kpos. It only reads the staged tile, so it runs while
+// the products that read that tile are in flight. Lanes on consecutive
+// rows make the transposed 4-byte stores touch every bank once at kRows
+// >= 32.
+template <int D, int kRows, int kThreadsN>
+__device__ __forceinline__ void transpose_tile(const unsigned char* hi, const unsigned char* lo,
+                                               unsigned char* thi, unsigned char* tlo, int tid) {
+  constexpr int kUnits = kRows * D / 4;
+#pragma unroll
+  for (int u = tid; u < kUnits; u += kThreadsN) {
+    const int r = u % kRows, c = u / kRows * 4, p = kpos(r);
+    const int off = f32_off<kRows, D>(r, c);
+    const uint4 h = *reinterpret_cast<const uint4*>(hi + off);
+    const uint4 l = *reinterpret_cast<const uint4*>(lo + off);
+    const uint32_t hs[4] = {h.x, h.y, h.z, h.w}, ls[4] = {l.x, l.y, l.z, l.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int t = f32_off<D, kRows>(c + j, p);
+      *reinterpret_cast<uint32_t*>(thi + t) = hs[j];
+      *reinterpret_cast<uint32_t*>(tlo + t) = ls[j];
+    }
+  }
+}
+
+// A resident [64, D] hi tile's TF32 A operands in registers, one k-step
+// of 8 columns each, in wgmma_tf32_rs's order: (16w + g, 8ks + t), (16w
+// + g + 8, 8ks + t), (16w + g, 8ks + t + 4), (16w + g + 8, 8ks + t + 4)
+template <int D, int KS>
+__device__ __forceinline__ void load_a(const unsigned char* tile, int warp, int lane,
+                                       uint32_t (&a)[KS][4]) {
+  const int r = warp * 16 + (lane >> 2), t = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[ks][i] = *reinterpret_cast<const uint32_t*>(
+          tile + f32_off<64, D>(r + 8 * (i & 1), 8 * ks + t + 4 * (i >> 1)));
+}
+
+// d = A B^T over D, 3xTF32: per k-step of 8 columns lo hi, hi lo, hi hi
+// into one accumulator (the first overwrites it). A is a resident [64, D]
+// tile (`a_hi`, `a_lo`), B a [kN, D] stage tile (`b_hi`, `b_lo`), both read
+// K-major. With kRegA, A's hi comes from the registers `ahi` (load_a): its
+// two passes read only B from shared memory, where the same pass from a
+// descriptor would read A's 2 KB again each time.
+template <int D, int kN, bool kRegA, int N, int KS>
+__device__ __forceinline__ void scores_3x(float (&d)[N], const unsigned char* a_hi,
+                                          const unsigned char* a_lo, const uint32_t (&ahi)[KS][4],
+                                          const unsigned char* b_hi, const unsigned char* b_lo) {
+#pragma unroll
+  for (int ks = 0; ks < D / 8; ++ks) {
+    const uint64_t bh = tf32_desc<kN, D>(b_hi, ks);
+    wgmma_tf32_ss(d, tf32_desc<64, D>(a_lo, ks), bh, ks > 0);
+    if constexpr (kRegA) {
+      wgmma_tf32_rs(d, ahi[ks], tf32_desc<kN, D>(b_lo, ks));
+      wgmma_tf32_rs(d, ahi[ks], bh);
+    } else {
+      const uint64_t ah = tf32_desc<64, D>(a_hi, ks);
+      wgmma_tf32_ss(d, ah, tf32_desc<kN, D>(b_lo, ks), 1);
+      wgmma_tf32_ss(d, ah, bh, 1);
+    }
+  }
+}
+
+// An accumulator of 8 columns (elements 4kk .. 4kk + 3) as a TF32 A
+// operand, hi and lo: A's (row, k) order (g, t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4) takes elements 0, 2, 1, 3 (columns 2t and 2t + 1 as k t
+// and t + 4, which kpos matches on the B side)
+template <int N>
+__device__ __forceinline__ void a_operand(const float (&acc)[N], int kk, uint32_t (&hi)[4],
+                                          uint32_t (&lo)[4]) {
+  split(acc[4 * kk], hi[0], lo[0]);
+  split(acc[4 * kk + 2], hi[1], lo[1]);
+  split(acc[4 * kk + 1], hi[2], lo[2]);
+  split(acc[4 * kk + 3], hi[3], lo[3]);
+}
+
+constexpr int kF32Threads = 2 * kSm90Threads;  // two consumer warpgroups a block
+
+// Named barrier of warpgroup `wg` alone (id 0 is __syncthreads')
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(kSm90Threads) : "memory");
+}
+
+// The two warpgroups' partial sums `a`, added in one order: warpgroup 1
+// stores its own to `buf` (free shared memory of 128 x N floats), and
+// warpgroup 0 adds them to its own. Every thread of the block calls this.
+template <int N>
+__device__ __forceinline__ void combine_partials(float (&a)[N], unsigned char* buf, int wg,
+                                                 int tid) {
+  float* p = reinterpret_cast<float*>(buf);
+  __syncthreads();  // both warpgroups are done with their stages (and buf)
+  if (wg == 1) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) p[e * kSm90Threads + tid] = a[e];
+  }
+  __syncthreads();
+  if (wg == 0) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) a[e] += p[e * kSm90Threads + tid];
+  }
+}
+
+template <int D>
+struct F32Cfg {
+  static constexpr int kBK = 64;                                 // keys per dK/dV block
+  static constexpr int kBQ = 64;                                 // queries per dQ block
+  static constexpr int kQS = D <= 32 ? 64 : D == 64 ? 32 : 8;    // queries a dK/dV step
+  static constexpr int kKS = D <= 32 ? 64 : D == 64 ? 32 : 16;   // keys a dQ step
+  // the resident tiles' hi A operands held in registers (scores_3x), where
+  // the registers allow: K's and V's in the dK/dV kernel, Q's and dO's in
+  // the dQ kernel (D / 2 registers each)
+  static constexpr bool kDkdvRegA = D == 16 || D == 64;
+  static constexpr bool kDqRegA = D <= 64;
+  static constexpr int kTile = 64 * D * 4;                       // a resident [64, D] tile
+  static constexpr int kQTile = kQS * D * 4;                     // a streamed tile, dK/dV
+  static constexpr int kKTile = kKS * D * 4;                     // a streamed tile, dQ
+  // a dK/dV stage: Q hi, Q lo, Q^T hi, Q^T lo, the same four of dO, then
+  // the step's lse (log2 units) and delta; a dQ stage: K hi, K lo, K^T
+  // hi, K^T lo, V hi, V lo. One stage for each of the two warpgroups.
+  static constexpr int kDkdvStage = (8 * kQTile + 2 * kQS * 4 + 1023) / 1024 * 1024;
+  static constexpr int kDkdvBars = 4 * kTile + 2 * kDkdvStage;
+  static constexpr int kDkdvSmem = kDkdvBars + 8 * 3;
+  static constexpr int kDqStage = 6 * kKTile;
+  static constexpr int kDqBars = 4 * kTile + 2 * kDqStage;
+  static constexpr int kDqSmem = kDqBars + 8 * 3;
+  static_assert(kQTile % 1024 == 0 && kKTile % 1024 == 0,
+                "every tile must start on a 1024-byte swizzle boundary");
+  static_assert(kDkdvSmem <= 232448 && kDqSmem <= 232448, "227 KB of shared memory a block");
+  // warpgroup 1's partial sums fit where the stages were
+  static_assert(2 * kDkdvStage >= 64 * D * 4 && 2 * kDqStage >= 64 * D * 4,
+                "room for a warpgroup's partial dK, dV or dQ");
+};
+
+// dK and dV of one 64-key tile of one (b, h), 3xTF32, by two warpgroups
+// that share the resident K and V and take the query steps in turn
+// (warpgroup w the steps i = w, w + 2, ...), each with its own stage and
+// partial dK and dV, added in one fixed order at the end. While one
+// warpgroup runs its staging pass or its softmax, the other's products
+// hold the tensor cores. Thread (warp w, lane 4g + t) of a warpgroup owns
+// keys 16(w % 4) + g and 16(w % 4) + g + 8 of the tile; its S^T and dP^T
+// accumulators hold queries 8j + 2t and 8j + 2t + 1 of the step.
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, 1)
+dkdv_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map,
+                 const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
+                 int seq_len, int heads, float scale, int causal) {
+  using C = F32Cfg<D>;
+  constexpr int BK = C::kBK, BQ = C::kQS, QT = C::kQTile;
+  extern __shared__ __align__(1024) unsigned char tiles[];  // tiles, then barriers
+  unsigned char* smem = tiles;
+  unsigned char* k_hi = smem;  // K hi, K lo, V hi, V lo: resident
+  unsigned char* k_lo = smem + C::kTile;
+  unsigned char* v_hi = smem + 2 * C::kTile;
+  unsigned char* v_lo = smem + 3 * C::kTile;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::kDkdvBars);
+
+  const int wg = threadIdx.x / kSm90Threads, tid = threadIdx.x % kSm90Threads;
+  const int warp = tid >> 5, lane = tid & 31;
+  // this warpgroup's stage: Q hi, Q lo, Q^T hi, Q^T lo, the same four of
+  // dO, then the step's lse (log2 units) and delta
+  unsigned char* const st0 = smem + 4 * C::kTile + wg * C::kDkdvStage;
+  uint64_t* const bar = bars + 1 + wg;
+  int bh, kt;  // low key tiles walk the most causal query tiles
+  block_work(bh, kt);
+  const int b = bh / heads, h = bh - b * heads;
+  const int k0 = kt * BK;
+  const int qt0 = causal ? k0 / BQ : 0;  // earlier query steps see none of these keys
+  const int n_tiles = (seq_len + BQ - 1) / BQ - qt0;
+  const long long lrow = (long long)bh * seq_len;
+  init_barriers<2, 1>(smem, bars);
+  // the warpgroup's thread 0: step i's Q and dO into its stage's hi slots
+  auto load_q = [&](int i) {
+    mbar_expect_tx(bar, 2 * QT);
+    tma_f32<D, BQ>(&q_map, st0, bar, b, h, (qt0 + i) * BQ);
+    tma_f32<D, BQ>(&do_map, st0 + 4 * QT, bar, b, h, (qt0 + i) * BQ);
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bars, 2 * C::kTile);
+    tma_f32<D, BK>(&k_map, k_hi, bars, b, h, k0);
+    tma_f32<D, BK>(&v_map, v_hi, bars, b, h, k0);
+  }
+  if (tid == 0 && wg < n_tiles) load_q(wg);
+  mbar_wait(bars, 0);
+  stage_tile<D, BK, kF32Threads>(k_hi, k_lo, threadIdx.x);
+  stage_tile<D, BK, kF32Threads>(v_hi, v_lo, threadIdx.x);
+  fence_proxy_async();
+  __syncthreads();
+  uint32_t ka[C::kDkdvRegA ? D / 8 : 1][4], va[C::kDkdvRegA ? D / 8 : 1][4];
+  if constexpr (C::kDkdvRegA) {
+    load_a<D>(k_hi, warp, lane, ka);
+    load_a<D>(v_hi, warp, lane, va);
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+  const int key0 = k0 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
+  const float scale_log2 = scale * kLog2eF;
+  const unsigned char* q_hi = st0;
+  const unsigned char* q_lo = st0 + QT;
+  const unsigned char* qt_hi = st0 + 2 * QT;
+  const unsigned char* qt_lo = st0 + 3 * QT;
+  const unsigned char* do_hi = st0 + 4 * QT;
+  const unsigned char* do_lo = st0 + 5 * QT;
+  const unsigned char* dot_hi = st0 + 6 * QT;
+  const unsigned char* dot_lo = st0 + 7 * QT;
+  float* const rows = reinterpret_cast<float*>(st0 + 8 * QT);  // lse (log2 units), delta
+  float acc_dk[D / 2], acc_dv[D / 2], st[BQ / 2], dpt[BQ / 2];
+  zero(acc_dk);
+  zero(acc_dv);
+  zero(st);
+  zero(dpt);
+
+  // the lse (log2 units) or delta this thread stores for step j
+  auto row_value = [&](int j) {
+    const int q = (qt0 + j) * BQ + tid % BQ;
+    if (tid >= 2 * BQ || q >= seq_len) return 0.f;
+    return tid < BQ ? __ldg(lse + lrow + q) * kLog2eF : __ldg(delta + lrow + q);
+  };
+  float next_row = row_value(wg);
+
+  for (int i = wg, use = 0; i < n_tiles; i += 2, ++use) {
+    const int q0 = (qt0 + i) * BQ;
+    // the step's staging pass once its tiles have landed, and its lse and
+    // delta (loaded a step ahead)
+    mbar_wait(bar, use & 1);
+    stage_tile<D, BQ, kSm90Threads>(st0, st0 + QT, tid);
+    stage_tile<D, BQ, kSm90Threads>(st0 + 4 * QT, st0 + 5 * QT, tid);
+    if (tid < 2 * BQ) rows[tid] = next_row;
+    fence_proxy_async();
+    wg_sync(wg);
+
+    // S^T = K Q^T and dP^T = V dO^T, keys as rows, three passes each (lo
+    // hi, hi lo, hi hi) in two groups: P^T forms while dP^T computes
+    wgmma_fence();
+    scores_3x<D, BQ, C::kDkdvRegA>(st, k_hi, k_lo, ka, q_hi, q_lo);
+    wgmma_commit();
+    scores_3x<D, BQ, C::kDkdvRegA>(dpt, v_hi, v_lo, va, do_hi, do_lo);
+    wgmma_commit();
+    // the transposed copies of Q and dO while S^T and dP^T compute
+    transpose_tile<D, BQ, kSm90Threads>(q_hi, q_lo, st0 + 2 * QT, st0 + 3 * QT, tid);
+    transpose_tile<D, BQ, kSm90Threads>(do_hi, do_lo, st0 + 6 * QT, st0 + 7 * QT, tid);
+    fence_proxy_async();
+    wgmma_wait<1>();
+    fence_regs(st);
+
+    // P^T in place of S^T; element 4j + e is key key0 + 8(e >> 1), query
+    // q0 + 8j + 2t + (e & 1)
+    const bool edge = (causal && q0 < k0 + BK - 1) || q0 + BQ > seq_len;
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2_ftz(st[4 * j + e] * scale_log2 - rows[8 * j + 2 * t + (e & 1)]);
+        if (edge) {
+          const int q = q0 + 8 * j + 2 * t + (e & 1), key = key0 + 8 * (e >> 1);
+          if (q >= seq_len || (causal && key > q)) p = 0.f;
+        }
+        st[4 * j + e] = p;
+      }
+    wgmma_wait<0>();
+    fence_regs(dpt);
+
+    // dS^T (without the scale, which dK takes once at the end) and the
+    // TF32 hi/lo A operands of P^T and dS^T per k-step of 8 queries
+    uint32_t p_hi[BQ / 8][4], p_lo[BQ / 8][4], ds_hi[BQ / 8][4], ds_lo[BQ / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 8; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dpt[4 * kk + e] =
+            st[4 * kk + e] * (dpt[4 * kk + e] - rows[BQ + 8 * kk + 2 * t + (e & 1)]);
+      a_operand(st, kk, p_hi[kk], p_lo[kk]);
+      a_operand(dpt, kk, ds_hi[kk], ds_lo[kk]);
+    }
+    // the transposed copies are written and the step's natural Q and dO
+    // read: the warpgroup's step after next lands in their slots while dV
+    // and dK compute
+    wg_sync(wg);
+    if (i + 2 < n_tiles) {
+      if (tid == 0) load_q(i + 2);
+      next_row = row_value(i + 2);
+    }
+
+    // dV += P^T dO and dK += dS^T Q, B the transposed copies; the A
+    // operands and the accumulators are pinned here, so that the compiler
+    // moves none of their writes past the fence
+    fence_regs(p_hi);
+    fence_regs(p_lo);
+    fence_regs(ds_hi);
+    fence_regs(ds_lo);
+    fence_regs(acc_dk);
+    fence_regs(acc_dv);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 8; ++kk) {
+      const uint64_t oh = tf32_desc<D, BQ>(dot_hi, kk), qh = tf32_desc<D, BQ>(qt_hi, kk);
+      wgmma_tf32_rs(acc_dv, p_lo[kk], oh);
+      wgmma_tf32_rs(acc_dv, p_hi[kk], tf32_desc<D, BQ>(dot_lo, kk));
+      wgmma_tf32_rs(acc_dv, p_hi[kk], oh);
+      wgmma_tf32_rs(acc_dk, ds_lo[kk], qh);
+      wgmma_tf32_rs(acc_dk, ds_hi[kk], tf32_desc<D, BQ>(qt_lo, kk));
+      wgmma_tf32_rs(acc_dk, ds_hi[kk], qh);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_dk);
+    fence_regs(acc_dv);
+    fence_regs(p_hi);
+    fence_regs(p_lo);
+    fence_regs(ds_hi);
+    fence_regs(ds_lo);
+  }
+  combine_partials(acc_dk, smem + 4 * C::kTile, wg, tid);
+  combine_partials(acc_dv, smem + 4 * C::kTile, wg, tid);
+  if (wg) return;
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= seq_len) continue;
+    const long long row = (((long long)b * seq_len + key) * heads + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      store2(dk + row + col, acc_dk[4 * j + 2 * r] * scale, acc_dk[4 * j + 2 * r + 1] * scale);
+      store2(dv + row + col, acc_dv[4 * j + 2 * r], acc_dv[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// dQ of one 64-query tile of one (b, h), 3xTF32, by two warpgroups that
+// share the resident Q and dO and take the key steps in turn, as the
+// dK/dV kernel does. Thread (warp w, lane 4g + t) of a warpgroup owns
+// queries 16(w % 4) + g and 16(w % 4) + g + 8 of the tile; its S and dP
+// accumulators hold keys 8j + 2t and 8j + 2t + 1 of the step.
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, 1)
+dq_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
+               const __grid_constant__ CUtensorMap k_map,
+               const __grid_constant__ CUtensorMap v_map,
+               const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+               const float* __restrict__ delta, float* __restrict__ dq, int seq_len, int heads,
+               float scale, int causal) {
+  using C = F32Cfg<D>;
+  constexpr int BQ = C::kBQ, BK = C::kKS, KT = C::kKTile;
+  extern __shared__ __align__(1024) unsigned char tiles[];  // tiles, then barriers
+  unsigned char* smem = tiles;
+  unsigned char* q_hi = smem;  // Q hi, Q lo, dO hi, dO lo: resident
+  unsigned char* q_lo = smem + C::kTile;
+  unsigned char* do_hi = smem + 2 * C::kTile;
+  unsigned char* do_lo = smem + 3 * C::kTile;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::kDqBars);
+
+  const int wg = threadIdx.x / kSm90Threads, tid = threadIdx.x % kSm90Threads;
+  const int warp = tid >> 5, lane = tid & 31;
+  // this warpgroup's stage: K hi, K lo, K^T hi, K^T lo, V hi, V lo
+  unsigned char* const st0 = smem + 4 * C::kTile + wg * C::kDqStage;
+  uint64_t* const bar = bars + 1 + wg;
+  int bh, rank;  // high query tiles walk the most key tiles
+  block_work(bh, rank);
+  const int b = bh / heads, h = bh - b * heads;
+  const int q0 = (gridDim.y - 1 - rank) * BQ;
+  int n_tiles = (seq_len + BK - 1) / BK;
+  if (causal) n_tiles = min(n_tiles, (q0 + BQ + BK - 1) / BK);  // later steps fully masked
+  init_barriers<2, 1>(smem, bars);
+  // the warpgroup's thread 0: step i's K and V into its stage's hi slots
+  auto load_kv = [&](int i) {
+    mbar_expect_tx(bar, 2 * KT);
+    tma_f32<D, BK>(&k_map, st0, bar, b, h, i * BK);
+    tma_f32<D, BK>(&v_map, st0 + 4 * KT, bar, b, h, i * BK);
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bars, 2 * C::kTile);
+    tma_f32<D, BQ>(&q_map, q_hi, bars, b, h, q0);
+    tma_f32<D, BQ>(&do_map, do_hi, bars, b, h, q0);
+  }
+  if (tid == 0 && wg < n_tiles) load_kv(wg);
+
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16 + g;  // this thread's queries: row0, row0 + 8
+  const float scale_log2 = scale * kLog2eF;
+  const long long lrow = (long long)bh * seq_len;
+  float lq[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = row0 + 8 * r;
+    lq[r] = q < seq_len ? lse[lrow + q] * kLog2eF : 0.f;
+    dl[r] = q < seq_len ? delta[lrow + q] : 0.f;
+  }
+  mbar_wait(bars, 0);
+  stage_tile<D, BQ, kF32Threads>(q_hi, q_lo, threadIdx.x);
+  stage_tile<D, BQ, kF32Threads>(do_hi, do_lo, threadIdx.x);
+  fence_proxy_async();
+  __syncthreads();
+  uint32_t qa[C::kDqRegA ? D / 8 : 1][4], oa[C::kDqRegA ? D / 8 : 1][4];
+  if constexpr (C::kDqRegA) {
+    load_a<D>(q_hi, warp, lane, qa);
+    load_a<D>(do_hi, warp, lane, oa);
+  }
+
+  const unsigned char* k_hi = st0;
+  const unsigned char* k_lo = st0 + KT;
+  const unsigned char* kt_hi = st0 + 2 * KT;
+  const unsigned char* kt_lo = st0 + 3 * KT;
+  const unsigned char* v_hi = st0 + 4 * KT;
+  const unsigned char* v_lo = st0 + 5 * KT;
+  float acc_dq[D / 2], sc[BK / 2], dp[BK / 2];
+  zero(acc_dq);
+  zero(sc);
+  zero(dp);
+
+  for (int i = wg, use = 0; i < n_tiles; i += 2, ++use) {
+    const int k0 = i * BK;
+    mbar_wait(bar, use & 1);
+    stage_tile<D, BK, kSm90Threads>(st0, st0 + KT, tid);
+    stage_tile<D, BK, kSm90Threads>(st0 + 4 * KT, st0 + 5 * KT, tid);
+    fence_proxy_async();
+    wg_sync(wg);
+
+    // S = Q K^T and dP = dO V^T, three passes each, in two groups: P
+    // forms while dP computes
+    wgmma_fence();
+    scores_3x<D, BK, C::kDqRegA>(sc, q_hi, q_lo, qa, k_hi, k_lo);
+    wgmma_commit();
+    scores_3x<D, BK, C::kDqRegA>(dp, do_hi, do_lo, oa, v_hi, v_lo);
+    wgmma_commit();
+    // the transposed copy of K while S and dP compute
+    transpose_tile<D, BK, kSm90Threads>(k_hi, k_lo, st0 + 2 * KT, st0 + 3 * KT, tid);
+    fence_proxy_async();
+    wgmma_wait<1>();
+    fence_regs(sc);
+
+    // P in place of S; element 4j + e is query row0 + 8(e >> 1), key k0 +
+    // 8j + 2t + (e & 1)
+    const bool edge = (causal && k0 + BK - 1 > q0) || k0 + BK > seq_len;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2_ftz(sc[4 * j + e] * scale_log2 - lq[e >> 1]);
+        if (edge) {
+          const int key = k0 + 8 * j + 2 * t + (e & 1), q = row0 + 8 * (e >> 1);
+          if (key >= seq_len || (causal && key > q)) p = 0.f;
+        }
+        sc[4 * j + e] = p;
+      }
+    wgmma_wait<0>();
+    fence_regs(dp);
+
+    // dS (without the scale, which dQ takes once at the end) and its TF32
+    // hi/lo A operands per k-step of 8 keys
+    uint32_t ds_hi[BK / 8][4], ds_lo[BK / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[4 * kk + e] = sc[4 * kk + e] * (dp[4 * kk + e] - dl[e >> 1]);
+      a_operand(dp, kk, ds_hi[kk], ds_lo[kk]);
+    }
+    // the transposed copy is written and the step's natural K and V
+    // read: the warpgroup's step after next lands in their slots while dQ
+    // computes
+    wg_sync(wg);
+    if (tid == 0 && i + 2 < n_tiles) load_kv(i + 2);
+
+    // dQ += dS K, B the transposed copy of K; the A operands and the
+    // accumulator are pinned here, as in the dK/dV kernel
+    fence_regs(ds_hi);
+    fence_regs(ds_lo);
+    fence_regs(acc_dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      const uint64_t kh = tf32_desc<D, BK>(kt_hi, kk);
+      wgmma_tf32_rs(acc_dq, ds_lo[kk], kh);
+      wgmma_tf32_rs(acc_dq, ds_hi[kk], tf32_desc<D, BK>(kt_lo, kk));
+      wgmma_tf32_rs(acc_dq, ds_hi[kk], kh);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_dq);
+    fence_regs(ds_hi);
+    fence_regs(ds_lo);
+  }
+  combine_partials(acc_dq, smem + 4 * C::kTile, wg, tid);
+  if (wg) return;
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = row0 + 8 * r;
+    if (q >= seq_len) continue;
+    float* out = dq + (((long long)b * seq_len + q) * heads + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store2(out + 8 * j + 2 * t, acc_dq[4 * j + 2 * r] * scale, acc_dq[4 * j + 2 * r + 1] * scale);
+  }
+}
+
 // ---- host side ------------------------------------------------------------------
 
 struct Args {
@@ -822,28 +1103,37 @@ void launch_delta(const Args& a) {
 
 template <int D>
 int launch_f32(const Args& a) {
-  using C = Cfg<D>;
-  const float* q = static_cast<const float*>(a.q);
-  const float* k = static_cast<const float*>(a.k);
-  const float* v = static_cast<const float*>(a.v);
-  const float* dout = static_cast<const float*>(a.dout);
-  const float* lse = static_cast<const float*>(a.lse);
-  const float* delta = static_cast<const float*>(a.delta);
-  cudaError_t err = cudaFuncSetAttribute(dkdv_kernel<D>,
+  using C = F32Cfg<D>;
+  // maps with the box of each tile: Q and dO of 64 queries (dQ kernel)
+  // and of kQS (dK/dV kernel), K and V of 64 keys (dK/dV) and of kKS (dQ)
+  CUtensorMap q_map, do_map, k_map, v_map, q_kv_map, do_kv_map, k_q_map, v_q_map;
+  const int B = a.batch, T = a.seq_len, H = a.heads, chunk = F32Tile<D>::kChunk;
+  int rc = encode<float>(&q_map, a.q, B, T, H, D, a.qs, chunk, C::kBQ);
+  if (rc == 0) rc = encode<float>(&do_map, a.dout, B, T, H, D, a.dos, chunk, C::kBQ);
+  if (rc == 0) rc = encode<float>(&k_map, a.k, B, T, H, D, a.ks, chunk, C::kBK);
+  if (rc == 0) rc = encode<float>(&v_map, a.v, B, T, H, D, a.vs, chunk, C::kBK);
+  if (rc == 0) rc = encode<float>(&q_kv_map, a.q, B, T, H, D, a.qs, chunk, C::kQS);
+  if (rc == 0) rc = encode<float>(&do_kv_map, a.dout, B, T, H, D, a.dos, chunk, C::kQS);
+  if (rc == 0) rc = encode<float>(&k_q_map, a.k, B, T, H, D, a.ks, chunk, C::kKS);
+  if (rc == 0) rc = encode<float>(&v_q_map, a.v, B, T, H, D, a.vs, chunk, C::kKS);
+  if (rc != 0) return rc;
+  cudaError_t err = cudaFuncSetAttribute(dkdv_tf32_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          C::kDkdvSmem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(dq_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                C::kDqSmem);
   if (err != cudaSuccess) return (int)err;
+  const float* lse = static_cast<const float*>(a.lse);
+  const float* delta = static_cast<const float*>(a.delta);
   launch_delta<float, D>(a);
-  const dim3 grid(a.batch * a.heads, (a.seq_len + kTile - 1) / kTile);
-  dkdv_kernel<D><<<grid, kThreads, C::kDkdvSmem, a.stream>>>(
-      q, k, v, dout, lse, delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.qs,
-      a.ks, a.vs, a.dos, a.seq_len, a.heads, a.scale, a.causal);
-  dq_kernel<D><<<grid, kThreads, C::kDqSmem, a.stream>>>(
-      q, k, v, dout, lse, delta, static_cast<float*>(a.dq), a.qs, a.ks, a.vs, a.dos, a.seq_len,
-      a.heads, a.scale, a.causal);
+  dkdv_tf32_kernel<D><<<dim3(B * H, (T + C::kBK - 1) / C::kBK), kF32Threads, C::kDkdvSmem,
+                        a.stream>>>(q_kv_map, k_map, v_map, do_kv_map, lse, delta,
+                                    static_cast<float*>(a.dk), static_cast<float*>(a.dv), T, H,
+                                    a.scale, a.causal);
+  dq_tf32_kernel<D><<<dim3(B * H, (T + C::kBQ - 1) / C::kBQ), kF32Threads, C::kDqSmem,
+                      a.stream>>>(q_map, k_q_map, v_q_map, do_map, lse, delta,
+                                  static_cast<float*>(a.dq), T, H, a.scale, a.causal);
   return (int)cudaGetLastError();
 }
 

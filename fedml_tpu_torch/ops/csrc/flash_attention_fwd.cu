@@ -49,7 +49,7 @@
 // What holds it back on an H100 at its 700 W limit is power, not a unit
 // of the SM: under sustained launches nvidia-smi reports the software
 // power cap active and the SM clock well below its maximum, and a copy
-// with the softmax removed does the same (PERF.md §6, flash_forward_ab.py
+// with the softmax removed does the same (PERF.md §6, kernels_ab.py
 // --sustain). Two warpgroups sharing a ring (half the K/V reads from L2),
 // the two taking turns to issue (FlashAttention-3's ping-pong), four
 // blocks an SM and Q in registers all measured the same or slower.
@@ -120,21 +120,6 @@ __device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
-}
-
-// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
-// zero: the rounding of cvt.rna.tf32.f32. Adding half a TF32 ulp to the
-// magnitude bits and clearing the low 13 is two integer instructions;
-// cvt.rna compiles to four (it also guards Inf and NaN, which reach the
-// output as NaN through x - hi here all the same).
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo to ~2^-22 relative, both exact TF32 values
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
 }
 
 // d += a * b on one 16x8x8 tile, f32 accumulate

@@ -26,7 +26,10 @@ blockwise FlashAttention-2 recompute from the saved log-sum-exp. The
 kernels recompute the scores tile by tile on the tensor cores, in f32
 arithmetic, with no atomics (each output element is summed in one fixed
 order): bf16 inputs on ``wgmma`` with TMA-fed bf16 tiles (P and dS as
-bf16 hi + lo), f32 inputs as 3xTF32 on ``mma.sync``. ``_flash_backward`` keeps ``_bwd``'s blockwise loop for CPU
+bf16 hi + lo), f32 inputs as 3xTF32 on TF32 ``wgmma`` with TMA-fed f32
+tiles split into TF32 hi + lo (and copied transposed where a product
+contracts over a tile's rows). ``_flash_backward`` keeps ``_bwd``'s
+blockwise loop for CPU
 tensors, one [T, bk] score panel at a time, never the dense [T, T]
 matrix; ``flash_attention_backward_reference`` is the dense plain
 version the kernel is held against.

@@ -12,8 +12,10 @@ its four words turned into four normals by two Box-Muller pairs (the
 source, ``csrc/synth_features.cu``, states the formula). The bits are
 the port's own, not ``jax.random``'s threefry.
 
-``SYNTH_KERNEL`` writes a group's ``[C, S, dim]`` features in one launch;
-it is bound by the bytes it writes. ``synth_features_reference`` is the
+``SYNTH_KERNEL`` writes a group's ``[C, S, dim]`` features in one launch,
+one (client, sample) row per thread group with rows on the grid's x
+dimension (``check_shape``: up to 2^31 - 1 rows); it is bound by the
+bytes it writes where its instructions a Philox block allow. ``synth_features_reference`` is the
 plain version: the same Philox in int64 tensor ops (each 32-bit product
 split into 16-bit halves, so nothing overflows) and the same Box-Muller,
 one float op at a time; its integer words are bitwise the kernel's, its
@@ -38,6 +40,7 @@ __all__ = [
     "SYNTH_KERNEL",
     "WORDS_KERNEL",
     "box_muller",
+    "check_shape",
     "philox4x32_10",
     "philox_words_reference",
     "synth_features",
@@ -49,6 +52,11 @@ _MASK32 = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _TWO_PI_F32 = float(torch.tensor(2 * math.pi, dtype=torch.float32))
+# the kernels' grid: one (client, sample) row per thread group, rows
+# indexed in 32 bits on the grid's x dimension; a row's dim blocks of 4
+# counted in a 32-bit int
+MAX_ROWS = 2**31 - 1
+MAX_DIM = 2**31 - 4
 
 
 # -- the plain version ---------------------------------------------------
@@ -120,10 +128,20 @@ def synth_features_reference(y: torch.Tensor, means: torch.Tensor, seeds: torch.
 
 
 # -- the kernel ----------------------------------------------------------
-def _seeds_u32(seeds: torch.Tensor) -> torch.Tensor:
-    """Seeds (any integer dtype holding uint32 values) as int32 bits."""
-    v = seeds.to(torch.int64) & _MASK32
-    return torch.where(v >= 2**31, v - 2**32, v).to(torch.int32).contiguous()
+def check_shape(clients: int, samples: int, dim: int, name: str = "synth_features") -> None:
+    """Raises unless the kernels take ``[clients, samples, dim]``: at most
+    ``MAX_ROWS`` (client, sample) rows and ``MAX_DIM`` dims."""
+    if clients * samples > MAX_ROWS:
+        raise ValueError(f"{name}: {clients} x {samples} = {clients * samples} rows exceed the "
+                         f"kernel's {MAX_ROWS}")
+    if dim > MAX_DIM:
+        raise ValueError(f"{name}: dim {dim} exceeds the kernel's {MAX_DIM}")
+
+
+def _seeds_i64(seeds: torch.Tensor) -> torch.Tensor:
+    """Seeds as the kernels read them: contiguous int64, whose low 32 bits
+    are the key (no launch for the int64 seeds the path holds)."""
+    return seeds.to(torch.int64).contiguous()
 
 
 class SynthFeaturesKernel(_build.Kernel):
@@ -147,9 +165,10 @@ class SynthFeaturesKernel(_build.Kernel):
             )
         C, S = y.shape
         dim = means.shape[1]
+        check_shape(C, S, dim, self.name)
         out = torch.empty((C, S, dim), dtype=dtype, device=device)
         if out.numel():
-            y, means, seeds = y.contiguous(), means.contiguous(), _seeds_u32(seeds)
+            y, means, seeds = y.contiguous(), means.contiguous(), _seeds_i64(seeds)
             self._launch(device, y.data_ptr(), means.data_ptr(), seeds.data_ptr(),
                          float(sigma), out.data_ptr(), C, S, dim, _DTYPE_CODES[dtype])
         return out
@@ -167,9 +186,10 @@ class PhiloxWordsKernel(_build.Kernel):
 
     def __call__(self, seeds: torch.Tensor, samples: int, blocks4: int) -> torch.Tensor:
         device = _build.cuda_device(self.name, seeds=seeds)
+        check_shape(seeds.shape[0], samples, 4 * blocks4, self.name)
         out = torch.empty((seeds.shape[0], samples, blocks4, 4), dtype=torch.int32, device=device)
         if out.numel():
-            self._launch(device, _seeds_u32(seeds).data_ptr(), out.data_ptr(), seeds.shape[0],
+            self._launch(device, _seeds_i64(seeds).data_ptr(), out.data_ptr(), seeds.shape[0],
                          samples, blocks4)
         return out.to(torch.int64) & _MASK32
 

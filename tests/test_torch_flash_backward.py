@@ -7,8 +7,8 @@ the port's functions take their plain versions (the blockwise
 ``_flash_backward`` and the dense ``flash_attention_backward_reference``);
 the CUDA kernel is held against the dense version on the card by
 ``chip_smoke.py``. Here numpy emulations of the kernels' arithmetic (3xTF32
-for f32 inputs, bf16 ``wgmma`` passes with P and dS split into bf16 hi +
-lo for bf16 inputs) are held against ``_bwd``, and the ``vmap`` rules are
+``wgmma`` passes for f32 inputs, bf16 ``wgmma`` passes with P and dS
+split into bf16 hi + lo for bf16 inputs) are held against ``_bwd``, and the ``vmap`` rules are
 checked to fold the
 vmapped client axis into one call on a strided view, which is what makes
 one kernel launch serve a whole cohort on the card.
@@ -112,9 +112,10 @@ def test_plain_backwards_match_jax_bwd(causal):
 
 
 def _tf32_product(a, b, split_a, split_b):
-    """a @ b as the kernel computes it: TF32 operands, f32 accumulation,
-    and a lo pass for each operand that is not exact in TF32 (both:
-    3xTF32)."""
+    """a @ b as the f32 kernels' TF32 ``wgmma`` computes it: each operand
+    that is not exact in TF32 split into hi = tf32(x) and lo = tf32(x -
+    hi), both rounded to nearest (ties away), and three passes into one
+    f32 accumulator, lo·hi + hi·lo + hi·hi (3xTF32 when both are split)."""
     a_hi, b_hi = _tf32(a), _tf32(b)
 
     def mm(x, y):
@@ -144,13 +145,16 @@ def _bf16_product(a, b, split_a):
 
 def _emulated_kernel_backward(q, k, v, o, lse, g, causal, exact, split=True):
     """(dQ, dK, dV) computed as the CUDA kernels compute them, in f32.
-    f32 inputs (``exact`` False): every product 3xTF32 on ``mma.sync``.
+    f32 inputs (``exact`` False): every product 3xTF32 on ``wgmma``.
     bf16 inputs (``exact``: the arrays hold bf16 values): S and dP one
     bf16 pass each, the products with the f32 P and dS two (bf16 hi +
     lo), or one when ``split`` is False (P and dS rounded to bf16, as
-    SDPA keeps them)."""
+    SDPA keeps them). Both routes take P as exp2(S scale log2 e - lse
+    log2 e), form dS without the scale and scale dK and dQ once, after
+    the sums."""
     qf, kf, vf, of, gf = (x.transpose(0, 2, 1, 3) for x in (q, k, v, o, g))
     scale = np.float32(D**-0.5)
+    log2e = np.float32(np.log2(np.e))
     delta = (gf * of).sum(-1, dtype=np.float32)
     if exact:
         def product(a, b, first):
@@ -161,17 +165,11 @@ def _emulated_kernel_backward(q, k, v, o, lse, g, causal, exact, split=True):
     s = product(qf, kf.swapaxes(-1, -2), True)
     dp = product(gf, vf.swapaxes(-1, -2), True)
     keep = np.tril(np.ones((T, T), bool)) if causal else np.ones((T, T), bool)
-    p = np.where(keep, np.exp(s * scale - lse[..., None]), np.float32(0))
-    if exact:  # the bf16 kernels scale dK and dQ once, after the sums
-        ds = p * (dp - delta[..., None])
-        dv = product(p.swapaxes(-1, -2), gf, False)
-        dk = product(ds.swapaxes(-1, -2), qf, False) * scale
-        dq = product(ds, kf, False) * scale
-    else:
-        ds = p * (dp - delta[..., None]) * scale
-        dv = product(p.swapaxes(-1, -2), gf, False)
-        dk = product(ds.swapaxes(-1, -2), qf, False)
-        dq = product(ds, kf, False)
+    p = np.where(keep, np.exp2(s * (scale * log2e) - lse[..., None] * log2e), np.float32(0))
+    ds = p * (dp - delta[..., None])
+    dv = product(p.swapaxes(-1, -2), gf, False)
+    dk = product(ds.swapaxes(-1, -2), qf, False) * scale
+    dq = product(ds, kf, False) * scale
     return [x.transpose(0, 2, 1, 3) for x in (dq, dk, dv)]
 
 
@@ -189,9 +187,10 @@ def _kernel_arithmetic_case(causal, exact, split=True):
 @pytest.mark.parametrize("exact", [False, True], ids=["f32", "bf16_values"])
 @pytest.mark.parametrize("causal", [True, False])
 def test_kernel_arithmetic_matches_jax_bwd(causal, exact):
-    """The kernels keep ``_bwd``'s f32 result: 3xTF32 for f32 inputs; for
-    bf16 inputs one bf16 pass for S and dP and two (bf16 hi + lo) for the
-    products with the f32 P and dS."""
+    """The kernels keep ``_bwd``'s f32 result: 3xTF32 for f32 inputs (TF32
+    ``wgmma``, the hi/lo split of every operand); for bf16 inputs one bf16
+    pass for S and dP and two (bf16 hi + lo) for the products with the f32
+    P and dS."""
     got, want = _kernel_arithmetic_case(causal, exact)
     for x, w in zip(got, want):
         np.testing.assert_allclose(x, w, atol=GRAD_ATOL)
@@ -289,6 +288,7 @@ def test_no_second_derivative():
 @pytest.mark.parametrize("shape, dtype, want_ms", [
     ((32, 4096, 8, 64), torch.bfloat16, 1.390),  # the training path's
     ((8, 4096, 8, 64), torch.float32, 2.083),
+    ((32, 4096, 8, 64), torch.float32, 8.332),  # the f32 training path's
 ])
 def test_backward_bound_counts_five_products(shape, dtype, want_ms):
     """chip_smoke.py's bound for the backward: S, dP, dV, dK and dQ at 2·D

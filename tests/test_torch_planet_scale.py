@@ -372,6 +372,83 @@ def test_feature_wrapper_takes_cpu_tensors_and_refuses_them_in_the_kernel():
         synth_features.SYNTH_KERNEL(y, torch.zeros(10, 8), torch.tensor([1, 2]), 1.0)
 
 
+@pytest.mark.parametrize("clients, samples, dim, ok", [
+    (2**16, 2**15 - 1, 60, True),     # 2^31 - 2^16 rows
+    (1, 2**31 - 1, 60, True),         # the grid's last row
+    (2**16, 2**15, 60, False),        # 2^31 rows: one past it
+    (4096, 128, 2**31 - 4, True),     # (dim + 3) / 4 still fits a 32-bit int
+    (4096, 128, 2**31 - 3, False),
+])
+def test_feature_kernel_shape_check_pins_the_grid_limits(clients, samples, dim, ok):
+    """The kernel runs one (client, sample) row per thread group with rows
+    on the grid's x dimension (up to 2^31 - 1 of them, indexed in 32
+    bits); its wrapper raises past that, before anything launches."""
+    if ok:
+        synth_features.check_shape(clients, samples, dim)
+    else:
+        with pytest.raises(ValueError, match="exceed"):
+            synth_features.check_shape(clients, samples, dim)
+
+
+def _row_div(s: int):
+    """``row_div`` of ``csrc/synth_features.cu``: l = ceil(log2 s), m =
+    floor(2^32 (2^l - s) / s) + 1, in exact integers as the host does."""
+    l = 0
+    while (1 << l) < s:
+        l += 1
+    return ((1 << 32) * ((1 << l) - s)) // s + 1, l
+
+
+def _row_split(rows: np.ndarray, s: int):
+    """``row_split`` in uint32 arithmetic, emulated in uint64: the
+    client (umulhi(m, row) + row) >> l and the sample row - client * s."""
+    m, l = _row_div(s)
+    assert 0 < m < 2**32
+    hi = (np.uint64(m) * rows) >> np.uint64(32)
+    total = hi + rows
+    assert int(total.max()) < 2**32, "the sum must stay in 32 bits"
+    client = (total & np.uint64(0xFFFFFFFF)) >> np.uint64(l)
+    return client, (rows - client * np.uint64(s)) & np.uint64(0xFFFFFFFF)
+
+
+@pytest.mark.parametrize("divisors", [
+    [1, 3, 7, 100, 3000, 60_000],
+    [2**k - 1 for k in range(2, 31)],
+    [2**k + 1 for k in range(1, 31)],
+    [2**k for k in range(0, 31)],
+    [2**31 - 1, 2**31 - 2, 2**30 + 12_345, 1_000_003],
+], ids=["small", "pow2-1", "pow2+1", "pow2", "large"])
+def test_feature_kernel_row_division_is_exact(divisors):
+    """The kernels split a row of the ``[C * S]`` rows into (client,
+    sample) by a multiply-high with a constant the host computes, not a
+    division. Emulated here, it equals exact division for every divisor
+    and every row the grid can hold (rows below 2^31 - 1): edges, the
+    multiples of ``S`` and their neighbours up to the last row, and
+    random rows. The card check's ``S = 100`` case holds the kernel's
+    own words to the plain version."""
+    rng = np.random.default_rng(0)
+    last = 2**31 - 2
+    for s in divisors:
+        mult = np.arange(1, 50, dtype=np.uint64) * np.uint64(s)
+        top = last // s * s
+        rows = np.concatenate([
+            np.array([0, 1, 2, last - 1, last], dtype=np.uint64),
+            np.array([s - 1, s, s + 1], dtype=np.uint64),
+            mult - np.uint64(1), mult, mult + np.uint64(1),
+            np.array([max(top - 1, 0), top, min(top + 1, last)], dtype=np.uint64),
+            rng.integers(0, last + 1, 20_000, dtype=np.uint64),
+        ])
+        rows = rows[rows <= np.uint64(last)]
+        client, sample = _row_split(rows, s)
+        np.testing.assert_array_equal(client, rows // np.uint64(s), err_msg=f"S {s}")
+        np.testing.assert_array_equal(sample, rows % np.uint64(s), err_msg=f"S {s}")
+    with open(os.path.join(REPO, "fedml_tpu_torch", "ops", "csrc", "synth_features.cu")) as f:
+        src = f.read()
+    for line in ("const uint64_t m = ((1ull << 32) * ((1ull << l) - s)) / s + 1;",
+                 "ci = (__umulhi(d.m, row) + row) >> d.l;", "si = row - ci * d.s;"):
+        assert line in src, f"the kernel's row division changed: {line!r} not in the source"
+
+
 # -- the edge tree -----------------------------------------------------------
 
 def _template():
