@@ -43,8 +43,15 @@ version on the card:
   clients a round, 4 edge aggregators, logistic regression over 60-dim
   synthetic features), whose cohort features come from the keyed
   feature kernel and whose aggregation folds through the exact fold
-  kernel.
-The CNN, ResNet and RNN paths run no hand-written kernel: their
+  kernel, one launch a group and one root merge a round;
+- the seventh slice: Stack Overflow tag prediction through
+  ``run_simulation`` on ``fedml_tpu_torch/configs/fedavg_stackoverflow_lr.yaml``
+  at full width (logistic regression from the 10,000-word bag to 500
+  tags, 40,000 stand-in examples over 400 clients, 10 a round), the
+  LEAF files of ``fedml_data/mnist`` through ``fedavg_mnist_leaf_lr.yaml``,
+  and FedProx on synthetic(1, 1) through ``fedprox_synthetic_1_1.yaml``.
+The CNN, ResNet, RNN and logistic-regression paths run no hand-written
+kernel: their
 convolutions and matrix products are cuDNN's and cuBLAS's through
 PyTorch, as XLA generated them on the TPU.
 
@@ -63,8 +70,11 @@ Phases, each of which fails the run:
    profiler window, and each time's share of the kernel's bound; the
    forward and the backward must each repeat bitwise; the exact fold
    bitwise its plain version at the planet path's shape and at
-   ResNet-18-GN's (one term and three), its weighted-mean entry at 16
-   clients f32 and 10 bf16; the keyed feature kernel's Philox words
+   ResNet-18-GN's (one term and three), its one-launch calls at the
+   planet's 4 edges (a group's edge terms with one edge masked off; the
+   root merge, also at ResNet-18-GN's size), its weighted-mean entry at
+   16 clients f32 and 10 bf16, each timed by events through its wrapper
+   and by the profiler's device time; the keyed feature kernel's Philox words
    bitwise and its features within 1e-5 of its plain version at the
    planet path's largest group and at FEMNIST-sized rows; each repeats
    bitwise (no PyTorch call computes either function: library time
@@ -142,12 +152,25 @@ Phases, each of which fails the run:
    card's clock, round 4 is profiled; evaluation after rounds 0 and 4):
    rounds/s, clients/s, registry bytes, shape keys against their budget,
    waste fraction, peak memory, busy share and launches by kind; the
-   exact-fold launches equal the (group, edge) folds with weight > 0
-   plus the root merges, reckoned from the registry, and the feature
+   exact fold launches once a group (its edges with weight > 0 in one
+   launch) and once a round for the root merge, and the (group, edge)
+   folds plus root merges equal what the registry gives; the feature
    kernel launches once a group; the evaluation loss falls; a warm
    re-run's host RSS at a 1M registry within 64 MiB of a 100k one's;
    the two-tier tree bitwise the flat fold, and a run stopped after
-   round 1 and resumed bitwise the straight one.
+   round 1 and resumed bitwise the straight one;
+15. tag prediction: the Stack Overflow LR configuration through
+   ``run_simulation``, 5 rounds (round 1 profiled, rounds 2-4 timed:
+   training on the card's clock, whole rounds with evaluation on the
+   host's, each with its spread): rounds/s, examples/s, peak memory,
+   launches by kind; the train loss falls; precision, recall and F1
+   from ``evaluate_global`` in [0, 1]; no hand-written kernel launches;
+16. real files: the fedml_data/mnist LEAF configuration, 5 rounds
+   (timed as the tag phase): the loader reports the LEAF files and logs
+   no stand-in; the loss falls;
+17. fedprox synthetic: the FedProx synthetic(1, 1) configuration, 5
+   rounds (timed as the tag phase): the federation's sizes are the
+   generator's; the loss falls.
 Each phase's wall time is printed.
 
 Run from the repo root, on a machine with one CUDA card and the CUDA
@@ -2337,10 +2360,18 @@ def run_remat(passes: int):
 # f32 operations outside the tensor cores (H100 SXM data sheet, 700 W):
 # the rate the fold's adds and the feature generator's float work run at
 F32_FLOPS = 67e12
-# K1 cases, (N, K): the planet path's (logistic regression, 60 x 10 + 10
-# = 610 params, one term a fold), then ResNet-18-GN's 11,173,962 params
-# with one term (a streaming fold) and three (a limb-set merge)
+# K1 cases, (N, K): ``fold`` at the planet path's model
+# (logistic regression, 60 x 10 + 10 = 610 params, one term a fold),
+# then ResNet-18-GN's 11,173,962 params with one term (a streaming fold)
+# and three (a limb-set merge)
 FOLD_CASES = [(610, 1), (11_173_962, 1), (11_173_962, 3)]
+# the one-launch calls at the planet path's 4 edges: a group's edge
+# terms into their edges (E, N, mask; the planet's model, edge 2 skipped
+# as a group with no client of it skips it) and the root merge of the
+# touched edges' limbs (E, N, mask), at the planet's model and at
+# ResNet-18-GN's
+EDGE_FOLD_CASES = [(4, 610, 0b1011)]
+MERGE_CASES = [(4, 610, 0b1111), (4, 11_173_962, 0b1111)]
 # exact_weighted_mean, (C, N, dtype): 16 clients of ResNet-18-GN in f32,
 # 10 of the flash TransformerLM (8,495,194 params) in bf16
 MEAN_CASES = [(16, 11_173_962, torch.float32), (10, 8_495_194, torch.bfloat16)]
@@ -2365,6 +2396,9 @@ SYNTH_TIMED, SYNTH_PROFILED = 20, 200
 # round 4 runs under torch.profiler; evaluation after rounds 0 and 4
 PLANET_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "fedavg_planet_lr.yaml"
 PLANET_ROUNDS, PLANET_TIMED, PLANET_PROFILED = 5, (1, 3), 4
+# the phase's rounds/s when the exact fold launched once a fold (20 a
+# round): printed beside this run's for comparison, checked against nothing
+PLANET_EARLIER_ROUNDS_PER_S = 3.5103
 # host RSS of a warm re-run (every shape seen) at a 10x smaller registry:
 # the 1M registry's must stay within 64 MiB of it (bench.py:2717-2725)
 PLANET_SMALL_REGISTRY = 100_000
@@ -2411,42 +2445,77 @@ def kernel_entry(case: dict, **fixed) -> dict:
             "dtype": case["dtype"]}
 
 
+def _fold_case(label: str, limbs, run_kernel, run_plain, nbytes: int, f32_ops: int,
+               **fields) -> dict:
+    """One K1 fold case: ``run_kernel`` and ``run_plain`` each fold into a
+    clone of ``limbs`` in place; bitwise equal, the kernel repeating
+    bitwise; timed by events through the wrapper, by the profiler's
+    device time and against its bytes bound."""
+    got, want, again = limbs.clone(), limbs.clone(), limbs.clone()
+    run_kernel(got)
+    run_plain(want)
+    run_kernel(again)
+    torch.cuda.synchronize()
+    if not bits_equal(got, want):
+        fail(f"{label}: the kernel differs from its plain version "
+             f"(max {float((got - want).abs().max())})")
+    if not bits_equal(got, again):
+        fail(f"{label}: two launches differ")
+    iters = _timing_iters(nbytes)
+    ms = cuda_time_ms(lambda: run_kernel(got), iters)
+    device_ms = kernel_device_ms(lambda: run_kernel(got), "fold_kernel", iters)
+    plain_ms = cuda_time_ms(lambda: run_plain(want), max(2, iters // 10))
+    bound_ms, bound_by = bytes_bound(nbytes, f32_ops)
+    log(f"{label}: bitwise its plain version and repeatable; kernel {ms:.4f} ms a call through "
+        f"the wrapper, by events ({device_ms:.4f} ms device time), bound {bound_ms:.6f} ms "
+        f"({bound_by}, {nbytes / 1e6:.3f} MB), {bound_ms / ms:.1%} of it "
+        f"({bound_ms / device_ms:.1%} of the device time); plain {plain_ms:.4f} ms; library: "
+        f"none (no PyTorch call computes an exact fold)")
+    return {**fields, "dtype": "float32", "max_abs_err": 0.0, "bitwise": True,
+            "repeats_bitwise": True, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_route": "f32 (no tensor cores)",
+            "share_of_bound": bound_ms / ms, "device_share_of_bound": bound_ms / device_ms,
+            "library_ms": None, "library_kernel": None}
+
+
 def check_exact_fold():
-    """K1 against its plain version, bitwise, at FOLD_CASES and (its
-    weighted-mean entry) MEAN_CASES; each repeats bitwise. Returns the
+    """K1 against its plain version, bitwise, at FOLD_CASES (``fold``),
+    EDGE_FOLD_CASES (``fold_edges``: a group's edge terms, one launch),
+    MERGE_CASES (``fold_set``: the root merge, one launch) and, its
+    weighted-mean entry, MEAN_CASES; each repeats bitwise. Returns the
     kernel's ``kernels`` entry (main numbers from the planet path's
-    shape)."""
+    per-group edge fold, its most launched call)."""
     from fedml_tpu_torch.ops import exact_fold as ef
 
     gen = torch.Generator(device=DEVICE).manual_seed(1)
-    folds, means = [], []
+    folds, edge_folds, merges, means = [], [], [], []
     for n, k in FOLD_CASES:
         limbs, terms = spread((3, n), gen), spread((k, n), gen)
-        got, want, again = limbs.clone(), limbs.clone(), limbs.clone()
-        ef.FOLD_KERNEL(got, terms)
-        ef.fold_reference(want, terms)
-        ef.FOLD_KERNEL(again, terms)
-        torch.cuda.synchronize()
-        if not bits_equal(got, want):
-            fail(f"exact fold [{n}] K {k}: the kernel differs from its plain version "
-                 f"(max {float((got - want).abs().max())})")
-        if not bits_equal(got, again):
-            fail(f"exact fold [{n}] K {k}: two launches differ")
-        nbytes = (6 + k) * n * 4
-        iters = _timing_iters(nbytes)
-        ms = cuda_time_ms(lambda: ef.FOLD_KERNEL(got, terms), iters)
-        plain_ms = cuda_time_ms(lambda: ef.fold_reference(want, terms), max(2, iters // 10))
-        bound_ms, bound_by = bytes_bound(nbytes, 13 * k * n)
-        case = {"shape": [3, n], "terms": k, "dtype": "float32", "max_abs_err": 0.0,
-                "bitwise": True, "repeats_bitwise": True, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by, "bound_route": "f32 (no tensor cores)",
-                "share_of_bound": bound_ms / ms, "library_ms": None, "library_kernel": None}
-        log(f"exact fold [3, {n}] += [{k}, {n}] f32: bitwise its plain version and repeatable; "
-            f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), "
-            f"{bound_ms / ms:.1%} of it; plain {plain_ms:.4f} ms; library: none (no PyTorch "
-            f"call computes an exact fold)")
-        folds.append(case)
-        del limbs, terms, got, want, again
+        folds.append(_fold_case(
+            f"exact fold [3, {n}] += [{k}, {n}] f32", limbs,
+            lambda t: ef.fold(t, terms), lambda t: ef.fold_reference(t, terms),
+            (6 + k) * n * 4, 13 * k * n, call="fold", shape=[3, n], terms=k))
+        del limbs, terms
+    for E, n, mask in EDGE_FOLD_CASES:
+        limbs, terms = spread((E, 3, n), gen), spread((E, n), gen)
+        hit = bin(mask).count("1")
+        edge_folds.append(_fold_case(
+            f"exact fold edges [{E}, 3, {n}] += [{E}, {n}], mask {mask:#06b}", limbs,
+            lambda t: ef.fold_edges(t, terms, mask),
+            lambda t: ef.fold_edges_reference(t, terms, mask),
+            hit * 7 * n * 4, 13 * hit * n, call="fold_edges", shape=[E, 3, n],
+            mask=mask, edges_folded=hit))
+        del limbs, terms
+    for E, n, mask in MERGE_CASES:
+        root, src = spread((3, n), gen), spread((E, 3, n), gen)
+        hit = bin(mask).count("1")
+        merges.append(_fold_case(
+            f"exact fold root merge [3, {n}] += [{E}, 3, {n}], mask {mask:#06b}", root,
+            lambda t: ef.fold_set(t, src, mask), lambda t: ef.fold_set_reference(t, src, mask),
+            (6 + 3 * hit) * n * 4, 13 * 3 * hit * n, call="fold_set", shape=[E, 3, n],
+            mask=mask, terms=3 * hit))
+        del root, src
+        torch.cuda.empty_cache()
     for c, n, dtype in MEAN_CASES:
         x = spread((c, n), gen).to(dtype)
         w = torch.rand(c, generator=gen, device=DEVICE)
@@ -2461,26 +2530,32 @@ def check_exact_fold():
         size = x.element_size()
         nbytes = c * n * size + c * 4 + n * size
         ms = cuda_time_ms(lambda: ef.MEAN_KERNEL(x, w), 20)
+        device_ms = kernel_device_ms(lambda: ef.MEAN_KERNEL(x, w), "weighted_mean_kernel", 20)
         plain_ms = cuda_time_ms(lambda: ef.weighted_mean_reference(x, w), 3)
         scale_ms = cuda_time_ms(lambda: w.to(dtype) @ x, 20)
         bound_ms, bound_by = bytes_bound(nbytes, 14 * c * n + 2 * n)
         log(f"exact weighted mean [{c}, {n}] {str(dtype).split('.')[-1]}: bitwise its plain "
-            f"version and repeatable; kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-            f"{bound_ms / ms:.1%} of it; plain {plain_ms:.4f} ms; for scale only, NOT the same "
-            f"function (one rounded product over the clients): w @ x {scale_ms:.4f} ms")
+            f"version and repeatable; kernel {ms:.4f} ms by events ({device_ms:.4f} ms device "
+            f"time), bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of it "
+            f"({bound_ms / device_ms:.1%} of the device time); plain {plain_ms:.4f} ms; for "
+            f"scale only, NOT the same function (one rounded product over the clients): "
+            f"w @ x {scale_ms:.4f} ms")
         means.append({"shape": [c, n], "dtype": str(dtype).split(".")[-1], "bitwise": True,
-                      "repeats_bitwise": True, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / ms,
-                      "library_ms": None, "w_matmul_ms_not_the_same_function": scale_ms})
+                      "repeats_bitwise": True, "ms": ms, "device_ms": device_ms,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                      "share_of_bound": bound_ms / ms,
+                      "device_share_of_bound": bound_ms / device_ms, "library_ms": None,
+                      "w_matmul_ms_not_the_same_function": scale_ms})
         del x, got, want, again
     torch.cuda.empty_cache()
     log(f"exact fold launches while checking (not counted): {ef.FOLD_KERNEL.launches} fold, "
         f"{ef.MEAN_KERNEL.launches} weighted mean")
-    return {**kernel_entry(folds[0], name=ef.FOLD_KERNEL.name, route="cuda",
+    return {**kernel_entry(edge_folds[0], name=ef.FOLD_KERNEL.name, route="cuda",
                            source="fedml_tpu_torch/ops/csrc/exact_fold.cu",
                            replaces="fedml_tpu/core/aggregation.py:201",
                            kind="not a TPU kernel (XLA-generated in the reference)"),
-            "cases": folds, "weighted_mean_cases": means}
+            "device_ms": edge_folds[0]["device_ms"],
+            "cases": folds + edge_folds + merges, "weighted_mean_cases": means}
 
 
 def check_synth_features():
@@ -2569,30 +2644,33 @@ def planet_api(**knobs):
 
 
 def planet_launches_wanted(args, rounds):
-    """(fold launches, feature launches) a round, reckoned on the host
-    from the registry alone: each group folds once per edge whose weight
-    is > 0, the tree merges each edge that received a fold, and each
-    group's features are one launch."""
+    """(folds, groups, fold launches) a round, reckoned on the host from
+    the registry alone: each group folds once per edge whose weight is >
+    0, all of them in one launch, the tree merges each edge that received
+    a fold, all of them in one launch, and each group's features are one
+    launch."""
     from fedml_tpu_torch.scale import ClientRegistry, pack_cohort
 
     reg = ClientRegistry(int(args.client_registry_size), seed=int(args.random_seed))
     E = max(1, int(args.edge_num))
     tree = int(args.edge_num) >= 2 and not bool(args.edge_flat_fold)
-    folds, groups = [], []
+    folds, groups, launches = [], [], []
     for r in rounds:
         idx = reg.sample_cohort(r, int(args.cohort_size or args.client_num_per_round))
         plan = pack_cohort(reg.num_samples[idx], idx, int(args.batch_size),
                            speed_tier=reg.speed_tier[idx], waste_cap=float(args.packing_waste_cap))
-        touched, n = set(), 0
+        touched, n, group_launches = set(), 0, 0
         for g in plan.groups:
             w = np.zeros(E)
             np.add.at(w, g.client_idx % E, g.num_samples.astype(np.float64) * g.valid)
             hit = np.nonzero(w > 0)[0]
             n += len(hit)
+            group_launches += bool(len(hit))
             touched |= set(hit.tolist())
         folds.append(n + (len(touched) if tree else 0))
         groups.append(len(plan.groups))
-    return folds, groups
+        launches.append(group_launches + int(tree and bool(touched)))
+    return folds, groups, launches
 
 
 def run_planet():
@@ -2612,7 +2690,8 @@ def run_planet():
     first, last = PLANET_TIMED
     timed_s, rounds_per_s, samples = timed_rounds(pipe, first, last)
     cohort = int(args.cohort_size)
-    folds_want, groups_want = planet_launches_wanted(args, range(PLANET_ROUNDS))
+    folds_want, groups_want, fold_launches = planet_launches_wanted(args, range(PLANET_ROUNDS))
+    fold_want = sum(fold_launches)
     log(f"planet: registry {pipe['registry_clients']} clients ({pipe['registry_bytes']} bytes "
         f"of columns), cohort {cohort}, {pipe['edge_num']} edges; {PLANET_ROUNDS} rounds in "
         f"{run['wall_s']:.1f} s (registry, holdouts and warm-up included); groups a round "
@@ -2624,8 +2703,9 @@ def run_planet():
     if pipe["round_folds"] != folds_want or pipe["round_groups"] != groups_want:
         fail(f"planet: folds {pipe['round_folds']} / groups {pipe['round_groups']} a round, "
              f"the registry gives {folds_want} / {groups_want}")
-    if launches["exact_fold"] != sum(folds_want):
-        fail(f"planet: {launches['exact_fold']} exact-fold launches, want {sum(folds_want)}")
+    if launches["exact_fold"] != fold_want:
+        fail(f"planet: {launches['exact_fold']} exact-fold launches, the registry gives "
+             f"{fold_want} (one a group, one root merge a round: {fold_launches})")
     if launches["synth_features"] != sum(groups_want):
         fail(f"planet: {launches['synth_features']} feature launches, want {sum(groups_want)}")
     others = {k: v for k, v in launches.items() if k not in ("exact_fold", "synth_features")}
@@ -2649,8 +2729,11 @@ def run_planet():
         f"{samples * rounds_per_s:.0f} packed samples/s; shape keys {pipe['shape_keys']} "
         f"({pipe['trace_count']} first calls, budget {budget}); waste fraction "
         f"{pipe['waste_frac_mean']:.4f}; peak memory {run['peak_bytes'] / 2**20:.1f} MiB; "
-        f"{sum(folds_want) / PLANET_ROUNDS:.1f} exact-fold and {sum(groups_want) / PLANET_ROUNDS:.1f} "
-        f"feature launches a round")
+        f"{fold_want / PLANET_ROUNDS:.1f} exact-fold launches a round for "
+        f"{sum(folds_want) / PLANET_ROUNDS:.1f} folds ({fold_launches} a round; one a fold "
+        f"before they were merged into a launch a group) and "
+        f"{sum(groups_want) / PLANET_ROUNDS:.1f} feature launches a round; with one launch a fold "
+        f"this phase read {PLANET_EARLIER_ROUNDS_PER_S} rounds/s (NVIDIA H100 80GB HBM3, 700 W)")
     profile = profile_summary(f"planet profile of round {PLANET_PROFILED} (with evaluation) on "
                               f"{card}", run["summary"], PLANET_KINDS)
 
@@ -2713,9 +2796,210 @@ def run_planet():
             "trace_count": pipe["trace_count"], "trace_budget": budget,
             "waste_frac_mean": pipe["waste_frac_mean"], "peak_memory_bytes": run["peak_bytes"],
             "test_loss": losses, "folds_per_round": folds_want, "groups_per_round": groups_want,
+            "fold_launches_per_round": fold_launches,
             "profile": {"round": PLANET_PROFILED, **profile}, "warm_rerun": deltas,
             "tree_equals_flat": checks["flat"], "resume_bitwise": checks["resumed"],
             "pipeline": pipe, "kernel_launches": launches}
+
+
+# -- the seventh slice: tag prediction, real files, FedProx synthetic ----
+TAG_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "fedavg_stackoverflow_lr.yaml"
+LEAF_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "fedavg_mnist_leaf_lr.yaml"
+FEDPROX_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "fedprox_synthetic_1_1.yaml"
+# each config through run_simulation for 5 rounds, evaluation after each:
+# round 0 warms up, round 1 runs under torch.profiler (the tag phase),
+# rounds 2-4 are timed: their training on the card's clock, and whole,
+# evaluation included, on the host's
+SLICE7_ROUNDS, SLICE7_PROFILED, SLICE7_TIMED = 5, 1, (2, 4)
+# what each of these phases reports of its timed rounds
+SLICE7_TIMES = ("rounds_per_s", "rounds_per_s_by_round", "timed_rounds_s", "whole_rounds_per_s",
+                "whole_rounds_per_s_by_round", "real_examples_per_s")
+TAG_PARAMS = 10_000 * 500 + 500
+LR_KINDS = (
+    ("GEMM", ("gemm", "gemv", "nvjet", "cutlass", "xmma")),
+    ("reductions", ("reduce",)),
+    ("copies, fills", ("copy", "memcpy", "memset", "fill")),
+)
+
+
+@contextlib.contextmanager
+def simulated_api():
+    """The FedAvg API that ``run_simulation`` builds, held (appended to the
+    yielded list) so that its dataset and ``evaluate_global`` can be read
+    after the run returns; the run itself is untouched."""
+    from fedml_tpu_torch.simulation import SimulatorSingleProcess
+
+    held, run = [], SimulatorSingleProcess.run
+
+    def holding(self):
+        held.append(self.fl_trainer)
+        return run(self)
+
+    SimulatorSingleProcess.run = holding
+    try:
+        yield held
+    finally:
+        SimulatorSingleProcess.run = run
+
+
+@contextlib.contextmanager
+def logged_warnings():
+    """Messages of the warnings logged inside the block."""
+    import logging
+
+    seen = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            seen.append(record.getMessage())
+
+    handler = Keep(logging.WARNING)
+    logging.getLogger().addHandler(handler)
+    try:
+        yield seen
+    finally:
+        logging.getLogger().removeHandler(handler)
+
+
+def to_spread(x: float, values) -> str:
+    """``x`` printed to the last decimal digit that the spread (max - min)
+    of ``values`` reaches."""
+    spread = max(values) - min(values)
+    if not spread > 0:
+        return repr(x)
+    decimals = -int(np.floor(np.log10(spread)))
+    return f"{x:.{decimals}f}" if decimals > 0 else str(int(round(x, decimals)))
+
+
+def slice7_run(config: Path, tag: str, profiled=None, **knobs):
+    """``config`` through ``run_simulation`` for SLICE7_ROUNDS rounds
+    (evaluation after each): the measured run, the API it built, the
+    warnings logged, the train losses (which must fall) and, over rounds
+    SLICE7_TIMED, the training's rounds/s and real examples/s on the
+    card's clock and the whole rounds' rounds/s (evaluation included) on
+    the host's, each with its spread over the rounds."""
+    from fedml_tpu_torch.arguments import load_arguments
+
+    args = load_arguments(str(config))
+    args.comm_round, args.frequency_of_the_test = SLICE7_ROUNDS, 1
+    for knob, value in knobs.items():
+        setattr(args, knob, value)
+    args._validate()
+    with simulated_api() as held, logged_warnings() as warned:
+        run = measured_run(args, profiled)
+    losses = log_records(tag, run)
+    # each round's training span on the card's clock, summed: the window
+    # from the first to the last would hold the evaluations between them
+    first, last = SLICE7_TIMED
+    spans = [b - a for a, b in run["pipe"]["round_spans_s"][first:last + 1]]
+    timed_s, per_round = sum(spans), [1.0 / t for t in spans]
+    rounds_per_s = len(spans) / timed_s
+    examples = float(np.mean(run["pipe"]["round_samples"][first:last + 1]))
+    whole = [r["round_time_s"] for r in run["records"] if first <= r["round"] <= last]
+    whole_per_s, whole_per_round = len(whole) / sum(whole), [1.0 / t for t in whole]
+    ds = held[-1].dataset
+    log(f"{tag} on {card_line()}: {args.dataset} ({ds.source}), {args.model}, "
+        f"{args.client_num_per_round} of {ds.client_num} clients per round, batch "
+        f"{args.batch_size}, {args.epochs} epochs, {args.dtype}: rounds {first}-{last}: training "
+        f"on the card's clock {to_spread(rounds_per_s, per_round)} rounds/s (a round "
+        f"{to_spread(min(per_round), per_round)}-{to_spread(max(per_round), per_round)}), "
+        f"{to_spread(examples * args.epochs * rounds_per_s, [examples * args.epochs * v for v in per_round])} "
+        f"real examples/s ({examples:.0f} a round); whole rounds with evaluation on the host's "
+        f"clock {to_spread(whole_per_s, whole_per_round)} rounds/s (a round "
+        f"{to_spread(min(whole_per_round), whole_per_round)}-"
+        f"{to_spread(max(whole_per_round), whole_per_round)}); peak memory "
+        f"{run['peak_bytes'] / 2**20:.1f} MiB; {SLICE7_ROUNDS} rounds in {run['wall_s']:.1f} s "
+        f"(data and init included)")
+    if any(run["launches"].values()):
+        fail(f"{tag}: hand-written kernels launched on a path that reckons none: {run['launches']}")
+    return {"run": run, "api": held[-1], "args": args, "warnings": warned, "train_loss": losses,
+            "rounds_per_s": rounds_per_s, "rounds_per_s_by_round": per_round,
+            "timed_rounds_s": timed_s, "whole_rounds_per_s": whole_per_s,
+            "whole_rounds_per_s_by_round": whole_per_round,
+            "real_examples_per_s": examples * args.epochs * rounds_per_s}
+
+
+def run_tag_prediction():
+    """Stack Overflow tag prediction at full width (10,000 -> 500 LR in
+    f32) through ``run_simulation``: 5 rounds, round 1 profiled; the loss
+    falls, precision, recall and F1 from ``evaluate_global`` lie in [0,
+    1], and no hand-written kernel launches (the path reckons none: its
+    product is cuBLAS's, as XLA's was)."""
+    out = slice7_run(TAG_CONFIG, "tag prediction", SLICE7_PROFILED)
+    api, run, card = out["api"], out["run"], card_line()
+    params = api.model.param_count(api.global_params)
+    if api.dataset.task != "tag_prediction" or params != TAG_PARAMS:
+        fail(f"tag prediction: task {api.dataset.task}, {params} params (want {TAG_PARAMS})")
+    stats = api.evaluate_global()
+    log(f"tag prediction on {card}: evaluate_global: precision {stats['precision']:.4f}, recall "
+        f"{stats['recall']:.4f}, F1 {stats['acc']:.4f}, loss {stats['loss']:.4f} over "
+        f"{stats['count']:.0f} test examples; {params} params; test F1 a round "
+        f"{[round(r['test_acc'], 4) for r in run['records']]}")
+    if not all(0.0 <= stats[k] <= 1.0 for k in ("precision", "recall", "acc")):
+        fail(f"tag prediction: precision, recall and F1 outside [0, 1]: {stats}")
+    profile = profile_summary(f"tag prediction profile of round {SLICE7_PROFILED} (with "
+                              f"evaluation) on {card}", run["summary"], LR_KINDS)
+    if profile.get("device_launches"):
+        log(f"tag prediction on {card}: launches by kind in the profiled round "
+            f"{profile['launches_by_kind']}")
+    torch.cuda.empty_cache()
+    return {"card": card, **{k: out[k] for k in SLICE7_TIMES},
+            "peak_memory_bytes": run["peak_bytes"], "train_loss": out["train_loss"],
+            "evaluate_global": stats, "params": params,
+            "profile": {"round": SLICE7_PROFILED, **profile}, "pipeline": run["pipe"],
+            "kernel_launches": run["launches"]}
+
+
+def run_real_files():
+    """The LEAF files in fedml_data/mnist (100 users) through
+    ``run_simulation``: 5 rounds; the loader must report that it read
+    them and log no stand-in; the loss falls."""
+    out = slice7_run(LEAF_CONFIG, "real files", data_cache_dir=str(REPO / "fedml_data"))
+    ds, card = out["api"].dataset, card_line()
+    standin = [m for m in out["warnings"] if "stand-in" in m]
+    log(f"real files on {card}: the loader read {ds.source!r}: {ds.client_num} clients, "
+        f"{ds.train_data_num} train and {ds.test_data_num} test samples; stand-in warnings "
+        f"{standin}")
+    if not ds.source.startswith("LEAF json") or standin or ds.train_data_num != 1395:
+        fail(f"real files: the loader read {ds.source!r} ({ds.train_data_num} train samples), "
+             f"warnings {standin}; want the LEAF files' 1,395 samples and no stand-in")
+    torch.cuda.empty_cache()
+    return {"card": card, "source": ds.source, "clients": ds.client_num,
+            **{k: out[k] for k in SLICE7_TIMES},
+            "train_loss": out["train_loss"], "peak_memory_bytes": out["run"]["peak_bytes"],
+            "kernel_launches": out["run"]["launches"]}
+
+
+def run_fedprox_synthetic():
+    """FedProx on synthetic(1, 1) through ``run_simulation``: 5 rounds;
+    the federation's sizes are the generator's (80/20 a device, the
+    packer's cap), and the loss falls."""
+    from fedml_tpu_torch.data.synthetic import synthetic_fedprox
+
+    out = slice7_run(FEDPROX_CONFIG, "fedprox synthetic")
+    api, args, card = out["api"], out["args"], card_line()
+    ds = api.dataset
+    xs, _ = synthetic_fedprox(num_clients=int(args.client_num_in_total),
+                              alpha=float(args.synthetic_alpha), beta=float(args.synthetic_beta),
+                              input_dim=int(args.input_dim), num_classes=int(args.output_dim),
+                              seed=int(args.random_seed))
+    train = [max(1, int(0.8 * len(x))) for x in xs]
+    cap = int(ds.packed_train.mask.shape[1]) * int(args.batch_size)
+    want = [min(n, cap) for n in train]
+    test = sum(len(x) - n for x, n in zip(xs, train))
+    log(f"fedprox synthetic on {card}: {api.algorithm}, mu {args.fedprox_mu}, {len(xs)} devices "
+        f"of {min(map(len, xs))}-{max(map(len, xs))} samples, {sum(train)} train ({sum(want)} "
+        f"packed, cap {cap}) and {test} test samples")
+    if (ds.packed_num_samples.astype(int).tolist() != want or ds.train_data_num != sum(want)
+            or ds.test_data_num != test or not ds.source.startswith("FedProx")):
+        fail(f"fedprox synthetic: the federation ({ds.source}) holds "
+             f"{ds.packed_num_samples.tolist()} / {ds.train_data_num} / {ds.test_data_num}, the "
+             f"generator gives {want} / {sum(want)} / {test}")
+    torch.cuda.empty_cache()
+    return {"card": card, "algorithm": api.algorithm, **{k: out[k] for k in SLICE7_TIMES},
+            "train_loss": out["train_loss"],
+            "client_sizes": want, "peak_memory_bytes": out["run"]["peak_bytes"],
+            "kernel_launches": out["run"]["launches"]}
 
 
 def main() -> int:
@@ -2773,22 +3057,25 @@ def main() -> int:
     log(f"remat numbers on {card}: {json.dumps(remat_numbers)}")
     planet_numbers = phase("planet", run_planet)
     log(f"planet numbers on {card}: {json.dumps(planet_numbers)}")
+    tag_numbers = phase("tag prediction", run_tag_prediction)
+    log(f"tag prediction numbers on {card}: {json.dumps(tag_numbers)}")
+    leaf_numbers = phase("real files", run_real_files)
+    log(f"real files numbers on {card}: {json.dumps(leaf_numbers)}")
+    fedprox_numbers = phase("fedprox synthetic", run_fedprox_synthetic)
+    log(f"fedprox synthetic numbers on {card}: {json.dumps(fedprox_numbers)}")
     log(f"phase wall times (s): {json.dumps(walls)}")
+    paths = {
+        "serving": slice_numbers, "fedavg_headline": fedavg_numbers,
+        "fedavg_dense": dense_numbers, "fedavg_transformer": transformer_numbers,
+        "fedavg_transformer_f32": transformer_f32_numbers, "fedavg_rnn": rnn_numbers,
+        "fedavg_rnn_stackoverflow": so_numbers, "seam": seam_numbers,
+        "resume": resume_numbers, "fedavg_transformer_remat": remat_numbers,
+        "fedavg_planet": planet_numbers, "fedavg_tag_prediction": tag_numbers,
+        "fedavg_real_files": leaf_numbers, "fedprox_synthetic": fedprox_numbers,
+    }
     for entry in kernels:  # each path's own count, reset just before it
-        name = entry["name"]
         entry["launches_by_path"] = {
-            "serving": slice_numbers["kernel_launches"][name],
-            "fedavg_headline": fedavg_numbers["kernel_launches"][name],
-            "fedavg_dense": dense_numbers["kernel_launches"][name],
-            "fedavg_transformer": transformer_numbers["kernel_launches"][name],
-            "fedavg_transformer_f32": transformer_f32_numbers["kernel_launches"][name],
-            "fedavg_rnn": rnn_numbers["kernel_launches"][name],
-            "fedavg_rnn_stackoverflow": so_numbers["kernel_launches"][name],
-            "seam": seam_numbers["kernel_launches"][name],
-            "resume": resume_numbers["kernel_launches"][name],
-            "fedavg_transformer_remat": remat_numbers["kernel_launches"][name],
-            "fedavg_planet": planet_numbers["kernel_launches"][name],
-        }
+            path: numbers["kernel_launches"][entry["name"]] for path, numbers in paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -26,9 +26,13 @@ _DEFAULTS: Dict[str, Any] = {
     "random_seed": 0,
     # data
     "dataset": "synthetic",
-    # a copy of the dataset here would be read by the JAX package; the
-    # port raises on it until real-data ingestion is ported
+    # real files under <data_cache_dir>/<dataset>/ take precedence over
+    # the synthetic stand-ins (data/loader.py)
     "data_cache_dir": "./data_cache",
+    # fetch the dataset's archives into data_cache_dir when no local copy
+    # exists (offline grace: a failed fetch falls back to the stand-in);
+    # off by default so offline runs never stall
+    "download": False,
     "partition_method": constants.PARTITION_HETERO,
     "partition_alpha": 0.5,
     # padded-packing long-tail policy: the shared num_batches is clamped
@@ -36,6 +40,10 @@ _DEFAULTS: Dict[str, Any] = {
     "packing_waste_cap": 4.0,
     "image_size": 64,  # H=W of the resized-image stand-ins
     "synthetic_sigma": 1.0,  # synthetic feature noise scale
+    "output_dim": 10,  # class/label count for the synthetic-style loaders
+    "synthetic_feature_dim": 2000,  # tag-prediction stand-in feature width
+    "synthetic_alpha": 1.0,  # fedprox-synthetic u_k spread
+    "synthetic_beta": 1.0,  # fedprox-synthetic v_k spread
     # seq_len, synthetic_train_size and synthetic_test_size keep the JAX
     # package's per-site fallbacks, so they have no entry here: a stand-in's
     # size is min(the dataset's, 20000) for training and min(the dataset's,

@@ -15,8 +15,12 @@ order of the folds nor on how they were split across accumulators
 never contracted into FMAs; the plain version on the CPU). An
 accumulator keeps its limbs as one flat f32 buffer ``[3, N]`` over the
 model's leaves in the template's order, so a fold is one launch
-whatever the number of leaves; ``export_state`` still hands out
-per-leaf trees.
+whatever the number of leaves, and several terms fold in one launch in
+the order of their one-by-one folds (``fold_weighted_terms``);
+``export_state`` still hands out per-leaf trees. ``AccumulatorBank``
+lays E accumulators' limbs out as the rows of one ``[E, 3, N]`` buffer,
+so that a term for each folds in one launch and all of them merge into
+another accumulator in one launch (an edge tree's two hops).
 
 The encoded and clipped folds (quantized uplinks, norm-diff clipping)
 arrive with the robust-aggregation planes (ROADMAP.md, queue A item 7).
@@ -159,12 +163,20 @@ class StreamingAccumulator:
     bit-identical.
 
     The limbs are one ``[3, N]`` f32 buffer (``_limbs``), updated in
-    place by each fold.
+    place by each fold; ``limbs`` hands in that buffer (a row of an
+    ``AccumulatorBank``'s), else the accumulator allocates it. ``reset``
+    and ``load_state`` write into it and never rebind it.
     """
 
-    def __init__(self, template: Params) -> None:
+    def __init__(self, template: Params, limbs: Optional[torch.Tensor] = None) -> None:
         self._template = template
         self._spec = _FlatSpec(template)
+        shape = (3, self._spec.numel)
+        if limbs is None:
+            limbs = torch.zeros(shape, dtype=torch.float32, device=self._spec.device)
+        elif tuple(limbs.shape) != shape or limbs.dtype != torch.float32:
+            raise ValueError(f"limbs {limbs.dtype} {tuple(limbs.shape)}; want float32 {shape}")
+        self._limbs = limbs
         self.reset()
 
     def _flat(self, term: Union[Params, torch.Tensor]) -> torch.Tensor:
@@ -223,8 +235,9 @@ class StreamingAccumulator:
         expansion as per-leaf numpy trees, the folded weight total and
         the fold count. No rounding happens at export (the fetch is
         byte-exact), so merging a ``load_state``-restored shell is
-        bitwise merging the live accumulator."""
-        host = self._limbs.detach().cpu().numpy()
+        bitwise merging the live accumulator. The snapshot is a copy:
+        the limbs it came from are reset and refolded in place."""
+        host = self._limbs.detach().cpu().numpy().copy()
         return {
             "limbs": [
                 {k: np.asarray(v) for k, v in self._spec.views(torch.from_numpy(host[i])).items()}
@@ -243,8 +256,8 @@ class StreamingAccumulator:
             raise ValueError(
                 f"edge fold state carries {len(limbs)} limbs, expected 3"
             )
-        self._limbs = torch.stack([self._spec.flatten(
-            {k: torch.as_tensor(np.asarray(v)) for k, v in limb.items()}) for limb in limbs])
+        self._limbs.copy_(torch.stack([self._spec.flatten(
+            {k: torch.as_tensor(np.asarray(v)) for k, v in limb.items()}) for limb in limbs]))
         self.total_w = float(state["total_w"])
         self.count = int(state["count"])
         return self
@@ -276,9 +289,27 @@ class StreamingAccumulator:
         partitioned across accumulators (tree == flat)."""
         self.fold_limbs(other._limbs, other.total_w, count=other.count)
 
+    def fold_weighted_terms(self, terms: torch.Tensor, weights: Sequence[float]) -> int:
+        """Fold the rows of ``terms`` ``[E, N]`` whose weight in ``weights``
+        (E host floats) is > 0, in row order, each an already-weighted
+        partial sum carrying that weight, in one launch: bitwise
+        ``fold_weighted_term`` of each in turn (the registry loop's flat
+        fold of a group). Returns the rows folded."""
+        hit = [e for e, w in enumerate(weights) if w > 0.0]
+        if hit:
+            terms = terms.to(device=self._spec.device, dtype=torch.float32)
+            with devtime.measure("agg.fold_tree"):
+                exact_fold.fold_set(self._limbs, terms.unsqueeze(1), exact_fold.edge_mask(hit))
+        for e in hit:
+            self._count_fold(weights[e])
+        return len(hit)
+
     def _fold_term(self, term: torch.Tensor, w: float) -> None:
         with devtime.measure("agg.fold_tree"):
             _fold_tree(self._limbs, term)
+        self._count_fold(w)
+
+    def _count_fold(self, w: float) -> None:
         # float32 first (the term used fl32(w)); python-float sums of
         # integer sample counts are exact in any order
         self.total_w += float(np.float32(w))
@@ -303,13 +334,81 @@ class StreamingAccumulator:
         return {k: v.to(dt) for (k, v), dt in zip(spec.views(out).items(), spec.dtypes)}
 
     def reset(self) -> None:
-        self._limbs = torch.zeros(
-            (3, self._spec.numel), dtype=torch.float32, device=self._spec.device
-        )
+        self._limbs.zero_()
         # python float: sample counts are integers, exactly summed in
         # float64 in any order
         self.total_w = 0.0
         self.count = 0
+
+
+class AccumulatorBank:
+    """E ``StreamingAccumulator``s over one ``[E, 3, N]`` f32 limb buffer,
+    accumulator ``e``'s limbs its row ``e``: the term for each of them
+    folds in one launch (``fold_terms``) and all of them merge into
+    another accumulator in one launch (``merge_into``), each bitwise the
+    one-by-one folds and merges. ``bank[e]`` is accumulator ``e``, with
+    every ``fold*`` of its own."""
+
+    def __init__(self, template: Params, count: int) -> None:
+        spec = _FlatSpec(template)
+        self._limbs = torch.zeros((int(count), 3, spec.numel), dtype=torch.float32,
+                                  device=spec.device)
+        self._accs = [StreamingAccumulator(template, limbs=row) for row in self._limbs]
+
+    def __getitem__(self, e: int) -> StreamingAccumulator:
+        return self._accs[e]
+
+    @property
+    def count(self) -> int:
+        return sum(a.count for a in self._accs)
+
+    @property
+    def total_w(self) -> float:
+        return float(sum(a.total_w for a in self._accs))
+
+    def fold_terms(self, terms: torch.Tensor, weights: Sequence[float]) -> int:
+        """Fold row ``e`` of ``terms`` ``[E, N]`` (an already-weighted
+        partial sum) into accumulator ``e`` for every ``e`` whose weight in
+        ``weights`` (E host floats) is > 0, in one launch: bitwise
+        ``self[e].fold_weighted_term(terms[e], weights[e])`` for each.
+        Returns the accumulators folded into."""
+        hit = [e for e, w in enumerate(weights) if w > 0.0]
+        if hit:
+            terms = terms.to(device=self._limbs.device, dtype=torch.float32)
+            with devtime.measure("agg.fold_tree"):
+                exact_fold.fold_edges(self._limbs, terms, exact_fold.edge_mask(hit))
+        for e in hit:
+            self._accs[e]._count_fold(weights[e])
+        return len(hit)
+
+    def merge_into(self, root: StreamingAccumulator) -> int:
+        """``root.merge`` of every accumulator that holds a fold, in index
+        order, in one launch and bitwise those merges. Returns the
+        accumulators merged."""
+        hit = [e for e, a in enumerate(self._accs) if a.count]
+        if hit:
+            with devtime.measure("agg.fold_tree"):
+                exact_fold.fold_set(root._limbs, self._limbs, exact_fold.edge_mask(hit))
+        for e in hit:
+            root.total_w += float(self._accs[e].total_w)
+            root.count += self._accs[e].count
+        return len(hit)
+
+    def running_mean(self) -> Optional[Params]:
+        """Top-limb mean over every accumulator (same contract as
+        ``StreamingAccumulator.running_mean``)."""
+        if self.count == 0:
+            return None
+        total = None
+        for a in self._accs:
+            if a.count:
+                total = a._limbs[0] if total is None else total + a._limbs[0]
+        w = torch.tensor(self.total_w, dtype=torch.float32)
+        return {k: v / w for k, v in self._accs[0]._spec.views(total).items()}
+
+    def reset(self) -> None:
+        for acc in self._accs:
+            acc.reset()
 
 
 def staleness_weight(sample_num: float, staleness: int, decay: float) -> float:

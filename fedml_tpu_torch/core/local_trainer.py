@@ -212,8 +212,11 @@ def make_eval_fn(
                     logits = apply_fn(params, xb)
                 loss, metrics = loss_fn(logits, y[i:i + per].flatten(0, 1),
                                         mask[i:i + per].flatten(0, 1))
+                # task-specific extras ride along (tag prediction's
+                # tp/fp/fn feed precision, recall and F1)
+                keys = [k for k in ("tp", "fp", "fn") if k in metrics]
                 parts.append(torch.stack([loss * metrics["count"], metrics["correct"],
-                                          metrics["count"]]))
-        return dict(zip(("loss_sum", "correct", "count"), torch.stack(parts).sum(0)))
+                                          metrics["count"], *(metrics[k] for k in keys)]))
+        return dict(zip(("loss_sum", "correct", "count", *keys), torch.stack(parts).sum(0)))
 
     return evaluate

@@ -49,7 +49,34 @@ def token_cross_entropy(
     return softmax_cross_entropy(logits, labels, mask)
 
 
+def sigmoid_bce(
+    logits: Tensor, labels: Tensor, mask: Tensor
+) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Multi-label tag prediction: labels multi-hot [*, L]; the masked
+    mean over examples of the per-tag binary cross-entropy, computed
+    stably as max(z, 0) - z y + log1p(exp(-|z|)); metrics the masked
+    true-positive, false-positive and false-negative counts of the
+    prediction z > 0 (precision, recall and F1 come from their sums),
+    ``count``, and ``correct`` = tp for uniform reporting."""
+    labels = labels.to(torch.float32)
+    per = torch.clamp(logits, min=0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
+    loss = _mean_over_mask(per.mean(dim=-1), mask)
+    pred = (logits > 0).to(torch.float32)
+    tp = ((pred * labels).sum(dim=-1) * mask).sum()
+    fp = ((pred * (1 - labels)).sum(dim=-1) * mask).sum()
+    fn = (((1 - pred) * labels).sum(dim=-1) * mask).sum()
+    return loss, {
+        "loss": loss,
+        "tp": tp,
+        "fp": fp,
+        "fn": fn,
+        "count": mask.sum(),
+        "correct": tp,
+    }
+
+
 LOSSES = {
     "classification": softmax_cross_entropy,
     "nwp": token_cross_entropy,
+    "tag_prediction": sigmoid_bce,
 }

@@ -1,33 +1,42 @@
-"""Dataset dispatcher (port of ``fedml_tpu/data/loader.py``, stand-in branch).
+"""Dataset dispatcher (port of ``fedml_tpu/data/loader.py``).
 
 ``load(args, device=...)`` returns a :class:`FederatedDataset`: the
 reference's 8-tuple (``to_list()``) plus the packed federation on the
 device (``packed_train`` / ``packed_test``, leaves ``[C, nb, bs, ...]``)
 that the simulators consume.
 
-Ported: the synthetic stand-ins, the path the JAX package takes when no
-local copy exists.
+The resolution order is the JAX package's, under
+``<data_cache_dir>/<dataset>/``:
 
-- Classification: labels are drawn and partitioned on the host (numpy,
-  bitwise the JAX package's), packed, and only they cross to the
-  device, where the features are made
-  (``synthetic_classification_device``). Images keep the JAX package's
-  NHWC layout, ``x[C, nb, bs, 28, 28, 1]`` for MNIST.
-- Next-token prediction (``shakespeare``, ``fed_shakespeare``,
-  ``stackoverflow_nwp``): the JAX package's host path, token streams
-  from ``synthetic_sequences`` (``args.seq_len`` sets their length),
-  partitioned, packed with int32 tokens, and copied to the device
-  whole; packed federation, masks and counts bitwise the JAX
-  package's.
+1. naturally federated files: LEAF json split directories, TFF h5 and
+   the Landmarks CSV (``data/leaf.py``, ``data/ingest.py``); the files'
+   users are the partition, folded round-robin onto fewer clients or
+   capping ``client_num_in_total`` when they hold fewer users; with
+   ``download: true`` a missing copy raises, since the port names no
+   archive host (``data/download.py`` fetches the archives a caller
+   names);
+2. global files: CIFAR python batches, image folders, a
+   ``{train,test}.npz`` drop-in; the LDA or homo partition applies;
+3. the synthetic stand-ins, with a warning.
 
-- The client registry (``client_registry_size > 0``,
-  ``_registry_dataset``): the population is not materialized here; the
-  dataset carries the task's geometry and fixed-size global evaluation
-  holdouts only, and ``scale/`` makes each round's cohort on demand.
+``synthetic*`` datasets are FedProx's synthetic(alpha, beta) federation;
+VFL party CSVs (``party_K.csv``) under a dataset's directory define it
+whatever its name (its horizontal view; the VFL training API arrives
+with queue A item 8).
 
-Every other source (real files on disk, VFL party CSVs, poisoned
-worlds, ``synthetic`` FedProx data, tag-prediction and segmentation
-tasks) raises ``NotImplementedError`` naming the slice that brings it.
+Real arrays are read and packed on the host (numpy, bitwise the JAX
+package's) and moved to the device whole. Classification stand-ins draw
+and partition their labels on the host and make the features on the
+device (``synthetic_classification_device``). Images keep the JAX
+package's NHWC layout, ``x[C, nb, bs, 28, 28, 1]`` for MNIST.
+
+The client registry (``client_registry_size > 0``, ``_registry_dataset``)
+materializes no population here: the dataset carries the task's geometry
+and fixed-size global evaluation holdouts, and ``scale/`` makes each
+round's cohort on demand.
+
+Segmentation data and poisoned worlds raise ``NotImplementedError``
+naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -35,7 +44,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +61,8 @@ from .packing import bucket_num_batches, pack_clients, pack_labels_np, pack_one
 from .synthetic import (
     synthetic_classification,
     synthetic_classification_device,
+    synthetic_fedprox,
+    synthetic_multilabel,
     synthetic_sequences,
 )
 
@@ -77,7 +88,8 @@ _DATASET_META = {
     "fets2021": ((64, 64, 4), 4, 2000, 400, "segmentation"),
 }
 
-_DATA_SLICE = "the data-ingestion slice (ROADMAP.md, queue A item 5)"
+_ROBUST_SLICE = "the robustness planes (ROADMAP.md, queue A item 7)"
+_ALGORITHMS_SLICE = "the other simulation algorithms (ROADMAP.md, queue A item 8)"
 
 
 @dataclasses.dataclass
@@ -96,6 +108,12 @@ class FederatedDataset:
     packed_test: Optional[Batches] = None
     client_num: int = 0
     task: str = "classification"
+    # vertically partitioned source (party CSVs): ([feats_k [N, d_k]...],
+    # labels [N]); horizontal consumers see the concatenation
+    vfl_parties: Optional[Tuple[List[np.ndarray], np.ndarray]] = None
+    # what the data was read or made from (the port's own field): the
+    # reader and its directory, or the generator
+    source: str = ""
 
     def to_list(self) -> List:
         """Reference 8-tuple."""
@@ -109,6 +127,102 @@ class FederatedDataset:
             self.test_data_local_dict,
             self.class_num,
         ]
+
+
+def _try_load_real(name: str, cache_dir: str, args=None, probe: bool = False):
+    """Global real data: CIFAR python batches, ImageNet-style image
+    folders, else the generic ``{train,test}.npz`` drop-in, with the
+    files' description; ``probe`` answers whether one is on disk through
+    the same branches."""
+    d = os.path.join(cache_dir or "", name)
+    if name in ("cifar10", "cifar100"):
+        from .ingest import cifar_batches_available, load_cifar_batches
+
+        if cifar_batches_available(d, name):
+            return True if probe else (load_cifar_batches(d, name), f"CIFAR batches under {d}")
+    from .ingest import image_folder_available, load_image_folder
+
+    if image_folder_available(d):
+        if probe:
+            return True
+        hw = int(getattr(args, "image_size", 64) or 64) if args else 64
+        # 5-tuple: the folder structure is authoritative for the class
+        # count (truncated ImageNet copies carry fewer classes)
+        return load_image_folder(d, (hw, hw)), f"image folders under {d}"
+    tr, te = os.path.join(d, "train.npz"), os.path.join(d, "test.npz")
+    if os.path.exists(tr) and os.path.exists(te):
+        if probe:
+            return True
+        a, b = np.load(tr), np.load(te)
+        return (a["x"], a["y"], b["x"], b["y"]), f"npz files under {d}"
+    return False if probe else None
+
+
+def _try_load_federated(name: str, cache_dir: str, args=None):
+    """Naturally federated files: LEAF json dirs, TFF h5, the Landmarks
+    CSV. Returns per-client ``(xs_tr, ys_tr, xs_te, ys_te)`` and the
+    files' description, or None;
+    with ``args.download`` a missing copy raises (the port fetches only
+    archives its caller names, through ``data/download.py``)."""
+    if name not in _DATASET_META:
+        return None
+    d = os.path.join(cache_dir or "", name)
+    shape, _class_num, _, _, task = _DATASET_META[name]
+    from . import ingest
+    from .leaf import leaf_available, load_leaf
+
+    if cache_dir and bool(getattr(args, "download", False)):
+        # a LEAF json dir counts as a local copy only for tasks that
+        # read it (the nwp path ignores LEAF json, below)
+        has_local = ingest.tff_h5_available(d, name) or (
+            task != "nwp" and leaf_available(d)
+        )
+        if not has_local:
+            raise NotImplementedError(
+                f"download: no local copy of {name} under {cache_dir}, and the port names no "
+                f"archive host of its own; place the files there, or fetch them with "
+                f"fedml_tpu_torch.data.download.download_dataset({name!r}, data_cache_dir, "
+                f"urls=[...])"
+            )
+
+    out, source = None, ""
+    if leaf_available(d):
+        if task == "nwp":
+            # LEAF shakespeare stores raw strings with single-char
+            # targets, another task shape than the per-token TFF
+            # pipeline: nwp datasets read the TFF h5 artifact
+            logging.warning(
+                "dataset %s: LEAF json found but nwp ingestion uses the "
+                "TFF h5 artifact; ignoring the json dir", name,
+            )
+        else:
+            out, source = load_leaf(d, feature_shape=shape), f"LEAF json under {d}"
+    if out is None and ingest.tff_h5_available(d, name):
+        out, source = ingest.load_tff_h5(d, name), f"TFF h5 under {d}"
+    if out is None and ingest.landmarks_csv_available(d):
+        hw = int(getattr(args, "image_size", 64) or 64)
+        out, source = ingest.load_landmarks_csv(d, (hw, hw)), f"Landmarks CSV under {d}"
+    if out is None:
+        return None
+    logging.info("dataset %s: %d users read from %s", name, len(out[0]), source)
+    xs_tr, ys_tr, xs_te, ys_te = out
+    if task == "classification" and xs_tr and xs_tr[0].ndim == len(shape):
+        # h5 images stored [N, H, W] (fed_emnist 'pixels') -> add a channel
+        xs_tr = [x.reshape(x.shape + (1,)) for x in xs_tr]
+        xs_te = [x.reshape(x.shape + (1,)) for x in xs_te]
+    return (xs_tr, ys_tr, xs_te, ys_te), source
+
+
+def _widen_class_num(name: str, class_num: int, observed: int) -> int:
+    """Files may carry class ids beyond the canonical count: widen the
+    head rather than train on degenerate one-hots."""
+    if observed > class_num:
+        logging.warning(
+            "dataset %s: observed class id %d >= canonical class count "
+            "%d; widening to %d", name, observed - 1, class_num, observed,
+        )
+        return observed
+    return class_num
 
 
 def _standin_shape_and_sizes(args, name: str):
@@ -133,11 +247,16 @@ def _client_view(stacked: Batches, i: int) -> Batches:
 def _device_synth_classification(
     args, name: str, client_num: int, batch_size: int, seed: int,
     device: torch.device,
-) -> FederatedDataset:
+) -> Optional[FederatedDataset]:
     """Labels partitioned and packed on the host, features made on the
-    device. The labels, masks and sample counts are bitwise the JAX
-    package's for the same args."""
+    device; None where the path does not apply (another task, or real
+    files on disk). The labels, masks and sample counts are bitwise the
+    JAX package's for the same args."""
     shape, class_num, train_n, test_n, task = _standin_shape_and_sizes(args, name)
+    if task != "classification":
+        return None
+    if _try_load_real(name, getattr(args, "data_cache_dir", None), args, probe=True):
+        return None
     logging.warning(
         "dataset %s: no local copy under data_cache_dir; using synthetic "
         "stand-in with identical shapes/classes (features generated "
@@ -210,6 +329,7 @@ def _device_synth_classification(
         packed_test=packed_test,
         client_num=client_num,
         task=task,
+        source="synthetic stand-in (features made on the device)",
     )
 
 
@@ -227,66 +347,37 @@ def _partition(args, labels: np.ndarray, client_num: int, class_num: int, seed: 
     return idx_map
 
 
-def _host_synth_sequences(
-    args, name: str, client_num: int, batch_size: int, seed: int,
-    device: torch.device,
-) -> FederatedDataset:
-    """The next-token stand-ins on the JAX package's host path
-    (``_raw_data``'s ``nwp`` branch and ``load``'s partition and
-    packing): token streams partitioned, packed with int32 tokens and
-    int64 next-token labels, then copied to the device. Under ``hetero``
-    the LDA partition receives the [N, T] label matrix as the reference
-    hands it, so a sequence's index repeats once per token of each class
-    (ROADMAP.md §C records that fault of the reference; ``homo`` does not
-    meet it)."""
+def _raw_data(args):
+    """Global arrays ``(x_tr, y_tr, x_te, y_te, class_num, task, source)``:
+    real files (``_try_load_real``), else the host stand-ins of the JAX
+    package (next-token streams, multi-hot tags, classification blobs),
+    bitwise its arrays."""
+    name = str(getattr(args, "dataset", "synthetic")).lower()
+    seed = int(getattr(args, "random_seed", 0))
     shape, class_num, train_n, test_n, task = _standin_shape_and_sizes(args, name)
+    real = _try_load_real(name, getattr(args, "data_cache_dir", None), args)
+    if real is not None:
+        real, source = real
+        if len(real) == 5:  # the loader knows its own class count
+            x_tr, y_tr, x_te, y_te, class_num = real
+        else:
+            x_tr, y_tr, x_te, y_te = real
+        return x_tr, y_tr, x_te, y_te, class_num, task, source
     logging.warning(
         "dataset %s: no local copy under data_cache_dir; using synthetic "
         "stand-in with identical shapes/classes", name,
     )
-    seq_len = shape[0]
-    x_tr, y_tr = synthetic_sequences(train_n, seq_len, class_num, seed)
-    x_te, y_te = synthetic_sequences(test_n, seq_len, class_num, seed + 1)
-    idx_map = _partition(args, y_tr, client_num, class_num, seed)
-    xs_tr = [x_tr[idx_map[i]] for i in range(client_num)]
-    ys_tr = [y_tr[idx_map[i]] for i in range(client_num)]
-    te_map = homo_partition(len(y_te), client_num, seed + 1)
-    xs_te = [x_te[te_map[i]] for i in range(client_num)]
-    ys_te = [y_te[te_map[i]] for i in range(client_num)]
-
-    waste_cap = float(getattr(args, "packing_waste_cap", 4.0) or 4.0)
-    sizes = [len(x) for x in xs_tr]
-    tokens = dict(x_dtype=torch.int32, device=device)
-    packed_train, num_samples = pack_clients(
-        xs_tr, ys_tr, batch_size,
-        num_batches=bucket_num_batches(sizes, batch_size, waste_cap=waste_cap), **tokens,
-    )
-    packed_test, _ = pack_clients(
-        xs_te, ys_te, batch_size,
-        num_batches=bucket_num_batches([len(x) for x in xs_te], batch_size,
-                                       waste_cap=waste_cap), **tokens,
-    )
-    y_te_all = np.concatenate(ys_te)
-    return FederatedDataset(
-        train_data_num=int(sum(sizes)),
-        test_data_num=int(len(y_te_all)),
-        train_data_global=pack_one(np.concatenate(xs_tr), np.concatenate(ys_tr),
-                                   batch_size, **tokens),
-        test_data_global=pack_one(np.concatenate(xs_te), y_te_all, batch_size, **tokens),
-        train_data_local_num_dict={i: int(s) for i, s in enumerate(sizes)},
-        train_data_local_dict={
-            i: _client_view(packed_train, i) for i in range(client_num)
-        },
-        test_data_local_dict={
-            i: _client_view(packed_test, i) for i in range(client_num)
-        },
-        class_num=class_num,
-        packed_train=packed_train,
-        packed_num_samples=num_samples.cpu().numpy(),
-        packed_test=packed_test,
-        client_num=client_num,
-        task=task,
-    )
+    if task == "nwp":
+        x_tr, y_tr = synthetic_sequences(train_n, shape[0], class_num, seed)
+        x_te, y_te = synthetic_sequences(test_n, shape[0], class_num, seed + 1)
+    elif task == "tag_prediction":
+        dim = int(getattr(args, "synthetic_feature_dim", 2000))
+        x_tr, y_tr = synthetic_multilabel(train_n, class_num, (dim,), seed)
+        x_te, y_te = synthetic_multilabel(test_n, class_num, (dim,), seed + 1)
+    else:
+        x_tr, y_tr = synthetic_classification(train_n, class_num, shape, seed)
+        x_te, y_te = synthetic_classification(test_n, class_num, shape, seed + 1)
+    return x_tr, y_tr, x_te, y_te, class_num, task, "synthetic stand-in"
 
 
 def _registry_dataset(args, device: torch.device) -> FederatedDataset:
@@ -349,13 +440,163 @@ def _registry_dataset(args, device: torch.device) -> FederatedDataset:
         packed_test=None,
         client_num=registry_size,
         task="classification",
+        source="client registry (cohorts made on demand)",
     )
 
 
-def _has_local_copy(args, name: str) -> bool:
-    cache = getattr(args, "data_cache_dir", None)
-    d = os.path.join(cache, name) if cache else None
-    return bool(d) and os.path.isdir(d) and bool(os.listdir(d))
+def _fedprox_clients(args, client_num: int, seed: int):
+    """FedProx's synthetic(alpha, beta) federation, 80/20 per client."""
+    xs, ys = synthetic_fedprox(
+        num_clients=client_num,
+        alpha=float(getattr(args, "synthetic_alpha", 1.0)),
+        beta=float(getattr(args, "synthetic_beta", 1.0)),
+        input_dim=int(getattr(args, "input_dim", 60)),
+        num_classes=int(getattr(args, "output_dim", 10)),
+        seed=seed,
+    )
+    xs_tr, ys_tr, xs_te, ys_te = [], [], [], []
+    for x, y in zip(xs, ys):
+        k = max(1, int(0.8 * len(x)))
+        xs_tr.append(x[:k])
+        ys_tr.append(y[:k])
+        xs_te.append(x[k:])
+        ys_te.append(y[k:])
+    return xs_tr, ys_tr, xs_te, ys_te
+
+
+def _natural_clients(args, name: str, fed, client_num: int):
+    """A file federation's users onto ``client_num`` clients: folded
+    round-robin, or the config capped to the users there are."""
+    from .ingest import regroup_clients
+
+    _, class_num, _, _, task = _DATASET_META[name]
+    xs_tr, ys_tr, xs_te, ys_te = fed
+    if task == "tag_prediction" and xs_tr:
+        # the model factory sizes the input layer off args
+        args.input_dim = int(xs_tr[0].shape[-1])
+    n_users = len(xs_tr)
+    if client_num > n_users:
+        logging.warning(
+            "dataset %s has %d users < client_num_in_total=%d; capping",
+            name, n_users, client_num,
+        )
+        client_num = n_users
+        args.client_num_in_total = n_users
+        args.client_num_per_round = min(int(args.client_num_per_round), n_users)
+    xs_tr, ys_tr = regroup_clients(xs_tr, ys_tr, client_num)
+    xs_te, ys_te = regroup_clients(xs_te, ys_te, client_num)
+    if task == "classification":
+        observed = max((int(y.max()) for y in ys_tr + ys_te if len(y)), default=-1) + 1
+        class_num = _widen_class_num(name, class_num, observed)
+    return xs_tr, ys_tr, xs_te, ys_te, class_num, task, client_num
+
+
+def _partitioned_clients(args, client_num: int, seed: int):
+    """Global arrays (``_raw_data``) split over clients: train by
+    ``homo`` or LDA (on the dominant tag for multi-hot labels), test
+    sharded uniformly."""
+    name = str(getattr(args, "dataset", "synthetic")).lower()
+    x_tr, y_tr, x_te, y_te, class_num, task, source = _raw_data(args)
+    if task == "classification":
+        observed = int(max(y_tr.max(initial=-1), y_te.max(initial=-1))) + 1
+        class_num = _widen_class_num(name, class_num, observed)
+    if task == "tag_prediction":
+        # the model factory sizes the input layer off args
+        args.input_dim = int(x_tr.shape[-1])
+    labels = np.argmax(y_tr, axis=-1) if task == "tag_prediction" else y_tr
+    idx_map = _partition(args, labels, client_num, class_num, seed)
+    xs_tr = [x_tr[idx_map[i]] for i in range(client_num)]
+    ys_tr = [y_tr[idx_map[i]] for i in range(client_num)]
+    te_map = homo_partition(len(y_te), client_num, seed + 1)
+    xs_te = [x_te[te_map[i]] for i in range(client_num)]
+    ys_te = [y_te[te_map[i]] for i in range(client_num)]
+    return xs_tr, ys_tr, xs_te, ys_te, class_num, task, source
+
+
+def _pack_federation(args, xs_tr, ys_tr, xs_te, ys_te, class_num: int, task: str,
+                     client_num: int, device: torch.device, source: str) -> FederatedDataset:
+    """Per-client host arrays packed on the host and moved to ``device``:
+    the packed federation, its global views and counts, bitwise the JAX
+    package's."""
+    if task == "nwp":
+        x_dtype = torch.int32
+    elif str(getattr(args, "dtype", "float32") or "float32") == "bfloat16":
+        x_dtype = torch.bfloat16
+    else:
+        x_dtype = torch.float32
+    batch_size = int(args.batch_size)
+    waste_cap = float(getattr(args, "packing_waste_cap", 4.0) or 4.0)
+    sizes = [len(x) for x in xs_tr]
+    kw = dict(x_dtype=x_dtype, device=device)
+    packed_train, num_samples = pack_clients(
+        xs_tr, ys_tr, batch_size,
+        num_batches=bucket_num_batches(sizes, batch_size, waste_cap=waste_cap), **kw)
+    packed_test, _ = pack_clients(
+        xs_te, ys_te, batch_size,
+        num_batches=bucket_num_batches([len(x) for x in xs_te], batch_size,
+                                       waste_cap=waste_cap), **kw)
+    y_te_all = np.concatenate(ys_te)
+    return FederatedDataset(
+        train_data_num=int(sum(sizes)),
+        test_data_num=int(len(y_te_all)),
+        train_data_global=pack_one(np.concatenate(xs_tr), np.concatenate(ys_tr),
+                                   batch_size, **kw),
+        test_data_global=pack_one(np.concatenate(xs_te), y_te_all, batch_size, **kw),
+        train_data_local_num_dict={i: int(s) for i, s in enumerate(sizes)},
+        train_data_local_dict={i: _client_view(packed_train, i) for i in range(client_num)},
+        test_data_local_dict={i: _client_view(packed_test, i) for i in range(client_num)},
+        class_num=class_num,
+        packed_train=packed_train,
+        packed_num_samples=num_samples.cpu().numpy(),
+        packed_test=packed_test,
+        client_num=client_num,
+        task=task,
+        source=source,
+    )
+
+
+def _load_vfl_dataset(args, vfl_dir: str, client_num: int, seed: int,
+                      device: torch.device) -> FederatedDataset:
+    """Party CSVs -> the horizontal view: the parties' columns side by
+    side, split train/test by ``vfl_train_test_split``, ``homo``
+    partitioned; the per-party arrays ride on ``vfl_parties``."""
+    from .ingest import load_vfl_party_csvs, vfl_train_test_split
+
+    feats, labels = load_vfl_party_csvs(vfl_dir)
+    class_num = int(labels.max()) + 1
+    f_tr, y_tr, f_te, y_te = vfl_train_test_split(feats, labels, seed)
+    x_tr = np.concatenate([f.reshape(len(f), -1) for f in f_tr], axis=1)
+    x_te = np.concatenate([f.reshape(len(f), -1) for f in f_te], axis=1)
+    args.input_dim = int(x_tr.shape[1])
+    idx_map = homo_partition(len(y_tr), client_num, seed)
+    te_map = homo_partition(len(y_te), client_num, seed + 1)
+    batch_size = int(args.batch_size)
+    xs_tr = [x_tr[idx_map[i]] for i in range(client_num)]
+    xs_te = [x_te[te_map[i]] for i in range(client_num)]
+    sizes = [len(x) for x in xs_tr]
+    packed_train, num_samples = pack_clients(
+        xs_tr, [y_tr[idx_map[i]] for i in range(client_num)], batch_size,
+        num_batches=bucket_num_batches(sizes, batch_size), device=device)
+    packed_test, _ = pack_clients(
+        xs_te, [y_te[te_map[i]] for i in range(client_num)], batch_size,
+        num_batches=bucket_num_batches([len(x) for x in xs_te], batch_size), device=device)
+    return FederatedDataset(
+        train_data_num=int(len(y_tr)),
+        test_data_num=int(len(y_te)),
+        train_data_global=pack_one(x_tr, y_tr, batch_size, device=device),
+        test_data_global=pack_one(x_te, y_te, batch_size, device=device),
+        train_data_local_num_dict={i: int(s) for i, s in enumerate(sizes)},
+        train_data_local_dict={i: _client_view(packed_train, i) for i in range(client_num)},
+        test_data_local_dict={i: _client_view(packed_test, i) for i in range(client_num)},
+        class_num=class_num,
+        packed_train=packed_train,
+        packed_num_samples=num_samples.cpu().numpy(),
+        packed_test=packed_test,
+        client_num=client_num,
+        task="classification",
+        vfl_parties=(feats, labels),
+        source=f"VFL party CSVs under {vfl_dir}",
+    )
 
 
 def load(args, device: DeviceLike = "cuda") -> FederatedDataset:
@@ -367,34 +608,40 @@ def load(args, device: DeviceLike = "cuda") -> FederatedDataset:
         # the planet-scale registry (scale/): NEVER build per-client
         # state proportional to the registered population
         return _registry_dataset(args, dev)
-    if name.startswith("synthetic"):
-        raise NotImplementedError(
-            f"dataset {name!r}: the FedProx synthetic generator arrives with "
-            f"{_DATA_SLICE}; ported: the classification and next-token stand-ins "
-            f"{sorted(n for n, m in _DATASET_META.items() if m[4] in ('classification', 'nwp'))}"
-        )
-    if name not in _DATASET_META:
-        raise ValueError(f"unknown dataset {name!r}")
-    task = _DATASET_META[name][4]
-    if task not in ("classification", "nwp"):
-        raise NotImplementedError(
-            f"dataset {name!r} (task {task!r}): only the classification and "
-            "next-token stand-ins are ported; tag and segmentation data "
-            "arrive with the slices that train those models (ROADMAP.md, queue A)"
-        )
-    if _has_local_copy(args, name):
-        raise NotImplementedError(
-            f"dataset {name!r}: a local copy under data_cache_dir="
-            f"{args.data_cache_dir!r} would be used by the JAX package; "
-            f"reading real files arrives with {_DATA_SLICE}"
-        )
+    client_num = int(args.client_num_in_total)
+    seed = int(getattr(args, "random_seed", 0))
     if getattr(args, "poison_type", None):
+        raise NotImplementedError(f"poison_type: poisoned worlds arrive with {_ROBUST_SLICE}")
+    cache = getattr(args, "data_cache_dir", None)
+    if cache:
+        from .ingest import vfl_party_csvs_available
+
+        vfl_dir = os.path.join(cache, name)
+        if vfl_party_csvs_available(vfl_dir):
+            # party CSVs define the data whatever the dataset's name
+            return _load_vfl_dataset(args, vfl_dir, client_num, seed, dev)
+    if name.startswith("synthetic"):
+        xs_tr, ys_tr, xs_te, ys_te = _fedprox_clients(args, client_num, seed)
+        class_num, task = int(getattr(args, "output_dim", 10)), "classification"
+        source = "FedProx synthetic(alpha, beta)"
+    elif name not in _DATASET_META:
+        raise ValueError(f"unknown dataset {name!r}")
+    elif _DATASET_META[name][4] == "segmentation":
         raise NotImplementedError(
-            "poison_type: poisoned worlds arrive with the robustness planes "
-            "(ROADMAP.md, queue A item 5)"
+            f"dataset {name!r} (task 'segmentation'): segmentation data arrives "
+            f"with the segmentation models, {_ALGORITHMS_SLICE}"
         )
-    build = _host_synth_sequences if task == "nwp" else _device_synth_classification
-    return build(
-        args, name, int(args.client_num_in_total), int(args.batch_size),
-        int(getattr(args, "random_seed", 0)), dev,
-    )
+    elif (fed := _try_load_federated(name, cache, args)) is not None:
+        # naturally federated: the files' per-user split is the partition
+        fed, source = fed
+        xs_tr, ys_tr, xs_te, ys_te, class_num, task, client_num = _natural_clients(
+            args, name, fed, client_num)
+    else:
+        dev_ds = _device_synth_classification(
+            args, name, client_num, int(args.batch_size), seed, dev)
+        if dev_ds is not None:
+            return dev_ds
+        xs_tr, ys_tr, xs_te, ys_te, class_num, task, source = _partitioned_clients(
+            args, client_num, seed)
+    return _pack_federation(args, xs_tr, ys_tr, xs_te, ys_te, class_num, task,
+                            client_num, dev, source)

@@ -1,7 +1,16 @@
-"""Synthetic stand-ins for the classification and sequence datasets.
+"""Synthetic datasets: the FedProx set and the stand-ins.
 
-The port of the classification and sequence parts of
-``fedml_tpu/data/synthetic.py``: class-conditional Gaussian blobs (each
+The port of ``fedml_tpu/data/synthetic.py``:
+
+- :func:`synthetic_fedprox` is FedProx's synthetic(alpha, beta)
+  federation (per-client logistic models from a hierarchical Gaussian),
+  host numpy, bitwise the JAX package's for the same seed;
+- :func:`synthetic_multilabel` is the tag-prediction stand-in (multi-hot
+  tags, features the sum of the tags' embeddings plus noise), host
+  numpy, bitwise the JAX package's for the same seed.
+
+The stand-ins for the classification and sequence datasets are
+class-conditional Gaussian blobs (each
 class has a mean vector, an example is mean + noise) and Markov-chain
 token streams, shaped like the real dataset, so that models and their
 costs are those of the real one and no download is needed.
@@ -24,13 +33,46 @@ costs are those of the real one and no download is needed.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, get_device
 from ..ops.synth_features import synth_features
+
+
+def synthetic_fedprox(
+    num_clients: int = 30,
+    alpha: float = 1.0,
+    beta: float = 1.0,
+    input_dim: int = 60,
+    num_classes: int = 10,
+    seed: int = 0,
+    min_samples: int = 20,
+    max_samples: int = 400,
+) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+    """FedProx synthetic(alpha, beta): W_k ~ N(u_k, 1), u_k ~ N(0, alpha);
+    x_k ~ N(v_k, Sigma), v_k ~ N(B_k, 1), B_k ~ N(0, beta); lognormal
+    client sizes. Returns per-client (x, y) lists."""
+    rng = np.random.RandomState(seed)
+    sizes = np.clip(
+        rng.lognormal(4, 2, num_clients).astype(int), min_samples, max_samples
+    )
+    diag = np.array([(j + 1) ** -1.2 for j in range(input_dim)])
+    xs, ys = [], []
+    for k in range(num_clients):
+        u_k = rng.normal(0, alpha)
+        b_k = rng.normal(0, beta)
+        v_k = rng.normal(b_k, 1, input_dim)
+        W = rng.normal(u_k, 1, (input_dim, num_classes))
+        b = rng.normal(u_k, 1, num_classes)
+        x = rng.multivariate_normal(v_k, np.diag(diag), sizes[k]).astype(np.float32)
+        logits = x @ W + b
+        y = np.argmax(logits, axis=1).astype(np.int64)
+        xs.append(x)
+        ys.append(y)
+    return xs, ys
 
 
 def _class_means(num_classes: int, dim: int, means_seed: int) -> np.ndarray:
@@ -131,3 +173,30 @@ def synthetic_classification_device_per_client(
     x = synth_features(y.reshape(C, -1), means, seeds, float(sigma), dtype or torch.float32)
     return x.reshape(tuple(y.shape) + tuple(feature_shape))
 
+
+def synthetic_multilabel(
+    n_samples: int,
+    num_tags: int,
+    feature_shape: Tuple[int, ...],
+    seed: int = 0,
+    tags_per_sample: int = 3,
+    sigma: float = 0.5,
+    means_seed: int = 1234,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Multi-hot tag-prediction stand-in (stackoverflow_lr shape): each
+    sample carries 1..tags_per_sample tags; features are the sum of the
+    active tags' embedding vectors + noise, so a linear sigmoid model
+    is learnable. Returns (x [N, *shape], y multi-hot [N, num_tags])."""
+    rng = np.random.RandomState(seed)
+    dim = int(np.prod(feature_shape))
+    emb = np.random.RandomState(means_seed).normal(
+        0, 1, (num_tags, dim)
+    ).astype(np.float32)
+    y = np.zeros((n_samples, num_tags), np.float32)
+    x = sigma * rng.normal(0, 1, (n_samples, dim)).astype(np.float32)
+    counts = rng.randint(1, tags_per_sample + 1, n_samples)
+    for i in range(n_samples):
+        tags = rng.choice(num_tags, counts[i], replace=False)
+        y[i, tags] = 1.0
+        x[i] += emb[tags].sum(axis=0)
+    return x.reshape((n_samples,) + feature_shape), y

@@ -1,7 +1,8 @@
 """Model hub (port of ``fedml_tpu/models/__init__.py``).
 
 ``create(args, output_dim, device=...)`` builds the model ``args.model``
-names on ``device``. Ported so far: ``lr``, ``mlp``, ``cnn`` (the FEMNIST
+names on ``device``. Ported so far: ``lr``, ``mlp`` (multi-label tag
+prediction for ``stackoverflow_lr``), ``cnn`` (the FEMNIST
 CNN, or the CIFAR one for RGB datasets), the GroupNorm CIFAR zoo
 (``resnet18``/``resnet18_gn``, ``resnet56``/``resnet``, ``vgg11``-``19``,
 ``mobilenet``, ``mobilenet_v3``, ``efficientnet-b0``-``b4``),
@@ -80,11 +81,6 @@ def create(args, output_dim: int, device: DeviceLike = "cuda") -> FedModel:
     dev = get_device(device)
     name = str(getattr(args, "model", "lr")).lower()
     ds = str(getattr(args, "dataset", "synthetic")).lower()
-    if ds == "stackoverflow_lr" and name in ("lr", "mlp"):
-        raise NotImplementedError(
-            "tag prediction (stackoverflow_lr) is not ported yet; it arrives "
-            "with the data-ingestion slice (ROADMAP.md, queue A item 6)"
-        )
     if name in ("lr", "mlp"):
         shape = _example_shape(args)
         in_dim = math.prod(shape)
@@ -93,7 +89,11 @@ def create(args, output_dim: int, device: DeviceLike = "cuda") -> FedModel:
             if name == "lr"
             else MLP(in_dim, int(getattr(args, "hidden_dim", 64)), output_dim)
         )
-        return FedModel(name=name, module=module.to(dev), example_shape=shape)
+        # multi-label tag prediction pairs the same modules with the
+        # sigmoid cross-entropy (the reference's model hub: lr on
+        # stackoverflow_lr)
+        task = "tag_prediction" if ds == "stackoverflow_lr" else "classification"
+        return FedModel(name=name, module=module.to(dev), task=task, example_shape=shape)
     if name == "cnn":
         if ds in _RGB:
             shape = _example_shape(args, (32, 32, 3))

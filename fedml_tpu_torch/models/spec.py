@@ -120,10 +120,21 @@ class FedModel:
 
     def metrics_from_sums(self, sums: Dict[str, float]) -> Dict[str, float]:
         """Summed ``loss_sum`` / ``correct`` / ``count`` (tensors or host
-        floats) -> mean ``loss``, ``acc`` and the ``count``."""
+        floats) -> mean ``loss``, ``acc`` and the ``count``; for tag
+        prediction, ``precision`` and ``recall`` from the summed
+        ``tp``/``fp``/``fn`` and their F1 as ``acc``."""
         count = float(sums["count"])
-        return {
+        out = {
             "loss": float(sums["loss_sum"]) / max(count, 1.0),
             "count": count,
-            "acc": float(sums["correct"]) / max(count, 1.0),
         }
+        if self.task == "tag_prediction" and "tp" in sums:
+            tp, fp, fn = float(sums["tp"]), float(sums["fp"]), float(sums["fn"])
+            prec = tp / max(tp + fp, 1.0)
+            rec = tp / max(tp + fn, 1.0)
+            out["precision"] = prec
+            out["recall"] = rec
+            out["acc"] = 2 * prec * rec / max(prec + rec, 1e-12)
+        else:
+            out["acc"] = float(sums["correct"]) / max(count, 1.0)
+        return out

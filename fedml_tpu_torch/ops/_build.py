@@ -171,8 +171,12 @@ class Kernel:
         import torch
 
         fn = self._bind()
-        with torch.cuda.device(device):
-            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        if device.index is None or device.index == torch.cuda.current_device():
+            rc = fn(*args, stream)
+        else:  # a launch goes to the current device: make it the tensors'
+            with torch.cuda.device(device):
+                rc = fn(*args, stream)
         if rc != 0:
             raise RuntimeError(
                 f"{self.name} launch failed: CUDA error {rc} ({self._err(rc).decode()})"

@@ -14,8 +14,8 @@ only each round's cohort:
          group's client axis, as the stock round trains a cohort)
       -> per-(group, edge) weighted partial sums, folded through the
          two-tier ``EdgeAggregationTree`` (``edge_num >= 2``) or a flat
-         ``StreamingAccumulator`` — one ``ops/exact_fold`` launch a fold,
-         bit-identical either way
+         ``StreamingAccumulator`` — one ``ops/exact_fold`` launch a group
+         and one for the tree's root merge, bit-identical either way
       -> O(model) finalize (the limbs collapse on the host).
 
 Host memory a round is O(cohort x client data), independent of the
@@ -303,13 +303,14 @@ class PlanetRoundLoop:
                 # deliberate O(E)-scalar fetch: the per-edge fold weights
                 # drive the host's fold bookkeeping (total_w is an exact
                 # python-float sum); the model-sized terms stay on the device
-                edge_w = edge_w.double().cpu().numpy()
-                for e in range(E):
-                    if edge_w[e] <= 0.0:
-                        continue
-                    target = acc.acc(e) if tree is not None else acc
-                    target.fold_weighted_term(terms[e], float(edge_w[e]))
-                    round_folds += 1
+                edge_w = edge_w.double().cpu().numpy().tolist()
+                # the group's edges with weight > 0, in edge order: one
+                # fold launch (the tree: each into its edge; flat: all
+                # into the one accumulator)
+                if tree is not None:
+                    round_folds += tree.fold_edge_terms(terms, edge_w)
+                else:
+                    round_folds += acc.fold_weighted_terms(terms, edge_w)
                 summed = m if summed is None else {k: summed[k] + m[k] for k in summed}
             if tree is not None:  # the root merges each edge that was folded into
                 round_folds += sum(1 for e in range(E) if tree.acc(e).count)

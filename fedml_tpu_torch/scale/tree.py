@@ -1,7 +1,11 @@
 """Two-tier edge-aggregator tree, bit-identical to flat aggregation.
 
 The port of ``fedml_tpu/scale/tree.py`` over the port's
-``StreamingAccumulator`` (flat limb buffers, one fold launch per hop).
+``StreamingAccumulator``. The E edges are one ``AccumulatorBank`` (their
+limbs the rows of one ``[E, 3, N]`` f32 buffer), so a group's edge terms
+fold in one launch (``fold_edge_terms``) and the root merges every
+touched edge in one launch of its 3·E' limb rows (``finalize``), each
+bitwise the per-edge folds and merges it replaces.
 The cross-silo server's use of it arrives with ``cross_silo/``
 (ROADMAP.md, queue A item 11). The text below is the JAX package's own.
 
@@ -30,11 +34,11 @@ Used two ways:
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
-from ..core.aggregation import StreamingAccumulator
+from ..core.aggregation import AccumulatorBank, StreamingAccumulator
 from ..core.scheduler import assign_by_load as _assign_by_load
 from ..core.topology import EdgeTreeTopology
 
@@ -63,9 +67,7 @@ class EdgeAggregationTree:
         self.topology.generate_topology()
         self.edge_num = int(edge_num)
         self._template = template
-        self._edges: List[StreamingAccumulator] = [
-            StreamingAccumulator(template) for _ in range(self.edge_num)
-        ]
+        self._edges = AccumulatorBank(template, self.edge_num)
         self._assignment = dict(assignment) if assignment else None
 
     @staticmethod
@@ -93,38 +95,36 @@ class EdgeAggregationTree:
         vocabulary."""
         return self._edges[self.edge_of(index)]
 
+    def fold_edge_terms(self, terms: torch.Tensor, weights: Sequence[float]) -> int:
+        """Fold row ``e`` of ``terms`` ``[E, N]`` (an already-weighted
+        partial sum) into edge ``e``'s accumulator for every edge whose
+        weight in ``weights`` (E host floats) is > 0, in one launch:
+        bitwise ``acc(e).fold_weighted_term(terms[e], weights[e])`` for
+        each such edge. Returns the edges folded."""
+        return self._edges.fold_terms(terms, weights)
+
     # -- aggregate state ----------------------------------------------
     @property
     def count(self) -> int:
-        return sum(a.count for a in self._edges)
+        return self._edges.count
 
     @property
     def total_w(self) -> float:
-        return float(sum(a.total_w for a in self._edges))
+        return self._edges.total_w
 
     def running_mean(self) -> Optional[Params]:
         """Top-limb mean over every edge (anomaly-screen scoring aid,
         same contract as ``StreamingAccumulator.running_mean``)."""
-        if self.count == 0:
-            return None
-        total = None
-        for a in self._edges:
-            if a.count == 0:
-                continue
-            total = a._limbs[0] if total is None else total + a._limbs[0]
-        w = torch.tensor(self.total_w, dtype=torch.float32)
-        return {k: v / w for k, v in self._edges[0]._spec.views(total).items()}
+        return self._edges.running_mean()
 
     def finalize(self) -> Params:
         """Root fold: merge every non-empty edge expansion into one
-        root accumulator and finalize — bit-identical to the flat fold
-        of the same uploads (see module docstring)."""
+        root accumulator, in edge order and in one launch, and finalize
+        — bit-identical to the flat fold of the same uploads (see module
+        docstring)."""
         root = StreamingAccumulator(self._template)
-        for acc in self._edges:
-            if acc.count:
-                root.merge(acc)
+        self._edges.merge_into(root)
         return root.finalize()
 
     def reset(self) -> None:
-        for acc in self._edges:
-            acc.reset()
+        self._edges.reset()

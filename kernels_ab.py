@@ -8,7 +8,7 @@ commit unpacked by ``git archive`` into a gitignored directory); its
 given and then back (ROOT1 .. ROOTn, ROOTn .. ROOT1), ``--rounds`` times,
 so that a drift of the card's clock over the call shows as a drift and
 not as a difference between roots. Every run times the kernels named by
-``--kernel`` (all three by default) through their wrappers, with CUDA
+``--kernel`` (all of them by default) through their wrappers, with CUDA
 events around back-to-back calls on the same seeded inputs:
 
 - ``fwd_bf16``: the flash forward at the transformer-training path's
@@ -18,7 +18,22 @@ events around back-to-back calls on the same seeded inputs:
   calls after 2), with SDPA's backward beside it;
 - ``synth``: the keyed feature kernel (K2) at the planet path's group
   ``[4096, 128, 60]`` and at ``[64, 512, 784]`` f32 (200 calls after 20:
-  a call is ~0.1 ms, and shorter windows read the card's clock ramp).
+  a call is ~0.1 ms, and shorter windows read the card's clock ramp);
+- ``fold``: the exact fold (K1) at ResNet-18-GN's 11,173,962 params with
+  one term and three, its weighted mean at ``[16, 11,173,962]`` f32 and
+  ``[10, 8,495,194]`` bf16, and the planet path's two hops at its 4 edges
+  and 610 params: a group's edge terms (3 edges with weight) and the
+  root merge of 4 edges' limbs, also at 11,173,962 params. A root whose
+  wrapper has the one-launch calls (``fold_edges``, ``fold_set``) runs
+  each hop as one call; an older root runs it as its loop did, one
+  ``fold`` call an edge. Each is timed by events (20 calls after 2, 200
+  after 20 below 16 MB) and by the profiler's device time of the fold's
+  device kernels over as many calls;
+- ``planet``: the planet configuration
+  (``fedml_tpu_torch/configs/fedavg_planet_lr.yaml``: a 1,000,000-client
+  registry, 10,000 a round, 4 edges) through ``run_simulation`` for 4
+  rounds: rounds 1-3 on the card's clock as rounds/s, and the exact
+  fold's launches a round (every fold entry the root's wrapper has).
 
     python3 kernels_ab.py ROOT [ROOT ...] [--kernel fwd_bf16 --kernel ...]
         [--rounds 2] [--sustain SECONDS]
@@ -41,7 +56,7 @@ import subprocess
 import sys
 import time
 
-KERNELS = ("fwd_bf16", "bwd_f32", "synth")
+KERNELS = ("fwd_bf16", "bwd_f32", "synth", "fold", "planet")
 FWD_SHAPE = (32, 4096, 8, 64)
 BWD_SHAPE = (8, 4096, 8, 64)
 SYNTH_SHAPES = ((4096, 128, 60), (64, 512, 784))
@@ -146,7 +161,111 @@ def time_synth(out: dict, sustain: float) -> None:
             out[f"{key}_sustained"] = sustained(call, sustain)
 
 
-TIMERS = {"fwd_bf16": time_fwd_bf16, "bwd_f32": time_bwd_f32, "synth": time_synth}
+def device_ms(fn, iters: int, names) -> float:
+    """Mean device time a call of ``fn`` of the device kernels whose names
+    contain one of ``names``, under torch.profiler over ``iters`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and any(n in e.name for n in names)]
+    if not us:
+        raise SystemExit(f"kernels_ab: the profiler saw none of {names}")
+    return sum(us) / iters / 1e3
+
+
+def time_fold(out: dict, sustain: float) -> None:
+    import torch
+
+    from fedml_tpu_torch.ops import exact_fold as ef
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    names = ("fold_kernel", "weighted_mean_kernel")
+    one_launch = hasattr(ef, "fold_edges")
+
+    def spread(shape):
+        m = torch.rand(shape, generator=gen, device="cuda") + 1.0
+        e = torch.randint(-30, 31, shape, generator=gen, device="cuda").float()
+        return m * torch.exp2(e)
+
+    def record(key, fn, nbytes, *outputs):
+        iters, warm = (200, 20) if nbytes < 2**24 else (20, 2)
+        out[f"{key}_finite"] = finite(*outputs)
+        out[f"{key}_ms"] = timed(fn, iters, warm)
+        out[f"{key}_device_ms"] = device_ms(fn, iters, names)
+
+    n = 11_173_962
+    for k in (1, 3):
+        limbs, terms = spread((3, n)), spread((k, n))
+        record(f"fold_{n}_k{k}", lambda: ef.fold(limbs, terms), (6 + k) * n * 4, limbs)
+        del limbs, terms
+    for c, m, dtype in ((16, n, torch.float32), (10, 8_495_194, torch.bfloat16)):
+        x, w = spread((c, m)).to(dtype), torch.full((c,), 1.0 / c, device="cuda")
+        key = f"mean_{c}x{m}_{str(dtype).split('.')[-1]}"
+        record(key, lambda: ef.MEAN_KERNEL(x, w), (c + 1) * m * x.element_size(),
+               ef.MEAN_KERNEL(x, w))
+        del x
+    out["fold_one_launch_entries"] = one_launch
+    for m in (610, n):
+        edges, terms, root = spread((4, 3, m)), spread((4, m)), spread((3, m))
+        hit = (0, 1, 3)
+        if one_launch:
+            group = lambda: ef.fold_edges(edges, terms, 0b1011)  # noqa: E731
+            merge = lambda: ef.fold_set(root, edges, 0b1111)  # noqa: E731
+        else:
+            def group():
+                for e in hit:
+                    ef.fold(edges[e], terms[e])
+
+            def merge():
+                for e in range(4):
+                    ef.fold(root, edges[e])
+        if m == 610:
+            record(f"planet_group_fold_{m}", group, 3 * 7 * m * 4, edges)
+        record(f"planet_root_merge_{m}", merge, (6 + 12) * m * 4, root)
+        del edges, terms, root
+        torch.cuda.empty_cache()
+
+
+def time_planet(out: dict, sustain: float) -> None:
+    import tempfile
+
+    import torch
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.ops import _build
+    from fedml_tpu_torch.ops import exact_fold as ef
+
+    rounds = 4
+    args = load_arguments(os.path.join("fedml_tpu_torch", "configs", "fedavg_planet_lr.yaml"))
+    args.comm_round, args.frequency_of_the_test, args.log_metrics = rounds, rounds - 1, False
+    folds = [k for k in vars(ef).values()
+             if isinstance(k, _build.Kernel) and k.name.startswith("exact_fold")]
+    with tempfile.TemporaryDirectory(prefix="planet_ab_") as tmp:
+        args.metrics_jsonl_path = os.path.join(tmp, "metrics.jsonl")
+        args._validate()
+        for k in folds:
+            k.reset_launches()
+        fedml_tpu_torch.run_simulation(device="cuda", args=args)
+        torch.cuda.synchronize()
+        with open(args.metrics_jsonl_path) as f:
+            pipe = [json.loads(line) for line in f if '"pipeline"' in line][-1]
+    spans = pipe["round_spans_s"]
+    out["planet_rounds_per_s"] = (rounds - 1) / (spans[-1][1] - spans[1][0])
+    out["planet_fold_launches_per_round"] = sum(k.launches for k in folds) / rounds
+    out["planet_finite"] = True
+
+
+TIMERS = {"fwd_bf16": time_fwd_bf16, "bwd_f32": time_bwd_f32, "synth": time_synth,
+          "fold": time_fold, "planet": time_planet}
 
 
 def worker(root: str, kernels: list, sustain: float) -> dict:
@@ -211,7 +330,7 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("roots", nargs="+")
     p.add_argument("--kernel", action="append", choices=KERNELS,
-                   help="a kernel to time (repeatable; all three by default)")
+                   help="a kernel (or the planet path) to time (repeatable; all by default)")
     p.add_argument("--rounds", type=int, default=2)
     p.add_argument("--sustain", type=float, default=0.0,
                    help="also launch back to back this many seconds, sampling the SM "
@@ -244,7 +363,7 @@ def main() -> int:
     for rec in runs:
         mine = summary.setdefault(rec["root"], {})
         for key, value in rec.items():
-            if key.endswith("_ms"):
+            if key.endswith(("_ms", "_per_s", "_per_round")):
                 mine.setdefault(key, []).append(value)
             elif key.endswith("_sustained"):
                 mine.setdefault(f"{key}_ms", []).append(value["sustained_ms"])

@@ -22,8 +22,10 @@ import pytest
 import torch
 
 from fedml_tpu.core import aggregation as jagg
+from fedml_tpu.scale import EdgeAggregationTree as JaxTree
 from fedml_tpu_torch.core import aggregation as agg
 from fedml_tpu_torch.ops import exact_fold
+from fedml_tpu_torch.scale import EdgeAggregationTree
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CSRC = Path(exact_fold.__file__).resolve().parent / "csrc"
@@ -238,16 +240,140 @@ def test_empty_limb_set_merges_as_a_no_op():
 
 
 def test_cpu_tensors_take_the_plain_version_and_the_kernel_refuses_them():
-    for kernel in (exact_fold.FOLD_KERNEL, exact_fold.MEAN_KERNEL):
+    kernels = (exact_fold.FOLD_KERNEL, exact_fold.MEAN_KERNEL)
+    for kernel in kernels:
         kernel.reset_launches()
     limbs, x = torch.zeros(3, 8), torch.ones(2, 8)
     exact_fold.fold(limbs, x)
     assert exact_fold.weighted_mean(x, torch.tensor([0.25, 0.75])).tolist() == [1.0] * 8
-    assert exact_fold.FOLD_KERNEL.launches == exact_fold.MEAN_KERNEL.launches == 0
+    exact_fold.fold_edges(torch.zeros(2, 3, 8), x, 0b11)
+    exact_fold.fold_set(limbs, x.reshape(2, 1, 8), 0b10)
+    assert all(kernel.launches == 0 for kernel in kernels)
     with pytest.raises(ValueError, match="one CUDA device"):
-        exact_fold.FOLD_KERNEL(limbs, x)
+        exact_fold.FOLD_KERNEL(limbs, x.reshape(1, 2, 8), 1)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        exact_fold.FOLD_KERNEL(torch.zeros(2, 3, 8), x, 1, per_edge=True)
     with pytest.raises(ValueError, match="one CUDA device"):
         exact_fold.MEAN_KERNEL(x, torch.ones(2))
+
+
+# -- one launch a group, one for the root merge ---------------------------
+def _edge_case(seed: int, edges: int = 5, n: int = 1031):
+    rng = np.random.RandomState(seed)
+    start = np.stack([_spread(rng, (3, n), cancel=False) for _ in range(edges)])
+    start[:, 1] *= np.float32(2.0**-24)
+    start[:, 2] *= np.float32(2.0**-48)
+    return torch.tensor(start), torch.tensor(_spread(rng, (edges, n)))
+
+
+@pytest.mark.parametrize("mask", [0b11111, 0b10110, 0b00001, 0])
+def test_edge_fold_is_bitwise_a_fold_per_edge_and_skips_the_unmasked(mask):
+    start, terms = _edge_case(mask)
+    got = start.clone()
+    exact_fold.fold_edges(got, terms, mask)
+    for e in range(terms.shape[0]):
+        want = start[e].clone()
+        if mask >> e & 1:
+            exact_fold.fold(want, terms[e])
+        assert torch.equal(got[e], want), e
+    assert exact_fold.edge_mask(e for e in range(5) if mask >> e & 1) == mask
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+def test_set_fold_is_bitwise_the_folds_of_its_rows_in_edge_order(rows):
+    start, _ = _edge_case(11, edges=1)
+    src, _ = _edge_case(12 + rows)  # [E, 3, N]: a tree's limbs
+    src = src[:, :rows]
+    mask = 0b11011
+    got = start[0].clone()
+    exact_fold.fold_set(got, src, mask)
+    want = start[0].clone()
+    for e in range(src.shape[0]):
+        if mask >> e & 1:
+            for r in range(rows):
+                exact_fold.fold(want, src[e, r])
+    assert torch.equal(got, want)
+
+
+def test_root_merge_in_one_launch_is_bitwise_a_merge_per_edge():
+    _, tt = _template("float32")
+    uploads = _uploads(9, seed=21)
+    tree, bank = EdgeAggregationTree(tt, 4), agg.AccumulatorBank(tt, 4)
+    edges = [agg.StreamingAccumulator(tt) for _ in range(4)]
+    for i, (theta, w) in enumerate(uploads):
+        if i % 4 == 2:  # edge 2 stays empty: the merge skips it
+            continue
+        for acc in (tree.acc_for(i), bank[i % 4], edges[i % 4]):
+            acc.fold(_port_tree(theta, tt), w)
+    one = agg.StreamingAccumulator(tt)
+    assert bank.merge_into(one) == 3
+    each = agg.StreamingAccumulator(tt)
+    for acc in edges:
+        if acc.count:
+            each.merge(acc)
+    assert torch.equal(one._limbs, each._limbs)
+    assert (one.total_w, one.count) == (each.total_w, each.count)
+    got, want = tree.finalize(), each.finalize()
+    assert all(torch.equal(got[k], want[k]) for k in tt)
+
+
+def test_group_folds_in_one_launch_are_bitwise_the_folds_per_edge():
+    _, tt = _template("float32")
+    rng = np.random.RandomState(31)
+    tree, flat = EdgeAggregationTree(tt, 4), agg.StreamingAccumulator(tt)
+    ref_tree, ref_flat = EdgeAggregationTree(tt, 4), agg.StreamingAccumulator(tt)
+    jtree, jflat = JaxTree(_template("float32")[0], 4), jagg.StreamingAccumulator(
+        _template("float32")[0])
+    spec = flat._spec
+    for group in range(3):
+        terms = torch.tensor(_spread(rng, (4, spec.numel)))
+        weights = [float(rng.randint(1, 500)) for _ in range(4)]
+        weights[group] = 0.0  # an edge with no client in this group
+        assert tree.fold_edge_terms(terms, weights) == 3
+        assert flat.fold_weighted_terms(terms, weights) == 3
+        for e, w in enumerate(weights):
+            if w > 0.0:
+                ref_tree.acc(e).fold_weighted_term(terms[e], w)
+                ref_flat.fold_weighted_term(terms[e], w)
+                leaf = {k: jnp.asarray(v.numpy()) for k, v in spec.views(terms[e]).items()}
+                jtree.acc(e).fold_weighted_term(leaf, w)
+                jflat.fold_weighted_term(leaf, w)
+    assert all(torch.equal(tree.acc(e)._limbs, ref_tree.acc(e)._limbs) for e in range(4))
+    assert torch.equal(flat._limbs, ref_flat._limbs)
+    assert [tree.acc(e).total_w for e in range(4)] == [ref_tree.acc(e).total_w for e in range(4)]
+    assert (flat.total_w, flat.count) == (ref_flat.total_w, ref_flat.count) == (
+        jflat.total_w, jflat.count)
+    got, want, flat_out = tree.finalize(), jtree.finalize(), flat.finalize()
+    for k in tt:  # tree == flat, both bitwise the JAX package's
+        assert _same(got[k].numpy(), want[k]) and _same(flat_out[k].numpy(), jflat.finalize()[k])
+        assert torch.equal(got[k], flat_out[k]), k
+
+
+def test_view_backed_edges_reset_and_load_in_place():
+    _, tt = _template("float32")
+    uploads = _uploads(6, seed=41)
+    tree = EdgeAggregationTree(tt, 3)
+    shared = tree._edges._limbs  # the bank's [E, 3, N] buffer
+    storage = shared.data_ptr()
+    for i, (theta, w) in enumerate(uploads):
+        tree.acc_for(i).fold(_port_tree(theta, tt), w)
+    state = tree.acc(1).export_state()
+    want = tree.finalize()
+    tree.reset()
+    assert tree.count == 0 and not shared.any() and shared.data_ptr() == storage
+    assert all(tree.acc(e)._limbs.data_ptr() == storage + e * shared[0].numel() * 4
+               for e in range(3))
+    # round trip: an edge restored from its export lands in the shared buffer
+    for i, (theta, w) in enumerate(uploads):
+        if i % 3 != 1:
+            tree.acc_for(i).fold(_port_tree(theta, tt), w)
+    tree.acc(1).load_state(state)
+    assert shared.data_ptr() == storage and tree.acc(1).count == 2
+    assert torch.equal(shared[1], tree.acc(1)._limbs)
+    got = tree.finalize()
+    assert all(torch.equal(got[k], want[k]) for k in tt)
+    with pytest.raises(ValueError, match="want float32"):
+        agg.StreamingAccumulator(tt, limbs=torch.zeros(3, 5))
 
 
 def test_the_kernel_source_rounds_every_float_operation_on_its_own():

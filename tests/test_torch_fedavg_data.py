@@ -170,10 +170,8 @@ def test_device_twin_features_follow_the_class_means():
 
 
 @pytest.mark.parametrize("knob, value, match", [
-    ("dataset", "synthetic", "FedProx synthetic"),
-    ("dataset", "pascal_voc", "task 'segmentation'"),
-    ("dataset", "stackoverflow_lr", "task 'tag_prediction'"),
-    ("poison_type", "label_flip", "poisoned"),
+    ("dataset", "pascal_voc", "task 'segmentation'.*queue A item 8"),
+    ("poison_type", "label_flip", "poisoned.*queue A item 7"),
 ])
 def test_unported_sources_raise(knob, value, match):
     a = _standin_args(Arguments, "mnist", "homo")
@@ -182,14 +180,72 @@ def test_unported_sources_raise(knob, value, match):
         load(a, device="cpu")
 
 
+def _same_federation(got, want):
+    """Every packed leaf, count and view of two datasets, bitwise."""
+    for split in ("packed_train", "packed_test", "train_data_global", "test_data_global"):
+        g, w = getattr(got, split), getattr(want, split)
+        for leaf in ("x", "y", "mask"):
+            gv, wv = getattr(g, leaf), np.asarray(getattr(w, leaf))
+            assert tuple(gv.shape) == wv.shape, (split, leaf)
+            np.testing.assert_array_equal(gv.float().numpy(), wv.astype(np.float32),
+                                          err_msg=f"{split}.{leaf}")
+    np.testing.assert_array_equal(got.packed_num_samples, want.packed_num_samples)
+    for key in ("train_data_num", "test_data_num", "class_num", "client_num", "task",
+                "train_data_local_num_dict"):
+        assert getattr(got, key) == getattr(want, key), key
+
+
+def test_fedprox_synthetic_is_bitwise_the_references():
+    kw = dict(client_num_in_total=12, input_dim=20, output_dim=5, synthetic_alpha=0.5,
+              synthetic_beta=1.5, batch_size=10)
+    ja, pa = _standin_args(JaxArguments, "synthetic", "homo", **kw), _standin_args(
+        Arguments, "synthetic", "homo", **kw)
+    want, got = jax_load(ja), load(pa, device="cpu")
+    _same_federation(got, want)
+    xs, ys = synthetic.synthetic_fedprox(num_clients=7, alpha=1.0, beta=1.0, seed=4)
+    jxs, jys = jax_synthetic.synthetic_fedprox(num_clients=7, alpha=1.0, beta=1.0, seed=4)
+    for a, b in zip(xs + ys, jxs + jys):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_tag_prediction_standin_is_bitwise_the_references():
+    kw = dict(synthetic_train_size=300, synthetic_test_size=60, synthetic_feature_dim=40,
+              client_num_in_total=5, batch_size=16)
+    for method in ("homo", "hetero"):
+        ja, pa = _standin_args(JaxArguments, "stackoverflow_lr", method, **kw), _standin_args(
+            Arguments, "stackoverflow_lr", method, **kw)
+        want, got = jax_load(ja), load(pa, device="cpu")
+        _same_federation(got, want)
+        assert got.task == "tag_prediction" and got.packed_train.y.dtype == torch.float32
+        assert pa.input_dim == ja.input_dim == 40
+    x, y = synthetic.synthetic_multilabel(50, 30, (4, 5), seed=2)
+    jx, jy = jax_synthetic.synthetic_multilabel(50, 30, (4, 5), seed=2)
+    assert np.array_equal(x, jx) and np.array_equal(y, jy) and x.shape == (50, 4, 5)
+
+
 def test_real_files_raise(tmp_path):
-    (tmp_path / "mnist").mkdir()
-    (tmp_path / "mnist" / "train.npz").write_bytes(b"")
-    a = _standin_args(Arguments, "mnist", "homo", data_cache_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="local copy"):
+    (tmp_path / "cifar10" / "cifar-10-batches-py").mkdir(parents=True)
+    (tmp_path / "cifar10" / "cifar-10-batches-py" / "data_batch_1").write_bytes(b"")
+    a = _standin_args(Arguments, "cifar10", "homo", data_cache_dir=str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="partial CIFAR copy"):
         load(a, device="cpu")
     with pytest.raises(ValueError, match="unknown dataset"):
         load(_standin_args(Arguments, "nope", "homo"), device="cpu")
+
+
+def test_npz_drop_in_is_bitwise_the_references(tmp_path):
+    rng = np.random.RandomState(5)
+    (tmp_path / "mnist").mkdir()
+    for split, n in (("train", 90), ("test", 30)):
+        np.savez(tmp_path / "mnist" / f"{split}.npz",
+                 x=rng.rand(n, 28, 28, 1).astype(np.float32),
+                 y=rng.randint(0, 12, n).astype(np.int64))  # ids past 9: the head widens
+    for method in ("homo", "hetero"):
+        kw = dict(data_cache_dir=str(tmp_path), client_num_in_total=4, batch_size=8)
+        want = jax_load(_standin_args(JaxArguments, "mnist", method, **kw))
+        got = load(_standin_args(Arguments, "mnist", method, **kw), device="cpu")
+        _same_federation(got, want)
+        assert got.class_num == 12
 
 
 def test_flat_examples_and_rebatch_round_trip():
