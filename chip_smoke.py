@@ -49,8 +49,16 @@ version on the card:
   at full width (logistic regression from the 10,000-word bag to 500
   tags, 40,000 stand-in examples over 400 clients, 10 a round), the
   LEAF files of ``fedml_data/mnist`` through ``fedavg_mnist_leaf_lr.yaml``,
-  and FedProx on synthetic(1, 1) through ``fedprox_synthetic_1_1.yaml``.
-The CNN, ResNet, RNN and logistic-regression paths run no hand-written
+  and FedProx on synthetic(1, 1) through ``fedprox_synthetic_1_1.yaml``;
+- the eighth slice: the poisoned FEMNIST world through ``run_simulation``
+  on ``fedml_tpu_torch/configs/fedavg_femnist_cnn_poisoned.yaml`` (the
+  headline's CNN and settings, 32 of 64 clients a round, 8 attackers
+  training a backdoor, norm-diff clipping at 5.0) and its other worlds
+  by overrides (clean, undefended, weak DP, median, S-FedAvg,
+  HS-FedAvg), whose clip is one launch a round of the robust term
+  kernel, and the encoded and clipped streaming folds at ResNet-18-GN's
+  width, each term one launch of it.
+The CNN, ResNet, RNN and logistic-regression paths run no other hand-written
 kernel: their
 convolutions and matrix products are cuDNN's and cuBLAS's through
 PyTorch, as XLA generated them on the TPU.
@@ -78,7 +86,13 @@ Phases, each of which fails the run:
    bitwise and its features within 1e-5 of its plain version at the
    planet path's largest group and at FEMNIST-sized rows; each repeats
    bitwise (no PyTorch call computes either function: library time
-   none);
+   none); the robust term bitwise its plain version in each of its ten
+   modes (raw, top-k and int8 sources; clipped or not; with or without
+   the global model as base; weighted or not) at the stacked clip's
+   shape (32 clients x 428,350 CNN params) and at one ResNet-18-GN
+   upload (11,173,962 params over its leaves), repeating bitwise, timed
+   by events (and at the two main-path modes by device time) against its
+   bytes bound (library time none);
 4. slice: bursts of 8 requests through ``ServingEngine``; the answers
    have the right shape, are finite and match the same model with
    ``attention_impl: full``; the kernels' launch counts rose on the
@@ -170,7 +184,34 @@ Phases, each of which fails the run:
    no stand-in; the loss falls;
 17. fedprox synthetic: the FedProx synthetic(1, 1) configuration, 5
    rounds (timed as the tag phase): the federation's sizes are the
-   generator's; the loss falls.
+   generator's; the loss falls;
+18. poisoned worlds: the poisoned configuration through
+   ``run_simulation``, 3 rounds a world: clean, undefended,
+   ``norm_diff_clipping``, ``weak_dp`` (stddev 0.158), the clip and weak
+   DP at stddev 0 again at a bound that bites (the median of the clip
+   world's first-round delta norms, a smoke setting), and ``median``.
+   The robust term launches once a round in the clip and weak-DP worlds
+   and never in the others; every clip is bitwise its plain version on
+   the same deltas; some delta clips in each biting world; every clipped
+   delta's norm, re-measured in float64, is within the bound (1e-6
+   relative plus the f32 model's rounding); weak DP at stddev 0 is the
+   biting clip world bitwise and at 0.158 its noise's sample std is
+   within 2% of it; the median is the plain sort midpoint (``kthvalue``)
+   bitwise. Rounds/s, peak
+   memory, the backdoor success rate, clean test accuracy and the share
+   of clients clipped are printed, not gated;
+19. defenses: S-FedAvg and HS-FedAvg on the same world, 3 rounds each:
+   S-FedAvg's permutations a round and the attackers' sv and phi against
+   the honest clients'; S-FedAvg stopped after round 1 and resumed is
+   bitwise the straight run, phi and sv included (deterministic
+   algorithms); HS-FedAvg's running amplitude is finite and its loss
+   falls;
+20. robust folds: 16 int8-encoded uploads at ResNet-18-GN's width, half
+   of them over the bound, folded in order, shuffled and through a
+   4-edge tree, for the int8 and top-k encoded clipped folds, the int8
+   encoded and delta-clipped ones and the raw and delta clipped ones:
+   the three finalize to identical bits; the robust term launches once
+   a fold.
 Each phase's wall time is printed.
 
 Run from the repo root, on a machine with one CUDA card and the CUDA
@@ -409,12 +450,13 @@ def card_line() -> str:
 def all_kernels():
     """Every hand-written kernel entry of the port with a launch count:
     the flash forward and backward, the exact fold and its weighted-mean
-    entry, and the keyed feature generator."""
+    entry, the keyed feature generator and the robust term."""
     from fedml_tpu_torch.ops.exact_fold import FOLD_KERNEL, MEAN_KERNEL
     from fedml_tpu_torch.ops.flash_attention import BWD_KERNEL, FWD_KERNEL
+    from fedml_tpu_torch.ops.robust_term import TERM_KERNEL
     from fedml_tpu_torch.ops.synth_features import SYNTH_KERNEL
 
-    return FWD_KERNEL, BWD_KERNEL, FOLD_KERNEL, MEAN_KERNEL, SYNTH_KERNEL
+    return FWD_KERNEL, BWD_KERNEL, FOLD_KERNEL, MEAN_KERNEL, SYNTH_KERNEL, TERM_KERNEL
 
 
 def reset_launches() -> None:
@@ -567,7 +609,8 @@ def device_kernel_names(fn, windows: int = 3):
 def build_kernels():
     from fedml_tpu_torch.ops import _build
 
-    names = ["flash_attention_fwd", "flash_attention_bwd", "exact_fold", "synth_features"]
+    names = ["flash_attention_fwd", "flash_attention_bwd", "exact_fold", "synth_features",
+             "robust_term"]
     t0 = time.perf_counter()
     _build.build(names)
     log(f"build: {names} in {time.perf_counter() - t0:.1f} s")
@@ -2004,7 +2047,9 @@ def measured_run(args, profiled=None) -> dict:
     if final["round"] != records[-1]["round"]:
         fail("run_simulation's result is not the last round's stats")
     return {"final": final, "records": records,
-            "pipe": next(r for r in lines if r["kind"] == "pipeline"), "summary": summary,
+            # the synchronous loop (S-FedAvg's) writes no pipeline record
+            "pipe": next((r for r in lines if r["kind"] == "pipeline"), None),
+            "summary": summary,
             "wall_s": wall, "peak_bytes": peak, "held_bytes": held, "launches": launches}
 
 
@@ -3002,6 +3047,522 @@ def run_fedprox_synthetic():
             "kernel_launches": out["run"]["launches"]}
 
 
+# -- the eighth slice: poisoned worlds, the robust planes and K3 ------------
+POISONED_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "fedavg_femnist_cnn_poisoned.yaml"
+# each world through run_simulation for 3 rounds, evaluation after each;
+# round 0 warms up, rounds 1-2 are timed (their training on the card's
+# clock)
+POISONED_ROUNDS, POISONED_TIMED = 3, (1, 2)
+# world -> (overrides of the configuration, K3 launches a round, whether
+# the clip must bite). The configuration's bound (5.0) clips no delta of
+# the first rounds: the two biting worlds take a smoke setting, not a
+# configuration change, as their norm_bound: the median of the
+# norm_diff_clipping world's first-round delta norms, so about half the
+# cohort clips there
+POISONED_WORLDS = {
+    "clean": (dict(poison_type=None, defense_type=None), 0, False),
+    "undefended": (dict(defense_type=None), 0, False),
+    "norm_diff_clipping": ({}, 1, False),
+    "weak_dp": (dict(defense_type="weak_dp"), 1, False),
+    "norm_diff_clipping biting": ({}, 1, True),
+    "weak_dp stddev 0 biting": (dict(defense_type="weak_dp", stddev=0.0), 1, True),
+    "median": (dict(defense_type="median"), 0, False),
+}
+# a clipped delta's norm, re-measured in float64 against the global
+# model, may exceed the bound by 1e-6 relative (the f32 norm and scale)
+# plus the f32 rounding of the clipped model's elements
+CLIP_SLACK = 1e-6
+# weak DP's noise: its sample standard deviation within 2% of stddev
+NOISE_STD_RTOL = 0.02
+# phase 20: 16 uploads of ResNet-18-GN (the dense configuration's model,
+# 11,173,962 params), int8-encoded and clipped, folded on the card three
+# ways: in order (buffered), shuffled (streamed) and through 4 edges
+ROBUST_UPLOADS, ROBUST_EDGES = 16, 4
+RESNET18_PARAMS = 11_173_962
+# K3 against its plain version: every mode at both path shapes, the
+# stacked clip's (32 clients of the CNN) and one upload of ResNet-18-GN,
+# the operands laid out by the port's own producers; then one operand
+# whose rows are off 16 bytes, which the wrapper copies onto them;
+# (name, source, add_g, clipped, weighted)
+K3_MODES = [
+    ("clip stacked", "f32", True, True, False),
+    ("clipped term", "f32", True, True, True),
+    ("delta clipped", "f32", False, True, True),
+    ("topk encoded", "f32", True, False, True),
+    ("topk delta", "f32", False, False, True),
+    ("topk encoded clipped", "f32", True, True, True),
+    ("int8 encoded", "int8", True, False, True),
+    ("int8 encoded clipped", "int8", True, True, True),
+    ("int8 delta", "int8", False, False, True),
+    ("int8 delta clipped", "int8", False, True, True),
+]
+K3_UNALIGNED = ("clip stacked, rows off 16 bytes (copied)", "f32", True, True, False)
+
+
+def _path_shapes():
+    """(CNN params, ResNet-18-GN's leaf sizes): the stacked clip's row and
+    the streamed upload's leaves, read from the models."""
+    from fedml_tpu_torch import models
+    from fedml_tpu_torch.arguments import load_arguments
+
+    cnn = load_arguments(str(POISONED_CONFIG))
+    dense = load_arguments(str(DENSE_CONFIG))
+    n_cnn = sum(p.numel() for p in models.create(cnn, 62, device="cpu").module.parameters())
+    sizes = [p.numel() for p in models.create(dense, 10, device="cpu").module.parameters()]
+    if sum(sizes) != RESNET18_PARAMS:
+        fail(f"ResNet-18-GN holds {sum(sizes)} params, not {RESNET18_PARAMS}")
+    return int(n_cnn), sizes
+
+
+def _k3_operands(R, sizes, gen):
+    """K3's operands at a path shape, laid out by the port's own
+    producers: the global model flat (``_FlatSpec.flatten``); the deltas
+    of a cohort of R > 1 as the stacked clip lays them out
+    (``flatten_stacked`` with ``minus``), of one upload as the clipped
+    terms do (one flat row); int8 payloads by ``_payload`` for one upload,
+    in ``aligned_rows`` as it lays them for a cohort; leaf scales, clip
+    scales and weights random."""
+    from fedml_tpu_torch.core.aggregation import _FlatSpec, _payload
+    from fedml_tpu_torch.core.compression import Int8Codec
+    from fedml_tpu_torch.ops.robust_term import aligned_rows
+
+    names = [f"l{i}" for i in range(len(sizes))]
+    g = {k: torch.randn(n, generator=gen, device=DEVICE) for k, n in zip(names, sizes)}
+    spec = _FlatSpec(g)
+    gf = spec.flatten(g)
+    theta = {k: torch.randn(R, n, generator=gen, device=DEVICE) for k, n in zip(names, sizes)}
+    if R > 1:
+        delta = spec.flatten_stacked(theta, minus=gf)
+        q = aligned_rows(R, spec.numel, torch.int8, DEVICE)
+        q.copy_(torch.randint(-127, 128, (R, spec.numel), generator=gen, device=DEVICE))
+        sc = torch.rand(R, len(sizes), generator=gen, device=DEVICE) * 1e-3
+    else:
+        delta = (spec.flatten({k: v[0] for k, v in theta.items()}) - gf)[None]
+        q, sc = _payload(spec, Int8Codec(), Int8Codec().encode({k: v[0] for k, v in theta.items()}))
+    s = torch.rand(R, generator=gen, device=DEVICE)
+    w = torch.rand(R, generator=gen, device=DEVICE) * 100
+    return delta, gf, q, spec.leaf_offsets(DEVICE), sc, s, w
+
+
+def check_robust_term():
+    """K3 against its plain version, bitwise, for every mode of K3_MODES at
+    both path shapes, the operands laid out as the main path lays them
+    (each must reach the kernel uncopied), and for one operand off 16
+    bytes (copied by the wrapper); each repeats bitwise; timed by events
+    through the wrapper and, at the two main-path modes, by the
+    profiler's device time; against its bytes bound. Returns the kernel's
+    ``kernels`` entry (main numbers from the stacked clip, the training
+    path's launch)."""
+    from fedml_tpu_torch.ops import robust_term as rt
+
+    n_cnn, resnet = _path_shapes()
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    cases = []
+    for R, sizes in ((32, [n_cnn]), (1, resnet)):
+        n = sum(sizes)
+        delta, g, q, off, sc, s, w = _k3_operands(R, sizes, gen)
+        modes = K3_MODES + ([K3_UNALIGNED] if R > 1 else [])
+        for name, src, base, clipped, weighted in modes:
+            kw = dict(g=g if base else None, add_g=base, s=s if clipped else None,
+                      w=w if weighted else None)
+            if src == "int8":
+                kw.update(leaf_scales=sc, leaf_offsets=off)
+            x = q if src == "int8" else delta
+            label = f"robust term {name} [{R}, {n}]"
+            if name == K3_UNALIGNED[0]:
+                x = x.contiguous()  # rows n * 4 bytes apart, n = 2 mod 4
+                if rt._on_16_bytes(x) is x:
+                    fail(f"{label}: the operand is on 16 bytes; the case tests the copy")
+            elif any(rt._on_16_bytes(v) is not v for v in (x, g)):
+                fail(f"{label}: the path's operand is off 16 bytes and would be copied")
+            got, want, again = rt.TERM_KERNEL(x, **kw), rt.robust_term_reference(x, **kw), \
+                rt.TERM_KERNEL(x, **kw)
+            torch.cuda.synchronize()
+            if not bits_equal(got, want):
+                fail(f"{label}: the kernel differs from its plain version "
+                     f"(max {float((got - want).abs().max())})")
+            if not bits_equal(got, again):
+                fail(f"{label}: two launches differ")
+            nbytes = R * n * (1 if src == "int8" else 4) + R * n * 4 + (n * 4 if base else 0)
+            nbytes += (R * 4 if clipped else 0) + (R * 4 if weighted else 0)
+            nbytes += (R * len(sizes) * 4 + (len(sizes) + 1) * 8) if src == "int8" else 0
+            ops = R * n * (int(base) + int(clipped) + int(weighted) + int(src == "int8"))
+            iters = _timing_iters(nbytes)
+            ms = cuda_time_ms(lambda: rt.TERM_KERNEL(x, **kw), iters)
+            main = (R == 32 and name == "clip stacked") or (R == 1 and name == "int8 encoded clipped")
+            device_ms = (kernel_device_ms(lambda: rt.TERM_KERNEL(x, **kw), "robust_term_kernel",
+                                         iters) if main else None)
+            plain_ms = cuda_time_ms(lambda: rt.robust_term_reference(x, **kw), max(2, iters // 10))
+            bound_ms, bound_by = bytes_bound(nbytes, ops)
+            log(f"{label}: bitwise its plain version and repeatable; kernel {ms:.4f} ms by events"
+                + (f" ({device_ms:.4f} ms device time)" if device_ms else "")
+                + f", bound {bound_ms:.6f} ms ({bound_by}, {nbytes / 1e6:.3f} MB), "
+                f"{bound_ms / ms:.1%} of it; plain {plain_ms:.4f} ms; library: none (no PyTorch "
+                f"call clips and weights without contracting)")
+            cases.append({"mode": name, "shape": [R, n], "dtype": "float32" if src == "f32" else
+                          "int8", "max_abs_err": 0.0, "bitwise": True, "repeats_bitwise": True,
+                          "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "bound_route": "f32 (no tensor cores)", "share_of_bound": bound_ms / ms,
+                          "library_ms": None, "library_kernel": None})
+        del delta, g, q, off, sc, s, w
+        torch.cuda.empty_cache()
+    log(f"robust term launches while checking (not counted): {rt.TERM_KERNEL.launches}")
+    main = cases[0]
+    return {**kernel_entry(main, name=rt.TERM_KERNEL.name, route="cuda",
+                           source="fedml_tpu_torch/ops/csrc/robust_term.cu",
+                           replaces="fedml_tpu/core/aggregation.py:709",
+                           kind="not a TPU kernel (XLA-generated in the reference: "
+                                "clip_updates :709-720 and the terms :281-406)"),
+            "device_ms": main["device_ms"], "cases": cases}
+
+
+@contextlib.contextmanager
+def robust_records():
+    """Wraps ``RobustAggregator``'s clip, noise and median for the block:
+    each clip's pre-clip and post-clip delta norms, whether the clip is
+    bitwise K3's plain version on the same flat deltas, global model and
+    clip scales, each noise draw's sample mean and standard deviation, and
+    whether each median equals the plain sort midpoint (``kthvalue`` of
+    the two middle ranks, ``(lo + hi) * 0.5``) bitwise. The aggregation
+    itself is untouched."""
+    from fedml_tpu_torch.core.aggregation import (RobustAggregator, _clip_scale, _FlatSpec,
+                                                  _stacked_norms)
+    from fedml_tpu_torch.ops.robust_term import robust_term_reference
+
+    rec = {"norms_before": [], "norms_after": [], "rounding": [], "noise": [],
+           "median_bitwise": [], "clip_bitwise": []}
+    clip, noise, median = (RobustAggregator.clip_updates, RobustAggregator.add_noise,
+                           RobustAggregator.coordinate_median)
+
+    def clip_rec(self, stacked, g):
+        out = clip(self, stacked, g)
+        spec = _FlatSpec(g)
+        gf = spec.flatten(g)
+        # in float64 from the f32 values (an f32 norm of 428,350 elements
+        # is itself ~1e-6 off); the clipped model g + delta is f32, whose
+        # rounding moves the re-measured delta by at most the norm of half
+        # an ulp of each element (the triangle inequality): the slack
+        g64, after = gf.double(), spec.flatten_stacked(out)
+        # the clip again through the plain version, from the same deltas
+        delta = spec.flatten_stacked(stacked, minus=gf)
+        plain = robust_term_reference(delta, gf, add_g=True,
+                                      s=_clip_scale(_stacked_norms(delta), self.norm_bound))
+        rec["clip_bitwise"].append(bits_equal(after, plain))
+        mag = after.abs()
+        ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+        rec["norms_before"].append(
+            (spec.flatten_stacked(stacked).double() - g64).norm(dim=1).tolist())
+        rec["norms_after"].append((after.double() - g64).norm(dim=1).tolist())
+        rec["rounding"].append((ulp.double() * 0.5).norm(dim=1).tolist())
+        return out
+
+    def noise_rec(self, params, generator):
+        # the noise drawn, redrawn from a copy of the generator's state
+        # (the aggregate it lands on may already be inf or NaN)
+        again = torch.Generator(device=generator.device)
+        again.set_state(generator.get_state())
+        out = noise(self, params, generator)
+        draws = torch.cat([self.stddev * torch.randn(v.shape, generator=again,
+                                                     device=v.device, dtype=v.dtype).reshape(-1)
+                           for v in params.values()])
+        rec["noise"].append((float(draws.mean()), float(draws.std())))
+        return out
+
+    def median_rec(stacked):
+        out = median(stacked)
+        same = True
+        for k, v in stacked.items():
+            c = v.shape[0]
+            lo = torch.kthvalue(v, (c - 1) // 2 + 1, dim=0).values
+            hi = torch.kthvalue(v, c // 2 + 1, dim=0).values
+            same &= bits_equal(out[k], (lo + hi) * 0.5)
+        rec["median_bitwise"].append(same)
+        return out
+
+    RobustAggregator.clip_updates = clip_rec
+    RobustAggregator.add_noise = noise_rec
+    RobustAggregator.coordinate_median = staticmethod(median_rec)
+    try:
+        yield rec
+    finally:
+        RobustAggregator.clip_updates, RobustAggregator.add_noise = clip, noise
+        RobustAggregator.coordinate_median = staticmethod(median)
+
+
+def backdoor_rate_and_accuracy(api) -> tuple:
+    """The backdoor success rate of the API's global model on its clean
+    test examples (``backdoor_attack_success_rate``: the non-target ones,
+    the trigger stamped) and its accuracy on them unstamped."""
+    from fedml_tpu_torch.data.poison import backdoor_attack_success_rate
+
+    test = api.dataset.test_data_global
+    keep = test.mask.reshape(-1) > 0
+    x = test.x.reshape((-1,) + tuple(test.x.shape[2:]))[keep].float().cpu().numpy()
+    y = test.y.reshape(-1)[keep].cpu().numpy()
+
+    def predict(batch):
+        with torch.no_grad():
+            logits = api.model.apply(api.global_params, torch.as_tensor(batch, device=DEVICE))
+        return logits.argmax(-1).cpu().numpy()
+
+    rate = backdoor_attack_success_rate(predict, x, y, int(api.args.target_label))
+    return rate, float((predict(x) == y).mean())
+
+
+def poisoned_run(tag: str, **knobs) -> dict:
+    """The poisoned configuration (with ``knobs``) through ``run_simulation``
+    for POISONED_ROUNDS rounds, its robust aggregator recorded: the run,
+    the API, the records, rounds/s of the timed rounds' training on the
+    card's clock, the backdoor rate and clean accuracy."""
+    from fedml_tpu_torch.arguments import load_arguments
+
+    args = load_arguments(str(POISONED_CONFIG))
+    args.comm_round, args.frequency_of_the_test = POISONED_ROUNDS, 1
+    for knob, value in knobs.items():
+        setattr(args, knob, value)
+    args._validate()
+    with simulated_api() as held, robust_records() as rec:
+        run = measured_run(args)
+    api = held[-1]
+    first, last = POISONED_TIMED
+    # each timed round's training on the card's clock (the round pipeline's
+    # span; the synchronous loop of S-FedAvg: round start to its training
+    # and Shapley scoring done on the card)
+    spans = [r["train_time_s"] for r in run["records"] if first <= r["round"] <= last]
+    finite = all(bool(torch.isfinite(v).all()) for v in api.global_params.values())
+    # a model gone inf or NaN predicts class 0 everywhere: no rates then
+    rate, acc = backdoor_rate_and_accuracy(api) if finite else (None, None)
+    losses = [r["train_loss"] for r in run["records"]]
+    if not all(np.isfinite(losses)) and not knobs.get("defense_type") == "weak_dp":
+        fail(f"{tag}: train loss not finite: {losses}")
+    return {"run": run, "api": api, "rec": rec, "losses": losses,
+            "rounds_per_s": len(spans) / sum(spans) if spans else float("nan"),
+            "backdoor_rate": rate, "clean_acc": acc}
+
+
+def run_poisoned_worlds():
+    """Phase 18: the poisoned FEMNIST world through ``run_simulation``,
+    clean, undefended, clipped, with weak DP (stddev 0.158), clipped and
+    with weak DP at stddev 0 at a bound that bites (the median of the clip
+    world's first-round delta norms), and with the median, 3 rounds each.
+    K3 launches once a round in the clip and weak-DP worlds and never in
+    the others; every clip is bitwise K3's plain version; some delta clips
+    in each biting world; every clipped delta's norm is within the bound;
+    weak DP at stddev 0 is the biting clip world bitwise,
+    and at 0.158 its noise's sample std is within 2% of it; the median is
+    the plain sort midpoint bitwise. Rounds/s, peak memory, the backdoor
+    success rate, clean test accuracy and the share of clients clipped are
+    reported, not gated (3 rounds show no reliable defense effect). At
+    stddev 0.158 the noise on every parameter swamps the CNN (its weights
+    are ~0.02-0.05): the loss leaves the finite range, as the reference's
+    formula does; that world's loss is not gated, its noise is."""
+    from fedml_tpu_torch.ops.robust_term import TERM_KERNEL
+
+    card = card_line()
+    out, params, bite_bound = {}, {}, None
+    for world, (knobs, per_round, bite) in POISONED_WORLDS.items():
+        if bite:
+            knobs = {**knobs, "norm_bound": bite_bound}
+        r = poisoned_run(world, **knobs)
+        api, rec, launches = r["api"], r["rec"], r["run"]["launches"]
+        bound = float(api.args.norm_bound)
+        if world == "norm_diff_clipping":
+            bite_bound = float(np.median(rec["norms_before"][0]))
+        clipped = [n > bound for rnd in rec["norms_before"] for n in rnd]
+        share = sum(clipped) / len(clipped) if clipped else None
+        log(f"poisoned world {world} on {card}: {api.algorithm}, defense "
+            f"{api.args.defense_type}, poison {api.args.poison_type}: rounds {POISONED_TIMED} "
+            f"{r['rounds_per_s']:.4f} rounds/s on the card's clock; peak memory "
+            f"{r['run']['peak_bytes'] / 2**20:.1f} MiB; train loss {r['losses']}; test acc "
+            f"{[round(h['test_acc'], 4) for h in r['run']['records']]}; backdoor success rate "
+            f"{r['backdoor_rate']}; clean test accuracy {r['clean_acc']}; norm bound {bound}; "
+            f"clients clipped {share}; clip bitwise K3's plain version {rec['clip_bitwise']}; "
+            f"K3 launches {launches[TERM_KERNEL.name]}")
+        if launches[TERM_KERNEL.name] != per_round * POISONED_ROUNDS:
+            fail(f"poisoned world {world}: K3 launched {launches[TERM_KERNEL.name]} times, "
+                 f"want {per_round} a round")
+        if not all(rec["clip_bitwise"]):
+            fail(f"poisoned world {world}: a clip differs from K3's plain version "
+                 f"{rec['clip_bitwise']}")
+        if bite and not share:
+            fail(f"poisoned world {world}: no delta clipped at the bound {bound}")
+        over = [(n, e) for rnd, ends in zip(rec["norms_after"], rec["rounding"])
+                for n, e in zip(rnd, ends) if n > bound * (1 + CLIP_SLACK) + e]
+        if over:
+            fail(f"poisoned world {world}: clipped deltas' norms {over} (norm, the f32 model's "
+                 f"rounding) exceed {bound}")
+        if rec["median_bitwise"] and not all(rec["median_bitwise"]):
+            fail(f"poisoned world {world}: the median differs from the plain sort midpoint")
+        if world == "median" and len(rec["median_bitwise"]) != POISONED_ROUNDS:
+            fail(f"poisoned world median: {len(rec['median_bitwise'])} medians in "
+                 f"{POISONED_ROUNDS} rounds")
+        stds = [sd for _, sd in rec["noise"]]
+        if world == "weak_dp" and (len(stds) != POISONED_ROUNDS or not all(
+                abs(sd / float(api.args.stddev) - 1) <= NOISE_STD_RTOL for sd in stds)):
+            fail(f"poisoned world weak_dp: noise std {stds}, want {api.args.stddev} within "
+                 f"{NOISE_STD_RTOL:.0%}")
+        params[world] = {k: v.detach().clone() for k, v in api.global_params.items()}
+        out[world] = {"rounds_per_s": r["rounds_per_s"], "peak_memory_bytes": r["run"]["peak_bytes"],
+                      "train_loss": r["losses"], "backdoor_success_rate": r["backdoor_rate"],
+                      "clean_test_accuracy": r["clean_acc"], "norm_bound": bound,
+                      "clipped_share": share, "clip_bitwise": rec["clip_bitwise"],
+                      "noise_mean_std": rec["noise"], "kernel_launches": launches}
+        del r, api
+        torch.cuda.empty_cache()
+    same = all(bits_equal(params["weak_dp stddev 0 biting"][k],
+                          params["norm_diff_clipping biting"][k])
+               for k in params["norm_diff_clipping biting"])
+    log(f"poisoned worlds: weak_dp at stddev 0 bitwise the clip world, both at the bound "
+        f"{bite_bound}: {same}")
+    if not same:
+        fail("weak_dp at stddev 0 differs from the clip world")
+    launches = {name: sum(w["kernel_launches"][name] for w in out.values())
+                for name in out["clean"]["kernel_launches"]}
+    return {"card": card, "worlds": out, "weak_dp_zero_bitwise_clip": same,
+            "kernel_launches": launches}
+
+
+def run_defenses():
+    """Phase 19: S-FedAvg and HS-FedAvg on the poisoned world, 3 rounds
+    each through ``run_simulation``. S-FedAvg's permutations a round and
+    the attackers' ``sv`` / ``phi`` against the honest clients' are
+    printed; a run stopped after round 1 and resumed is bitwise the
+    straight run, ``phi`` and ``sv`` included (deterministic algorithms).
+    HS-FedAvg's running amplitude is finite and its loss falls."""
+    import tempfile
+
+    from fedml_tpu_torch.data.loader import _resolve_poisoned_idxs
+
+    card = card_line()
+    reset_launches()
+    out = {}
+    with deterministic():
+        s = poisoned_run("SFedAvg", federated_optimizer="SFedAvg", defense_type=None)
+        api = s["api"]
+        attackers = _resolve_poisoned_idxs(api.args, api.dataset.client_num,
+                                           int(api.args.random_seed))
+        honest = [i for i in range(api.dataset.client_num) if i not in attackers]
+        log(f"SFedAvg on {card}: permutations a round "
+            f"{[h['perms'] for h in api.sv_history]}; attackers {attackers}: sv mean "
+            f"{api.sv[attackers].mean():.6f}, phi mean {api.phi[attackers].mean():.6f}; honest: "
+            f"sv mean {api.sv[honest].mean():.6f}, phi mean {api.phi[honest].mean():.6f}; "
+            f"backdoor success rate {s['backdoor_rate']}, clean accuracy "
+            f"{s['clean_acc']}; {s['rounds_per_s']:.4f} rounds/s")
+        straight = ({k: v.clone() for k, v in api.global_params.items()}, api.phi.copy(),
+                    api.sv.copy())
+        out["SFedAvg"] = {"perms_by_round": [h["perms"] for h in api.sv_history],
+                          "attackers": attackers,
+                          "sv_attackers": float(api.sv[attackers].mean()),
+                          "sv_honest": float(api.sv[honest].mean()),
+                          "phi_attackers": float(api.phi[attackers].mean()),
+                          "phi_honest": float(api.phi[honest].mean()),
+                          "backdoor_success_rate": s["backdoor_rate"],
+                          "clean_test_accuracy": s["clean_acc"], "rounds_per_s": s["rounds_per_s"],
+                          "train_loss": s["losses"]}
+        del s, api
+        with tempfile.TemporaryDirectory(prefix="sfedavg_resume_") as ckdir:
+            knobs = dict(federated_optimizer="SFedAvg", defense_type=None, checkpoint_dir=ckdir,
+                         checkpoint_freq=1)
+            poisoned_run("SFedAvg stopped", comm_round=2, **knobs)
+            resumed = poisoned_run("SFedAvg resumed", **knobs)["api"]
+    unequal = [k for k in straight[0] if not bits_equal(resumed.global_params[k], straight[0][k])]
+    same_rep = np.array_equal(resumed.phi, straight[1]) and np.array_equal(resumed.sv, straight[2])
+    log(f"SFedAvg resume: stopped after round 1, resumed to round {POISONED_ROUNDS - 1}: params "
+        f"differing bitwise {len(unequal)} of {len(straight[0])}; phi and sv bitwise: {same_rep}")
+    if unequal or not same_rep:
+        fail(f"SFedAvg resume: params {unequal} or the reputation differ from the straight run")
+    out["SFedAvg"]["resume_bitwise"] = True
+    h = poisoned_run("HSFedAvg", federated_optimizer="HSFedAvg")
+    amp = h["api"].server_state
+    log(f"HSFedAvg on {card}: running amplitude {tuple(amp.shape)}, finite "
+        f"{bool(torch.isfinite(amp).all())}, max {float(amp.max()):.4f}; train loss {h['losses']}; "
+        f"backdoor success rate {h['backdoor_rate']}, clean accuracy {h['clean_acc']}; "
+        f"{h['rounds_per_s']:.4f} rounds/s")
+    if not bool(torch.isfinite(amp).all()) or not float(amp.abs().sum()) > 0:
+        fail("HSFedAvg: the running amplitude is not finite and set")
+    if not h["losses"][-1] < h["losses"][0]:
+        fail(f"HSFedAvg: the train loss did not fall: {h['losses']}")
+    out["HSFedAvg"] = {"train_loss": h["losses"], "amplitude_max": float(amp.max()),
+                       "backdoor_success_rate": h["backdoor_rate"],
+                       "clean_test_accuracy": h["clean_acc"], "rounds_per_s": h["rounds_per_s"]}
+    del h, amp, resumed
+    torch.cuda.empty_cache()
+    return {"card": card, **out, "kernel_launches": launch_counts()}
+
+
+def run_robust_folds():
+    """Phase 20: 16 int8-encoded uploads of ResNet-18-GN's width
+    (11,173,962 params, its leaves), half with deltas far over the bound,
+    folded on the card in order (buffered), in a shuffled order (streamed)
+    and through a 4-edge tree: the three finalize to identical bits, for
+    every encoded, clipped and delta fold and the raw clipped one. K3
+    launches once a fold."""
+    from fedml_tpu_torch.core.aggregation import StreamingAccumulator
+    from fedml_tpu_torch.core.compression import Int8Codec, TopKCodec
+    from fedml_tpu_torch.ops.robust_term import TERM_KERNEL
+    from fedml_tpu_torch.scale import EdgeAggregationTree
+
+    card = card_line()
+    _, sizes = _path_shapes()
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    names = [f"l{i}" for i in range(len(sizes))]
+    g = {k: torch.randn(n, generator=gen, device=DEVICE) * 0.05 for k, n in zip(names, sizes)}
+    bound = 5.0
+    scales = [0.0005 if i % 2 else 0.005 for i in range(ROBUST_UPLOADS)]
+    deltas = [{k: torch.randn(v.shape, generator=gen, device=DEVICE) * sc for k, v in g.items()}
+              for sc in scales]
+    weights = [float(w) for w in np.random.RandomState(5).randint(100, 700, ROBUST_UPLOADS)]
+    order = np.random.RandomState(6).permutation(ROBUST_UPLOADS)
+    int8, topk = Int8Codec(), TopKCodec(0.01)
+    folds = {
+        "int8 encoded clipped": lambda a, i: a.fold_encoded_clipped(int8, enc8[i], g, bound, weights[i]),
+        "int8 encoded": lambda a, i: a.fold_encoded(int8, enc8[i], g, weights[i]),
+        "int8 delta clipped": lambda a, i: a.fold_encoded_delta_clipped(int8, enc8[i], g, bound, weights[i]),
+        "topk encoded clipped": lambda a, i: a.fold_encoded_clipped(topk, enck[i], g, bound, weights[i]),
+        "raw clipped": lambda a, i: a.fold_clipped(thetas[i], g, bound, weights[i]),
+        "delta clipped": lambda a, i: a.fold_delta_clipped(deltas[i], bound, weights[i]),
+    }
+    enc8 = [int8.encode(d) for d in deltas]
+    enck = [topk.encode(d) for d in deltas]
+    thetas = [{k: g[k] + d[k] for k in g} for d in deltas]
+    norms = [float(torch.cat([v.reshape(-1) for v in d.values()]).norm()) for d in deltas]
+    reset_launches()
+    out = {}
+    t0 = time.perf_counter()
+    for name, fold in folds.items():
+        buffered = StreamingAccumulator(g)
+        for i in range(ROBUST_UPLOADS):
+            fold(buffered, i)
+        stream = StreamingAccumulator(g)
+        for i in order:
+            fold(stream, int(i))
+        tree = EdgeAggregationTree(g, ROBUST_EDGES)
+        for i in order:
+            fold(tree.acc_for(int(i)), int(i))
+        want, got_s, got_t = buffered.finalize(), stream.finalize(), tree.finalize()
+        same = all(bits_equal(got_s[k], want[k]) and bits_equal(got_t[k], want[k]) for k in g)
+        log(f"robust folds {name} at {RESNET18_PARAMS} params ({len(sizes)} leaves), "
+            f"{ROBUST_UPLOADS} uploads: buffered == streamed == {ROBUST_EDGES}-edge tree "
+            f"bitwise: {same}")
+        if not same:
+            fail(f"robust folds {name}: the streamed or tree fold differs from the buffered one")
+        out[name] = {"bitwise": True}
+        del buffered, stream, tree, want, got_s, got_t
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want_k3 = 3 * ROBUST_UPLOADS * len(folds)
+    log(f"robust folds on {card}: {time.perf_counter() - t0:.1f} s; delta norms "
+        f"{min(norms):.3f}-{max(norms):.3f} against the bound {bound}; launches {launches}")
+    if launches[TERM_KERNEL.name] != want_k3:
+        fail(f"robust folds: K3 launched {launches[TERM_KERNEL.name]} times, want {want_k3}")
+    del enc8, enck, thetas, deltas, g
+    torch.cuda.empty_cache()
+    return {"card": card, "folds": out, "uploads": ROBUST_UPLOADS, "edges": ROBUST_EDGES,
+            "params": RESNET18_PARAMS, "delta_norms": [min(norms), max(norms)],
+            "kernel_launches": launches}
+
+
 def main() -> int:
     sys.path.insert(0, str(REPO))
     try:
@@ -3033,7 +3594,8 @@ def main() -> int:
     kernels = [phase("kernels: flash forward", check_flash_kernel),
                phase("kernels: flash backward", check_flash_backward),
                phase("kernels: exact fold", check_exact_fold),
-               phase("kernels: synth features", check_synth_features)]
+               phase("kernels: synth features", check_synth_features),
+               phase("kernels: robust term", check_robust_term)]
     slice_numbers = phase("serving", run_slice, kernels)
     log(f"slice numbers on {card}: {json.dumps(slice_numbers)}")
     fedavg_numbers = phase("fedavg", run_fedavg)
@@ -3063,6 +3625,12 @@ def main() -> int:
     log(f"real files numbers on {card}: {json.dumps(leaf_numbers)}")
     fedprox_numbers = phase("fedprox synthetic", run_fedprox_synthetic)
     log(f"fedprox synthetic numbers on {card}: {json.dumps(fedprox_numbers)}")
+    poisoned_numbers = phase("poisoned worlds", run_poisoned_worlds)
+    log(f"poisoned worlds numbers on {card}: {json.dumps(poisoned_numbers)}")
+    defenses_numbers = phase("defenses", run_defenses)
+    log(f"defenses numbers on {card}: {json.dumps(defenses_numbers)}")
+    folds_numbers = phase("robust folds", run_robust_folds)
+    log(f"robust folds numbers on {card}: {json.dumps(folds_numbers)}")
     log(f"phase wall times (s): {json.dumps(walls)}")
     paths = {
         "serving": slice_numbers, "fedavg_headline": fedavg_numbers,
@@ -3072,6 +3640,8 @@ def main() -> int:
         "resume": resume_numbers, "fedavg_transformer_remat": remat_numbers,
         "fedavg_planet": planet_numbers, "fedavg_tag_prediction": tag_numbers,
         "fedavg_real_files": leaf_numbers, "fedprox_synthetic": fedprox_numbers,
+        "fedavg_poisoned_worlds": poisoned_numbers, "defenses": defenses_numbers,
+        "robust_folds": folds_numbers,
     }
     for entry in kernels:  # each path's own count, reset just before it
         entry["launches_by_path"] = {

@@ -17,8 +17,11 @@ of the CNNs, the GroupNorm CIFAR zoo and the flash TransformerLM (with
 operators, ``run_simulation(backend, client_trainer,
 server_aggregator)`` (``core/frame.py``), checkpoint and resume
 (``checkpoint_dir``, ``core/checkpoint.py``) and the federated RNNs of
-Shakespeare and Stack Overflow (``models/rnn.py``). ROADMAP.md lists
-the slices still to come.
+Shakespeare and Stack Overflow (``models/rnn.py``). The eighth brings
+poisoned worlds (``poison_type``), the robust aggregation planes
+(``defense_type``: clipping, weak DP, the median), S-FedAvg and
+HS-FedAvg, the encoded and clipped streaming folds and the robust term
+kernel. ROADMAP.md lists the slices still to come.
 """
 
 from __future__ import annotations

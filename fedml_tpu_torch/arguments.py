@@ -132,6 +132,51 @@ _DEFAULTS: Dict[str, Any] = {
     # fold the per-edge terms into one flat accumulator instead of the
     # tree: the A/B baseline the tree's bit-identity is held against
     "edge_flat_fold": False,
+    # robustness (the reference's fedavg_robust configuration):
+    # defense_type "norm_diff_clipping" | "weak_dp" | "median" | None.
+    # Clipping and weak DP are per-upload (clip in the term, noise on
+    # the aggregate, drawn from a generator seeded by the run seed and
+    # the round); median needs the whole cohort. Unknown strings raise
+    "defense_type": None,
+    # norm-diff clip radius: each upload's delta against the broadcast
+    # global is scaled to at most this L2 norm
+    "norm_bound": 5.0,
+    # weak-DP Gaussian noise stddev added to the aggregate
+    "stddev": 0.158,
+    # on-arrival anomaly screen (core/defense.py AnomalyScreen): a rank
+    # whose reputation crosses this threshold is quarantined; 0 disables
+    "defense_anomaly_threshold": 0.0,
+    # quarantine probation length, in round closes or publishes
+    "defense_quarantine_rounds": 3,
+    # poisoned worlds (data/poison.py): the attack of the attacker
+    # clients, "label_flip" | "targeted_flip" | "backdoor_pattern" |
+    # "edge_case", or a list paired 1:1 with poisoned_client_idxs; None
+    # disables
+    "poison_type": None,
+    # explicit attacker client indexes (wins over the fraction)
+    "poisoned_client_idxs": None,
+    # else this fraction of clients is drawn as attackers (seeded)
+    "poisoned_client_fraction": 0.0,
+    # the label the attacks steer toward
+    "target_label": 0,
+    # fraction of each attacker's samples that are poisoned
+    "poison_sample_fraction": 1.0,
+    # uplink compression of the streaming fold's uploads (core/
+    # compression.py): "none" | "int8" | "topk"
+    "compression": "none",
+    "compression_topk_ratio": 0.01,
+    # S-FedAvg (simulation/defenses.py)
+    "sfedavg_alpha": 0.5,  # reputation weight (goodness)
+    "sfedavg_beta": 0.5,  # reputation weight (history)
+    "sampling_filter": "exp",  # score -> probability filter
+    "score_method": "acc",  # client scoring signal
+    "sv_tol": 0.005,  # Shapley truncation tolerance
+    # Shapley permutation cap; None = client_num_per_round ** 2
+    "sv_max_perms": None,
+    "valid_batches": 4,  # validation batches for defense scoring
+    # HS-FedAvg
+    "hs_L": 0.0,  # FFT band ratio (0 = the DC term only)
+    "hs_momentum": 0.1,  # running-amplitude momentum
     # serving plane (fedml_tpu_torch/serving):
     # bounded request queue; a full queue sheds new requests
     # (serving_shed_total{reason=queue_full}) instead of growing
@@ -259,6 +304,7 @@ class Arguments:
                 f"serve_bucket {self.serve_bucket!r}: pick 'pow2' or 'exact'"
             )
         self._validate_population()
+        self._validate_robustness()
 
     def _validate_population(self) -> None:
         """The planet-scale knobs, as the JAX package validates them."""
@@ -307,6 +353,83 @@ class Arguments:
                 "edge_plane='ranks' (edge aggregators as real ranks) is not ported to "
                 "PyTorch yet; it arrives with cross_silo/ (ROADMAP.md, queue A item 11)"
             )
+
+
+    def _validate_robustness(self) -> None:
+        """The defense and attack knobs, as the JAX package validates
+        them, with its errors word for word."""
+        defense = getattr(self, "defense_type", None) or None
+        if defense is not None and defense not in constants.DEFENSE_TYPES:
+            # a typo'd defense_type must not fall through to an
+            # undefended plain mean
+            raise ValueError(
+                f"unknown defense_type {defense!r}; pick one of "
+                f"{constants.DEFENSE_TYPES} (or null to disable)"
+            )
+        for float_key in (
+            "norm_bound", "stddev", "defense_anomaly_threshold",
+            "poisoned_client_fraction", "poison_sample_fraction",
+        ):
+            raw = getattr(self, float_key)
+            try:
+                setattr(self, float_key, float(raw))
+            except (TypeError, ValueError):
+                raise ValueError(
+                    f"{float_key}={raw!r}: must be a number"
+                ) from None
+        if self.norm_bound <= 0:
+            raise ValueError(
+                f"norm_bound={self.norm_bound}: must be > 0 (the clip "
+                "radius around the global model)"
+            )
+        if self.stddev < 0:
+            raise ValueError(f"stddev={self.stddev}: must be >= 0")
+        if self.defense_anomaly_threshold < 0:
+            raise ValueError(
+                f"defense_anomaly_threshold={self.defense_anomaly_threshold}: "
+                "must be >= 0 (0 disables the anomaly screen)"
+            )
+        raw = self.defense_quarantine_rounds
+        try:
+            self.defense_quarantine_rounds = int(raw)
+        except (TypeError, ValueError):
+            raise ValueError(
+                f"defense_quarantine_rounds={raw!r}: must be an integer"
+            ) from None
+        if self.defense_quarantine_rounds < 1:
+            raise ValueError(
+                f"defense_quarantine_rounds={self.defense_quarantine_rounds}: "
+                "must be >= 1"
+            )
+        ptypes = getattr(self, "poison_type", None) or None
+        if ptypes is not None:
+            as_list = list(ptypes) if isinstance(ptypes, (list, tuple)) else [ptypes]
+            bad = [t for t in as_list if t not in constants.POISON_TYPES]
+            if bad:
+                raise ValueError(
+                    f"unknown poison_type {bad}; pick from "
+                    f"{constants.POISON_TYPES}"
+                )
+            if isinstance(ptypes, (list, tuple)) and not (
+                getattr(self, "poisoned_client_idxs", None)
+            ):
+                raise ValueError(
+                    "poison_type as a list pairs 1:1 with "
+                    "poisoned_client_idxs; set the idxs explicitly "
+                    "(poisoned_client_fraction draws an arbitrary "
+                    "attacker set)"
+                )
+        if not 0.0 <= self.poisoned_client_fraction <= 1.0:
+            raise ValueError(
+                f"poisoned_client_fraction={self.poisoned_client_fraction}: "
+                "must be in [0, 1]"
+            )
+        if not 0.0 < self.poison_sample_fraction <= 1.0:
+            raise ValueError(
+                f"poison_sample_fraction={self.poison_sample_fraction}: "
+                "must be in (0, 1]"
+            )
+        self.target_label = int(getattr(self, "target_label", 0) or 0)
 
 
 def load_arguments(path: str) -> Arguments:

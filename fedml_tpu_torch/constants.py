@@ -1,8 +1,8 @@
 """Framework-wide names (port subset of ``fedml_tpu/constants.py``).
 
-The partition methods, simulation backends and federated optimizer
-names the training slice reads. The values are the JAX package's, so
-one YAML drives either package.
+The partition methods, simulation backends, federated optimizer names
+and the defense and attack vocabularies the ported slices read. The
+values are the JAX package's, so one YAML drives either package.
 """
 
 # simulation sub-backends
@@ -19,3 +19,14 @@ FED_OPTIMIZER_FEDAVG = "FedAvg"
 
 # training platforms
 FEDML_TRAINING_PLATFORM_SIMULATION = "simulation"
+
+# Robust-aggregation defenses and the poisoning attacks they defend
+# against: ONE vocabulary, which the knob validation (arguments.py),
+# RobustAggregator, needs_full_cohort and the poisoned-world loader all
+# check against, so an unknown string fails loudly everywhere instead of
+# aggregating undefended
+DEFENSE_NORM_DIFF_CLIPPING = "norm_diff_clipping"
+DEFENSE_WEAK_DP = "weak_dp"
+DEFENSE_MEDIAN = "median"
+DEFENSE_TYPES = (DEFENSE_NORM_DIFF_CLIPPING, DEFENSE_WEAK_DP, DEFENSE_MEDIAN)
+POISON_TYPES = ("label_flip", "targeted_flip", "backdoor_pattern", "edge_case")

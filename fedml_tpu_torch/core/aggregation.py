@@ -22,23 +22,31 @@ lays E accumulators' limbs out as the rows of one ``[E, 3, N]`` buffer,
 so that a term for each folds in one launch and all of them merge into
 another accumulator in one launch (an edge tree's two hops).
 
-The encoded and clipped folds (quantized uplinks, norm-diff clipping)
-arrive with the robust-aggregation planes (ROADMAP.md, queue A item 7).
+The robust planes keep the reference's separation: a term is one step
+and the add-only fold another. The encoded and clipped folds
+(``fold_encoded`` ... ``fold_encoded_delta_clipped``) make each upload's
+term ``w * (g + delta * min(1, bound / ||delta||))`` (or the delta-only
+form; ``delta`` decoded from an int8 or top-k payload, or ``theta - g``)
+in one launch of K3 (``ops/robust_term.py``) over the flat layout, then
+fold it through K1; the norm comes from one torch reduction before it.
+``RobustAggregator`` (norm-diff clipping, weak DP, coordinate-wise
+median) clips the stacked cohort with one K3 launch the same way.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from .. import constants
 from ..ops import exact_fold
+from ..ops.robust_term import aligned_rows, robust_term
 from . import devtime
+from .compression import Int8Codec, TopKCodec
 
 Params = Dict[str, torch.Tensor]
-
-_LATER_FOLDS = "arrives with the robust-aggregation planes (ROADMAP.md, queue A item 7)"
 
 
 def stack_pytrees(trees: Sequence[Params]) -> Params:
@@ -120,15 +128,51 @@ class _FlatSpec:
         self.numel = int(self.offsets[-1])
         first = next(iter(template.values()), None)
         self.device = first.device if first is not None else torch.device("cpu")
+        self._offsets: Dict[str, torch.Tensor] = {}
 
-    def flatten(self, tree: Params) -> torch.Tensor:
-        """``tree`` (the template's leaves) as one ``[N]`` f32 tensor."""
+    def leaf_offsets(self, device) -> torch.Tensor:
+        """The leaves' spans ``[L + 1]`` int64 on ``device`` (K3's int8
+        scales)."""
+        key = str(torch.device(device))
+        if key not in self._offsets:
+            self._offsets[key] = torch.as_tensor(self.offsets, dtype=torch.int64, device=device)
+        return self._offsets[key]
+
+    @staticmethod
+    def stacked_dtype(stacked: Params) -> torch.dtype:
+        """The flat layout's dtype for a stacked tree: f32, or float64 when
+        a leaf is (the float64 parity runs, off the card)."""
+        wide = any(v.dtype == torch.float64 for v in stacked.values())
+        return torch.float64 if wide else torch.float32
+
+    def flatten_stacked(self, stacked: Params,
+                        minus: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A stacked tree (leaves ``[C, ...]``) as ``[C, N]`` in
+        ``stacked_dtype``, each row starting on a 16-byte boundary (K3
+        reads 16 bytes at a time). ``minus`` (``[N]`` in that dtype) is
+        taken from every row as it is laid out: the clip's deltas in one
+        pass."""
+        if set(stacked) != set(self.names):
+            raise ValueError(f"tree holds {sorted(stacked)}, the template {sorted(self.names)}")
+        C = stacked[self.names[0]].shape[0] if self.names else 0
+        flat = aligned_rows(C, self.numel, self.stacked_dtype(stacked), device=self.device)
+        for k, a, b in zip(self.names, self.offsets[:-1], self.offsets[1:]):
+            leaf = stacked[k].reshape(C, -1)
+            if minus is None:
+                flat[:, int(a):int(b)] = leaf
+            else:
+                torch.sub(leaf.to(flat.dtype), minus[int(a):int(b)], out=flat[:, int(a):int(b)])
+        return flat
+
+    def flatten(self, tree: Params, dtype=torch.float32) -> torch.Tensor:
+        """``tree`` (the template's leaves) as one ``[N]`` tensor, f32 unless
+        ``dtype`` says otherwise."""
         if set(tree) != set(self.names):
             raise ValueError(f"tree holds {sorted(tree)}, the template {sorted(self.names)}")
         leaves = [torch.as_tensor(tree[k], device=self.device).reshape(-1) for k in self.names]
         if not leaves:
-            return torch.zeros(0, dtype=torch.float32, device=self.device)
-        return torch.cat([v.to(torch.float32) for v in leaves])
+            return torch.zeros(0, dtype=dtype, device=self.device)
+        return torch.cat([v.to(dtype) for v in leaves])
 
     def views(self, flat: torch.Tensor) -> Params:
         """Per-leaf views of a flat ``[..., N]`` tensor (leading axes kept)."""
@@ -148,6 +192,149 @@ def _weighted_term(spec: _FlatSpec, theta: Params, w: float) -> torch.Tensor:
 
 def _tree_scaled(tree: Params, denom) -> Params:
     return {k: v / denom for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------
+# The robust terms (the JAX package's ``global_norm``, ``_stacked_norms``,
+# ``_clip_scale`` and the six terms ``_weighted_term_encoded`` ...
+# ``_weighted_delta_term_decoded_clipped``): each one launch of K3 over
+# the flat layout, its norm from one torch reduction before it
+# ---------------------------------------------------------------------
+
+
+def _norm(x: torch.Tensor, dim=None) -> torch.Tensor:
+    """The L2 norm over ``dim``, one reduction accumulated in float64 (an
+    f32 sum of 10^5-10^7 squares can be ~1e-5 off, which a clip to the
+    bound would carry), returned in f32 (float64 for float64 input)."""
+    out = torch.linalg.vector_norm(x, dim=dim, dtype=torch.float64)
+    return out if x.dtype == torch.float64 else out.to(torch.float32)
+
+
+def global_norm(tree: Union[Params, torch.Tensor]) -> torch.Tensor:
+    """L2 norm over all leaves (the reference's ``vectorize_weight``
+    flattens to one vector), an f32 0-d tensor on the leaves' device: one
+    reduction over the flat layout (a params dict, or a tensor)."""
+    if isinstance(tree, torch.Tensor):
+        flat = tree.reshape(-1)
+    else:
+        flat = torch.cat([v.reshape(-1).to(torch.float32) for v in tree.values()])
+    return _norm(flat)
+
+
+def _stacked_norms(stacked: Union[Params, torch.Tensor]) -> torch.Tensor:
+    """Per-client L2 norms ``[C]`` of a stacked tree (leaves ``[C, ...]``)
+    or of its flat ``[C, N]`` layout, one reduction (see ``_norm``)."""
+    if not isinstance(stacked, torch.Tensor):
+        stacked = torch.cat([v.reshape(v.shape[0], -1) for v in stacked.values()], dim=1)
+    return _norm(stacked, dim=1)
+
+
+def _clip_scale(norm: torch.Tensor, bound: float) -> torch.Tensor:
+    """``min(1, bound / max(||delta||, 1e-12))`` in the norm's dtype (the
+    eps guards a zero delta)."""
+    b = torch.tensor(float(bound), dtype=norm.dtype, device=norm.device)
+    return torch.clamp(b / torch.clamp(norm, min=1e-12), max=1.0)
+
+
+def _row(value: float, device) -> torch.Tensor:
+    """A host scalar as ``[1]`` f32 on ``device`` (a K3 row operand)."""
+    return torch.tensor([float(np.float32(value))], dtype=torch.float32, device=device)
+
+
+def _payload(spec: _FlatSpec, codec, encoded):
+    """One upload's payload in the flat layout, as K3 takes it: ``(src
+    [1, N], leaf scales [1, L] or None)``; an int8 payload stays int8
+    (one scale a leaf), a top-k one is scattered into an f32 delta."""
+    if isinstance(codec, TopKCodec):
+        return codec.decode_flat(encoded, spec.numel, spec.device)[None], None
+    if not isinstance(codec, Int8Codec):
+        raise ValueError(f"codec {codec!r}: want an Int8Codec or a TopKCodec")
+    if set(encoded) != set(spec.names):
+        raise ValueError(f"payload holds {sorted(encoded)}, the template {sorted(spec.names)}")
+    q = aligned_rows(1, spec.numel, dtype=torch.int8, device=spec.device)
+    for k, a, b in zip(spec.names, spec.offsets[:-1], spec.offsets[1:]):
+        q[0, int(a):int(b)] = torch.as_tensor(encoded[k]["q"], device=spec.device).reshape(-1)
+    scales = torch.stack([torch.as_tensor(encoded[k]["scale"], device=spec.device)
+                          .to(torch.float32).reshape(()) for k in spec.names])
+    return q, scales[None]
+
+
+def _payload_norm(spec: _FlatSpec, src: torch.Tensor, scales) -> torch.Tensor:
+    """The L2 norm of a payload's delta, an f32 0-d tensor. An int8
+    payload is not decoded for it: ``||d||^2 = sum_l scale_l^2 * S_l``,
+    with each leaf's ``S_l = sum q^2`` summed exactly in integers (a
+    running int64 sum read at the leaves' ends), the rest in float64."""
+    if scales is None:
+        return global_norm(src)
+    q = src[0].to(torch.int16)
+    ends = torch.cumsum(q * q, 0, dtype=torch.int64)
+    at = spec.leaf_offsets(spec.device) - 1
+    ends = torch.where(at >= 0, ends[at.clamp(min=0)], 0)
+    sq = (ends[1:] - ends[:-1]).to(torch.float64)
+    return torch.sqrt((scales[0].to(torch.float64).square() * sq).sum()).to(torch.float32)
+
+
+def _k3(spec: _FlatSpec, src, scales, **kw) -> torch.Tensor:
+    offsets = spec.leaf_offsets(spec.device) if scales is not None else None
+    return robust_term(src, leaf_scales=scales, leaf_offsets=offsets, **kw)[0]
+
+
+def _weighted_term_encoded(spec, codec, encoded, like: Params, w: float) -> torch.Tensor:
+    """Decode + reconstruct + weight: ``w * (g + decode(payload))``."""
+    src, scales = _payload(spec, codec, encoded)
+    return _k3(spec, src, scales, g=spec.flatten(like), add_g=True, w=_row(w, spec.device))
+
+
+def _weighted_term_decoded(spec, codec, encoded, w: float) -> torch.Tensor:
+    """Decode + weight of an update delta: ``w * decode(payload)``."""
+    src, scales = _payload(spec, codec, encoded)
+    return _k3(spec, src, scales, w=_row(w, spec.device))
+
+
+def _weighted_term_clipped(spec, theta: Params, g: Params, bound: float, w: float):
+    """Clip against the global + weight: ``w * (g + delta * s)``, delta =
+    theta - g. Returns (term, pre-clip norm)."""
+    gf = spec.flatten(g)
+    delta = (spec.flatten(theta) - gf)[None]
+    norm = global_norm(delta)
+    return _k3(spec, delta, None, g=gf, add_g=True,
+               s=_clip_scale(norm, bound).reshape(1), w=_row(w, spec.device)), norm
+
+
+def _weighted_term_encoded_clipped(spec, codec, encoded, like: Params, bound: float, w: float):
+    """Decode + clip + reconstruct + weight: the payload is the delta
+    against the broadcast global."""
+    src, scales = _payload(spec, codec, encoded)
+    norm = _payload_norm(spec, src, scales)
+    return _k3(spec, src, scales, g=spec.flatten(like), add_g=True,
+               s=_clip_scale(norm, bound).reshape(1), w=_row(w, spec.device)), norm
+
+
+def _weighted_delta_term_clipped(spec, delta: Params, bound: float, w: float):
+    """The delta-only clip (the async fold currency): ``w * (delta * s)``."""
+    src = spec.flatten(delta)[None]
+    norm = global_norm(src)
+    return _k3(spec, src, None, s=_clip_scale(norm, bound).reshape(1),
+               w=_row(w, spec.device)), norm
+
+
+def _weighted_delta_term_decoded_clipped(spec, codec, encoded, bound: float, w: float):
+    """Decode + clip + weight of an update delta."""
+    src, scales = _payload(spec, codec, encoded)
+    norm = _payload_norm(spec, src, scales)
+    return _k3(spec, src, scales, s=_clip_scale(norm, bound).reshape(1),
+               w=_row(w, spec.device)), norm
+
+
+def derive_defense_rng(seed: int, index: int, device="cuda") -> torch.Generator:
+    """THE defense generator convention: a ``torch.Generator`` on
+    ``device`` (the card unless asked otherwise; the model's device, where
+    the noise is drawn) seeded from (run seed, round or publish index), so weak
+    DP's noise differs every round and repeats for the same pair. The
+    stream is the port's own (PyTorch's generators), not the JAX
+    package's threefry: the two packages draw different noise."""
+    state = np.random.SeedSequence([int(seed) % 2**32, int(index) % (2**31)])
+    return torch.Generator(device=device).manual_seed(int(state.generate_state(1, np.uint64)[0] >> 1))
 
 
 class StreamingAccumulator:
@@ -201,25 +388,55 @@ class StreamingAccumulator:
         it was computed."""
         self._fold_term(self._flat(term), w)
 
-    def fold_encoded(self, codec, encoded, like, w: float) -> None:
-        raise NotImplementedError(f"StreamingAccumulator.fold_encoded {_LATER_FOLDS}")
+    def fold_encoded(self, codec, encoded, like: Params, w: float) -> None:
+        """Fold a compressed upload: decode + reconstruct against the
+        pre-round global ``like`` + weight, one K3 launch, then the fold."""
+        with devtime.measure("agg.weighted_term"):
+            term = _weighted_term_encoded(self._spec, codec, encoded, like, w)
+        self._fold_term(term, w)
 
-    def fold_encoded_delta(self, codec, encoded, like, w: float) -> None:
-        raise NotImplementedError(f"StreamingAccumulator.fold_encoded_delta {_LATER_FOLDS}")
+    def fold_encoded_delta(self, codec, encoded, like: Params, w: float) -> None:
+        """Fold a compressed update DELTA without reconstructing a model
+        (``like`` supplies shapes only)."""
+        with devtime.measure("agg.weighted_term"):
+            term = _weighted_term_decoded(self._spec, codec, encoded, w)
+        self._fold_term(term, w)
 
-    def fold_clipped(self, theta, against, bound: float, w: float):
-        raise NotImplementedError(f"StreamingAccumulator.fold_clipped {_LATER_FOLDS}")
+    # -- defense folds (norm_diff_clipping / weak_dp in the stream) ---
+    # Each clips the upload's delta against the broadcast global in its
+    # term (one K3 launch), folds the clipped term, and returns the
+    # pre-clip delta norm and whether the bound bit, on the host (one
+    # deliberate fetch an upload, as in the JAX package).
 
-    def fold_encoded_clipped(self, codec, encoded, like, bound: float, w: float):
-        raise NotImplementedError(f"StreamingAccumulator.fold_encoded_clipped {_LATER_FOLDS}")
+    def fold_clipped(self, theta: Params, against: Params, bound: float,
+                     w: float) -> Tuple[float, bool]:
+        with devtime.measure("agg.weighted_term_clipped"):
+            term, norm = _weighted_term_clipped(self._spec, theta, against, bound, w)
+        return self._fold_clipped_term(term, norm, bound, w)
 
-    def fold_delta_clipped(self, delta, bound: float, w: float):
-        raise NotImplementedError(f"StreamingAccumulator.fold_delta_clipped {_LATER_FOLDS}")
+    def fold_encoded_clipped(self, codec, encoded, like: Params, bound: float,
+                             w: float) -> Tuple[float, bool]:
+        with devtime.measure("agg.weighted_term_clipped"):
+            term, norm = _weighted_term_encoded_clipped(self._spec, codec, encoded, like,
+                                                        bound, w)
+        return self._fold_clipped_term(term, norm, bound, w)
 
-    def fold_encoded_delta_clipped(self, codec, encoded, like, bound: float, w: float):
-        raise NotImplementedError(
-            f"StreamingAccumulator.fold_encoded_delta_clipped {_LATER_FOLDS}"
-        )
+    def fold_delta_clipped(self, delta: Params, bound: float, w: float) -> Tuple[float, bool]:
+        with devtime.measure("agg.weighted_delta_term_clipped"):
+            term, norm = _weighted_delta_term_clipped(self._spec, delta, bound, w)
+        return self._fold_clipped_term(term, norm, bound, w)
+
+    def fold_encoded_delta_clipped(self, codec, encoded, like: Params, bound: float,
+                                   w: float) -> Tuple[float, bool]:
+        with devtime.measure("agg.weighted_delta_term_clipped"):
+            term, norm = _weighted_delta_term_decoded_clipped(self._spec, codec, encoded,
+                                                              bound, w)
+        return self._fold_clipped_term(term, norm, bound, w)
+
+    def _fold_clipped_term(self, term, norm, bound: float, w: float) -> Tuple[float, bool]:
+        self._fold_term(term, w)
+        n = float(norm)
+        return n, n > float(np.float32(bound))
 
     def running_mean(self) -> Optional[Params]:
         """Approximate mean of everything folded so far (top limb only —
@@ -417,3 +634,108 @@ def staleness_weight(sample_num: float, staleness: int, decay: float) -> float:
     if staleness < 0:
         raise ValueError(f"staleness must be >= 0, got {staleness}")
     return float(sample_num) * float(decay) ** int(staleness)
+
+
+def needs_full_cohort(args, server_aggregator) -> Optional[str]:
+    """Why streaming aggregation cannot serve this configuration, or
+    None. The fold is a weighted sum: an aggregator that needs the whole
+    cohort at once (coordinate-wise median, a custom ``ServerAggregator``)
+    keeps the buffered path. ``norm_diff_clipping`` and ``weak_dp`` are
+    per upload (the clip in the term, the noise at finalize) and stream.
+    Unknown defense strings raise here rather than being averaged."""
+    if server_aggregator is not None:
+        return "custom ServerAggregator reduces over the stacked cohort"
+    defense = getattr(args, "defense_type", None) or None
+    if defense is not None and defense not in constants.DEFENSE_TYPES:
+        raise ValueError(
+            f"unknown defense_type {defense!r}; pick one of "
+            f"{constants.DEFENSE_TYPES} (or None) — refusing to fall "
+            "through to an UNDEFENDED plain mean"
+        )
+    if defense == constants.DEFENSE_MEDIAN:
+        return "defense_type=median needs the full cohort at once"
+    return None
+
+
+class RobustAggregator:
+    """The reference's ``RobustAggregator`` (``robust_aggregation.py:41-99``)
+    over a stacked client axis: ``defense_type`` ``norm_diff_clipping`` |
+    ``weak_dp`` | ``median`` | None."""
+
+    def __init__(self, args) -> None:
+        defense = getattr(args, "defense_type", None) or None
+        if defense is not None and defense not in constants.DEFENSE_TYPES:
+            raise ValueError(
+                f"unknown defense_type {defense!r}; pick one of "
+                f"{constants.DEFENSE_TYPES} (or None)"
+            )
+        self.defense_type = defense
+        self.norm_bound = float(getattr(args, "norm_bound", 5.0))
+        self.stddev = float(getattr(args, "stddev", 0.158))
+        if self.norm_bound <= 0:
+            raise ValueError(
+                f"norm_bound={self.norm_bound}: must be > 0 (the clip "
+                "radius around the global model)"
+            )
+        if self.stddev < 0:
+            raise ValueError(f"stddev={self.stddev}: must be >= 0")
+
+    def clip_updates(self, stacked: Params, global_params: Params) -> Params:
+        """Norm-difference clipping (``robust_aggregation.py:47-58``): each
+        client's delta scaled so ``||theta_c - g|| <= norm_bound``, as
+        ``g + delta_c * s_c``. The cohort is one ``[C, N]`` f32 flat layout:
+        the norms one torch reduction, the clip one K3 launch; the leaves
+        come back in their own dtypes."""
+        spec = _FlatSpec(global_params)
+        g = spec.flatten(global_params, spec.stacked_dtype(stacked))
+        delta = spec.flatten_stacked(stacked, minus=g)
+        s = _clip_scale(_stacked_norms(delta), self.norm_bound)
+        out = robust_term(delta, g, add_g=True, s=s)
+        return {k: v.to(stacked[k].dtype) for k, v in spec.views(out).items()}
+
+    def add_noise(self, params: Params, generator: torch.Generator) -> Params:
+        """Weak DP: Gaussian noise of ``stddev`` on the aggregate
+        (``robust_aggregation.py:60-63``), drawn leaf by leaf in the dict's
+        order from ``generator``."""
+        return {
+            k: v + self.stddev * torch.randn(v.shape, generator=generator, device=v.device,
+                                             dtype=v.dtype)
+            for k, v in params.items()
+        }
+
+    @staticmethod
+    def coordinate_median(stacked: Params) -> Params:
+        """Coordinate-wise median across clients (``robust_aggregation.py:
+        65-99``), as ``jnp.median`` computes it: the two middle values of
+        the sorted cohort, ``(lo + hi) * 0.5`` (for an odd cohort both are
+        the middle one). ``torch.median`` would return the lower middle
+        for an even cohort."""
+
+        def med(leaf: torch.Tensor) -> torch.Tensor:
+            c = leaf.shape[0]
+            srt = torch.sort(leaf, dim=0).values
+            return (srt[(c - 1) // 2] + srt[c // 2]) * 0.5
+
+        return {k: med(v) for k, v in stacked.items()}
+
+    def aggregate(self, stacked: Params, weights: torch.Tensor, global_params: Params,
+                  rng: Optional[torch.Generator] = None) -> Params:
+        """The robust FedAvg step (``FedAvgRobustAggregator.aggregate``):
+        the median; or the clip, the weighted mean and, for weak DP, the
+        noise from ``rng`` (``derive_defense_rng(seed, round)``)."""
+        if self.defense_type == constants.DEFENSE_MEDIAN:
+            return self.coordinate_median(stacked)
+        if self.defense_type in (constants.DEFENSE_NORM_DIFF_CLIPPING,
+                                 constants.DEFENSE_WEAK_DP):
+            stacked = self.clip_updates(stacked, global_params)
+        out = weighted_average(stacked, weights)
+        if self.defense_type == constants.DEFENSE_WEAK_DP:
+            if rng is None:
+                # a fixed generator would add the same noise every round
+                raise ValueError(
+                    "weak_dp needs a per-round rng; pass "
+                    "derive_defense_rng(args.random_seed, round_idx, device=<the "
+                    "model's device>) — a fixed key re-adds the same noise every round"
+                )
+            out = self.add_noise(out, rng)
+        return out

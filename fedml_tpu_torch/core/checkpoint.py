@@ -2,8 +2,10 @@
 ``fedml_tpu/core/checkpoint.py``).
 
 ``RoundCheckpointer`` saves the round loop's state, {params,
-server_state, generator, round_idx}, every ``checkpoint_freq`` rounds
-and restores the latest complete step. The format is the port's own
+server_state, generator, round_idx} and, when the algorithm keeps state
+of its own, ``extra`` (a dict of tensors: S-FedAvg's reputation ``phi``
+and Shapley values ``sv``), every ``checkpoint_freq`` rounds and
+restores the latest complete step. The format is the port's own
 (the JAX package's is orbax's, which the port cannot import): one
 ``torch.save`` of CPU tensors and Python scalars per step, written into
 a temporary directory beside the steps, fsynced, and published by

@@ -179,6 +179,7 @@ class RoundPipeline:
                 durations[prev_round] = t0 - t_dispatch[prev_round]
             prev_round = None
             rng = api._shuffle_uniforms(sizes[i], bucket)
+            api._round_idx = round_idx
             start = _mark(cuda)
             with devtime.measure("simulation.round_fn", bucket=f"b{bucket}"):
                 api.global_params, api.server_state, summed = api._round_fn(

@@ -35,8 +35,14 @@ materializes no population here: the dataset carries the task's geometry
 and fixed-size global evaluation holdouts, and ``scale/`` makes each
 round's cohort on demand.
 
-Segmentation data and poisoned worlds raise ``NotImplementedError``
-naming the slice that brings them.
+Poisoned worlds (``poison_type``): the attacks of ``data/poison.py``
+apply to the attacker clients' train shards after the partition and
+before packing, as in the JAX package; the features are then made on
+the host (the attacks mutate them), and the poisoned federation is
+bitwise the JAX package's.
+
+Segmentation data raises ``NotImplementedError`` naming the slice that
+brings it.
 """
 
 from __future__ import annotations
@@ -88,7 +94,6 @@ _DATASET_META = {
     "fets2021": ((64, 64, 4), 4, 2000, 400, "segmentation"),
 }
 
-_ROBUST_SLICE = "the robustness planes (ROADMAP.md, queue A item 7)"
 _ALGORITHMS_SLICE = "the other simulation algorithms (ROADMAP.md, queue A item 8)"
 
 
@@ -331,6 +336,71 @@ def _device_synth_classification(
         task=task,
         source="synthetic stand-in (features made on the device)",
     )
+
+
+def _resolve_poisoned_idxs(args, client_num: int, seed: int) -> List[int]:
+    """Which client indexes are attackers: an explicit
+    ``poisoned_client_idxs`` list (in the user's order, which a
+    ``poison_type`` list pairs with) wins; else
+    ``poisoned_client_fraction`` of the federation, drawn with
+    ``RandomState(seed + 77)`` and sorted."""
+    idxs = getattr(args, "poisoned_client_idxs", None)
+    if idxs:
+        out = [int(i) for i in idxs]
+        if len(set(out)) != len(out):
+            raise ValueError(f"poisoned_client_idxs {out} contains duplicates")
+        bad = [i for i in out if not 0 <= i < client_num]
+        if bad:
+            raise ValueError(
+                f"poisoned_client_idxs {bad} out of range for {client_num} clients"
+            )
+        return out
+    frac = float(getattr(args, "poisoned_client_fraction", 0.0) or 0.0)
+    if frac <= 0:
+        return []
+    k = min(client_num, max(1, int(round(frac * client_num))))
+    return sorted(np.random.RandomState(seed + 77).choice(client_num, k, replace=False).tolist())
+
+
+def _maybe_poison_clients(args, xs_tr, ys_tr, class_num: int, seed: int, task: str):
+    """The poisoned world ``args.poison_type`` names: the attacks of
+    ``data/poison.py`` on the attacker clients' train shards (one type
+    for every attacker, or a list paired with ``poisoned_client_idxs``).
+    Logs who is poisoned with what."""
+    ptype = getattr(args, "poison_type", None) or None
+    if ptype is None:
+        return xs_tr, ys_tr
+    if task != "classification":
+        raise ValueError(
+            f"poison_type={ptype!r} supports classification datasets "
+            f"only (got task={task!r})"
+        )
+    target = int(getattr(args, "target_label", 0) or 0)
+    if not 0 <= target < class_num:
+        # an out-of-head target would one-hot to an all-zero row
+        raise ValueError(f"target_label={target} out of range for {class_num} classes")
+    from .poison import poison_clients
+
+    if isinstance(ptype, (list, tuple)) and not getattr(args, "poisoned_client_idxs", None):
+        raise ValueError(
+            "poison_type as a list pairs 1:1 with poisoned_client_idxs; "
+            "set the idxs explicitly (poisoned_client_fraction draws an "
+            "arbitrary attacker set)"
+        )
+    idxs = _resolve_poisoned_idxs(args, len(xs_tr), seed)
+    if not idxs:
+        raise ValueError(
+            "poison_type is set but no attacker clients are configured; "
+            "set poisoned_client_idxs or poisoned_client_fraction"
+        )
+    xs_tr, ys_tr, _ = poison_clients(
+        xs_tr, ys_tr, ptype, class_num, idxs,
+        target_label=target,
+        fraction=float(getattr(args, "poison_sample_fraction", 1.0) or 1.0),
+        data_cache_dir=getattr(args, "data_cache_dir", None),
+    )
+    logging.warning("POISONED WORLD: clients %s carry %s (target_label=%s)", idxs, ptype, target)
+    return xs_tr, ys_tr
 
 
 def _partition(args, labels: np.ndarray, client_num: int, class_num: int, seed: int):
@@ -610,14 +680,20 @@ def load(args, device: DeviceLike = "cuda") -> FederatedDataset:
         return _registry_dataset(args, dev)
     client_num = int(args.client_num_in_total)
     seed = int(getattr(args, "random_seed", 0))
-    if getattr(args, "poison_type", None):
-        raise NotImplementedError(f"poison_type: poisoned worlds arrive with {_ROBUST_SLICE}")
+    poisoned = getattr(args, "poison_type", None)
     cache = getattr(args, "data_cache_dir", None)
     if cache:
         from .ingest import vfl_party_csvs_available
 
         vfl_dir = os.path.join(cache, name)
         if vfl_party_csvs_available(vfl_dir):
+            if poisoned:
+                # the attacks mutate horizontal per-client shards, which
+                # a vertical party split does not have
+                raise ValueError(
+                    f"poison_type={args.poison_type!r} is not supported "
+                    f"for VFL party-CSV datasets (found {vfl_dir!r})"
+                )
             # party CSVs define the data whatever the dataset's name
             return _load_vfl_dataset(args, vfl_dir, client_num, seed, dev)
     if name.startswith("synthetic"):
@@ -637,11 +713,16 @@ def load(args, device: DeviceLike = "cuda") -> FederatedDataset:
         xs_tr, ys_tr, xs_te, ys_te, class_num, task, client_num = _natural_clients(
             args, name, fed, client_num)
     else:
-        dev_ds = _device_synth_classification(
+        # a poisoned world needs the features on the host (the attacks
+        # stamp triggers and inject samples), so the stand-in's features
+        # are not made on the device then
+        dev_ds = None if poisoned else _device_synth_classification(
             args, name, client_num, int(args.batch_size), seed, dev)
         if dev_ds is not None:
             return dev_ds
         xs_tr, ys_tr, xs_te, ys_te, class_num, task, source = _partitioned_clients(
             args, client_num, seed)
+    # after the partition (attacks are per client), before packing
+    xs_tr, ys_tr = _maybe_poison_clients(args, xs_tr, ys_tr, class_num, seed, task)
     return _pack_federation(args, xs_tr, ys_tr, xs_te, ys_te, class_num, task,
                             client_num, dev, source)

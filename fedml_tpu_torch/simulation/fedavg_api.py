@@ -26,9 +26,18 @@ bitwise the run that was never stopped; the registry-backed population
 plane (``client_registry_size > 0``): ``train()`` hands the rounds to a
 ``scale.engine.PlanetRoundLoop`` cached on the API (``_planet_loop``),
 which samples each cohort from a columnar client registry and folds it
-through the exact aggregation. The knobs of later slices (defenses,
-preemption, the stall watchdog, the metrics server) raise
-``NotImplementedError`` instead of being ignored.
+through the exact aggregation; the robust aggregation planes
+(``defense_type``: norm-diff clipping and weak DP, whose clip is one K3
+launch a round, and the coordinate-wise median; ``core/aggregation.py``
+``RobustAggregator``), and the algorithm hooks the fork's defenses plug
+into (``simulation/defenses.py``): ``_init_server_state``,
+``_preprocess`` (in the round, before local training; HS-FedAvg),
+``_keep_stacked`` with ``_post_round_stacked`` (the cohort's trained
+params after each round, on the synchronous loop; S-FedAvg), and
+``_extra_checkpoint_state`` / ``_restore_extra_state`` (algorithm state
+in the checkpoint). The knobs of later slices (preemption, the stall
+watchdog, the metrics server) raise ``NotImplementedError`` instead of
+being ignored.
 """
 
 from __future__ import annotations
@@ -42,7 +51,14 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ..core import devtime
-from ..core.aggregation import normalize_weights, stack_pytrees, weighted_average
+from .. import constants
+from ..core.aggregation import (
+    RobustAggregator,
+    derive_defense_rng,
+    normalize_weights,
+    stack_pytrees,
+    weighted_average,
+)
 from ..core.frame import bind_operator, cohort_train_fn
 from ..core.local_trainer import (
     compute_dtype_from_args,
@@ -67,7 +83,6 @@ Params = Dict[str, torch.Tensor]
 
 # knob -> (is it set?, the slice that brings it)
 _LATER_KNOBS = {
-    "defense_type": (bool, "the robust-aggregation planes (queue A item 7)"),
     "preempt_signal": (lambda v: str(v or "none").lower() != "none", "the elastic-mesh slice"),
     "stall_timeout_s": (lambda v: float(v or 0) > 0, "the telemetry exporters"),
     "metrics_port": (lambda v: int(v or 0) > 0, "the telemetry exporters"),
@@ -92,12 +107,15 @@ def _take(b: Batches, idx: torch.Tensor) -> Batches:
     )
 
 
-def build_round_fn(local_train, aggregate):
+def build_round_fn(local_train, aggregate, preprocess=None, keep_stacked: bool = False):
     """The round engine as a pure function of its collaborators:
     ``round_fn(global_params, server_state, packed, nsamples, idx, rng,
     lr_mult=None, valid=None) -> (new_global, new_state,
-    summed_metrics)``, every tensor on the device. ``aggregate`` may be
-    a bound method (the algorithms' server step plugs in there).
+    summed_metrics)``, every tensor on the device, plus the cohort's
+    trained params with ``keep_stacked``. ``aggregate`` may be a bound
+    method (the algorithms' server step plugs in there); ``preprocess``
+    (``(cohort, server_state) -> (cohort, server_state)``) runs on the
+    gathered cohort before local training.
 
     ``valid`` ([C] in {0, 1}) marks the real slots of a bucket-padded
     cohort: a padded slot's batches are all masked, so local training
@@ -111,12 +129,16 @@ def build_round_fn(local_train, aggregate):
         if valid is not None:
             vm = valid.reshape((-1,) + (1,) * (cohort.mask.dim() - 1))
             cohort = Batches(x=cohort.x, y=cohort.y, mask=cohort.mask * vm.to(cohort.mask.dtype))
+        if preprocess is not None:
+            cohort, server_state = preprocess(cohort, server_state)
         new_stacked, train_metrics = local_train(global_params, cohort, rng, lr_mult)
         weights = normalize_weights(ns, valid)
         new_global, new_state = aggregate(
             global_params, server_state, new_stacked, weights, cohort, rng
         )
         summed = {k: v.sum() for k, v in train_metrics.items()}
+        if keep_stacked:
+            return new_global, new_state, summed, new_stacked
         return new_global, new_state, summed
 
     return round_fn
@@ -151,6 +173,10 @@ class FedAvgAPI:
     inside the round function."""
 
     algorithm = "FedAvg"
+    # algorithms that need the cohort's trained params after each round
+    # (S-FedAvg's Shapley scoring) turn this on: they run on the
+    # synchronous loop, which hands them to _post_round_stacked
+    _keep_stacked = False
     # algorithms whose server step IS the algorithm (FedOpt's optimizer,
     # FedNova's normalized combine) turn this off, so that a custom
     # server_aggregator raises instead of being dropped
@@ -178,6 +204,13 @@ class FedAvgAPI:
         self.client_trainer = bind_operator(client_trainer, model, args)
         self.server_aggregator = bind_operator(server_aggregator, model, args)
         self.mode = getattr(args, "sim_mode", "vectorized")
+        if self.mode == "sequential" and (
+            self._keep_stacked or type(self)._preprocess is not FedAvgAPI._preprocess
+        ):
+            raise NotImplementedError(
+                f"{self.algorithm} uses in-round hooks that only run in "
+                "vectorized mode; sim_mode='sequential' is not supported"
+            )
         self.history: List[Dict[str, float]] = []
         self.pipeline_stats: Dict[str, float] = {}
 
@@ -223,7 +256,14 @@ class FedAvgAPI:
         self._eval = make_eval_fn(
             model.apply, model.loss_fn, compute_dtype=compute_dtype_from_args(args)
         )
-        self._round_fn = build_round_fn(self._local_train, self._aggregate)
+        self.robust = RobustAggregator(args) if getattr(args, "defense_type", None) else None
+        # the round being run (weak DP's noise is drawn from a generator
+        # seeded by the run seed and this index)
+        self._round_idx = 0
+        preprocess = (self._preprocess
+                      if type(self)._preprocess is not FedAvgAPI._preprocess else None)
+        self._round_fn = build_round_fn(self._local_train, self._aggregate, preprocess,
+                                        keep_stacked=self._keep_stacked)
         self.server_state = self._init_server_state()
         self.metrics_reporter = MetricsReporter(args)
 
@@ -232,12 +272,35 @@ class FedAvgAPI:
         return ()
 
     def _aggregate(self, global_params, server_state, new_stacked, weights, cohort, rng):
-        """FedAvg: the weighted average, or the custom aggregator's
-        reduction."""
+        """FedAvg: the weighted average, the custom aggregator's
+        reduction, or the robust aggregation ``defense_type`` names."""
         if self.server_aggregator is not None:
             return (self.server_aggregator.aggregate(global_params, new_stacked, weights, rng),
                     server_state)
+        if self.robust is not None:
+            noise = None
+            if self.robust.defense_type == constants.DEFENSE_WEAK_DP:
+                noise = derive_defense_rng(int(getattr(self.args, "random_seed", 0)),
+                                           self._round_idx, self.device)
+            return self.robust.aggregate(new_stacked, weights, global_params, noise), server_state
         return weighted_average(new_stacked, weights), server_state
+
+    def _preprocess(self, cohort: Batches, server_state):
+        """Applied to the gathered cohort before local training, inside the
+        round (HS-FedAvg's FFT input normalization plugs in here)."""
+        return cohort, server_state
+
+    def _post_round_stacked(self, stacked: Params, idx: np.ndarray, round_idx: int) -> None:
+        """Fed the cohort's trained params after each round when
+        ``_keep_stacked`` is set (S-FedAvg's scoring)."""
+
+    def _extra_checkpoint_state(self):
+        """Algorithm state to persist beside the params (S-FedAvg's
+        reputation): a dict of tensors, or None."""
+        return None
+
+    def _restore_extra_state(self, extra) -> None:
+        """Take back what ``_extra_checkpoint_state`` saved."""
 
     # -- reference-parity sampling ------------------------------------
     def _client_sampling(
@@ -298,7 +361,7 @@ class FedAvgAPI:
                     self._planet_loop = PlanetRoundLoop(self)
                 return self._planet_loop.run(packed, nsamples, comm_rounds, freq, profiler,
                                              ckpt, start_round)
-            if self.mode == "sequential":
+            if self.mode == "sequential" or self._keep_stacked:
                 return self._train_rounds_sync(packed, nsamples, comm_rounds, freq, profiler,
                                                ckpt, start_round)
             return RoundPipeline(self).run(packed, nsamples, comm_rounds, freq, profiler,
@@ -345,25 +408,33 @@ class FedAvgAPI:
             )
         self.server_state = pytree.tree_unflatten([v.to(self.device) for v in saved], spec)
         self.generator.set_state(state["generator"])
+        self._restore_extra_state(state.get("extra"))
         start_round = int(state["round_idx"]) + 1
         logging.info("resuming from round %d", start_round)
         return ckpt, start_round
 
     def _save_checkpoint(self, ckpt, round_idx: int) -> None:
         """Round ``round_idx``'s state: the global params, the server
-        state's leaves, and the generator's state after the round's
-        draws (the state the next round draws from)."""
-        ckpt.save(round_idx, {
+        state's leaves, the generator's state after the round's draws
+        (the state the next round draws from), and the algorithm's
+        ``extra`` state when it has one."""
+        state = {
             "params": self.global_params,
             "server_state": pytree.tree_leaves(self.server_state),
             "generator": self.generator.get_state(),
             "round_idx": int(round_idx),
-        })
+        }
+        extra = self._extra_checkpoint_state()
+        if extra is not None:
+            state["extra"] = extra
+        ckpt.save(round_idx, state)
 
     def _train_rounds_sync(self, packed, nsamples, comm_rounds, freq, profiler,
                            ckpt=None, start_round=0):
         """The synchronous loop of the sequential mode (a Python loop
-        over the cohort's clients). A round that evaluates waits for the
+        over the cohort's clients) and of the ``_keep_stacked``
+        algorithms (the vectorized round, its cohort's trained params
+        handed to ``_post_round_stacked``). A round that evaluates waits for the
         card before its evaluation and records ``train_time_s`` (round
         start to training done on the device) beside ``round_time_s``
         (to the end of evaluation). With a checkpointer, rounds run from
@@ -379,10 +450,19 @@ class FedAvgAPI:
             )
             rng = self._shuffle_uniforms(len(idx))
             lr_mult = self._lr_mult(round_idx)
+            self._round_idx = round_idx
             with devtime.measure("simulation.round_fn", bucket=f"b{len(idx)}"):
-                self.global_params, summed = self._sequential_round(
-                    idx, rng, lr_mult, nsamples
-                )
+                if self.mode == "sequential":
+                    self.global_params, summed = self._sequential_round(
+                        idx, rng, lr_mult, nsamples
+                    )
+                else:
+                    self.global_params, self.server_state, summed, stacked = self._round_fn(
+                        self.global_params, self.server_state, packed, nsamples,
+                        torch.as_tensor(idx, dtype=torch.int64, device=self.device), rng,
+                        lr_mult,
+                    )
+                    self._post_round_stacked(stacked, idx, round_idx)
             if round_idx % freq == 0 or round_idx == comm_rounds - 1:
                 self._sync()
                 train_time = time.perf_counter() - t0

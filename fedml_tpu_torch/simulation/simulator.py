@@ -8,20 +8,18 @@ simulator arrives with the multi-card slice.
 
 from __future__ import annotations
 
+from .defenses import HSFedAvgAPI, SFedAvgAPI
 from .fedavg_api import FedAvgAPI, FedNovaAPI, FedOptAPI, FedProxAPI
 
 _ALGORITHMS = {"FedAvg": FedAvgAPI, "FedProx": FedProxAPI, "FedOpt": FedOptAPI,
-               "FedNova": FedNovaAPI}
+               "FedNova": FedNovaAPI, "SFedAvg": SFedAvgAPI, "HSFedAvg": HSFedAvgAPI}
 
 # the JAX package's other algorithms, by the slice that brings them
-_LATER = {
-    **dict.fromkeys(("SFedAvg", "HSFedAvg"), "the defense planes (queue A item 7)"),
-    **dict.fromkeys(
-        ("HierFedAvg", "DSGD", "PushSum", "TurboAggregate", "FedGAN", "SplitNN", "FedGKT",
-         "VFL", "FedNAS"),
-        "the other simulation algorithms (queue A item 8)",
-    ),
-}
+_LATER = dict.fromkeys(
+    ("HierFedAvg", "DSGD", "PushSum", "TurboAggregate", "FedGAN", "SplitNN", "FedGKT",
+     "VFL", "FedNAS"),
+    "the other simulation algorithms (queue A item 8)",
+)
 
 # the algorithms whose engines take custom operators, in the JAX package
 _OPERATOR_FAMILY = ("FedAvg", "FedProx", "FedOpt", "FedNova", "HierFedAvg")

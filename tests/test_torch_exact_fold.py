@@ -219,13 +219,18 @@ def test_the_references_errors():
         acc.fold_limbs(state["limbs"][:2], 1.0)
     with pytest.raises(ValueError, match=r"count=-1: a limb-set represents >= 0 uploads"):
         acc.fold_limbs(state["limbs"], 1.0, count=-1)
+    # the encoded and clipped folds refuse what they cannot decode or flatten
     for name in ("fold_encoded", "fold_encoded_delta"):
-        with pytest.raises(NotImplementedError, match="queue A item 7"):
+        with pytest.raises(ValueError, match="want an Int8Codec or a TopKCodec"):
             getattr(acc, name)(None, None, None, 1.0)
-    for name, nargs in (("fold_clipped", 4), ("fold_encoded_clipped", 5),
-                        ("fold_delta_clipped", 3), ("fold_encoded_delta_clipped", 5)):
-        with pytest.raises(NotImplementedError, match="queue A item 7"):
-            getattr(acc, name)(*([None] * (nargs - 1)), 1.0)
+    for name in ("fold_encoded_clipped", "fold_encoded_delta_clipped"):
+        with pytest.raises(ValueError, match="want an Int8Codec or a TopKCodec"):
+            getattr(acc, name)(None, None, None, 1.0, 1.0)
+    with pytest.raises(ValueError, match="tree holds"):
+        acc.fold_clipped({"nope": torch.zeros(1)}, tt, 1.0, 1.0)
+    with pytest.raises(ValueError, match="tree holds"):
+        acc.fold_delta_clipped({"nope": torch.zeros(1)}, 1.0, 1.0)
+    assert acc.count == 0
     with pytest.raises(ValueError, match="staleness must be >= 0"):
         agg.staleness_weight(10, -1, 0.5)
     assert agg.staleness_weight(10, 2, 0.5) == jagg.staleness_weight(10, 2, 0.5) == 2.5

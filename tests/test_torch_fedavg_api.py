@@ -259,7 +259,6 @@ def test_run_simulation_needs_a_card_unless_told(monkeypatch):
 @pytest.mark.parametrize("knob, value, match", [
     ("metrics_port", 9100, "telemetry"),
     ("stall_timeout_s", 5.0, "telemetry"),
-    ("defense_type", "median", "robust"),
     ("preempt_signal", "round:1", "elastic"),
 ])
 def test_later_knobs_raise(knob, value, match):

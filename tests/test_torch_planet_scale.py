@@ -17,8 +17,9 @@ against the JAX package's (``fedml_tpu/scale/``).
   the straight one; the knob validation and the round loop's refusals
   are the JAX package's, word for word.
 
-Left for their slices (ROADMAP.md): the int8-quantized tree (queue A
-item 7), the cross-silo aggregator's edge tier (item 11) and the
+The int8-quantized tree is held to the flat fold in
+``tests/test_torch_robust_fold.py``. Left for their slices (ROADMAP.md):
+the cross-silo aggregator's edge tier (queue A item 11) and the
 preempted run resumed on a reshaped mesh (items 9 and 11).
 """
 
