@@ -57,7 +57,14 @@ version on the card:
   by overrides (clean, undefended, weak DP, median, S-FedAvg,
   HS-FedAvg), whose clip is one launch a round of the robust term
   kernel, and the encoded and clipped streaming folds at ResNet-18-GN's
-  width, each term one launch of it.
+  width, each term one launch of it;
+- the ninth slice: the other simulation algorithms through
+  ``run_simulation``, one configuration each under
+  ``fedml_tpu_torch/configs/`` (HierFedAvg, DSGD and PushSum,
+  TurboAggregate on the headline cohort; FedGAN on MNIST; FedNAS,
+  SplitNN and FedGKT on CIFAR-10; FedSeg on pascal_voc; VFL on the LEAF
+  files), each timed, profiled and held to its algorithm's gate, with no
+  hand-written kernel on their paths.
 The CNN, ResNet, RNN and logistic-regression paths run no other hand-written
 kernel: their
 convolutions and matrix products are cuDNN's and cuBLAS's through
@@ -211,7 +218,23 @@ Phases, each of which fails the run:
    4-edge tree, for the int8 and top-k encoded clipped folds, the int8
    encoded and delta-clipped ones and the raw and delta clipped ones:
    the three finalize to identical bits; the robust term launches once
-   a fold.
+   a fold;
+21. other algorithms: HierFedAvg, DSGD, PushSum, TurboAggregate, FedGAN,
+   FedNAS, FedSeg, SplitNN, FedGKT and VFL, each through
+   ``run_simulation`` for round 0, then rounds 1-3 timed on the card's
+   clock and round 4 under ``torch.profiler``: rounds/s, examples (DSGD:
+   nodes) a second, peak memory, launches by kind, busy share and the
+   algorithm's own record are printed. Gates: no hand-written kernel
+   launches; the training loss falls (FedGKT's from round 1, its KD
+   term being off in round 0; FedNAS: its local search lowers its
+   cohort's loss; FedGAN: finite losses, disc_acc in [0, 1]); HierFedAvg
+   with one group is a flat FedAvg round (1e-5); DSGD's W is
+   row-stochastic and PushSum's column-stochastic, PushSum's mass sum
+   conserved (1e-5 relative); TurboAggregate's global model is within
+   C / (2 scale) of the plain weighted mean and bitwise the host
+   protocol run again with other shares; SplitNN's boundary gradient is
+   joint backprop (1e-5); FedGKT's KL of equal logits is 0; every VFL
+   party's params move.
 Each phase's wall time is printed.
 
 Run from the repo root, on a machine with one CUDA card and the CUDA
@@ -3563,6 +3586,377 @@ def run_robust_folds():
             "kernel_launches": launches}
 
 
+# -- the ninth slice: the other simulation algorithms ----------------------
+
+A8_CONFIGS = REPO / "fedml_tpu_torch" / "configs"
+# (path, config, overrides): each through run_simulation on the card
+A8_PATHS = (
+    ("HierFedAvg", "hierfedavg_femnist_cnn.yaml", {}),
+    ("DSGD", "dsgd_femnist_cnn.yaml", {}),
+    ("PushSum", "dsgd_femnist_cnn.yaml", {"federated_optimizer": "PushSum"}),
+    ("TurboAggregate", "turboaggregate_femnist_cnn.yaml", {}),
+    ("FedGAN", "fedgan_mnist.yaml", {}),
+    ("FedNAS", "fednas_cifar10_darts.yaml", {}),
+    ("FedSeg", "fedseg_pascal_voc_deeplab.yaml", {}),
+    ("SplitNN", "splitnn_cifar10.yaml", {}),
+    ("FedGKT", "fedgkt_cifar10.yaml", {}),
+    ("VFL", "vfl_mnist_leaf.yaml", {"data_cache_dir": str(REPO / "fedml_data")}),
+)
+# round 0 (run_simulation, data and init included) warms up; rounds 1-3
+# are timed on the card's clock; round 4 runs under torch.profiler
+A8_TIMED, A8_PROFILED = (1, 3), 4
+A8_KINDS = KERNEL_KINDS + (("transposed conv", ("conv_transpose", "col2im", "im2col")),)
+HIER_FLAT_ATOL = 1e-5
+MASS_RTOL = 1e-5
+BOUNDARY_ATOL = 1e-5
+KL_EQUAL_ATOL = 1e-7  # |KL| of equal logits in f32
+
+
+def profiled_call(fn):
+    """``fn()`` under ``torch.profiler``: its result and a summary in
+    ``core/tracing.py``'s form (wall, device busy, kernels by name)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fedml_tpu_torch.core.tracing import _union_us
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # the card's activity only: a round's host events would be millions
+    activity = ProfilerActivity.CUDA if DEVICE == "cuda" else ProfilerActivity.CPU
+    with profile(activities=[activity]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_name, counts, spans = {}, {}, []
+    # the raw records: prof.events() builds a Python object tree, ~30 s
+    # for 500,000 events
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            name, start = e.name(), e.start_ns() / 1e3
+            by_name[name] = by_name.get(name, 0.0) + e.duration_ns() / 1e9
+            counts[name] = counts.get(name, 0) + 1
+            spans.append((start, start + e.duration_ns() / 1e3))
+    return out, {"wall_s": wall, "device_busy_s": _union_us(spans) / 1e6,
+                 "device_kernel_s": sum(by_name.values()), "device_launches": len(spans),
+                 "device_s_by_kernel": dict(sorted(by_name.items(), key=lambda kv: -kv[1])),
+                 "device_launches_by_kernel": counts}
+
+
+def round_samples(api, round_idx: int) -> float:
+    """Real training examples one round of ``api`` passes over: every
+    local epoch of every client it trains (every group round of
+    HierFedAvg's)."""
+    from fedml_tpu_torch.simulation.fedavg_api import deterministic_client_sampling
+
+    ns = np.asarray(api.dataset.packed_num_samples, dtype=np.float64)
+    epochs = int(api.args.epochs)
+    if api.algorithm == "VFL":
+        return float(api._train[2].sum()) * epochs
+    if api.algorithm == "HierFedAvg":
+        return float(ns.sum()) * epochs * int(api.args.group_comm_round)
+    if api.algorithm in ("DSGD", "PushSum", "SplitNN", "FedGKT"):
+        return float(ns.sum()) * epochs
+    idx = deterministic_client_sampling(round_idx, api.dataset.client_num,
+                                        int(api.args.client_num_per_round))
+    return float(ns[idx].sum()) * epochs
+
+
+def a8_losses(tag: str, sums: list) -> list:
+    key = "d_loss" if tag == "FedGAN" else "loss_sum"
+    den = "n" if tag == "FedGAN" else "count"
+    return [s[key] / max(s[den], 1.0) for s in sums]
+
+
+def a8_stats(api, round_idx: int, summed) -> dict:
+    """The algorithm's own record of a round (evaluation included)."""
+    if hasattr(api, "round_stats"):
+        return api.round_stats(round_idx, summed)
+    return api._local_test_on_all_clients(round_idx)
+
+
+def a8_run(tag: str, config: str, overrides: dict) -> dict:
+    """One path: round 0 through ``run_simulation`` (data, init, the
+    first round and its evaluation), rounds 1-3 timed on the card's
+    clock, round 4 profiled, then the algorithm's record."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.simulation.round_loop import host_sums
+
+    args = load_arguments(str(A8_CONFIGS / config))
+    for knob, value in dict(overrides, comm_round=1, frequency_of_the_test=1).items():
+        setattr(args, knob, value)
+    args._validate()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_bytes = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.perf_counter()
+    with simulated_api() as held:
+        first = fedml_tpu_torch.run_simulation(device=DEVICE, args=args)
+    api = held[-1]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    spans, sums = [], []
+    for r in range(A8_TIMED[0], A8_TIMED[1] + 1):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        summed = api.run_round(r)
+        end.record()
+        end.synchronize()
+        spans.append(start.elapsed_time(end) / 1e3)
+        sums.append(host_sums(summed))
+    t_timed = time.perf_counter()
+    summed, summary = profiled_call(lambda: api.run_round(A8_PROFILED))
+    t_prof = time.perf_counter()
+    stats = a8_stats(api, A8_PROFILED, summed)
+    t_stats = time.perf_counter()
+    sums.append(host_sums(summed))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held_bytes
+    launches = launch_counts()
+    card = card_line()
+    per_round = [1.0 / s for s in spans]
+    rounds_per_s = len(spans) / sum(spans)
+    samples = [round_samples(api, r) for r in range(A8_TIMED[0], A8_TIMED[1] + 1)]
+    samples_per_s = sum(samples) / sum(spans)
+    losses = a8_losses(tag, sums)
+    profile = profile_summary(f"{tag} profile of round {A8_PROFILED} (training only) on {card}",
+                              summary, A8_KINDS)
+    unit = "nodes" if tag in ("DSGD", "PushSum") else "real examples"
+    rate = (api.dataset.client_num * rounds_per_s if unit == "nodes" else samples_per_s)
+    log(f"{tag}: host wall: round 0 {warm_s:.1f} s, timed rounds "
+        f"{t_timed - t0 - warm_s:.1f} s, profiled round {t_prof - t_timed:.1f} s, record "
+        f"{t_stats - t_prof:.1f} s")
+    log(f"{tag} on {card}: {args.dataset} ({api.dataset.source or 'loaded'}), "
+        f"{api.dataset.client_num} clients: rounds {A8_TIMED[0]}-{A8_TIMED[1]} on the card's "
+        f"clock {to_spread(rounds_per_s, per_round)} rounds/s (a round "
+        f"{to_spread(min(per_round), per_round)}-{to_spread(max(per_round), per_round)}), "
+        f"{rate:.1f} {unit}/s ({samples[0]:.0f} real examples a round); peak memory "
+        f"{peak / 2**20:.1f} MiB; round 0 through run_simulation {warm_s:.1f} s (data and init "
+        f"included); train loss by round {[round(v, 4) for v in losses]}; round "
+        f"{A8_PROFILED} record {stats}; hand-written launches {launches}")
+    if any(launches.values()):
+        fail(f"{tag}: hand-written kernels launched on a path that has none: {launches}")
+    if not all(np.isfinite(losses)):
+        fail(f"{tag}: a round's training loss is not finite: {losses}")
+    # the training loss after round 0 and after round 4; FedGKT's from
+    # round 1 (its clients' KD term is off in round 0), FedNAS's in
+    # fednas_local_search_gain, FedGAN's has nothing to fall to
+    if tag == "FedGKT":
+        fell, seen = losses[-1] < losses[0], (losses[0], losses[-1])
+    else:
+        fell, seen = stats.get("train_loss", 0) < first.get("train_loss", 0), (
+            first.get("train_loss"), stats.get("train_loss"))
+    if tag not in ("FedGAN", "FedNAS") and not fell:
+        fail(f"{tag}: the train loss did not fall by round {A8_PROFILED}: {seen}")
+    return {"api": api, "args": args, "first": first, "stats": stats,
+            "numbers": {"card": card, "rounds_per_s": rounds_per_s,
+                        "rounds_per_s_by_round": per_round, "timed_rounds_s": sum(spans),
+                        f"{unit.replace(' ', '_')}_per_s": rate,
+                        "real_examples_per_s": samples_per_s,
+                        "real_examples_a_round": samples[0], "peak_memory_bytes": peak,
+                        "round0_through_run_simulation_s": warm_s, "train_loss": losses,
+                        "stats": {k: v for k, v in stats.items() if k != "round_time_s"},
+                        "profile": {"round": A8_PROFILED, **profile},
+                        "kernel_launches": launches}}
+
+
+def hier_one_group_is_flat() -> float:
+    """HierFedAvg with one group and one group round against a FedAvg
+    round over the same 32 clients from the same init (shuffle off, so
+    both see the same batches): the largest parameter difference."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch import data, models
+    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.simulation import FedAvgAPI, HierarchicalFLAPI
+
+    out = []
+    for alg, extra in (("HierFedAvg", {"group_num": 1, "group_comm_round": 1}), ("FedAvg", {})):
+        args = load_arguments(str(A8_CONFIGS / "hierfedavg_femnist_cnn.yaml"))
+        for knob, value in dict(extra, federated_optimizer=alg, shuffle=False).items():
+            setattr(args, knob, value)
+        args._validate()
+        fedml_tpu_torch.init(args)
+        ds = data.load(args, device=DEVICE)
+        cls = HierarchicalFLAPI if alg == "HierFedAvg" else FedAvgAPI
+        api = cls(args, DEVICE, ds, models.create(args, ds.class_num, device=DEVICE))
+        api.run_round(0)
+        out.append(api.global_params)
+    return max(float((out[0][k] - out[1][k]).abs().max()) for k in out[1])
+
+
+def fednas_local_search_gain(api, round_idx: int) -> tuple:
+    """FedNAS's loss gate. Its global model's test loss need not fall in
+    a few rounds of 4 hetero clients (the cells end in a global mean,
+    which hardly reads the stand-in's per-pixel class template, and each
+    client first fits its own label skew), so the gate is the search
+    itself: the round's cohort, on its training halves, before the round
+    (the global model) and during it (the local searches' mean loss)."""
+    from fedml_tpu_torch.core.types import Batches
+    from fedml_tpu_torch.simulation.fedavg_api import deterministic_client_sampling
+    from fedml_tpu_torch.simulation.fednas import halves
+    from fedml_tpu_torch.simulation.round_loop import host_sums
+
+    idx = deterministic_client_sampling(round_idx, api.dataset.client_num,
+                                        int(api.args.client_num_per_round))
+    sel = torch.as_tensor(idx, dtype=torch.int64, device=api.dataset.packed_train.x.device)
+    p = api.dataset.packed_train
+    tr, _ = halves(Batches(x=p.x.index_select(0, sel), y=p.y.index_select(0, sel),
+                           mask=p.mask.index_select(0, sel)))
+    before = api.model.metrics_from_sums(api._evaluate(api.global_params, tr))["loss"]
+    sums = host_sums(api.run_round(round_idx))
+    during = sums["loss_sum"] / max(sums["count"], 1.0)
+    return before, during
+
+
+def turboaggregate_checks(api) -> dict:
+    """One more round with the cohort's stacked updates kept: the new
+    global model against the plain weighted mean (float64 on the host)
+    and against the host protocol run again on the same updates."""
+    from fedml_tpu_torch.core.secure_agg import TurboAggregateProtocol
+
+    kept, post = {}, api._post_round_stacked
+
+    def keep(stacked, idx, round_idx):
+        kept["flat"] = api._spec.flatten_stacked(stacked).cpu().numpy()
+        kept["idx"] = np.array(idx)
+        post(stacked, idx, round_idx)
+
+    api._post_round_stacked = keep
+    try:
+        api.run_round(A8_PROFILED + 1)
+    finally:
+        api._post_round_stacked = post
+    flat, idx = kept["flat"], kept["idx"]
+    got = torch.cat([v.reshape(-1) for v in api.global_params.values()]).cpu().numpy()
+    from fedml_tpu_torch.core.aggregation import normalize_weights
+
+    w = normalize_weights(torch.as_tensor(np.take(api.dataset.packed_num_samples, idx))
+                          ).numpy().astype(np.float64)
+    plain = (w[:, None] * flat.astype(np.float64)).sum(axis=0)
+    C, scale = len(idx), float(api.args.ta_quant_scale)
+    err = float(np.abs(got.astype(np.float64) - plain).max())
+    again = TurboAggregateProtocol(C, int(api.args.ta_groups), scale, seed=12345)
+    rerun = again.secure_weighted_sum(list(flat), w).astype(np.float32)
+    bitwise = bool(np.array_equal(rerun, got))
+    log(f"TurboAggregate: the new global model is {err:.3e} from the plain weighted mean "
+        f"(bound C / (2 scale) = {C / (2 * scale):.3e}); the host protocol run again on the "
+        f"same {C} x {flat.shape[1]} updates with other shares is bitwise it: {bitwise}")
+    if not err <= C / (2 * scale) or not bitwise:
+        fail(f"TurboAggregate: {err} from the plain mean (bound {C / (2 * scale)}), "
+             f"bitwise a rerun {bitwise}")
+    return {"plain_mean_max_err": err, "bound": C / (2 * scale), "rerun_bitwise": bitwise}
+
+
+def splitnn_boundary_err(api) -> float:
+    """The split's boundary gradient path against joint backprop through
+    bottom + top on one batch: the largest difference over both nets'
+    gradients."""
+    from fedml_tpu_torch.simulation.split_learning import masked_ce
+
+    b = api.dataset.packed_train
+    x, y, m = b.x[0, 0], b.y[0, 0], b.mask[0, 0]
+    _, _, g_b, g_t, _ = api.boundary_grads(api.bottom_params, api.top_params, x, y, m)
+
+    def joint(pb, pt):
+        feats, _ = api.bottom.apply(pb, x)
+        return masked_ce(api.top.apply(pt, feats), y, m)[0]
+
+    jb, jt = torch.func.grad(joint, argnums=(0, 1))(api.bottom_params, api.top_params)
+    return max(float((got[k] - want[k]).abs().max())
+               for got, want in ((g_b, jb), (g_t, jt)) for k in want)
+
+
+def run_other_algorithms():
+    """Phase 21: HierFedAvg, DSGD, PushSum, TurboAggregate, FedGAN,
+    FedNAS, FedSeg, SplitNN, FedGKT and VFL through ``run_simulation``,
+    each timed, profiled and checked: the loss falls (FedGAN: finite
+    losses, disc_acc in [0, 1]); no hand-written kernel launches; and
+    each algorithm's own gate."""
+    from fedml_tpu_torch.simulation.split_learning import kl_loss
+
+    out = {}
+    for tag, config, overrides in A8_PATHS:
+        t0 = time.perf_counter()
+        run = a8_run(tag, config, overrides)
+        api, stats, numbers = run["api"], run["stats"], run["numbers"]
+        if tag in ("DSGD", "PushSum"):
+            W = api.W.double()
+            axis = 1 if tag == "DSGD" else 0
+            stoch = float((W.sum(dim=axis) - 1).abs().max())
+            numbers["mixing_sum_err"] = stoch
+            log(f"{tag}: W {tuple(W.shape)} {'row' if axis else 'column'}-stochastic to "
+                f"{stoch:.2e}; consensus_dist {stats['consensus_dist']:.6g}")
+            if stoch > 1e-6:
+                fail(f"{tag}: W is not {'row' if axis else 'column'}-stochastic ({stoch})")
+            if tag == "PushSum":
+                mass = float(api.mass.double().sum())
+                n = api.dataset.client_num
+                numbers["mass_sum"] = mass
+                log(f"PushSum: mass sum {mass!r} over {n} nodes")
+                if abs(mass / n - 1) > MASS_RTOL:
+                    fail(f"PushSum: the mass sum {mass} is not conserved ({n})")
+        elif tag == "HierFedAvg":
+            err = hier_one_group_is_flat()
+            numbers["one_group_vs_flat_max_err"] = err
+            log(f"HierFedAvg: {len(api.groups)} groups of {[len(g) for g in api.groups]}; one "
+                f"group and one group round vs a flat FedAvg round: {err:.3e}")
+            if not err <= HIER_FLAT_ATOL:
+                fail(f"HierFedAvg with group_num 1 differs from flat FedAvg by {err}")
+        elif tag == "TurboAggregate":
+            numbers["secure_sum"] = turboaggregate_checks(api)
+        elif tag == "FedNAS":
+            before, during = fednas_local_search_gain(api, A8_PROFILED + 1)
+            first = run["first"]
+            numbers["local_search_loss"] = {"before": before, "during": during}
+            numbers["test_loss_round0_round4"] = [first["test_loss"], stats["test_loss"]]
+            log(f"FedNAS: round {A8_PROFILED + 1}'s cohort on its training halves: the "
+                f"global model's loss {before:.4f}, the local searches' mean {during:.4f}; "
+                f"the global test loss {first['test_loss']:.4f} after round 0, "
+                f"{stats['test_loss']:.4f} after round {A8_PROFILED}; genotype "
+                f"{stats['genotype']}")
+            if not during < before:
+                fail(f"FedNAS: the local search did not lower its cohort's loss: "
+                     f"{before} -> {during}")
+        elif tag == "FedGAN":
+            if not (np.isfinite(stats["d_loss"]) and np.isfinite(stats["g_loss"])
+                    and 0.0 <= stats["disc_acc"] <= 1.0):
+                fail(f"FedGAN: d_loss/g_loss not finite or disc_acc outside [0, 1]: {stats}")
+        elif tag == "SplitNN":
+            err = splitnn_boundary_err(api)
+            numbers["boundary_vs_joint_max_err"] = err
+            log(f"SplitNN: the boundary gradient vs joint backprop: {err:.3e}")
+            if not err <= BOUNDARY_ATOL:
+                fail(f"SplitNN: the boundary gradient differs from joint backprop by {err}")
+        elif tag == "FedGKT":
+            z = api.server_logits[0, 0]
+            kl = float(kl_loss(z, z, torch.ones(z.shape[0], device=z.device),
+                               api.temperature))
+            numbers["kl_equal_logits"] = kl
+            log(f"FedGKT: KL of equal logits {kl!r}; server_loss {stats['server_loss']:.4f}")
+            if abs(kl) > KL_EQUAL_ATOL:
+                fail(f"FedGKT: KL of equal logits is {kl}")
+        elif tag == "VFL":
+            # a fresh API draws the same initial params from the seed
+            start = type(api)(api.args, DEVICE, api.dataset).party_params
+            moved = [all(not torch.equal(api.party_params[k][n], start[k][n])
+                         for n in start[k]) for k in range(api.n_parties)]
+            numbers["parties_moved"] = moved
+            log(f"VFL: {api.n_parties} parties of {[x.shape[-1] for x in api._train[0]]} "
+                f"columns; every party's params moved: {moved}")
+            if not all(moved):
+                fail(f"VFL: a party's params did not move in the first rounds: {moved}")
+        numbers["wall_s"] = time.perf_counter() - t0
+        out[tag] = numbers
+        del run, api
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, str(REPO))
     try:
@@ -3631,6 +4025,8 @@ def main() -> int:
     log(f"defenses numbers on {card}: {json.dumps(defenses_numbers)}")
     folds_numbers = phase("robust folds", run_robust_folds)
     log(f"robust folds numbers on {card}: {json.dumps(folds_numbers)}")
+    other_numbers = phase("other algorithms", run_other_algorithms)
+    log(f"other algorithms numbers on {card}: {json.dumps(other_numbers)}")
     log(f"phase wall times (s): {json.dumps(walls)}")
     paths = {
         "serving": slice_numbers, "fedavg_headline": fedavg_numbers,
@@ -3642,6 +4038,7 @@ def main() -> int:
         "fedavg_real_files": leaf_numbers, "fedprox_synthetic": fedprox_numbers,
         "fedavg_poisoned_worlds": poisoned_numbers, "defenses": defenses_numbers,
         "robust_folds": folds_numbers,
+        **{f"other_{tag}": numbers for tag, numbers in other_numbers.items()},
     }
     for entry in kernels:  # each path's own count, reset just before it
         entry["launches_by_path"] = {

@@ -177,6 +177,30 @@ _DEFAULTS: Dict[str, Any] = {
     # HS-FedAvg
     "hs_L": 0.0,  # FFT band ratio (0 = the DC term only)
     "hs_momentum": 0.1,  # running-amplitude momentum
+    # the other simulation algorithms and their models, at the JAX
+    # package's defaults
+    "seg_width": 32,  # DeepLabLite width (FedSeg)
+    "nas_width": 16,  # FedNAS stem channels
+    "nas_cells": 2,  # FedNAS cells per client model
+    "nas_steps": 2,  # FedNAS nodes per cell
+    "arch_learning_rate": 0.0003,  # FedNAS architecture-weight LR
+    "gan_latent_dim": 64,  # FedGAN generator latent size
+    "gan_lr_g": 0.0002,  # FedGAN generator LR
+    "gan_lr_d": 0.0002,  # FedGAN discriminator LR
+    "splitnn_stages": (1, 1, 1),  # SplitNN server-side stage depths
+    "vfl_parties": 2,  # vertical-FL feature-holding parties
+    "vfl_rep_dim": 32,  # vertical-FL per-party representation width
+    "gkt_server_stages": (2, 2, 2),  # FedGKT server tower depths
+    "gkt_alpha": 1.0,  # FedGKT distillation loss weight
+    "gkt_temperature": 3.0,  # FedGKT softmax temperature
+    "gkt_server_epochs": 1,  # FedGKT server epochs per round
+    "group_num": 2,  # hierarchical-FL group count
+    "group_method": "random",  # hierarchical-FL grouping rule
+    "group_comm_round": 1,  # hierarchical-FL intra-group rounds
+    "topology_neighbor_num": 2,  # decentralized ring/random neighbors
+    "topology_beta": 0.0,  # DSGD Watts-Strogatz rewiring probability
+    "ta_groups": 4,  # TurboAggregate circular groups
+    "ta_quant_scale": 65536.0,  # TurboAggregate additive-share scale
     # serving plane (fedml_tpu_torch/serving):
     # bounded request queue; a full queue sheds new requests
     # (serving_shed_total{reason=queue_full}) instead of growing

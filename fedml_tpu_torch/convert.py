@@ -7,6 +7,12 @@ This maps each parameter onto the port's module of the same name:
 - ``Dense.kernel`` ``[in, out]`` -> ``Linear.weight`` ``[out, in]``;
 - ``Conv.kernel`` ``[kh, kw, in, out]`` -> ``Conv2d.weight``
   ``[out, in, kh, kw]``;
+- ``ConvTranspose.kernel`` ``[kh, kw, in, out]`` (a ``ConvTranspose_<k>``
+  module, told apart from a ``Conv`` by its name, not its rank) ->
+  ``FlaxConvTranspose2d.weight`` ``[in, out, kh, kw]``, flipped in space
+  (flax's ``transpose_kernel=False`` correlates where torch's transposed
+  convolution convolves);
+- a root ``alphas_holder`` (DARTS' architecture parameters) as it is;
 - ``Dense.bias`` and ``LayerNorm.bias`` -> ``bias``;
 - ``LayerNorm.scale`` -> ``weight``;
 - ``Embed.embedding`` -> ``Embedding.weight``;
@@ -16,6 +22,9 @@ This maps each parameter onto the port's module of the same name:
   ``[4H]``, each stacked in i, f, g, o order (``models/rnn.py``).
 
 With it, both packages compute the same function from the same weights.
+``stacked=True`` keeps a leading axis on every leaf (one model per
+client, FedGKT's personal nets ``[C, ...]``) and maps the rest of each
+leaf as above.
 """
 
 from __future__ import annotations
@@ -30,6 +39,9 @@ _SEP = "/"
 # flax leaf name -> torch leaf name (Dense kernels are also transposed)
 _LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
 _LSTM_CELL = "OptimizedLSTMCell_"
+_CONV_TRANSPOSE = "ConvTranspose_"
+# root leaves carried as they are
+_RAW = ("alphas_holder",)
 _GATES = "ifgo"
 # an LSTM cell's flax leaves, (gate module, leaf): the input kernels have
 # no bias
@@ -49,33 +61,50 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     return flat
 
 
-def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def _kernel(key: str, module: str, arr: np.ndarray, lead: int) -> np.ndarray:
+    """A flax kernel in the port's layout; the first ``lead`` axes are
+    kept as they are."""
+    nd = arr.ndim - lead
+    keep = tuple(range(lead))
+    if nd == 2:
+        return arr.transpose(keep + (lead + 1, lead))
+    if nd == 4:
+        if module.startswith(_CONV_TRANSPOSE):
+            arr = np.flip(arr, axis=(lead, lead + 1))
+            return arr.transpose(keep + tuple(lead + i for i in (2, 3, 0, 1)))
+        return arr.transpose(keep + tuple(lead + i for i in (3, 2, 0, 1)))
+    raise ValueError(
+        f"flax param {key!r}: {nd}-d kernel; only Dense (2-d) and 2-D Conv and "
+        "ConvTranspose (4-d) kernels are ported so far"
+    )
+
+
+def params_from_flax(tree: Mapping[str, Any], stacked: bool = False) -> Dict[str, torch.Tensor]:
     """A flax params tree (nested dicts, or slash-joined keys, of numpy
     arrays) -> the port's ``{slash/joined/key: Tensor}`` params on the
-    CPU. Raises ``ValueError`` on a leaf this mapping does not know."""
+    CPU; ``stacked`` keeps every leaf's leading axis. Raises
+    ``ValueError`` on a leaf this mapping does not know."""
     out: Dict[str, torch.Tensor] = {}
     cells: Dict[str, Dict[tuple, np.ndarray]] = {}
+    lead = 1 if stacked else 0
     for key, val in _flatten(tree).items():
         parts = key.split(_SEP)
         if len(parts) >= 3 and parts[-3].startswith(_LSTM_CELL):
+            if stacked:
+                raise ValueError(f"flax param {key!r}: stacked LSTM cells are not ported")
             if (parts[-2], parts[-1]) not in _LSTM_LEAVES:
                 raise ValueError(f"flax param {key!r}: unknown LSTM cell leaf")
             cells.setdefault(_SEP.join(parts[:-2]), {})[(parts[-2], parts[-1])] = np.asarray(val)
+            continue
+        if key in _RAW:
+            out[key] = torch.tensor(np.ascontiguousarray(np.asarray(val)))
             continue
         path, _, leaf = key.rpartition(_SEP)
         if leaf not in _LEAVES:
             raise ValueError(f"flax param {key!r}: unknown leaf {leaf!r}")
         arr = np.asarray(val)
         if leaf == "kernel":
-            if arr.ndim == 2:
-                arr = arr.T
-            elif arr.ndim == 4:
-                arr = arr.transpose(3, 2, 0, 1)
-            else:
-                raise ValueError(
-                    f"flax param {key!r}: {arr.ndim}-d kernel; only Dense "
-                    "(2-d) and 2-D Conv (4-d) kernels are ported so far"
-                )
+            arr = _kernel(key, path.rpartition(_SEP)[2], arr, lead)
         name = f"{path}{_SEP}{_LEAVES[leaf]}" if path else _LEAVES[leaf]
         out[name] = torch.tensor(np.ascontiguousarray(arr))
     for cell, leaves in cells.items():

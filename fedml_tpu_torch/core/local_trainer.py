@@ -115,7 +115,10 @@ def make_local_train_fn(
     ``params`` are the global params (one model); ``batches`` are a
     cohort's, leaves ``[C, nb, bs, ...]``; ``rng`` the shuffle's
     uniforms ``[C, epochs, nb*bs]`` (required when ``shuffle``);
-    ``lr_mult`` scales every update (the round-indexed LR). Returns the
+    ``lr_mult`` scales every update (the round-indexed LR). With
+    ``stacked=True`` the params are already one model per client
+    (leaves ``[C, ...]``, the decentralized nodes' own models) and each
+    client trains its own row. Returns the
     C clients' params stacked ``[C, ...]`` and, per client, the last
     epoch's f32 ``loss_sum`` / ``correct`` / ``count``. Inputs are never
     written to.
@@ -148,14 +151,33 @@ def make_local_train_fn(
         s = pytree.tree_map(lambda a, b: torch.where(nonempty, a, b), s_new, s)
         return p, s, metrics
 
-    def local_train(params: Params, batches: Batches, rng=None, lr_mult=None):
+    def local_train(params: Params, batches: Batches, rng=None, lr_mult=None,
+                    stacked: bool = False):
         C = batches.mask.shape[0]
         if shuffle and rng is None:
             raise ValueError("local_train: shuffle is on, so rng (the uniforms) is required")
-        step = torch.func.vmap(
-            lambda p, s, x, y, m: train_step(p, s, params, x, y, m, lr_mult)
-        )
-        p, s = _stack(params, C), _stack(optimizer.init(params), C)
+        if stacked:
+            # one model per client already (DSGD/PushSum's nodes): each
+            # client starts from, and is proximal to, its own row
+            if any(v.shape[0] != C for v in params.values()):
+                raise ValueError(
+                    f"local_train(stacked=True): params must lead with the "
+                    f"cohort's {C} clients"
+                )
+            vstep = torch.func.vmap(
+                lambda p, s, g, x, y, m: train_step(p, s, g, x, y, m, lr_mult)
+            )
+
+            def step(p, s, x, y, m):
+                return vstep(p, s, params, x, y, m)
+
+            first = {k: v[0] for k, v in params.items()}
+            p, s = dict(params), _stack(optimizer.init(first), C)
+        else:
+            step = torch.func.vmap(
+                lambda p, s, x, y, m: train_step(p, s, params, x, y, m, lr_mult)
+            )
+            p, s = _stack(params, C), _stack(optimizer.init(params), C)
         for epoch in range(epochs):
             b = _shuffle_batches(batches, rng[:, epoch]) if shuffle else batches
             sums = {"loss_sum": 0.0, "correct": 0.0, "count": 0.0}

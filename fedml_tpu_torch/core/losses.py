@@ -75,8 +75,21 @@ def sigmoid_bce(
     }
 
 
+def pixel_cross_entropy(
+    logits: Tensor, labels: Tensor, mask: Tensor, ignore_index: int = 255
+) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Semantic segmentation (FedSeg): logits [*, H, W, C], labels
+    [*, H, W]; ``mask`` is the per-example validity [*], broadcast over
+    the pixels. Pixels labelled ``ignore_index`` (the void label 255)
+    carry no loss and no metric weight; counts are in valid pixels."""
+    pm = mask[..., None, None].expand(labels.shape) * (labels != ignore_index).to(mask.dtype)
+    safe = torch.where(labels == ignore_index, torch.zeros_like(labels), labels)
+    return token_cross_entropy(logits, safe, pm)
+
+
 LOSSES = {
     "classification": softmax_cross_entropy,
     "nwp": token_cross_entropy,
     "tag_prediction": sigmoid_bce,
+    "segmentation": pixel_cross_entropy,
 }

@@ -1,10 +1,14 @@
-"""Topology managers (port subset of ``fedml_tpu/core/topology.py``).
+"""Topology managers (port of ``fedml_tpu/core/topology.py``).
 
-A numpy copy of the base class and ``EdgeTreeTopology``, the two-tier
-aggregation tree the registry path's edge tier folds through
-(``scale/tree.py``); the decentralized topologies (symmetric and
-asymmetric rings with their mixing matrices) come with the
-decentralized simulators (ROADMAP.md, queue A item 8).
+Numpy copies, bitwise the JAX package's: the base class,
+``EdgeTreeTopology`` (the two-tier aggregation tree the registry path's
+edge tier folds through, ``scale/tree.py``), and the decentralized
+topologies DSGD and PushSum gossip over: ``SymmetricTopologyManager``
+(a Watts-Strogatz ring, row-stochastic) and ``AsymmetricTopologyManager``
+(a directed ring with random extra out-links, column-stochastic).
+``mixing_matrix(device=...)`` hands the weights to the card as float32,
+as the JAX package casts them, so a gossip round is one product over the
+stacked node axis.
 """
 
 from __future__ import annotations
@@ -13,6 +17,9 @@ import abc
 from typing import List
 
 import numpy as np
+import torch
+
+from ..device import DeviceLike, get_device
 
 
 class BaseTopologyManager(abc.ABC):
@@ -35,6 +42,59 @@ class BaseTopologyManager(abc.ABC):
 
     def get_out_neighbor_weights(self, node_index: int):
         return self.topology[:, node_index]
+
+
+def _watts_strogatz_ring(n: int, k: int, beta: float, rng: np.random.RandomState):
+    """Undirected Watts-Strogatz adjacency: a ring lattice with k
+    nearest neighbors, each edge rewired with probability beta (the
+    JAX package's draw order, so the same seed rewires the same
+    edges)."""
+    adj = np.zeros((n, n), dtype=bool)
+    for i in range(n):
+        for j in range(1, k // 2 + 1):
+            adj[i, (i + j) % n] = adj[(i + j) % n, i] = True
+    for i in range(n):
+        for j in range(1, k // 2 + 1):
+            if rng.rand() < beta:
+                old = (i + j) % n
+                candidates = [c for c in range(n) if c != i and not adj[i, c]]
+                if candidates:
+                    new = candidates[rng.randint(len(candidates))]
+                    adj[i, old] = adj[old, i] = False
+                    adj[i, new] = adj[new, i] = True
+    return adj
+
+
+def _mixing(topology: np.ndarray, device: DeviceLike) -> torch.Tensor:
+    return torch.as_tensor(topology, dtype=torch.float32, device=get_device(device))
+
+
+class SymmetricTopologyManager(BaseTopologyManager):
+    """(symmetric_topology_manager.py:7-82) ``neighbor_num`` undirected
+    neighbors per node, uniform row-normalized weights."""
+
+    def __init__(self, n: int, neighbor_num: int = 2, beta: float = 0.0, seed: int = 0):
+        self.n = int(n)
+        self.neighbor_num = int(neighbor_num)
+        self.beta = float(beta)
+        self.seed = int(seed)
+        self.topology: np.ndarray = np.zeros((n, n))
+
+    def generate_topology(self) -> None:
+        rng = np.random.RandomState(self.seed)
+        adj = _watts_strogatz_ring(self.n, self.neighbor_num, self.beta, rng)
+        np.fill_diagonal(adj, True)
+        w = adj.astype(np.float64)
+        self.topology = w / w.sum(axis=1, keepdims=True)
+
+    def get_in_neighbor_idx_list(self, node_index: int) -> List[int]:
+        return [j for j in range(self.n) if self.topology[node_index, j] > 0]
+
+    def get_out_neighbor_idx_list(self, node_index: int) -> List[int]:
+        return [j for j in range(self.n) if self.topology[j, node_index] > 0]
+
+    def mixing_matrix(self, device: DeviceLike = "cuda") -> torch.Tensor:
+        return _mixing(self.topology, device)
 
 
 class EdgeTreeTopology(BaseTopologyManager):
@@ -73,3 +133,40 @@ class EdgeTreeTopology(BaseTopologyManager):
 
     def get_out_neighbor_idx_list(self, node_index: int) -> List[int]:
         return [0] if node_index != 0 else []
+
+
+class AsymmetricTopologyManager(BaseTopologyManager):
+    """(asymmetric_topology_manager.py) a directed ring + random extra
+    out-links, out-degree normalized (column-stochastic, for PushSum)."""
+
+    def __init__(self, n: int, neighbor_num: int = 2, seed: int = 0):
+        self.n = int(n)
+        self.neighbor_num = int(neighbor_num)
+        self.seed = int(seed)
+        self.topology: np.ndarray = np.zeros((n, n))
+
+    def generate_topology(self) -> None:
+        """``topology[i, j]`` weights the directed edge j -> i (a row is
+        the receiver's in-weights, as the mixing product
+        ``theta_i <- sum_j W[i, j] theta_j`` reads it). Node i sends to
+        i + 1 and to ``neighbor_num`` random extras; each sender splits
+        its mass over its out-neighbors, so the columns sum to 1 and
+        ``sum(W @ mass) == sum(mass)``."""
+        rng = np.random.RandomState(self.seed)
+        adj = np.eye(self.n, dtype=bool)
+        for i in range(self.n):
+            adj[(i + 1) % self.n, i] = True
+            extra = rng.choice(self.n, self.neighbor_num, replace=False)
+            for e in extra:
+                adj[e, i] = True
+        w = adj.astype(np.float64)
+        self.topology = w / w.sum(axis=0, keepdims=True)
+
+    def get_in_neighbor_idx_list(self, node_index: int) -> List[int]:
+        return [j for j in range(self.n) if self.topology[node_index, j] > 0]
+
+    def get_out_neighbor_idx_list(self, node_index: int) -> List[int]:
+        return [j for j in range(self.n) if self.topology[j, node_index] > 0]
+
+    def mixing_matrix(self, device: DeviceLike = "cuda") -> torch.Tensor:
+        return _mixing(self.topology, device)

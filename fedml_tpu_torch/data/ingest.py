@@ -4,8 +4,8 @@ Plain numpy (``h5py`` for TFF h5, PIL for images), kept as the port's
 own copy: every reader's arrays are bitwise the JAX package's for the
 same files, and the loader (``data/loader.py``) packs them on the host
 before moving them to the device. The VFL party readers are here; the
-VFL training API arrives with the other simulation algorithms
-(ROADMAP.md, queue A item 8). The text below is the JAX package's own.
+VFL training API (``simulation/split_learning.py`` ``VFLAPI``) reads
+them. The text below is the JAX package's own.
 
 TFF h5, CIFAR binary batches, image folders, the Landmarks CSV and VFL
 party CSVs. Reference loaders this replaces (same on-disk formats, converted into

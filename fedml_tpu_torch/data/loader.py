@@ -21,8 +21,8 @@ The resolution order is the JAX package's, under
 
 ``synthetic*`` datasets are FedProx's synthetic(alpha, beta) federation;
 VFL party CSVs (``party_K.csv``) under a dataset's directory define it
-whatever its name (its horizontal view; the VFL training API arrives
-with queue A item 8).
+whatever its name (its horizontal view; ``simulation/split_learning.py``
+``VFLAPI`` trains on the per-party arrays it carries).
 
 Real arrays are read and packed on the host (numpy, bitwise the JAX
 package's) and moved to the device whole. Classification stand-ins draw
@@ -41,8 +41,10 @@ before packing, as in the JAX package; the features are then made on
 the host (the attacks mutate them), and the poisoned federation is
 bitwise the JAX package's.
 
-Segmentation data raises ``NotImplementedError`` naming the slice that
-brings it.
+Segmentation datasets (pascal_voc, coco_seg, cityscapes, fets2021) are
+the blob-mask stand-in unless real files exist, split by the
+partitioner's multi-label LDA (every image listed under each class it
+holds, deduplicated per client), bitwise the JAX package's.
 """
 
 from __future__ import annotations
@@ -69,6 +71,7 @@ from .synthetic import (
     synthetic_classification_device,
     synthetic_fedprox,
     synthetic_multilabel,
+    synthetic_segmentation,
     synthetic_sequences,
 )
 
@@ -93,9 +96,6 @@ _DATASET_META = {
     "cityscapes": ((64, 64, 3), 19, 3000, 500, "segmentation"),
     "fets2021": ((64, 64, 4), 4, 2000, 400, "segmentation"),
 }
-
-_ALGORITHMS_SLICE = "the other simulation algorithms (ROADMAP.md, queue A item 8)"
-
 
 @dataclasses.dataclass
 class FederatedDataset:
@@ -417,6 +417,23 @@ def _partition(args, labels: np.ndarray, client_num: int, class_num: int, seed: 
     return idx_map
 
 
+def _segmentation_partition(args, y_tr: np.ndarray, client_num: int, class_num: int,
+                            seed: int):
+    """A segmentation training split's client index map: ``homo``, else
+    the partitioner's multi-label LDA over, per class, the images that
+    hold it (void labels >= ``class_num`` excluded), each client's
+    indexes deduplicated (an image holds several classes)."""
+    if getattr(args, "partition_method", constants.PARTITION_HETERO) == constants.PARTITION_HOMO:
+        return homo_partition(len(y_tr), client_num, seed)
+    flat = y_tr.reshape(len(y_tr), -1)
+    per_class = [np.where([(row == k).any() for row in flat])[0] for k in range(class_num)]
+    idx_map = non_iid_partition_with_dirichlet_distribution(
+        per_class, client_num, class_num, float(getattr(args, "partition_alpha", 0.5)),
+        task="segmentation", seed=seed,
+    )
+    return {i: np.unique(v) for i, v in idx_map.items()}
+
+
 def _raw_data(args):
     """Global arrays ``(x_tr, y_tr, x_te, y_te, class_num, task, source)``:
     real files (``_try_load_real``), else the host stand-ins of the JAX
@@ -444,6 +461,9 @@ def _raw_data(args):
         dim = int(getattr(args, "synthetic_feature_dim", 2000))
         x_tr, y_tr = synthetic_multilabel(train_n, class_num, (dim,), seed)
         x_te, y_te = synthetic_multilabel(test_n, class_num, (dim,), seed + 1)
+    elif task == "segmentation":
+        x_tr, y_tr = synthetic_segmentation(train_n, class_num, shape, seed)
+        x_te, y_te = synthetic_segmentation(test_n, class_num, shape, seed + 1)
     else:
         x_tr, y_tr = synthetic_classification(train_n, class_num, shape, seed)
         x_te, y_te = synthetic_classification(test_n, class_num, shape, seed + 1)
@@ -573,8 +593,11 @@ def _partitioned_clients(args, client_num: int, seed: int):
     if task == "tag_prediction":
         # the model factory sizes the input layer off args
         args.input_dim = int(x_tr.shape[-1])
-    labels = np.argmax(y_tr, axis=-1) if task == "tag_prediction" else y_tr
-    idx_map = _partition(args, labels, client_num, class_num, seed)
+    if task == "segmentation":
+        idx_map = _segmentation_partition(args, y_tr, client_num, class_num, seed)
+    else:
+        labels = np.argmax(y_tr, axis=-1) if task == "tag_prediction" else y_tr
+        idx_map = _partition(args, labels, client_num, class_num, seed)
     xs_tr = [x_tr[idx_map[i]] for i in range(client_num)]
     ys_tr = [y_tr[idx_map[i]] for i in range(client_num)]
     te_map = homo_partition(len(y_te), client_num, seed + 1)
@@ -702,11 +725,6 @@ def load(args, device: DeviceLike = "cuda") -> FederatedDataset:
         source = "FedProx synthetic(alpha, beta)"
     elif name not in _DATASET_META:
         raise ValueError(f"unknown dataset {name!r}")
-    elif _DATASET_META[name][4] == "segmentation":
-        raise NotImplementedError(
-            f"dataset {name!r} (task 'segmentation'): segmentation data arrives "
-            f"with the segmentation models, {_ALGORITHMS_SLICE}"
-        )
     elif (fed := _try_load_federated(name, cache, args)) is not None:
         # naturally federated: the files' per-user split is the partition
         fed, source = fed

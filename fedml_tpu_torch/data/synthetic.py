@@ -19,6 +19,9 @@ costs are those of the real one and no download is needed.
   bitwise the JAX package's for the same seed.
 - :func:`synthetic_sequences` is the next-token stand-in, host numpy,
   bitwise the JAX package's for the same seed.
+- :func:`synthetic_segmentation` is the segmentation stand-in (class
+  rectangles on a background), host numpy, bitwise the JAX package's
+  for the same seed.
 - :func:`synthetic_classification_device` is its twin on the device:
   given packed labels it draws ``means[y] + sigma * noise`` where the
   data will be used, from a seeded ``torch.Generator``. The class means
@@ -100,6 +103,36 @@ def synthetic_classification(
     y = rng.randint(0, num_classes, n_samples).astype(np.int64)
     x = means[y] + sigma * rng.normal(0, 1, (n_samples, dim)).astype(np.float32)
     return x.reshape((n_samples,) + feature_shape), y
+
+
+def synthetic_segmentation(
+    n_samples: int,
+    num_classes: int,
+    feature_shape: Tuple[int, ...],
+    seed: int = 0,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Blob-mask segmentation stand-in (the pascal_voc / cityscapes /
+    coco_seg shapes; fets2021's 4 channels use the same generator):
+    each image holds 1-3 axis-aligned rectangles of foreground classes
+    on a background of class 0, and a pixel's intensities encode its
+    class. x [n, h, w, ch] f32, y [n, h, w] int64."""
+    h, w = feature_shape[0], feature_shape[1]
+    ch = feature_shape[2] if len(feature_shape) > 2 else 3
+    rng = np.random.RandomState(seed)
+    palette = np.random.RandomState(4321).uniform(-1, 1, (num_classes, ch)).astype(
+        np.float32
+    )
+    x = np.zeros((n_samples, h, w, ch), np.float32)
+    y = np.zeros((n_samples, h, w), np.int64)
+    for i in range(n_samples):
+        x[i] = palette[0] + 0.3 * rng.normal(0, 1, (h, w, ch))
+        for _ in range(rng.randint(1, 4)):
+            c = rng.randint(1, num_classes)
+            hh, ww = rng.randint(h // 6, h // 2), rng.randint(w // 6, w // 2)
+            r0, c0 = rng.randint(0, h - hh), rng.randint(0, w - ww)
+            x[i, r0:r0 + hh, c0:c0 + ww] = palette[c] + 0.3 * rng.normal(0, 1, (hh, ww, ch))
+            y[i, r0:r0 + hh, c0:c0 + ww] = c
+    return x, y
 
 
 def synthetic_sequences(

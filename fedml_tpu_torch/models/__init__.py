@@ -6,10 +6,13 @@ prediction for ``stackoverflow_lr``), ``cnn`` (the FEMNIST
 CNN, or the CIFAR one for RGB datasets), the GroupNorm CIFAR zoo
 (``resnet18``/``resnet18_gn``, ``resnet56``/``resnet``, ``vgg11``-``19``,
 ``mobilenet``, ``mobilenet_v3``, ``efficientnet-b0``-``b4``),
-``transformer`` (``remat`` included) and ``rnn`` (the Shakespeare LSTM,
-or the Stack Overflow one for ``stackoverflow*`` datasets); every other
-name raises ``NotImplementedError`` naming the slice of the port that
-brings it (ROADMAP.md, queue A).
+``transformer`` (``remat`` included), ``rnn`` (the Shakespeare LSTM,
+or the Stack Overflow one for ``stackoverflow*`` datasets), ``deeplab``
+(FedSeg's DeepLabLite, ``seg_width``) and ``darts`` (FedNAS's search
+network, ``nas_*``); every other name raises ``NotImplementedError``
+naming the slice of the port that brings it (ROADMAP.md, queue A). The
+pairs of the split and adversarial algorithms (``gan``, ``gkt``,
+``vfl``) are built by their simulators, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -32,7 +35,6 @@ __all__ = ["FedModel", "create"]
 # model name -> the port slice that brings it
 _LATER = {
     "moe_transformer": "the ring/Ulysses slice, with the expert-parallel planes",
-    **dict.fromkeys(("deeplab", "darts"), "the other simulation algorithms (queue A item 8)"),
 }
 
 _IMAGE_SHAPES = {
@@ -114,6 +116,26 @@ def create(args, output_dim: int, device: DeviceLike = "cuda") -> FedModel:
             module=build(output_dim, in_channels=shape[-1]).to(dev),
             example_shape=shape,
         )
+    if name == "deeplab":
+        from .deeplab import DeepLabLite
+
+        shape = _example_shape(args, (64, 64, 3))
+        module = DeepLabLite(output_dim, width=int(getattr(args, "seg_width", 32)),
+                             in_channels=shape[-1])
+        return FedModel(name="deeplab_lite", module=module.to(dev), task="segmentation",
+                        example_shape=shape)
+    if name == "darts":
+        from .darts import DARTSNetwork
+
+        shape = _example_shape(args, (32, 32, 3))
+        module = DARTSNetwork(
+            output_dim,
+            width=int(getattr(args, "nas_width", 16)),
+            num_cells=int(getattr(args, "nas_cells", 2)),
+            steps=int(getattr(args, "nas_steps", 2)),
+            in_channels=shape[-1],
+        )
+        return FedModel(name="darts_search", module=module.to(dev), example_shape=shape)
     if name == "transformer":
         from .transformer import TransformerLM
 
@@ -163,5 +185,5 @@ def create(args, output_dim: int, device: DeviceLike = "cuda") -> FedModel:
         f"model {name!r} is not ported to PyTorch yet; it arrives with "
         f"{later} (ROADMAP.md, queue A). Ported: 'lr', 'mlp', 'cnn', the GroupNorm "
         "CIFAR zoo ('resnet18', 'resnet56', 'vgg*', 'mobilenet', 'mobilenet_v3', "
-        "'efficientnet-b*'), 'transformer' and 'rnn'."
+        "'efficientnet-b*'), 'transformer', 'rnn', 'deeplab' and 'darts'."
     )

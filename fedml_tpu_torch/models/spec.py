@@ -71,21 +71,39 @@ class FedModel:
         product of a weight's dims after the first), embeddings a plain
         normal of variance 1/width, biases zero, normalisation scales
         one; a weight a module lists in ``orthogonal_blocks`` (the LSTM's
-        hidden kernels) orthogonal, block by block of that many rows."""
+        hidden kernels) orthogonal, block by block of that many rows; a
+        weight a module lists in ``normal_scales`` (DARTS' alphas) that
+        scale times a standard normal. A transposed convolution's weight
+        is ``[in, out, kh, kw]``: its fan_in is ``in * kh * kw``, as
+        flax's ``ConvTranspose`` kernel ``[kh, kw, in, out]`` has it."""
+        def full(name, key):
+            return f"{name}.{key}" if name else key
+
+        # weight name -> fan_in
         truncated = {
-            f"{name}.weight" if name else "weight"
+            full(name, "weight"): (
+                mod.weight.shape[0] * math.prod(mod.weight.shape[2:])
+                if isinstance(mod, nn.ConvTranspose2d) else math.prod(mod.weight.shape[1:])
+            )
             for name, mod in self.module.named_modules()
-            if isinstance(mod, (nn.Linear, nn.Conv2d))
+            if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d))
         }
         orthogonal = {
-            f"{name}.{key}" if name else key: rows
+            full(name, key): rows
             for name, mod in self.module.named_modules()
             for key, rows in getattr(mod, "orthogonal_blocks", {}).items()
+        }
+        scaled = {
+            full(name, key): scale
+            for name, mod in self.module.named_modules()
+            for key, scale in getattr(mod, "normal_scales", {}).items()
         }
         out = {}
         for key, p in self.module.named_parameters():
             leaf = key.rsplit(".", 1)[-1]
-            if key in orthogonal:
+            if key in scaled:
+                val = torch.randn(p.shape, generator=generator) * scaled[key]
+            elif key in orthogonal:
                 rows = orthogonal[key]
                 val = torch.cat([_orthogonal(rows, p.shape[1], generator)
                                  for _ in range(p.shape[0] // rows)])
@@ -94,7 +112,7 @@ class FedModel:
             elif p.dim() == 1:
                 val = torch.ones(p.shape)
             elif key in truncated:
-                std = math.prod(p.shape[1:]) ** -0.5 / _TRUNC_STD
+                std = truncated[key] ** -0.5 / _TRUNC_STD
                 val = nn.init.trunc_normal_(torch.empty(p.shape), 0.0, std, -2 * std,
                                             2 * std, generator=generator)
             else:

@@ -440,29 +440,11 @@ class FedAvgAPI:
         (to the end of evaluation). With a checkpointer, rounds run from
         ``start_round`` and the state is saved every ``checkpoint_freq``
         rounds and after the last."""
-        args = self.args
         final_stats: Dict[str, float] = {}
         for round_idx in range(start_round, comm_rounds):
             profiler.tick(round_idx)
             t0 = time.perf_counter()
-            idx = self._client_sampling(
-                round_idx, self.dataset.client_num, int(args.client_num_per_round)
-            )
-            rng = self._shuffle_uniforms(len(idx))
-            lr_mult = self._lr_mult(round_idx)
-            self._round_idx = round_idx
-            with devtime.measure("simulation.round_fn", bucket=f"b{len(idx)}"):
-                if self.mode == "sequential":
-                    self.global_params, summed = self._sequential_round(
-                        idx, rng, lr_mult, nsamples
-                    )
-                else:
-                    self.global_params, self.server_state, summed, stacked = self._round_fn(
-                        self.global_params, self.server_state, packed, nsamples,
-                        torch.as_tensor(idx, dtype=torch.int64, device=self.device), rng,
-                        lr_mult,
-                    )
-                    self._post_round_stacked(stacked, idx, round_idx)
+            summed = self._sync_round(round_idx, packed, nsamples)
             if round_idx % freq == 0 or round_idx == comm_rounds - 1:
                 self._sync()
                 train_time = time.perf_counter() - t0
@@ -480,6 +462,38 @@ class FedAvgAPI:
             ):
                 self._save_checkpoint(ckpt, round_idx)
         return final_stats
+
+    def _sync_round(self, round_idx: int, packed, nsamples) -> Dict[str, torch.Tensor]:
+        """One round of the synchronous loop: sample, train, aggregate
+        (and hand the cohort's trained params to ``_post_round_stacked``);
+        the round's summed training metrics, left on the device."""
+        idx = self._client_sampling(
+            round_idx, self.dataset.client_num, int(self.args.client_num_per_round)
+        )
+        rng = self._shuffle_uniforms(len(idx))
+        lr_mult = self._lr_mult(round_idx)
+        self._round_idx = round_idx
+        with devtime.measure("simulation.round_fn", bucket=f"b{len(idx)}"):
+            if self.mode == "sequential":
+                self.global_params, summed = self._sequential_round(idx, rng, lr_mult, nsamples)
+            else:
+                out = self._round_fn(
+                    self.global_params, self.server_state, packed, nsamples,
+                    torch.as_tensor(idx, dtype=torch.int64, device=self.device), rng,
+                    lr_mult,
+                )
+                self.global_params, self.server_state, summed = out[:3]
+                if self._keep_stacked:
+                    self._post_round_stacked(out[3], idx, round_idx)
+        return summed
+
+    def run_round(self, round_idx: int) -> Dict[str, torch.Tensor]:
+        """One round of the synchronous loop on the API's own federation
+        (what a harness times round by round); its summed training
+        metrics, on the device."""
+        nsamples = torch.tensor(np.asarray(self.dataset.packed_num_samples),
+                                dtype=torch.float32, device=self.device)
+        return self._sync_round(round_idx, self.dataset.packed_train, nsamples)
 
     def _sequential_round(self, idx: np.ndarray, rng, lr_mult, nsamples):
         """Reference shape: a Python loop over the sampled clients, each
@@ -551,6 +565,16 @@ class FedAvgAPI:
     def evaluate_global(self) -> Dict[str, float]:
         sums = self._eval(self.global_params, self.dataset.test_data_global)
         return self.model.metrics_from_sums(sums)
+
+    def _local_test_on_all_clients(self, round_idx: int) -> Dict[str, float]:
+        """The global model's train and test accuracy and loss over every
+        client's data, fetched to the host (the algorithms with their own
+        round loops report these)."""
+        sums = self._eval_sums()
+        tr = self.model.metrics_from_sums(sums["train"])
+        te = self.model.metrics_from_sums(sums["test"])
+        return {"train_acc": tr["acc"], "train_loss": tr["loss"],
+                "test_acc": te["acc"], "test_loss": te["loss"]}
 
 
 class FedProxAPI(FedAvgAPI):

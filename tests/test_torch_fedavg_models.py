@@ -125,10 +125,11 @@ def test_port_init_matches_module_layout(model, dataset, classes):
 
 
 def test_unported_task_loss_raises():
-    # next-token prediction is ported (token_cross_entropy); segmentation
-    # is not
+    # next-token prediction and segmentation are ported (token and pixel
+    # cross-entropy); a task no package knows still raises
     tm = models.create(_args(Arguments, "transformer", "shakespeare"), 10, device="cpu")
     assert tm.task == "nwp" and tm.loss_fn is not None
-    seg = dataclasses.replace(tm, task="segmentation")
-    with pytest.raises(NotImplementedError, match="task 'segmentation'"):
-        seg.loss_fn
+    assert dataclasses.replace(tm, task="segmentation").loss_fn.__name__ == "pixel_cross_entropy"
+    other = dataclasses.replace(tm, task="detection")
+    with pytest.raises(NotImplementedError, match="task 'detection'"):
+        other.loss_fn
