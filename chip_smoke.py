@@ -64,7 +64,18 @@ version on the card:
   TurboAggregate on the headline cohort; FedGAN on MNIST; FedNAS,
   SplitNN and FedGKT on CIFAR-10; FedSeg on pascal_voc; VFL on the LEAF
   files), each timed, profiled and held to its algorithm's gate, with no
-  hand-written kernel on their paths.
+  hand-written kernel on their paths;
+- the tenth slice: ``training_type: distributed`` through
+  ``run_distributed`` in a NCCL world of one rank:
+  ``distributed_shakespeare_moe_transformer_bf16.yaml`` (the sharded
+  mode: the Switch-MoE transformer of docs/distributed.md, 8 layers, 8
+  experts, batch 32 in 8 accumulation chunks, at embed 512, 8 heads of
+  64, T 4096, bf16; the flash kernels in its attention) and
+  ``distributed_shakespeare_transformer_sp_bf16.yaml`` (the sequence
+  mode, ring attention, and Ulysses by override: the flash kernels at
+  [8, 4096, 8, 64]); and the flash wrappers past their old limits, head
+  dims 129-512 on the rows route (``flash_attention_rows.cu``) and T past
+  grid y's 65,535 tiles.
 The CNN, ResNet, RNN and logistic-regression paths run no other hand-written
 kernel: their
 convolutions and matrix products are cuDNN's and cuBLAS's through
@@ -150,7 +161,10 @@ Phases, each of which fails the run:
    depth 1 bitwise (4 rounds, deterministic algorithms for this check
    only);
 10. rnn stackoverflow: the Stack Overflow configuration at full width, 2
-   rounds, evaluation after each: the train loss is finite and falls;
+   rounds, evaluation after each, over 200 of its 1,000 clients (each
+   its 40 sequences: a round's work is the configuration's; the
+   stand-in's text is made on the host): the train loss is finite and
+   falls;
 11. seam: on the Shakespeare RNN configuration (2 rounds), a frozen
    trainer passed positionally to ``run_simulation`` leaves the global
    model as it was (to the reference's tolerance: the weighted mean of
@@ -234,7 +248,27 @@ Phases, each of which fails the run:
    C / (2 scale) of the plain weighted mean and bitwise the host
    protocol run again with other shares; SplitNN's boundary gradient is
    joint backprop (1e-5); FedGKT's KL of equal logits is 0; every VFL
-   party's params move.
+   party's params move;
+22. distributed: ``run_distributed`` on both distributed configurations
+   (the MoE one in the sharded mode; the sequence one with ring
+   attention and with Ulysses) in a NCCL world of one rank, where every
+   collective is the identity (the CPU tests' gloo worlds of 2-8 ranks
+   prove the collectives; this phase the kernels, shapes, memory and
+   time): optimizer steps a second and tokens a second on the card's
+   clock (step 0 warms up, step 2 runs under ``torch.profiler``), peak
+   memory, busy share and launches by kind in the profiled step. Gates:
+   flash launches as reckoned from each configuration and no plain flash
+   call; the loss falls; the MoE's slot occupancy is 0/1; ring, Ulysses
+   and dense attention (f32 scores) give one batch's loss within 1e-2 on
+   the same weights; the sequence run stopped after 1 of 2 epochs and
+   resumed is bitwise the straight run (deterministic algorithms).
+The kernels phase also holds the rows route (head dims above 128),
+forward and backward, f32 and bf16, at D 192 and 256, causal and not,
+against its plain versions (the same tolerances as the tensor-core
+routes; SDPA's time beside each), and runs one bf16 causal forward and
+backward at T 4,194,368 (one tile past grid y's 65,535, so the tiles
+fold into grid x), D 16, batch x heads 1, holding sampled query and key
+rows past tile 65,535 to a plain f32 computation of those rows alone.
 Each phase's wall time is printed.
 
 Run from the repo root, on a machine with one CUDA card and the CUDA
@@ -418,9 +452,10 @@ TRANSFORMER_CHECK_ROUNDS, TRANSFORMER_CHECK_FREQ = 4, 2
 # port's LayerNorm is written as elementwise ops and reductions, so its
 # time lands in those two kinds with the softmax, loss and metric sums.
 TRANSFORMER_KINDS = (
-    ("flash forward", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel")),
+    ("flash forward", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel", "rows_fwd_kernel")),
     ("flash backward", ("dkdv_tf32_kernel", "dq_tf32_kernel", "dkdv_wgmma_kernel",
-                        "dq_wgmma_kernel", "delta_kernel")),
+                        "dq_wgmma_kernel", "delta_kernel", "rows_dq_kernel",
+                        "rows_dkdv_kernel")),
     ("GEMM", ("gemm", "gemv", "nvjet", "cutlass", "xmma")),
     ("embedding", ("embedding", "index", "scatter", "gather", "radix", "sort")),
     ("reductions (LayerNorm statistics, softmax, loss)", ("reduce", "softmax")),
@@ -442,6 +477,11 @@ RNN_KINDS = (
     ("copies (stack, cat, slices)", ("copy", "cat", "stack")),
 )
 SO_RNN_ROUNDS = 2  # Stack Overflow at full width: 2 rounds, evaluation after each
+# ... over 200 of the configuration's 1,000 clients, each with its 40
+# sequences, so a round (50 clients) does the configuration's work: the
+# stand-in's Markov text is made on the host (~110 s for 40,000
+# sequences), and the script must stay inside its time limit
+SO_RNN_CLIENTS = 200
 SEAM_ROUNDS = 2
 # a frozen trainer under the default (weighted-mean) aggregation: the
 # reference's own tolerance (np.allclose's rtol, tests/test_operator_seam.py),
@@ -472,14 +512,21 @@ def card_line() -> str:
 
 def all_kernels():
     """Every hand-written kernel entry of the port with a launch count:
-    the flash forward and backward, the exact fold and its weighted-mean
+    the flash forward and backward, their rows route (D above 128), the
+    exact fold and its weighted-mean
     entry, the keyed feature generator and the robust term."""
     from fedml_tpu_torch.ops.exact_fold import FOLD_KERNEL, MEAN_KERNEL
-    from fedml_tpu_torch.ops.flash_attention import BWD_KERNEL, FWD_KERNEL
+    from fedml_tpu_torch.ops.flash_attention import (
+        BWD_KERNEL,
+        FWD_KERNEL,
+        ROWS_BWD_KERNEL,
+        ROWS_FWD_KERNEL,
+    )
     from fedml_tpu_torch.ops.robust_term import TERM_KERNEL
     from fedml_tpu_torch.ops.synth_features import SYNTH_KERNEL
 
-    return FWD_KERNEL, BWD_KERNEL, FOLD_KERNEL, MEAN_KERNEL, SYNTH_KERNEL, TERM_KERNEL
+    return (FWD_KERNEL, BWD_KERNEL, ROWS_FWD_KERNEL, ROWS_BWD_KERNEL, FOLD_KERNEL,
+            MEAN_KERNEL, SYNTH_KERNEL, TERM_KERNEL)
 
 
 def reset_launches() -> None:
@@ -632,8 +679,8 @@ def device_kernel_names(fn, windows: int = 3):
 def build_kernels():
     from fedml_tpu_torch.ops import _build
 
-    names = ["flash_attention_fwd", "flash_attention_bwd", "exact_fold", "synth_features",
-             "robust_term"]
+    names = ["flash_attention_fwd", "flash_attention_bwd", "flash_attention_rows",
+             "exact_fold", "synth_features", "robust_term"]
     t0 = time.perf_counter()
     _build.build(names)
     log(f"build: {names} in {time.perf_counter() - t0:.1f} s")
@@ -874,6 +921,257 @@ def check_flash_backward():
                                    for key in MAIN_KEYS + ("shape", "dtype")},
         "cases": cases,
     }
+
+
+# the rows route (head dims above 128): (B, T, H, D, dtype, causal), each
+# forward and backward against its plain version
+ROWS_CASES = [
+    (2, 2048, 4, D, dtype, causal)
+    for D in (192, 256) for dtype in (torch.float32, torch.bfloat16) for causal in (True, False)
+]
+# the long sequence: T one tile past the 65,535 tiles of 64 that grid y
+# holds, batch x heads 1, D 16, bf16, causal; sampled query rows past tile
+# 65,535 (and two early ones) for O, lse and dQ, sampled key rows past it
+# for dK and dV, each against a plain f32 computation of those rows alone
+LONG_T = 64 * 65536 + 64
+LONG_EARLY_ROWS = (0, 4095)
+LONG_LATE_ROWS = (64 * 65535 + 5, 64 * 65536 + 17, LONG_T - 64, LONG_T - 1)
+LONG_QUERY_ROWS = LONG_EARLY_ROWS + LONG_LATE_ROWS
+LONG_KEY_ROWS = (64 * 65535 + 3, LONG_T - 64, LONG_T - 1)
+# O, dQ, dK and dV of the sampled rows, element by element against the
+# plain f32 values x32: |x - x32| <= 2**-7 |x32| + 1e-2 max|x32| of the
+# element's group, the bf16 rule of the other flash checks with the
+# scale taken per group. The groups are the early query rows, the late
+# ones (past tile 65,535: an output row there averages ~4.2 M random
+# rows, |O| ~ sqrt(e / T) ~ 8e-4, so only its own scale can hold it),
+# and each sampled key row alone (1, 64 and ~65 k queries reach them:
+# their dK and dV differ in scale by ~256). A late row's O or dQ left at
+# zero or read one tile off fails by a factor of 10 or more (rehearsed
+# on the CPU, tests/test_torch_flash_limits.py), while a right output
+# rounded once to bf16 stays near 0.15 of it. The kernel's O and dQ
+# there reach ~0.6-0.7 of it, dK and dV ~0.12 (H100, T 4,194,368)
+LONG_ROUND_RTOL = 2**-7
+LONG_GROUP_RTOL = 1e-2
+# lse over 4.2 M keys: the kernel's f32 row sum folds 65,537 tile sums in
+# turn, the plain version sums in a tree; their rounding apart is
+# ~sqrt(65,537) f32 steps (~1.5e-5 relative), so 1e-3 absolute on lse
+LONG_LSE_ATOL = 1e-3
+
+
+def sdpa_ms(q, k, v, causal, backward: bool):
+    """SDPA's time (forward, or backward on the same inputs) and its
+    kernel, or (None, reason) where no SDPA backend takes the shape."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_(backward)
+                  for x in (q, k, v))
+    try:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    except RuntimeError as e:  # no backend for this head dim: the library has no call
+        return None, f"no SDPA backend: {str(e)[:80]}"
+    if backward:
+        gt = torch.randn_like(out)
+
+        def call():
+            return torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)
+    else:
+        def call():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    return cuda_time_ms(call, 10), (device_kernel_names(call)[:1] or ["not measured"])[0]
+
+
+def check_flash_rows():
+    """The rows route, forward and backward, at every case against the
+    plain versions; returns the two kernels' ``kernels`` entries (main
+    numbers from the first case)."""
+    from fedml_tpu_torch.ops.flash_attention import (
+        ROWS_BWD_KERNEL,
+        ROWS_FWD_KERNEL,
+        flash_attention_backward_reference,
+        flash_attention_reference,
+    )
+
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    fwd_cases, bwd_cases = [], []
+    for B, T, H, D, dtype, causal in ROWS_CASES:
+        qkv = torch.randn((B, T, 3 * H * D), generator=gen, device=DEVICE).to(dtype)
+        q, k, v = (t.view(B, T, H, D) for t in qkv.split(H * D, dim=-1))
+        g = torch.randn((B, T, H, D), generator=gen, device=DEVICE).to(dtype)
+        scale = D**-0.5
+        o, lse = ROWS_FWD_KERNEL(q, k, v, causal, scale)
+        o_ref, lse_ref = flash_attention_reference(q, k, v, causal, scale)
+        grads = ROWS_BWD_KERNEL(q, k, v, o, lse, g, causal, scale)
+        want = flash_attention_backward_reference(q, k, v, o, lse, g, causal, scale)
+        torch.cuda.synchronize()
+        err_o = (o.float() - o_ref.float()).abs().max().item()
+        err_lse = (lse - lse_ref).abs().max().item()
+        errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(grads, want)]
+        peaks = [float(b.float().abs().max()) for b in want]
+        tols = [BWD_F32_ATOL if dtype == torch.float32 else BWD_BF16_RTOL_OF_MAX * p
+                for p in peaks]
+        finite = all(bool(torch.isfinite(x.float()).all()) for x in (o, lse, *grads))
+        repeat = ROWS_FWD_KERNEL(q, k, v, causal, scale)
+        deterministic = (torch.equal(o, repeat[0]) and torch.equal(lse, repeat[1]) and all(
+            torch.equal(a, b) for a, b in zip(grads, ROWS_BWD_KERNEL(q, k, v, o, lse, g,
+                                                                     causal, scale))))
+        del repeat, want
+        ms = cuda_time_ms(lambda: ROWS_FWD_KERNEL(q, k, v, causal, scale), 10)
+        plain_ms = cuda_time_ms(lambda: flash_attention_reference(q, k, v, causal, scale), 5, 1)
+        bwd_ms = cuda_time_ms(lambda: ROWS_BWD_KERNEL(q, k, v, o, lse, g, causal, scale), 5)
+        bwd_plain_ms = cuda_time_ms(lambda: flash_attention_backward_reference(
+            q, k, v, o, lse, g, causal, scale), 3, 1)
+        lib_ms, lib_kernel = sdpa_ms(q, k, v, causal, backward=False)
+        lib_bwd_ms, lib_bwd_kernel = sdpa_ms(q, k, v, causal, backward=True)
+        bound_ms, bound_by = flash_bound(B, T, H, D, dtype, causal)
+        bwd_bound_ms, bwd_bound_by = flash_bwd_bound(B, T, H, D, dtype, causal)
+        common = {"shape": [B, T, H, D], "dtype": str(dtype).replace("torch.", ""),
+                  "causal": causal, "deterministic": deterministic,
+                  "bound_route": ROUTE[dtype]}
+        fwd_cases.append({**common, "max_abs_err": err_o, "lse_max_abs_err": err_lse,
+                          "o_atol": O_ATOL[dtype], "lse_atol": LSE_ATOL, "ms": ms,
+                          "plain_ms": plain_ms, "library_ms": lib_ms,
+                          "library_kernel": lib_kernel, "bound_ms": bound_ms,
+                          "bound_by": bound_by})
+        bwd_cases.append({**common, "max_abs_err": max(errs), "dq_dk_dv_max_abs_err": errs,
+                          "dq_dk_dv_atol": tols, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+                          "library_ms": lib_bwd_ms, "library_kernel": lib_bwd_kernel,
+                          "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by})
+        log(f"flash rows {common['shape']} {common['dtype']} causal={causal}: O err "
+            f"{err_o:.3g} (atol {O_ATOL[dtype]}), lse err {err_lse:.3g} (atol {LSE_ATOL}), "
+            f"dQ/dK/dV err {'/'.join(f'{e:.3g}' for e in errs)} (atol "
+            f"{'/'.join(f'{t:.3g}' for t in tols)}), bitwise repeatable {deterministic}; "
+            f"forward {ms:.3f} ms (plain {plain_ms:.3f}, sdpa {lib_ms}, bound {bound_ms:.3f} "
+            f"{bound_by}), backward {bwd_ms:.3f} ms (plain {bwd_plain_ms:.3f}, sdpa "
+            f"{lib_bwd_ms}, bound {bwd_bound_ms:.3f} {bwd_bound_by}); sdpa kernels "
+            f"{str(lib_kernel)[:60]} / {str(lib_bwd_kernel)[:60]}")
+        if not finite:
+            fail(f"flash rows {common['shape']} {common['dtype']}: non-finite output")
+        if not deterministic:
+            fail(f"flash rows {common['shape']} {common['dtype']}: two launches differ")
+        if err_o > O_ATOL[dtype] or err_lse > LSE_ATOL or any(e > t for e, t in zip(errs, tols)):
+            fail(f"flash rows {common['shape']} {common['dtype']} causal={causal}: O err "
+                 f"{err_o}, lse err {err_lse}, gradient errors {errs} over tolerance {tols}")
+        if ms < bound_ms or bwd_ms < bwd_bound_ms:
+            fail(f"flash rows {common['shape']}: a time beats its bound, so the bound is wrong")
+        del qkv, q, k, v, g, o, lse, o_ref, lse_ref, grads
+        torch.cuda.empty_cache()
+    entries = []
+    for kernel, cases, replaces in ((ROWS_FWD_KERNEL, fwd_cases, "fedml_tpu/ops/flash_attention.py:32"),
+                                    (ROWS_BWD_KERNEL, bwd_cases, "fedml_tpu/ops/flash_attention.py:140")):
+        main = cases[0]
+        entries.append({
+            "name": kernel.name, "route": "cuda",
+            "source": "fedml_tpu_torch/ops/csrc/flash_attention_rows.cu",
+            "replaces": replaces, "launches": None,  # filled from the paths' runs
+            **{key: main[key] for key in MAIN_KEYS},
+            "shape": main["shape"], "dtype": main["dtype"], "cases": cases,
+        })
+    return entries
+
+
+def _long_rows_plain(q, k, v, rows, scale):
+    """O and lse of the sampled causal query ``rows`` of [1, T, 1, D]
+    inputs, in f32, each from its own keys alone."""
+    os_, lses = [], []
+    for i in rows:
+        s = (k[0, :i + 1, 0].float() @ q[0, i, 0].float()) * scale
+        lse = torch.logsumexp(s, 0)
+        os_.append(torch.exp(s - lse) @ v[0, :i + 1, 0].float())
+        lses.append(lse)
+    return torch.stack(os_), torch.stack(lses)
+
+
+def _long_grads_plain(q, k, v, o, lse, g, q_rows, k_rows, scale):
+    """dQ of the sampled query rows and dK, dV of the sampled key rows of
+    the causal backward on [1, T, 1, D] inputs with the forward's O and
+    lse, in f32, from those rows' own terms alone."""
+    qf, kf, vf, of, gf = (x[0, :, 0].float() for x in (q, k, v, o, g))
+    lse = lse[0, 0]
+    dq = []
+    for i in q_rows:
+        p = torch.exp((kf[:i + 1] @ qf[i]) * scale - lse[i])
+        ds = p * (vf[:i + 1] @ gf[i] - (gf[i] * of[i]).sum()) * scale
+        dq.append(ds @ kf[:i + 1])
+    dk, dv = [], []
+    for j in k_rows:
+        p = torch.exp((qf[j:] @ kf[j]) * scale - lse[j:])
+        delta = (gf[j:] * of[j:]).sum(-1)
+        ds = p * (gf[j:] @ vf[j] - delta) * scale
+        dk.append(ds @ qf[j:])
+        dv.append(p @ gf[j:])
+    return torch.stack(dq), torch.stack(dk), torch.stack(dv)
+
+
+def long_sequence_shares(q, k, v, g, o, lse, dq, dk, dv, scale):
+    """Each sampled output's largest error over its tolerance (above 1
+    fails), and lse's largest absolute error, against the plain f32
+    values of the sampled rows (``LONG_ROUND_RTOL``, ``LONG_GROUP_RTOL``).
+    Takes the kernels' outputs, so a CPU run can hold planted faults to
+    the same rule."""
+    def share(got, want, groups):
+        worst = 0.0
+        for rows in groups:
+            w, x = want[list(rows)], got[list(rows)].float()
+            tol = LONG_ROUND_RTOL * w.abs() + LONG_GROUP_RTOL * w.abs().max()
+            worst = max(worst, float(((x - w).abs() / tol).max()))
+        return worst
+
+    n_early, n_late = len(LONG_EARLY_ROWS), len(LONG_LATE_ROWS)
+    query_groups = (range(n_early), range(n_early, n_early + n_late))
+    key_groups = [(i,) for i in range(len(LONG_KEY_ROWS))]
+    rows, keys = list(LONG_QUERY_ROWS), list(LONG_KEY_ROWS)
+    o_ref, lse_ref = _long_rows_plain(q, k, v, LONG_QUERY_ROWS, scale)
+    dq_ref, dk_ref, dv_ref = _long_grads_plain(q, k, v, o, lse, g, LONG_QUERY_ROWS,
+                                               LONG_KEY_ROWS, scale)
+    return {
+        "o": share(o[0, rows, 0], o_ref, query_groups),
+        "dq": share(dq[0, rows, 0], dq_ref, query_groups),
+        "dk": share(dk[0, keys, 0], dk_ref, key_groups),
+        "dv": share(dv[0, keys, 0], dv_ref, key_groups),
+    }, (lse[0, 0, rows] - lse_ref).abs().max().item()
+
+
+def check_long_sequence():
+    """One bf16 causal forward and backward at T one tile past grid y's
+    65,535 tiles (the tiles fold into grid x): sampled rows past tile
+    65,535 against a plain f32 computation of those rows alone, each
+    element held to its own row group's scale (``long_sequence_shares``)."""
+    from fedml_tpu_torch.ops.flash_attention import BWD_KERNEL, FWD_KERNEL, tile_grid
+
+    T, D, dtype = LONG_T, 16, torch.bfloat16
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    q, k, v, g = (torch.randn((1, T, 1, D), generator=gen, device=DEVICE).to(dtype)
+                  for _ in range(4))
+    scale = D**-0.5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    o, lse = FWD_KERNEL(q, k, v, True, scale)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dq, dk, dv = BWD_KERNEL(q, k, v, o, lse, g, True, scale)
+    torch.cuda.synchronize()
+    bwd_s = time.perf_counter() - t0
+    shares, err_lse = long_sequence_shares(q, k, v, g, o, lse, dq, dk, dv, scale)
+    finite = all(bool(torch.isfinite(x.float()).all()) for x in (o, lse, dq, dk, dv))
+    out = {"shape": [1, T, 1, D], "dtype": "bfloat16", "causal": True,
+           "grid": list(tile_grid(1, T)), "forward_s": fwd_s, "backward_s": bwd_s,
+           "share_of_tolerance": shares, "round_rtol": LONG_ROUND_RTOL,
+           "group_rtol": LONG_GROUP_RTOL, "lse_max_abs_err": err_lse,
+           "lse_atol": LONG_LSE_ATOL, "query_rows": list(LONG_QUERY_ROWS),
+           "key_rows": list(LONG_KEY_ROWS)}
+    log(f"flash long sequence {out['shape']} bf16 causal, grid {out['grid']}: forward "
+        f"{fwd_s:.2f} s, backward {bwd_s:.2f} s (one call each, host clock); sampled rows, "
+        f"largest error over its tolerance (fails above 1): "
+        f"{', '.join(f'{name} {x:.3g}' for name, x in shares.items())}; lse err "
+        f"{err_lse:.3g} (atol {LONG_LSE_ATOL})")
+    if not finite:
+        fail("flash long sequence: non-finite output")
+    if err_lse > LONG_LSE_ATOL or any(not x <= 1.0 for x in shares.values()):
+        fail(f"flash long sequence: sampled rows off their plain values: {out}")
+    del q, k, v, g, o, lse, dq, dk, dv
+    torch.cuda.empty_cache()
+    return out
 
 
 # -- phase 4 -----------------------------------------------------------
@@ -2150,11 +2448,17 @@ def run_rnn():
 
 def run_rnn_stackoverflow():
     """FedAvg of the Stack Overflow LSTM at full width through
-    ``run_simulation``, 2 rounds, evaluation after each."""
+    ``run_simulation``, 2 rounds, evaluation after each, over
+    ``SO_RNN_CLIENTS`` of the configuration's clients (each its own
+    number of sequences)."""
     from fedml_tpu_torch.arguments import load_arguments
 
     args = load_arguments(str(SO_RNN_CONFIG))
     args.comm_round, args.frequency_of_the_test = SO_RNN_ROUNDS, 1
+    per_client = int(args.synthetic_train_size) // int(args.client_num_in_total)
+    args.client_num_in_total = SO_RNN_CLIENTS
+    args.synthetic_train_size = SO_RNN_CLIENTS * per_client
+    args._validate()
     run = measured_run(args)
     pipe = run["pipe"]
     T, epochs = int(args.seq_len), int(args.epochs)
@@ -3957,6 +4261,272 @@ def run_other_algorithms():
     return out
 
 
+# -- phase 22: the distributed platform (the tenth slice) -----------------
+MOE_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "distributed_shakespeare_moe_transformer_bf16.yaml"
+SP_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "distributed_shakespeare_transformer_sp_bf16.yaml"
+# the optimizer step (counted from 0 over a run) that runs under
+# torch.profiler; step 0 warms up; the others are timed on the card's clock
+DIST_PROFILED_STEP = 2
+# device kernels of the distributed paths by kind, first match wins
+DIST_KINDS = TRANSFORMER_KINDS[:2] + (
+    ("GEMM (attention, MLP, MoE dispatch / experts / combine)",
+     ("gemm", "gemv", "nvjet", "cutlass", "xmma")),
+    ("MoE routing (one-hots, cumsum, argmax)", ("cumsum", "scan", "argmax", "arange",
+                                                "compare", "eq_")),
+    ("NCCL (world of one)", ("nccl",)),
+) + TRANSFORMER_KINDS[3:]
+# ring, Ulysses (the flash kernel) and dense attention (f32 scores) on the
+# same bf16 weights and batch: the ring and the kernel both keep f32
+# scores and round O once to bf16, dense rounds it once too, so their
+# mean losses (~4.5) differ by bf16 rounding of O carried through 2
+# layers, ~1e-3; 1e-2 absolute
+SP_LOSS_ATOL = 1e-2
+
+
+@contextlib.contextmanager
+def world_of_one():
+    """A NCCL process group of one rank on this card (tcp://localhost, a
+    free port), destroyed on the way out."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+class StepRecorder:
+    """Wraps ``DistributedTrainer._step`` while open: CUDA events around
+    every optimizer step, each step's mean loss, step ``profiled`` under
+    ``torch.profiler``, and the trainer it ran in."""
+
+    def __init__(self, profiled=None) -> None:
+        self.profiled, self.spans, self.losses, self.summary = profiled, [], [], None
+        self.trainer = None
+
+    def __enter__(self):
+        from fedml_tpu_torch import distributed
+
+        self._cls, self._orig = distributed.DistributedTrainer, distributed.DistributedTrainer._step
+        recorder = self
+
+        def step(trainer, x, y, m):
+            recorder.trainer = trainer
+            i = len(recorder.losses)
+            if i == recorder.profiled:
+                out, recorder.summary = profiled_call(lambda: recorder._orig(trainer, x, y, m))
+                recorder.spans.append(None)
+            else:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                out = recorder._orig(trainer, x, y, m)
+                end.record()
+                recorder.spans.append((start, end))
+            recorder.losses.append(out[0] / out[2].clamp_min(1.0))
+            return out
+
+        self._cls._step = step
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._step = self._orig
+
+    def step_ms(self, skip: int = 1):
+        """The timed steps' times (ms) after ``skip`` warm-up steps."""
+        torch.cuda.synchronize()
+        return [span[0].elapsed_time(span[1]) for span in self.spans[skip:]
+                if span is not None]
+
+
+def dist_launches_wanted(args, trainer, attention: str) -> dict:
+    """The flash launches a distributed run makes, reckoned from its
+    config: per chunk of a step, one forward and one backward per layer
+    (no remat); per chunk of an evaluation, one forward per layer. The
+    ring launches none."""
+    L, accum = int(args.num_layers), int(getattr(args, "grad_accum_steps", 1) or 1)
+    epochs = int(args.epochs)
+    steps = trainer.dataset.train_data_global.num_batches * epochs
+    freq = int(getattr(args, "frequency_of_the_test", 1) or 1)
+    evals = sum(1 for ep in range(epochs) if (ep + 1) % freq == 0 or ep == epochs - 1)
+    test_passes = trainer.dataset.test_data_global.num_batches * accum * evals
+    if attention == "ring":
+        return {**no_launches()}
+    return {**no_launches(), "flash_attention_fwd": L * (accum * steps + test_passes),
+            "flash_attention_bwd": L * accum * steps}
+
+
+def distributed_run(tag: str, args, attention: str) -> dict:
+    """``run_distributed`` on ``args`` in the world of one, timed and
+    profiled; every number a line reports, the launches held to the
+    reckoning and the loss to fall."""
+    import fedml_tpu_torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with plain_flash_calls() as plain, StepRecorder(DIST_PROFILED_STEP) as rec:
+        stats = fedml_tpu_torch.run_distributed(args, device=DEVICE)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() - held
+    trainer = rec.trainer
+    steps_ms = rec.step_ms()
+    tokens = trainer.bs * trainer.seq_len
+    step_s = float(np.mean(steps_ms)) / 1e3
+    losses = [float(x) for x in rec.losses]
+    per_epoch = trainer.dataset.train_data_global.num_batches
+    first, last = np.mean(losses[:per_epoch]), np.mean(losses[-per_epoch:])
+    if int(args.epochs) == 1:  # one epoch: its first steps against its last
+        half = max(1, per_epoch // 4)
+        first, last = np.mean(losses[:half]), np.mean(losses[-half:])
+    want = dist_launches_wanted(args, trainer, attention)
+    summary = profile_summary(f"{tag} step {DIST_PROFILED_STEP} (profiled)", rec.summary,
+                              DIST_KINDS)
+    # the profiler's own wall is mostly its set-up and flush: the busy
+    # share is the profiled step's device time against a timed step
+    busy = (summary["device_busy_ms"] / float(np.mean(steps_ms))
+            if summary.get("device_busy_ms") else None)
+    out = {"card": card_line(), "mesh_shape": trainer.shape, "attention": attention,
+           "busy_share_of_timed_step": busy,
+           "steps": len(losses), "timed_steps": len(steps_ms), "step_ms": steps_ms,
+           "steps_per_s": 1.0 / step_s, "tokens_per_s": tokens / step_s,
+           "peak_mib": peak / 2**20, "held_mib": held / 2**20, "wall_s": wall,
+           "loss_first": float(first), "loss_last": float(last), "stats": stats,
+           "profiled_step": summary, "kernel_launches": launches, "launches_wanted": want,
+           "plain_flash_calls": dict(plain)}
+    log(f"{tag}: {len(losses)} steps in {wall:.1f} s wall; steps 1-{len(losses) - 1} but "
+        f"the profiled one on the card's clock: {1.0 / step_s:.4f} steps/s "
+        f"({min(steps_ms):.1f}-{max(steps_ms):.1f} ms a step), {tokens / step_s:.0f} tokens/s "
+        f"({tokens} a step); peak {peak / 2**20:.1f} MiB (less {held / 2**20:.1f} MiB held "
+        f"before); loss {first:.4f} -> {last:.4f}; flash launches {launches} (reckoned "
+        f"{want}); plain flash calls {plain}; the profiled step's device time "
+        f"{summary.get('device_busy_ms')} ms against a timed step's mean "
+        f"{float(np.mean(steps_ms)):.1f} ms: busy share {busy}; last stats {stats}")
+    if launches != want:
+        fail(f"{tag}: kernel launches {launches}, reckoned from the config {want}")
+    if any(plain.values()):
+        fail(f"{tag}: the flash plain versions ran on the card: {plain}")
+    if not all(np.isfinite(losses)) or not last < first:
+        fail(f"{tag}: the loss did not fall: {first} -> {last} ({losses})")
+    out["occupancy_zero_one"] = all(
+        bool(((o == 0) | (o == 1)).all()) for o in trainer.last_occupancy)
+    out["moe_layers_checked"] = len(trainer.last_occupancy)
+    return out, trainer
+
+
+def sp_attention_losses(args) -> dict:
+    """One batch's mean loss through ring, Ulysses and dense attention (f32
+    scores, ``flash_attention_reference``) on the same seeded bf16 weights,
+    in a trainer of the sequence configuration."""
+    from fedml_tpu_torch import data, models
+    from fedml_tpu_torch.distributed import DistributedTrainer
+    from fedml_tpu_torch.ops.flash_attention import flash_attention_reference
+
+    dev = torch.device(DEVICE)
+    dataset = data.load(args, device=dev)
+    out = {}
+    for name in ("ring", "ulysses", "dense"):
+        a = copy.copy(args)
+        a.sp_strategy = "ring" if name == "dense" else name
+        a.sp_ring_block = int(args.sp_ring_block) if name == "ring" else 0
+        model = models.create(a, dataset.class_num, device=dev)
+        trainer = DistributedTrainer(a, dev, dataset, model)
+        if name == "dense":
+            model.module.set_attention(lambda q, k, v: flash_attention_reference(q, k, v, True)[0])
+        b = trainer._local_batches(dataset.train_data_global, trainer.bs)
+        with torch.no_grad():
+            nll, _, count, _, _ = trainer._sums(trainer.params, b.x[0], b.y[0], b.mask[0])
+        out[name] = float(nll / count)
+        del model, trainer
+    return out
+
+
+def run_distributed_phase():
+    """The tenth slice's path: ``run_distributed`` on both distributed
+    configurations in a NCCL world of one rank, where every collective is
+    the identity (the CPU tests' gloo worlds of 2-8 ranks prove the
+    collectives; this phase proves the kernels, shapes, memory and time):
+    the MoE transformer (sharded mode, {dp: 1, tp: 1, ep: 1}, the flash
+    kernels), the sequence mode with ring attention (no flash launch) and
+    with Ulysses (the flash kernels at [8, 4096, 8, 64]). Gates: flash
+    launches as reckoned from each config and no plain flash call; the
+    loss falls; the MoE's slot occupancy 0/1; ring, Ulysses and dense
+    attention give one batch's loss within SP_LOSS_ATOL; the sequence run
+    stopped after 1 of 2 epochs and resumed is bitwise the straight run
+    (deterministic algorithms)."""
+    import tempfile
+
+    from fedml_tpu_torch.arguments import load_arguments
+
+    out = {}
+    with world_of_one():
+        moe_args = load_arguments(str(MOE_CONFIG))
+        out["moe"], trainer = distributed_run("distributed moe (sharded)", moe_args, "flash")
+        if not out["moe"]["occupancy_zero_one"] or not out["moe"]["moe_layers_checked"]:
+            fail("distributed moe: a slot occupancy is not 0/1")
+        del trainer
+        for strategy in ("ring", "ulysses"):
+            args = load_arguments(str(SP_CONFIG))
+            args.sp_strategy = strategy
+            if strategy == "ulysses":
+                args.sp_ring_block = 0
+            out[f"sp_{strategy}"], trainer = distributed_run(
+                f"distributed sequence ({strategy})", args, strategy)
+            del trainer
+        losses = sp_attention_losses(load_arguments(str(SP_CONFIG)))
+        gap = max(abs(losses[a] - losses[b]) for a in losses for b in losses)
+        out["sp_attention_losses"] = {**losses, "max_gap": gap, "atol": SP_LOSS_ATOL}
+        log(f"distributed sequence: one batch's loss by ring / Ulysses / dense attention "
+            f"{losses['ring']:.6f} / {losses['ulysses']:.6f} / {losses['dense']:.6f}, max gap "
+            f"{gap:.3g} (atol {SP_LOSS_ATOL})")
+        if not gap <= SP_LOSS_ATOL:
+            fail(f"distributed sequence: attention strategies disagree: {losses}")
+        out["resume"] = distributed_resume_check(tempfile)
+    launches = {name: sum(run["kernel_launches"][name] for key, run in out.items()
+                          if isinstance(run, dict) and "kernel_launches" in run)
+                for name in no_launches()}
+    return {**out, "kernel_launches": launches}
+
+
+def distributed_resume_check(tempfile) -> dict:
+    """The sequence configuration (ring), 2 epochs straight against 1
+    epoch, checkpointed, then resumed to 2: the params bitwise equal,
+    under deterministic algorithms."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch.arguments import load_arguments
+
+    def run(epochs, ckpt=None):
+        args = load_arguments(str(SP_CONFIG))
+        args.epochs, args.checkpoint_dir = epochs, ckpt
+        with StepRecorder() as rec:
+            fedml_tpu_torch.run_distributed(args, device=DEVICE)
+        return {k: v.detach().clone() for k, v in rec.trainer.full_params().items()}
+
+    t0 = time.perf_counter()
+    with deterministic(), tempfile.TemporaryDirectory() as ckpt:
+        straight = run(2)
+        run(1, ckpt)
+        resumed = run(2, ckpt)
+    equal = all(torch.equal(straight[k], resumed[k]) for k in straight)
+    log(f"distributed resume: 2 epochs straight vs 1 + resumed 1, params bitwise equal "
+        f"{equal} ({time.perf_counter() - t0:.1f} s)")
+    if not equal:
+        fail("distributed resume: the resumed run's params differ from the straight run's")
+    return {"bitwise_equal": equal}
+
+
 def main() -> int:
     sys.path.insert(0, str(REPO))
     try:
@@ -3987,9 +4557,13 @@ def main() -> int:
     phase("build", build_kernels)
     kernels = [phase("kernels: flash forward", check_flash_kernel),
                phase("kernels: flash backward", check_flash_backward),
+               *phase("kernels: flash rows", check_flash_rows),
                phase("kernels: exact fold", check_exact_fold),
                phase("kernels: synth features", check_synth_features),
                phase("kernels: robust term", check_robust_term)]
+    long_sequence = phase("kernels: flash long sequence", check_long_sequence)
+    for entry in kernels[:2]:  # the forward's and the backward's readings past tile 65,535
+        entry["long_sequence"] = long_sequence
     slice_numbers = phase("serving", run_slice, kernels)
     log(f"slice numbers on {card}: {json.dumps(slice_numbers)}")
     fedavg_numbers = phase("fedavg", run_fedavg)
@@ -4027,6 +4601,8 @@ def main() -> int:
     log(f"robust folds numbers on {card}: {json.dumps(folds_numbers)}")
     other_numbers = phase("other algorithms", run_other_algorithms)
     log(f"other algorithms numbers on {card}: {json.dumps(other_numbers)}")
+    dist_numbers = phase("distributed", run_distributed_phase)
+    log(f"distributed numbers on {card}: {json.dumps(dist_numbers, default=str)}")
     log(f"phase wall times (s): {json.dumps(walls)}")
     paths = {
         "serving": slice_numbers, "fedavg_headline": fedavg_numbers,
@@ -4039,6 +4615,8 @@ def main() -> int:
         "fedavg_poisoned_worlds": poisoned_numbers, "defenses": defenses_numbers,
         "robust_folds": folds_numbers,
         **{f"other_{tag}": numbers for tag, numbers in other_numbers.items()},
+        **{f"distributed_{tag}": numbers for tag, numbers in dist_numbers.items()
+           if isinstance(numbers, dict) and "kernel_launches" in numbers},
     }
     for entry in kernels:  # each path's own count, reset just before it
         entry["launches_by_path"] = {

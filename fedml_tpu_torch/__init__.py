@@ -21,12 +21,18 @@ Shakespeare and Stack Overflow (``models/rnn.py``). The eighth brings
 poisoned worlds (``poison_type``), the robust aggregation planes
 (``defense_type``: clipping, weak DP, the median), S-FedAvg and
 HS-FedAvg, the encoded and clipped streaming folds and the robust term
-kernel. ROADMAP.md lists the slices still to come.
+kernel. The tenth brings ``training_type: distributed`` through
+``run_distributed()``: the Switch-MoE transformer over dp x tp x ep and
+ring / Ulysses sequence parallelism on ``torch.distributed``
+(``distributed.py``, ``parallel/``). ROADMAP.md lists the slices still
+to come.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import os
 import random as _random
 from typing import Optional
 
@@ -82,8 +88,8 @@ def run_simulation(
     dev = get_device(device)
     if backend in (constants.FEDML_SIMULATION_TYPE_MESH, constants.FEDML_SIMULATION_TYPE_NCCL):
         raise NotImplementedError(
-            f"backend {backend!r}: the mesh simulator arrives with the "
-            "multi-card slice (ROADMAP.md, queue A)"
+            f"backend {backend!r}: the mesh simulator arrives with the fed "
+            "mesh, item 9b of the port (ROADMAP.md, queue A)"
         )
     if backend != constants.FEDML_SIMULATION_TYPE_SP:
         raise ValueError(f"unknown simulation backend {backend!r}")
@@ -97,3 +103,51 @@ def run_simulation(
         args, dev, dataset, model,
         client_trainer=client_trainer, server_aggregator=server_aggregator,
     ).run()
+
+
+@contextlib.contextmanager
+def _process_group(dev):
+    """The default process group for a distributed run: the caller's if
+    one is initialised; else one from ``torchrun``'s environment
+    (``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``/``MASTER_PORT``), each rank
+    on card ``LOCAL_RANK``; else a world of one rank in this process.
+    NCCL for the card, gloo for the CPU. A group made here is destroyed
+    on the way out. Yields the rank's device."""
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        yield dev
+        return
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if "WORLD_SIZE" in os.environ:
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group(backend, init_method="env://")
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield dev
+    finally:
+        dist.destroy_process_group()
+
+
+def run_distributed(args: Optional[Arguments] = None, *, device: DeviceLike = "cuda"):
+    """One-line mesh-parallel LM training, the ``training_type:
+    distributed`` platform: ``args.mesh_shape`` picks the parallelism
+    (dp x tp x ep, or sp with an optional dp; see ``distributed.py``).
+    Returns the last epoch's stats. ``args`` defaults to ``--cf <yaml>``
+    from the command line. Each rank calls it, in a process group the
+    caller initialised or one made from the environment (``torchrun``),
+    or alone as a world of one rank."""
+    dev = get_device(device)
+    from . import data, models
+    from .distributed import DistributedTrainer
+
+    args = init(args)
+    with _process_group(dev) as dev:
+        dataset = data.load(args, device=dev)
+        model = models.create(args, dataset.class_num, device=dev)
+        return DistributedTrainer(args, dev, dataset, model).run()

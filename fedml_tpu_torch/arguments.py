@@ -115,6 +115,24 @@ _DEFAULTS: Dict[str, Any] = {
     # more forward per block; gradients bitwise the same)
     "remat": False,
     "training_type": constants.FEDML_TRAINING_PLATFORM_SIMULATION,
+    # the distributed platform (distributed.py): mesh axes -> sizes, from
+    # {dp, tp, ep} (sharded) or {sp} / {dp, sp} (sequence); None = one dp
+    # axis over every rank
+    "mesh_shape": None,
+    # sequence parallelism: "ring" or "ulysses"; the ring's K/V chunk per
+    # fold (0 = the whole shard per hop)
+    "sp_strategy": "ring",
+    "sp_ring_block": 0,
+    "pp_microbatches": 0,  # the pipeline mode's (not ported yet): 0 = auto
+    # weight of the Switch MoE load-balancing aux loss in the distributed
+    # trainer's objective (0 disables)
+    "moe_aux_weight": 0.01,
+    # the distributed trainer's gradient accumulation: each batch in N
+    # chunks before one update, exact (count-weighted) vs unchunked
+    "grad_accum_steps": 1,
+    "moe_every": 2,  # every Nth transformer block is a Switch MoE layer
+    "num_experts": 8,  # Switch MoE expert count
+    "capacity_factor": 1.25,  # MoE per-expert token capacity slack
     # planet-scale population plane (scale/): a registry of N clients as
     # columnar state, cohorts sampled and materialized on demand
     # (0 = the eager federation)

@@ -5,6 +5,9 @@ and the defense and attack vocabularies the ported slices read. The
 values are the JAX package's, so one YAML drives either package.
 """
 
+# the MNIST LEAF archive (reference constants.py:18)
+FEDML_DATA_MNIST_URL = "https://fedcv.s3.us-west-1.amazonaws.com/MNIST.zip"
+
 # simulation sub-backends
 FEDML_SIMULATION_TYPE_SP = "single_process"
 FEDML_SIMULATION_TYPE_MESH = "MESH"
@@ -19,6 +22,7 @@ FED_OPTIMIZER_FEDAVG = "FedAvg"
 
 # training platforms
 FEDML_TRAINING_PLATFORM_SIMULATION = "simulation"
+FEDML_TRAINING_PLATFORM_DISTRIBUTED = "distributed"
 
 # Robust-aggregation defenses and the poisoning attacks they defend
 # against: ONE vocabulary, which the knob validation (arguments.py),

@@ -13,6 +13,9 @@ This maps each parameter onto the port's module of the same name:
   (flax's ``transpose_kernel=False`` correlates where torch's transposed
   convolution convolves);
 - a root ``alphas_holder`` (DARTS' architecture parameters) as it is;
+- a ``SwitchFFN``'s expert stacks ``wi`` ``[E, C, H]``, ``bi``, ``wo``
+  ``[E, H, C]`` and ``bo`` as they are (its ``router`` is a Dense), under
+  a ``SwitchFFN_<k>`` module or at the root of a lone layer's tree;
 - ``Dense.bias`` and ``LayerNorm.bias`` -> ``bias``;
 - ``LayerNorm.scale`` -> ``weight``;
 - ``Embed.embedding`` -> ``Embedding.weight``;
@@ -42,6 +45,8 @@ _LSTM_CELL = "OptimizedLSTMCell_"
 _CONV_TRANSPOSE = "ConvTranspose_"
 # root leaves carried as they are
 _RAW = ("alphas_holder",)
+# a routed FFN's expert stacks, carried as they are
+_EXPERT_LEAVES = ("wi", "bi", "wo", "bo")
 _GATES = "ifgo"
 # an LSTM cell's flax leaves, (gate module, leaf): the input kernels have
 # no bias
@@ -100,6 +105,10 @@ def params_from_flax(tree: Mapping[str, Any], stacked: bool = False) -> Dict[str
             out[key] = torch.tensor(np.ascontiguousarray(np.asarray(val)))
             continue
         path, _, leaf = key.rpartition(_SEP)
+        if leaf in _EXPERT_LEAVES and (not path or path.rpartition(_SEP)[2].startswith(
+                "SwitchFFN_")):
+            out[key] = torch.tensor(np.ascontiguousarray(np.asarray(val)))
+            continue
         if leaf not in _LEAVES:
             raise ValueError(f"flax param {key!r}: unknown leaf {leaf!r}")
         arr = np.asarray(val)

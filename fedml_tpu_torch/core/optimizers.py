@@ -21,7 +21,8 @@ optimizers of FedOpt (``create_server_optimizer``) are optax's ``sgd``
 ``adagrad`` and ``yogi`` at their optax defaults.
 
 The learning-rate schedules are optax's formulas, as host functions of
-a step or round index.
+a step or round index; a step-indexed one rides in the optimizer's state
+as optax's ``scale_by_schedule`` does (the distributed trainer).
 """
 
 from __future__ import annotations
@@ -79,7 +80,20 @@ def add_decayed_weights(weight_decay: float) -> GradientTransformation:
     return GradientTransformation(lambda params: (), update)
 
 
-def scale_by_learning_rate(lr: float) -> GradientTransformation:
+def scale_by_learning_rate(lr: Union[float, Schedule]) -> GradientTransformation:
+    """``-lr * u``; a schedule is optax's ``scale_by_schedule``: step k
+    (counted in the state, from 0) scales by ``-lr(k)``. The count is an
+    int32 on the CPU, so reading it costs no wait for the card."""
+    if callable(lr):
+        def init(params):
+            return {"count": torch.zeros((), dtype=torch.int32)}
+
+        def scheduled(updates, state, params):
+            step = lr(int(state["count"]))
+            return _map(lambda u: -step * u, updates), {"count": state["count"] + 1}
+
+        return GradientTransformation(init, scheduled)
+
     def update(updates, state, params):
         return _map(lambda u: -lr * u, updates), state
 
@@ -165,17 +179,17 @@ def scale_by_yogi(
     return GradientTransformation(init, update)
 
 
-def sgd(lr: float, momentum: Optional[float] = None) -> GradientTransformation:
+def sgd(lr: Union[float, Schedule], momentum: Optional[float] = None) -> GradientTransformation:
     if momentum is None:
         return scale_by_learning_rate(lr)
     return chain(trace(momentum), scale_by_learning_rate(lr))
 
 
-def adam(lr: float, b1: float = 0.9, b2: float = 0.999) -> GradientTransformation:
+def adam(lr: Union[float, Schedule], b1: float = 0.9, b2: float = 0.999) -> GradientTransformation:
     return chain(scale_by_adam(b1, b2), scale_by_learning_rate(lr))
 
 
-def adamw(lr: float, weight_decay: float = 1e-4) -> GradientTransformation:
+def adamw(lr: Union[float, Schedule], weight_decay: float = 1e-4) -> GradientTransformation:
     return chain(
         scale_by_adam(), add_decayed_weights(weight_decay), scale_by_learning_rate(lr)
     )
@@ -312,24 +326,29 @@ def resolve_round_lr_schedule(args) -> Optional[Schedule]:
     return cosine_decay_schedule(base, rounds)
 
 
-def create_client_optimizer(args, lr: Optional[float] = None) -> GradientTransformation:
+def create_client_optimizer(args, lr: Optional[float] = None,
+                            schedules: bool = False) -> GradientTransformation:
     """The client optimizer ``args.client_optimizer`` names. ``lr``
     overrides the resolved LR: the FL round engine passes the constant
     peak and scales the updates by its round-indexed multiplier, which
     equals rebuilding the optimizer at ``schedule(round)`` since every
-    rule ends in ``scale_by_learning_rate``."""
+    rule ends in ``scale_by_learning_rate``. A step-indexed schedule
+    (``lr_total_steps``) is taken only with ``schedules=True``: the
+    distributed trainer's optimizer, one lifetime of steps; the FL
+    trainers vmap their step, which a host-read count cannot follow."""
     name = str(getattr(args, "client_optimizer", "sgd")).lower()
     if name not in _CLIENT_OPTS:
         raise ValueError(f"unknown client_optimizer {name!r}")
     wd = float(getattr(args, "weight_decay", 0.0) or 0.0)
     if lr is None:
         lr = resolve_learning_rate(args)
-    if callable(lr):
+    if callable(lr) and not schedules:
         raise NotImplementedError(
             "a step-indexed lr_schedule (lr_total_steps) belongs to the "
-            "distributed trainer, which is not ported yet (ROADMAP.md, queue A)"
+            "distributed trainer (training_type: distributed, run_distributed); "
+            "a federated run decays by round (lr_total_rounds)"
         )
-    tx = _CLIENT_OPTS[name](float(lr), args)
+    tx = _CLIENT_OPTS[name](lr if callable(lr) else float(lr), args)
     if name == "sgd" and wd > 0.0:
         tx = chain(add_decayed_weights(wd), tx)
     return tx

@@ -166,9 +166,9 @@ def _try_load_real(name: str, cache_dir: str, args=None, probe: bool = False):
 def _try_load_federated(name: str, cache_dir: str, args=None):
     """Naturally federated files: LEAF json dirs, TFF h5, the Landmarks
     CSV. Returns per-client ``(xs_tr, ys_tr, xs_te, ys_te)`` and the
-    files' description, or None;
-    with ``args.download`` a missing copy raises (the port fetches only
-    archives its caller names, through ``data/download.py``)."""
+    files' description, or None. With ``args.download`` a dataset with
+    no local copy is first fetched from its archives
+    (``data/download.py``)."""
     if name not in _DATASET_META:
         return None
     d = os.path.join(cache_dir or "", name)
@@ -177,18 +177,19 @@ def _try_load_federated(name: str, cache_dir: str, args=None):
     from .leaf import leaf_available, load_leaf
 
     if cache_dir and bool(getattr(args, "download", False)):
+        from .download import dataset_downloadable, download_dataset
+
         # a LEAF json dir counts as a local copy only for tasks that
-        # read it (the nwp path ignores LEAF json, below)
+        # read it (the nwp path ignores LEAF json, below), so it must not
+        # suppress the h5 download
         has_local = ingest.tff_h5_available(d, name) or (
             task != "nwp" and leaf_available(d)
         )
-        if not has_local:
-            raise NotImplementedError(
-                f"download: no local copy of {name} under {cache_dir}, and the port names no "
-                f"archive host of its own; place the files there, or fetch them with "
-                f"fedml_tpu_torch.data.download.download_dataset({name!r}, data_cache_dir, "
-                f"urls=[...])"
-            )
+        if dataset_downloadable(name) and not has_local:
+            # the reference's auto-fetch of the dataset's archives
+            # (data/<ds>/download*.sh; MNIST data_loader.py:17-29), with
+            # offline grace
+            download_dataset(name, cache_dir)
 
     out, source = None, ""
     if leaf_available(d):

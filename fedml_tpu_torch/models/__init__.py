@@ -6,7 +6,8 @@ prediction for ``stackoverflow_lr``), ``cnn`` (the FEMNIST
 CNN, or the CIFAR one for RGB datasets), the GroupNorm CIFAR zoo
 (``resnet18``/``resnet18_gn``, ``resnet56``/``resnet``, ``vgg11``-``19``,
 ``mobilenet``, ``mobilenet_v3``, ``efficientnet-b0``-``b4``),
-``transformer`` (``remat`` included), ``rnn`` (the Shakespeare LSTM,
+``transformer`` (``remat`` included), ``moe_transformer`` (Switch
+MoE blocks every ``moe_every``, ``num_experts``, ``capacity_factor``), ``rnn`` (the Shakespeare LSTM,
 or the Stack Overflow one for ``stackoverflow*`` datasets), ``deeplab``
 (FedSeg's DeepLabLite, ``seg_width``) and ``darts`` (FedNAS's search
 network, ``nas_*``); every other name raises ``NotImplementedError``
@@ -31,11 +32,6 @@ from .spec import FedModel
 from .vgg import vgg
 
 __all__ = ["FedModel", "create"]
-
-# model name -> the port slice that brings it
-_LATER = {
-    "moe_transformer": "the ring/Ulysses slice, with the expert-parallel planes",
-}
 
 _IMAGE_SHAPES = {
     "mnist": (28, 28, 1),
@@ -159,6 +155,31 @@ def create(args, output_dim: int, device: DeviceLike = "cuda") -> FedModel:
             example_dtype=torch.int32,
             input_bound=vocab,
         )
+    if name == "moe_transformer":
+        from .moe import MoETransformerLM
+
+        vocab = max(int(getattr(args, "vocab_size", 0) or 0), output_dim)
+        seq_len = int(getattr(args, "seq_len", 64))
+        module = MoETransformerLM(
+            vocab_size=vocab,
+            num_layers=int(getattr(args, "num_layers", 2)),
+            num_heads=int(getattr(args, "num_heads", 4)),
+            embed_dim=int(getattr(args, "embed_dim", 128)),
+            max_len=max(seq_len, int(getattr(args, "max_len", 512))),
+            num_experts=int(getattr(args, "num_experts", 8)),
+            capacity_factor=float(getattr(args, "capacity_factor", 1.25)),
+            moe_every=int(getattr(args, "moe_every", 2)),
+            attention=getattr(args, "attention_impl", "full"),
+            remat=bool(getattr(args, "remat", False)),
+        ).to(dev)
+        return FedModel(
+            name="moe_transformer_lm",
+            module=module,
+            task="nwp",
+            example_shape=(seq_len,),
+            example_dtype=torch.int32,
+            input_bound=vocab,
+        )
     if name == "rnn":
         from .rnn import RNNOriginalFedAvg, RNNStackOverflow
 
@@ -180,10 +201,10 @@ def create(args, output_dim: int, device: DeviceLike = "cuda") -> FedModel:
             example_dtype=torch.int32,
             input_bound=vocab,
         )
-    later = _LATER.get(name, "a later slice")
     raise NotImplementedError(
         f"model {name!r} is not ported to PyTorch yet; it arrives with "
-        f"{later} (ROADMAP.md, queue A). Ported: 'lr', 'mlp', 'cnn', the GroupNorm "
+        "a later slice (ROADMAP.md, queue A). Ported: 'lr', 'mlp', 'cnn', the GroupNorm "
         "CIFAR zoo ('resnet18', 'resnet56', 'vgg*', 'mobilenet', 'mobilenet_v3', "
-        "'efficientnet-b*'), 'transformer', 'rnn', 'deeplab' and 'darts'."
+        "'efficientnet-b*'), 'transformer', 'moe_transformer', 'rnn', 'deeplab' and "
+        "'darts'."
     )

@@ -73,7 +73,9 @@ class FedModel:
         one; a weight a module lists in ``orthogonal_blocks`` (the LSTM's
         hidden kernels) orthogonal, block by block of that many rows; a
         weight a module lists in ``normal_scales`` (DARTS' alphas) that
-        scale times a standard normal. A transposed convolution's weight
+        scale times a standard normal; a weight a module lists in
+        ``truncated_fans`` lecun-normal at that fan_in, one in
+        ``zero_params`` zero (a routed FFN's expert stacks and biases). A transposed convolution's weight
         is ``[in, out, kh, kw]``: its fan_in is ``in * kh * kw``, as
         flax's ``ConvTranspose`` kernel ``[kh, kw, in, out]`` has it."""
         def full(name, key):
@@ -88,6 +90,15 @@ class FedModel:
             for name, mod in self.module.named_modules()
             if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d))
         }
+        # a module's own truncated-normal weights (a routed FFN's expert
+        # stacks, whose fan_in flax counts over the stack) and zero ones
+        truncated.update({
+            full(name, key): fan
+            for name, mod in self.module.named_modules()
+            for key, fan in getattr(mod, "truncated_fans", {}).items()
+        })
+        zeros = {full(name, key) for name, mod in self.module.named_modules()
+                 for key in getattr(mod, "zero_params", ())}
         orthogonal = {
             full(name, key): rows
             for name, mod in self.module.named_modules()
@@ -107,7 +118,7 @@ class FedModel:
                 rows = orthogonal[key]
                 val = torch.cat([_orthogonal(rows, p.shape[1], generator)
                                  for _ in range(p.shape[0] // rows)])
-            elif leaf == "bias":
+            elif leaf == "bias" or key in zeros:
                 val = torch.zeros(p.shape)
             elif p.dim() == 1:
                 val = torch.ones(p.shape)

@@ -19,7 +19,8 @@
 // start, and a query-tile-major dQ kernel that walks the key tiles up to
 // the causal end. S and dP are computed in both: that is the price of
 // having no atomics and no [T, T] scratch. The grid puts batch*head on x
-// (up to 2^31 - 1) and the tile on y, low key tiles and high query tiles
+// (up to 2^31 - 1) and the tile on y (tiles past y's 65,535 fold into x:
+// `work_grid`, hopper.cuh), low key tiles and high query tiles
 // (the longest causal walks) first: blocks start x-fastest.
 //
 // Bound on an H100: the five products do ~10*D flops per unmasked (query,
@@ -237,7 +238,7 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                   const __grid_constant__ CUtensorMap v_map,
                   const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
                   const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                  __nv_bfloat16* __restrict__ dv, int seq_len, int heads, float scale,
+                  __nv_bfloat16* __restrict__ dv, int n_bh, int seq_len, int heads, float scale,
                   int causal) {
   using C = Sm90Cfg<D>;
   constexpr int BK = C::kBK, BQ = C::kBQKV, kStages = C::kStages;
@@ -250,7 +251,7 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   int bh, kt;  // low key tiles walk the most causal query tiles
-  block_work(bh, kt);
+  if (!block_work(n_bh, (seq_len + BK - 1) / BK, bh, kt)) return;
   const int b = bh / heads, h = bh - b * heads;
   const int k0 = kt * BK;
   const int qt0 = causal ? k0 / BQ : 0;  // earlier query tiles see none of these keys
@@ -386,8 +387,8 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                 const __grid_constant__ CUtensorMap k_map,
                 const __grid_constant__ CUtensorMap v_map,
                 const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
-                const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int seq_len,
-                int heads, float scale, int causal) {
+                const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int n_bh,
+                int seq_len, int heads, float scale, int causal) {
   using C = Sm90Cfg<D>;
   constexpr int BK = C::kBK, BQ = C::kBQ, kStages = C::kDqStages;
   extern __shared__ __align__(1024) unsigned char tiles[];  // TMA boxes, then barriers
@@ -399,9 +400,10 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   int bh, rank;  // high query tiles walk the most key tiles
-  block_work(bh, rank);
+  const int n_qt = (seq_len + BQ - 1) / BQ;
+  if (!block_work(n_bh, n_qt, bh, rank)) return;
   const int b = bh / heads, h = bh - b * heads;
-  const int q0 = (gridDim.y - 1 - rank) * BQ;
+  const int q0 = (n_qt - 1 - rank) * BQ;
   int n_tiles = (seq_len + BK - 1) / BK;
   if (causal) n_tiles = min(n_tiles, (q0 + BQ + BK - 1) / BK);  // later tiles fully masked
   init_barriers<kStages, 1>(smem, bars);
@@ -729,7 +731,7 @@ dkdv_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
                  const __grid_constant__ CUtensorMap v_map,
                  const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
                  const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
-                 int seq_len, int heads, float scale, int causal) {
+                 int n_bh, int seq_len, int heads, float scale, int causal) {
   using C = F32Cfg<D>;
   constexpr int BK = C::kBK, BQ = C::kQS, QT = C::kQTile;
   extern __shared__ __align__(1024) unsigned char tiles[];  // tiles, then barriers
@@ -747,7 +749,7 @@ dkdv_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
   unsigned char* const st0 = smem + 4 * C::kTile + wg * C::kDkdvStage;
   uint64_t* const bar = bars + 1 + wg;
   int bh, kt;  // low key tiles walk the most causal query tiles
-  block_work(bh, kt);
+  if (!block_work(n_bh, (seq_len + BK - 1) / BK, bh, kt)) return;
   const int b = bh / heads, h = bh - b * heads;
   const int k0 = kt * BK;
   const int qt0 = causal ? k0 / BQ : 0;  // earlier query steps see none of these keys
@@ -924,8 +926,8 @@ dq_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
                const __grid_constant__ CUtensorMap k_map,
                const __grid_constant__ CUtensorMap v_map,
                const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
-               const float* __restrict__ delta, float* __restrict__ dq, int seq_len, int heads,
-               float scale, int causal) {
+               const float* __restrict__ delta, float* __restrict__ dq, int n_bh, int seq_len,
+               int heads, float scale, int causal) {
   using C = F32Cfg<D>;
   constexpr int BQ = C::kBQ, BK = C::kKS, KT = C::kKTile;
   extern __shared__ __align__(1024) unsigned char tiles[];  // tiles, then barriers
@@ -942,9 +944,10 @@ dq_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
   unsigned char* const st0 = smem + 4 * C::kTile + wg * C::kDqStage;
   uint64_t* const bar = bars + 1 + wg;
   int bh, rank;  // high query tiles walk the most key tiles
-  block_work(bh, rank);
+  const int n_qt = (seq_len + BQ - 1) / BQ;
+  if (!block_work(n_bh, n_qt, bh, rank)) return;
   const int b = bh / heads, h = bh - b * heads;
-  const int q0 = (gridDim.y - 1 - rank) * BQ;
+  const int q0 = (n_qt - 1 - rank) * BQ;
   int n_tiles = (seq_len + BK - 1) / BK;
   if (causal) n_tiles = min(n_tiles, (q0 + BQ + BK - 1) / BK);  // later steps fully masked
   init_barriers<2, 1>(smem, bars);
@@ -1127,13 +1130,14 @@ int launch_f32(const Args& a) {
   const float* lse = static_cast<const float*>(a.lse);
   const float* delta = static_cast<const float*>(a.delta);
   launch_delta<float, D>(a);
-  dkdv_tf32_kernel<D><<<dim3(B * H, (T + C::kBK - 1) / C::kBK), kF32Threads, C::kDkdvSmem,
-                        a.stream>>>(q_kv_map, k_map, v_map, do_kv_map, lse, delta,
-                                    static_cast<float*>(a.dk), static_cast<float*>(a.dv), T, H,
+  dkdv_tf32_kernel<D><<<work_grid(B * H, (T + C::kBK - 1) / C::kBK), kF32Threads,
+                        C::kDkdvSmem, a.stream>>>(q_kv_map, k_map, v_map, do_kv_map, lse, delta,
+                                                  static_cast<float*>(a.dk),
+                                                  static_cast<float*>(a.dv), B * H, T, H,
                                     a.scale, a.causal);
-  dq_tf32_kernel<D><<<dim3(B * H, (T + C::kBQ - 1) / C::kBQ), kF32Threads, C::kDqSmem,
+  dq_tf32_kernel<D><<<work_grid(B * H, (T + C::kBQ - 1) / C::kBQ), kF32Threads, C::kDqSmem,
                       a.stream>>>(q_map, k_q_map, v_q_map, do_map, lse, delta,
-                                  static_cast<float*>(a.dq), T, H, a.scale, a.causal);
+                                  static_cast<float*>(a.dq), B * H, T, H, a.scale, a.causal);
   return (int)cudaGetLastError();
 }
 
@@ -1162,13 +1166,15 @@ int launch_bf16(const Args& a) {
   const float* lse = static_cast<const float*>(a.lse);
   const float* delta = static_cast<const float*>(a.delta);
   launch_delta<bf16, D>(a);
-  dkdv_wgmma_kernel<D><<<dim3(B * H, (T + C::kBK - 1) / C::kBK), kSm90Threads, C::kDkdvSmem,
-                         a.stream>>>(q_kv_map, k_map, v_map, do_kv_map, lse, delta,
-                                     static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), T, H,
+  dkdv_wgmma_kernel<D><<<work_grid(B * H, (T + C::kBK - 1) / C::kBK), kSm90Threads,
+                         C::kDkdvSmem, a.stream>>>(q_kv_map, k_map, v_map, do_kv_map, lse, delta,
+                                                   static_cast<bf16*>(a.dk),
+                                                   static_cast<bf16*>(a.dv), B * H, T, H,
                                      a.scale, a.causal);
-  dq_wgmma_kernel<D><<<dim3(B * H, (T + C::kBQ - 1) / C::kBQ), kSm90Threads, C::kDqSmem,
-                       a.stream>>>(q_map, k_map, v_map, do_map, lse, delta,
-                                   static_cast<bf16*>(a.dq), T, H, a.scale, a.causal);
+  dq_wgmma_kernel<D><<<work_grid(B * H, (T + C::kBQ - 1) / C::kBQ), kSm90Threads,
+                       C::kDqSmem, a.stream>>>(q_map, k_map, v_map, do_map, lse, delta,
+                                               static_cast<bf16*>(a.dq), B * H, T, H, a.scale,
+                                               a.causal);
   return (int)cudaGetLastError();
 }
 

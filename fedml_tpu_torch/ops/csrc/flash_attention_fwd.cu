@@ -15,8 +15,9 @@
 // does ~2*T*D flops per byte it must move, far above the card's balance
 // point, so operations bound it. Two routes, one per input dtype; the
 // grid puts batch*head on x (up to 2^31 - 1) and the 64-row query tile on
-// y, and `block_work` (hopper.cuh) hands blocks out 16 heads at a time,
-// longest causal walk first, so the blocks in flight stream K and V of a
+// y (tiles past y's 65,535 fold into x: `work_grid`), and `block_work`
+// (hopper.cuh) hands blocks out 16 heads at a time, longest causal walk
+// first, so the blocks in flight stream K and V of a
 // few heads, which stay in L2.
 //
 // bf16 route (the training path): `flash_fwd_wgmma_kernel`. One
@@ -150,8 +151,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                  const __grid_constant__ CUtensorMap k_map,
                  const __grid_constant__ CUtensorMap v_map, float* __restrict__ o,
-                 float* __restrict__ lse, int seq_len, int heads, float scale_log2,
-                 int causal) {
+                 float* __restrict__ lse, int n_bh, int seq_len, int heads,
+                 float scale_log2, int causal) {
   using C = Cfg<D>;
   constexpr int BK = C::kBlockK, kStages = C::kStages, kChunk = C::kChunk;
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -165,8 +166,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   int bh, rank;  // high query tiles walk the most key tiles
-  block_work(bh, rank);
-  const int q0 = (gridDim.y - 1 - rank) * kBlockQ;
+  const int n_qt = (seq_len + kBlockQ - 1) / kBlockQ;
+  if (!block_work(n_bh, n_qt, bh, rank)) return;
+  const int q0 = (n_qt - 1 - rank) * kBlockQ;
   const int b = bh / heads, h = bh - b * heads;
   int n_kt = (seq_len + BK - 1) / BK;
   if (causal) n_kt = min(n_kt, (q0 + kBlockQ + BK - 1) / BK);  // later tiles fully masked
@@ -418,8 +420,8 @@ __global__ void __launch_bounds__(kWgThreads, WgCfg<D>::kMinBlocks)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o,
-                       float* __restrict__ lse, int seq_len, int heads, float scale_log2,
-                       int causal) {
+                       float* __restrict__ lse, int n_bh, int seq_len, int heads,
+                       float scale_log2, int causal) {
   using C = WgCfg<D>;
   constexpr int BQ = kBlockQ, BK = C::kBK, kStages = C::kStages;
   extern __shared__ __align__(1024) unsigned char tiles[];  // TMA boxes, then barriers
@@ -430,9 +432,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   int bh, rank;  // high query tiles walk the most key tiles
-  block_work(bh, rank);
+  const int n_qt = (seq_len + BQ - 1) / BQ;
+  if (!block_work(n_bh, n_qt, bh, rank)) return;
   const int b = bh / heads, h = bh - b * heads;
-  const int q0 = (gridDim.y - 1 - rank) * BQ;
+  const int q0 = (n_qt - 1 - rank) * BQ;
   int n_tiles = (seq_len + BK - 1) / BK;
   if (causal) n_tiles = min(n_tiles, (q0 + BQ + BK - 1) / BK);  // later tiles fully masked
   init_barriers<kStages, 1>(smem, bars);
@@ -625,9 +628,10 @@ int launch_f32(const Args& a) {
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (T + kBlockQ - 1) / kBlockQ);
+  const dim3 grid = work_grid(B * H, (T + kBlockQ - 1) / kBlockQ);
   flash_fwd_kernel<D><<<grid, kThreads, C::kSmemBytes, a.stream>>>(
-      q_map, k_map, v_map, static_cast<float*>(a.o), a.lse, T, H, a.scale_log2, a.causal);
+      q_map, k_map, v_map, static_cast<float*>(a.o), a.lse, B * H, T, H, a.scale_log2,
+      a.causal);
   return (int)cudaGetLastError();
 }
 
@@ -645,9 +649,10 @@ int launch_bf16(const Args& a) {
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (T + kBlockQ - 1) / kBlockQ);
+  const dim3 grid = work_grid(B * H, (T + kBlockQ - 1) / kBlockQ);
   flash_fwd_wgmma_kernel<D><<<grid, kWgThreads, C::kSmemBytes, a.stream>>>(
-      q_map, k_map, v_map, static_cast<bf16*>(a.o), a.lse, T, H, a.scale_log2, a.causal);
+      q_map, k_map, v_map, static_cast<bf16*>(a.o), a.lse, B * H, T, H, a.scale_log2,
+      a.causal);
   return (int)cudaGetLastError();
 }
 

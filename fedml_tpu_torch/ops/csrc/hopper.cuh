@@ -87,20 +87,39 @@ __device__ __forceinline__ int tile_off(int row, int col) {
 // V at T 4096, D 64 in bf16 take 16 MB of the 50 MB L2.
 constexpr int kHeadGroup = 16;
 
-// The (batch*head, tile rank) this block works on, for a grid of
-// batch*head on x (up to 2^31 - 1) and tiles on y. Blocks start in launch
-// order, x fastest; they are handed out in groups of kHeadGroup heads
-// and, within a group, rank by rank (rank 0 = each head's longest causal
-// walk) across the group's heads. So the longest walks start first, and
-// the blocks in flight at once stream the tiles of a few heads, which
-// stay in L2, not one tile of every head.
-__device__ __forceinline__ void block_work(int& bh, int& rank) {
+// Grid y's limit: tiles past it fold into grid x (work_grid).
+constexpr int kGridY = 65535;
+
+// The launch grid of n_bh (batch*head) rows of n_tiles tiles each: batch*
+// head on x and tiles on y while they fit y's 65,535; beyond that the
+// tiles fold into x, fold = ceil(n_tiles / 65535) copies of the rows, so
+// T past 65,535 tiles of 64 still launches. The Python wrapper's
+// `tile_grid` (ops/flash_attention.py) is the same arithmetic, which a CPU
+// test checks and which refuses a grid x past 2^31 - 1.
+inline dim3 work_grid(int n_bh, int n_tiles) {
+  const int fold = (n_tiles + kGridY - 1) / kGridY;
+  return dim3((unsigned)((long long)n_bh * fold), (unsigned)((n_tiles + fold - 1) / fold));
+}
+
+// The (batch*head, tile rank) this block works on, for a work_grid of
+// n_bh rows of n_tiles tiles; false for the blocks past the work that a
+// folded grid's last row leaves over (they return at once). Blocks start
+// in launch order, x fastest, and the block's linear index alone picks its
+// work, so a folded grid hands out the same work in the same order; they
+// are handed out in groups of kHeadGroup heads and, within a group, rank
+// by rank (rank 0 = each head's longest causal walk) across the group's
+// heads. So the longest walks start first, and the blocks in flight at
+// once stream the tiles of a few heads, which stay in L2, not one tile of
+// every head.
+__device__ __forceinline__ bool block_work(int n_bh, int n_tiles, int& bh, int& rank) {
   const long long lin = (long long)blockIdx.y * gridDim.x + blockIdx.x;
-  const long long g0 = lin / ((long long)kHeadGroup * gridDim.y) * kHeadGroup;  // first head
-  const long long size = min((long long)kHeadGroup, (long long)gridDim.x - g0);
-  const long long r = lin - g0 * gridDim.y;
+  if (lin >= (long long)n_bh * n_tiles) return false;
+  const long long g0 = lin / ((long long)kHeadGroup * n_tiles) * kHeadGroup;  // first head
+  const long long size = min((long long)kHeadGroup, (long long)n_bh - g0);
+  const long long r = lin - g0 * n_tiles;
   rank = (int)(r / size);
   bh = (int)(g0 + r % size);
+  return true;
 }
 
 // 2^x; flushes results below 2^-126 to zero

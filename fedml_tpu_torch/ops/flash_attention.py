@@ -37,10 +37,16 @@ version the kernel is held against.
 Dispatch follows the tensor's device and nothing else: a CPU tensor takes
 the plain version; a CUDA tensor launches the kernel or raises. Every
 launch adds one to ``FWD_KERNEL.launches`` or ``BWD_KERNEL.launches``.
-The kernels take head dims 16, 32, 64 and 128; the wrappers run any
-other D up to 128 at the next of those, zero-padded (the padded columns
-leave S, P and every real output column as they were), and refuse
-D > 128. Any batch x heads launches: it is the kernels' grid x.
+The tensor-core kernels take head dims 16, 32, 64 and 128; the wrappers
+run any other D up to 128 at the next of those, zero-padded (the padded
+columns leave S, P and every real output column as they were). Head dims
+129 to 512 take the rows route, ``csrc/flash_attention_rows.cu``: a warp
+per query (or key) row, f32 arithmetic, no tensor cores
+(``ROWS_FWD_KERNEL`` and ``ROWS_BWD_KERNEL``, counted apart; on the CPU
+every D takes the same plain versions); above 512 the
+wrappers raise. Any batch x heads launches (the kernels' grid x), and so
+does any T: query and key tiles past grid y's 65,535 fold into grid x
+(``tile_grid``).
 
 Both autograd functions carry ``vmap`` rules, so ``torch.func.vmap``
 over ``torch.func.grad`` (the federated trainer's vmapped client step)
@@ -62,6 +68,9 @@ from . import _build
 __all__ = [
     "BWD_KERNEL",
     "FWD_KERNEL",
+    "ROWS_BWD_KERNEL",
+    "ROWS_FWD_KERNEL",
+    "ROWS_MAX_HEAD_DIM",
     "flash_attention",
     "flash_attention_backward_reference",
     "flash_attention_reference",
@@ -73,6 +82,7 @@ __all__ = [
     "padded_backward",
     "padded_forward",
     "pick_block",
+    "tile_grid",
 ]
 
 _NEG_INF = -1e30
@@ -80,9 +90,15 @@ _NEG_INF = -1e30
 # torch dtype -> the kernels' dtype code
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
-# queries or keys per tile: the kernels' grid y counts tiles, up to 65535
+# the rows route (csrc/flash_attention_rows.cu) takes D above 128 up to this
+ROWS_MAX_HEAD_DIM = 512
+# queries or keys per tile: the kernels' grid y counts tiles, up to 65535,
+# and the tiles past that fold into grid x, which takes up to 2**31 - 1
 _TILE = 64
 _GRID_Y = 65535
+_GRID_X = 2**31 - 1
+# rows per block of the rows route: its grid x counts B*H*T / 8 blocks
+_ROWS_PER_BLOCK = 8
 # TMA (and the backward's 16-byte loads) read from a 16-byte-aligned base
 # with 16-byte multiples as strides
 _TMA_ALIGN = 16
@@ -98,17 +114,55 @@ def kernel_head_dim(D: int) -> int:
                      f"{_HEAD_DIMS[-1]}")
 
 
+def tile_grid(bh: int, T: int) -> Tuple[int, int]:
+    """The tensor-core kernels' launch grid (x, y) for ``bh`` = batch x
+    heads rows of ceil(T / 64) tiles: bh on x, tiles on y while they fit
+    y's 65,535; past that the tiles fold into x, ``fold`` = ceil(tiles /
+    65535) copies of the rows. ``work_grid`` in ``csrc/hopper.cuh`` is the
+    same arithmetic; the kernels' ``block_work`` maps a block's linear
+    index back to its (row, tile)."""
+    tiles = -(-T // _TILE)
+    fold = -(-tiles // _GRID_Y)
+    return bh * fold, -(-tiles // fold)
+
+
 def check_shape(shape, dtype: torch.dtype, name: str = "flash attention") -> None:
-    """Raises unless the kernels take a [B, T, H, D] operand of ``dtype``:
-    f32 or bf16, D one of the kernels' head dims, T at most 65535 tiles.
-    Batch x heads is not limited (the grid's x dimension)."""
-    _, T, _, D = shape
+    """Raises unless a kernel takes a [B, T, H, D] operand of ``dtype``:
+    f32 or bf16; D one of the tensor-core kernels' head dims, or 129 to
+    512 (the rows route); a grid that fits (``tile_grid``'s x, or the rows
+    route's B*H*T / 8 blocks, at most 2**31 - 1). Any T and any batch x
+    heads short of that launch."""
+    B, T, H, D = shape
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: dtype {dtype} unsupported (float32 or bfloat16)")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {D} not in {_HEAD_DIMS}")
-    if -(-T // _TILE) > _GRID_Y:
-        raise ValueError(f"{name}: seq len {T} exceeds {_GRID_Y} tiles of {_TILE}")
+    if D in _HEAD_DIMS:
+        x, _ = tile_grid(B * H, T)
+        if x > _GRID_X:
+            raise ValueError(
+                f"{name}: batch x heads {B * H} at seq len {T} needs a grid x of {x}: "
+                f"its tiles of {_TILE} fold into x past grid y's {_GRID_Y} tiles, and x "
+                f"takes at most {_GRID_X}"
+            )
+    elif _HEAD_DIMS[-1] < D <= ROWS_MAX_HEAD_DIM:
+        if -(-B * H * T // _ROWS_PER_BLOCK) > _GRID_X:
+            raise ValueError(f"{name}: {B * H * T} rows exceed the rows route's grid")
+    else:
+        raise ValueError(
+            f"{name}: head dim {D} not in {_HEAD_DIMS} nor in the rows route's "
+            f"{_HEAD_DIMS[-1] + 1}-{ROWS_MAX_HEAD_DIM}"
+        )
+
+
+def _route_head_dim(D: int) -> bool:
+    """True when a D-wide head runs on the rows route; raises above its
+    limit of 512."""
+    if D > ROWS_MAX_HEAD_DIM:
+        raise ValueError(
+            f"flash attention: head dim {D} exceeds the kernels' limit of "
+            f"{ROWS_MAX_HEAD_DIM} (tensor-core kernels up to {_HEAD_DIMS[-1]}, the rows "
+            f"route above)"
+        )
+    return D > _HEAD_DIMS[-1]
 
 
 def _pad_head(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -221,6 +275,19 @@ class FlashForwardKernel(_Kernel):
         return o, lse
 
 
+class RowsForwardKernel(FlashForwardKernel):
+    """``flash_rows_fwd`` (``csrc/flash_attention_rows.cu``): the forward
+    at head dims 129 to 512, a warp per query row. Same arguments and
+    results as :class:`FlashForwardKernel`; no padding."""
+
+    name = "flash_rows_fwd"
+    library = "flash_attention_rows"
+    error_string = "flash_rows_error_string"
+
+    def __call__(self, q, k, v, causal, scale):
+        return self._run(q, k, v, causal, scale)
+
+
 class FlashBackwardKernel(_Kernel):
     """``flash_attention_bwd``: (dQ, dK, dV) in q's dtype, contiguous."""
 
@@ -272,8 +339,24 @@ class FlashBackwardKernel(_Kernel):
         return tuple(grads)
 
 
+class RowsBackwardKernel(FlashBackwardKernel):
+    """``flash_rows_bwd``: the backward at head dims 129 to 512, two
+    device kernels (dQ and delta a warp per query row, then dK and dV a
+    warp per key row), counted as one launch. Same arguments and results
+    as :class:`FlashBackwardKernel`; no padding."""
+
+    name = "flash_rows_bwd"
+    library = "flash_attention_rows"
+    error_string = "flash_rows_error_string"
+
+    def __call__(self, q, k, v, o, lse, g, causal, scale):
+        return self._run(q, k, v, o, lse, g, causal, scale)
+
+
 FWD_KERNEL = FlashForwardKernel()
 BWD_KERNEL = FlashBackwardKernel()
+ROWS_FWD_KERNEL = RowsForwardKernel()
+ROWS_BWD_KERNEL = RowsBackwardKernel()
 
 
 def pick_block(t: int, minimum: int = 8) -> Optional[int]:
@@ -368,10 +451,11 @@ def flash_forward(
     own tiles."""
     _check_blocks(q.shape[1], block_q, block_k)
     scale = scale or (q.shape[-1] ** -0.5)
+    rows = _route_head_dim(q.shape[-1])
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal, scale)
     if q.device.type == "cuda":
-        return FWD_KERNEL(q, k, v, causal, scale)
+        return (ROWS_FWD_KERNEL if rows else FWD_KERNEL)(q, k, v, causal, scale)
     raise ValueError(f"flash attention: no path for device {q.device}")
 
 
@@ -412,10 +496,11 @@ def flash_backward(q, k, v, o, lse, g, causal=True, scale=None, block_k=128):
     the output's gradient ``g``: the blockwise plain loop on the CPU, the
     backward kernel on a card."""
     scale = scale or (q.shape[-1] ** -0.5)
+    rows = _route_head_dim(q.shape[-1])
     if q.device.type == "cpu":
         return _flash_backward(q, k, v, o, lse, g, causal, scale, block_k)
     if q.device.type == "cuda":
-        return BWD_KERNEL(q, k, v, o, lse, g, causal, scale)
+        return (ROWS_BWD_KERNEL if rows else BWD_KERNEL)(q, k, v, o, lse, g, causal, scale)
     raise ValueError(f"flash attention: no path for device {q.device}")
 
 

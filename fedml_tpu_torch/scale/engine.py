@@ -80,8 +80,8 @@ def build_group_fn(
     """
     if mesh is not None:
         raise NotImplementedError(
-            "build_group_fn(mesh=...): the fed (data, fsdp) mesh arrives with the "
-            "parallel planes (ROADMAP.md, queue A item 9)"
+            "build_group_fn(mesh=...): the fed (data, fsdp) mesh arrives with "
+            "ROADMAP.md, queue A item 9b"
         )
     seen: set = set()
 

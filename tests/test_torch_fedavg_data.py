@@ -169,14 +169,24 @@ def test_device_twin_features_follow_the_class_means():
     assert bf16.packed_train.x.dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("knob, value, match", [
-    ("download", True, "names no archive host"),
+@pytest.mark.parametrize("knob, value, dataset", [
+    ("download", True, "mnist"),
 ])
-def test_unported_sources_raise(knob, value, match):
-    a = _standin_args(Arguments, "mnist", "homo")
+def test_download_without_a_local_copy_asks_for_the_archives(knob, value, dataset, tmp_path,
+                                                             monkeypatch):
+    """``download: true`` with no local copy fetches the dataset's
+    archives (here a stand-in fetcher that finds none, as offline), then
+    loads the stand-in as without the knob."""
+    from fedml_tpu_torch.data import download
+
+    calls = []
+    monkeypatch.setattr(download, "download_dataset", lambda *a: calls.append(a) or False)
+    a = _standin_args(Arguments, dataset, "homo", data_cache_dir=str(tmp_path))
     setattr(a, knob, value)
-    with pytest.raises(NotImplementedError, match=match):
-        load(a, device="cpu")
+    got = load(a, device="cpu")
+    assert calls == [(dataset, str(tmp_path))]
+    setattr(a, knob, False)
+    _same_federation(got, load(a, device="cpu"))
 
 
 def _same_federation(got, want):

@@ -399,7 +399,9 @@ def test_check_shape_takes_any_batch_times_heads(shape):
 @pytest.mark.parametrize("shape, dtype, match", [
     ((2, 64, 4, 48), torch.float32, "head dim 48"),  # the wrapper pads it first
     ((2, 64, 4, 64), torch.float16, "unsupported"),
-    ((1, 64 * 65535 + 1, 1, 64), torch.bfloat16, "65535 tiles"),
+    # T past grid y's 65535 tiles folds into grid x; this batch x heads
+    # folded would need a grid x past 2**31 - 1
+    ((2**30, 64 * 65536, 1, 64), torch.bfloat16, "65535 tiles"),
 ])
 def test_check_shape_refuses_what_the_kernels_lack(shape, dtype, match):
     with pytest.raises(ValueError, match=match):

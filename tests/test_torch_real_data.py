@@ -3,10 +3,12 @@
 The ``file://`` seam cases of ``tests/test_real_data.py`` run through
 both packages' ``data/download.py`` on the same archives written to
 ``tmp_path``: what each extracts must be the same files, byte for byte.
-The port names no archive host, so its loader refuses ``download`` for a
-dataset it has no local copy of.
-No test fetches from a network: a URL is a ``file://`` path, or a port
-on ``127.0.0.1`` that refuses the connection (the offline grace). Then
+The port keeps the JAX package's table of archives; with ``download``,
+its loader fetches a dataset it has no local copy of from there.
+No test fetches from a network: a URL is a ``file://`` path, a port on
+``127.0.0.1`` that refuses the connection (the offline grace), or an
+``http.server`` on ``127.0.0.1`` serving what the test wrote, the table
+pointed at it by monkeypatch. Then
 the repo's real files, ``fedml_data/mnist`` (100 LEAF users, sklearn's
 digits), and the digits written by ``materialize_real_digits`` load as
 the same packed federation in both packages, bitwise.
@@ -14,11 +16,14 @@ the same packed federation in both packages, bitwise.
 
 from __future__ import annotations
 
+import contextlib
 import filecmp
+import http.server
 import json
 import logging
 import os
 import tarfile
+import threading
 import zipfile
 
 import numpy as np
@@ -156,18 +161,116 @@ def test_a_present_copy_is_kept_and_no_url_fetches_nothing(tmp_path):
 
 def test_loader_attempts_download_only_when_asked(tmp_path, monkeypatch):
     calls = []
-    monkeypatch.setattr(download, "download_dataset", lambda *a, **k: calls.append(a))
+    monkeypatch.setattr(download, "download_dataset",
+                        lambda *a, **k: calls.append(a) or False)
     args = _args(Arguments, data_cache_dir=str(tmp_path))
     load(args, device="cpu")  # download defaults to off: the stand-in, nothing fetched
+    assert calls == []
     args.download = True
-    with pytest.raises(NotImplementedError, match="names no archive host"):
-        load(args, device="cpu")
+    # no local copy: the loader asks for the archives, then (offline here)
+    # takes the stand-in
+    assert load(args, device="cpu").source.startswith("synthetic")
+    assert calls == [("mnist", str(tmp_path))]
     # with a local copy, download asks for nothing
     with zipfile.ZipFile(_mnist_zip(tmp_path)) as zf:
         zf.extractall(tmp_path / "unzipped")
     os.rename(tmp_path / "unzipped" / "MNIST", tmp_path / "mnist")
     assert load(args, device="cpu").source.startswith("LEAF json")
-    assert calls == []
+    assert calls == [("mnist", str(tmp_path))]
+
+
+def test_archive_table_is_the_references():
+    assert download.DATASET_ARCHIVES == jax_download.DATASET_ARCHIVES
+    for name in ("mnist", "stackoverflow_lr", "shakespeare", "cifar10"):
+        assert download.dataset_downloadable(name) == jax_download.dataset_downloadable(name)
+
+
+@contextlib.contextmanager
+def _local_server(root, fail_first: int = 0):
+    """An ``http.server`` on 127.0.0.1 serving the files under ``root``;
+    its first ``fail_first`` requests answer 503. Yields (base URL,
+    list of the request paths it saw)."""
+    seen = []
+
+    class Handler(http.server.SimpleHTTPRequestHandler):
+        def __init__(self, *a, **k):
+            super().__init__(*a, directory=str(root), **k)
+
+        def do_GET(self):
+            seen.append(self.path)
+            if len(seen) <= fail_first:
+                self.send_error(503, "busy")
+                return
+            super().do_GET()
+
+        def log_message(self, *a):
+            pass
+
+    server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}", seen
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+
+
+def test_loader_fetches_a_missing_dataset_from_the_table(tmp_path, monkeypatch):
+    """``download: true`` and no local copy: the loader fetches the
+    table's archive (served from 127.0.0.1) and reads the extracted LEAF
+    files; the JAX package's seam extracts the same bytes from it."""
+    served = tmp_path / "served"
+    served.mkdir()
+    os.replace(_mnist_zip(tmp_path), served / "MNIST.zip")
+    with _local_server(served) as (base, seen):
+        monkeypatch.setitem(download.DATASET_ARCHIVES, "mnist", (f"{base}/MNIST.zip",))
+        args = _args(Arguments, data_cache_dir=str(tmp_path / "port"), download=True)
+        got = load(args, device="cpu")
+        assert jax_download.download_dataset("mnist", str(tmp_path / "jax"),
+                                             urls=(f"{base}/MNIST.zip",))
+    assert seen == ["/MNIST.zip"] * 2
+    assert got.source.startswith("LEAF json") and got.client_num == 2
+    _same_tree(str(tmp_path / "port" / "mnist"), str(tmp_path / "jax" / "mnist"))
+
+
+def test_transient_failure_is_retried(tmp_path, monkeypatch, caplog):
+    """A 503 is transient: the fetch waits and asks again, and the second
+    answer lands; a refused connection past the retries is the offline
+    grace (False)."""
+    monkeypatch.setattr(download, "_FETCH_RETRY_BASE_S", 0.01)
+    served = tmp_path / "served"
+    served.mkdir()
+    _tarball(served, "fed_cifar100", {"fed_cifar100_train.h5": b"payload"})
+    with _local_server(served, fail_first=1) as (base, seen), caplog.at_level(logging.WARNING):
+        ok = download.download_dataset("fed_cifar100", str(tmp_path / "cache"),
+                                       urls=(f"{base}/fed_cifar100.tar.bz2",))
+    assert ok and seen == ["/fed_cifar100.tar.bz2"] * 2
+    assert "retry 1/2" in caplog.text
+    assert (tmp_path / "cache" / "fed_cifar100" / "fed_cifar100_train.h5").read_bytes() == (
+        b"payload")
+    assert download._transient_fetch_error(ConnectionRefusedError()) is True
+    assert download.download_dataset("mnist", str(tmp_path / "off"), urls=(REFUSED,)) is False
+
+
+def test_stackoverflow_tasks_share_one_extraction(tmp_path, monkeypatch):
+    """Both Stack Overflow tasks read one ``stackoverflow`` directory,
+    linked under each name, as the JAX package lays them out."""
+    served = tmp_path / "served"
+    served.mkdir()
+    names = [u.rsplit("/", 1)[1] for u in download.DATASET_ARCHIVES["stackoverflow_lr"]]
+    for i, name in enumerate(names):
+        _tarball(served, name[:-len(".tar.bz2")], {f"part{i}.bin": bytes([i]) * 8})
+    with _local_server(served) as (base, seen):
+        urls = tuple(f"{base}/{n}" for n in names)
+        for module, sub in ((download, "port"), (jax_download, "jax")):
+            for task in ("stackoverflow_lr", "stackoverflow_nwp"):
+                assert module.download_dataset(task, str(tmp_path / sub), urls=urls)
+    assert len(seen) == 2 * len(names)  # the second task finds the shared copy
+    for sub in ("port", "jax"):
+        assert os.readlink(tmp_path / sub / "stackoverflow_lr") == "stackoverflow"
+    _same_tree(str(tmp_path / "port"), str(tmp_path / "jax"))
 
 
 # -- the repo's real files --------------------------------------------------

@@ -119,11 +119,27 @@ def test_slice_config_reads_the_same_in_both_packages():
     )
 
 
-def test_create_names_the_slice_for_unported_models():
-    a = Arguments()
-    a.model = "moe_transformer"
-    with pytest.raises(NotImplementedError, match="ring/Ulysses slice"):
-        torch_models.create(a, 10, device="cpu")
+def test_create_builds_moe_transformer_as_jax_does():
+    """``moe_transformer`` builds (it raised until the distributed slice):
+    the same parameter names and shapes as the JAX package's, and the
+    same logits from the same weights."""
+    kw = dict(model="moe_transformer", dataset="shakespeare", embed_dim=32, num_heads=2,
+              num_layers=2, num_experts=4, seq_len=16, max_len=16)
+    ja, ta = JaxArguments(), Arguments()
+    for a in (ja, ta):
+        for k, v in kw.items():
+            setattr(a, k, v)
+    jm, tm = jax_models.create(ja, 10), torch_models.create(ta, 10, device="cpu")
+    assert tm.name == jm.name == "moe_transformer_lm"
+    tokens = np.random.default_rng(0).integers(0, 10, (2, 16)).astype(np.int32)
+    jparams = jm.module.init(jax.random.PRNGKey(0), jnp.asarray(tokens))["params"]
+    params = params_from_flax(jax.tree.map(np.asarray, jparams))
+    want = {k.replace(".", "/"): tuple(p.shape) for k, p in tm.module.named_parameters()}
+    assert {k: tuple(v.shape) for k, v in params.items()} == want
+    got = tm.apply(params, torch.tensor(tokens))
+    np.testing.assert_allclose(got.detach().numpy(),
+                               np.asarray(jm.module.apply({"params": jparams}, tokens)),
+                               atol=1e-5)
 
 
 @pytest.mark.parametrize(

@@ -1,0 +1,253 @@
+"""Spawned ``torch.distributed`` worlds for the port's CPU tests.
+
+``run_world(fn, world, payload, tmp_path)`` starts ``world`` processes
+(the ``spawn`` start method: the test process has JAX's threads), each
+joining a gloo group through a ``FileStore`` under ``tmp_path`` (no TCP
+port to collide across pytest-xdist workers) with one intra-op thread,
+and calls ``fn(rank, payload)``; it returns every rank's result. A rank
+that raises fails the test with its traceback; a world that outlives its
+timeout (a hung collective) is killed and fails the test. This module
+imports no JAX, so the children stay small; the worker functions live
+here, importable by name in a child.
+"""
+
+from __future__ import annotations
+
+import multiprocessing as mp
+import os
+import pickle
+import time
+import traceback
+from typing import Any, Callable, List
+
+import numpy as np
+
+
+def _child(rank: int, world: int, store_path: str, fn_name: str, payload: Any,
+           out_dir: str) -> None:
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    try:
+        store = dist.FileStore(store_path, world)
+        dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+        result = globals()[fn_name](rank, payload)
+        with open(os.path.join(out_dir, f"{rank}.pkl"), "wb") as f:
+            pickle.dump(result, f)
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(out_dir, f"{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def run_world(fn: Callable, world: int, payload: Any, tmp_path, timeout: float = 120.0
+              ) -> List[Any]:
+    """``fn(rank, payload)`` on every rank of a spawned gloo world; the
+    results in rank order."""
+    ctx = mp.get_context("spawn")
+    out_dir = os.path.join(str(tmp_path), f"world_{fn.__name__}_{time.monotonic_ns()}")
+    os.makedirs(out_dir)
+    store = os.path.join(out_dir, "store")
+    procs = [ctx.Process(target=_child, args=(r, world, store, fn.__name__, payload, out_dir),
+                         daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    errors = {r: open(os.path.join(out_dir, f"{r}.err")).read()
+              for r in range(world) if os.path.exists(os.path.join(out_dir, f"{r}.err"))}
+    if errors:
+        raise AssertionError("ranks failed:\n" + "\n".join(
+            f"-- rank {r}:\n{e}" for r, e in sorted(errors.items())))
+    if hung:
+        raise AssertionError(f"world of {world} timed out after {timeout} s; ranks {hung} "
+                             "still running were killed")
+    bad = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode != 0}
+    if bad:
+        raise AssertionError(f"ranks exited nonzero: {bad}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+# -- workers ------------------------------------------------------------
+
+
+def _port_args(knobs: dict):
+    from fedml_tpu_torch.arguments import Arguments
+
+    a = Arguments()
+    for k, v in knobs.items():
+        setattr(a, k, v)
+    a._validate()
+    return a
+
+
+def train(rank: int, payload: dict) -> list:
+    """Each run of ``payload["runs"]`` in turn: ``DistributedTrainer``
+    over the world with the run's knobs, full params (numpy, carried in)
+    and, when given, the epochs' permutations; rank 0 returns, for each,
+    the stats, the trained params (gathered whole), the slot occupancies
+    of the last step and this rank's parameter shapes."""
+    out = [_train_one(run) for run in payload["runs"]]
+    return out if rank == 0 else None
+
+
+def evaluate(rank: int, payload: dict) -> list:
+    """Each run's ``DistributedTrainer.evaluate()`` on its carried-in
+    params, before any training; rank 0 returns them."""
+    out = [_trainer(run).evaluate() for run in payload["runs"]]
+    return out if rank == 0 else None
+
+
+def _trainer(run: dict):
+    import torch
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch import data, models
+    from fedml_tpu_torch.distributed import DistributedTrainer
+
+    args = fedml_tpu_torch.init(_port_args(run["args"]))
+    dev = torch.device("cpu")
+    dataset = data.load(args, device=dev)
+    model = models.create(args, dataset.class_num, device=dev)
+    params = None
+    if run.get("params") is not None:
+        params = {k: torch.tensor(v) for k, v in run["params"].items()}
+    return DistributedTrainer(args, dev, dataset, model, params=params)
+
+
+def _train_one(run: dict) -> dict:
+    trainer = _trainer(run)
+    perms = run.get("perms")
+    if perms is not None:
+        import torch
+
+        trainer.epoch_permutation = lambda ep: torch.tensor(perms[ep], dtype=torch.int64)
+    stats = trainer.run()
+    return {"stats": stats,
+            "params": {k: v.numpy() for k, v in trainer.full_params().items()},
+            "occupancy": [o.numpy() for o in getattr(trainer, "last_occupancy", [])],
+            "local_shapes": {k: tuple(v.shape) for k, v in trainer.params.items()}}
+
+
+def run_api(rank: int, payload: dict) -> dict:
+    """``fedml_tpu_torch.run_distributed`` in the world's process group."""
+    import fedml_tpu_torch
+
+    return fedml_tpu_torch.run_distributed(_port_args(payload["args"]), device="cpu")
+
+
+def attention(rank: int, payload: dict) -> list:
+    """Each case of ``payload["cases"]``: the sequence-sharded attention
+    on this rank's shard of the case's [B, T, H, D] q, k, v; every rank's
+    output shard and, with ``g``, the gradients of sum(o * g) for its q,
+    k, v shards, or the ``ValueError`` it raised."""
+    import torch.distributed as dist
+
+    group = dist.new_group(list(range(dist.get_world_size())))
+    return [_attention_one(rank, group, case) for case in payload["cases"]]
+
+
+def _attention_one(rank: int, group, case: dict) -> dict:
+    import torch
+    import torch.distributed as dist
+
+    from fedml_tpu_torch.parallel.sequence import make_sequence_sharded_attention
+
+    t = case["q"].shape[1] // dist.get_world_size()
+    dtype = getattr(torch, case.get("dtype", "float32"))
+    q, k, v = (torch.tensor(case[x][:, rank * t:(rank + 1) * t]).to(dtype).requires_grad_()
+               for x in "qkv")
+    try:
+        attn = make_sequence_sharded_attention(group, case["strategy"], causal=case["causal"],
+                                               ring_block_k=case.get("block_k"))
+        o = attn(q, k, v)
+    except ValueError as e:
+        return {"error": str(e)}
+    out = {"o": o.detach().float().numpy()}
+    if case.get("g") is not None:
+        g = torch.tensor(case["g"][:, rank * t:(rank + 1) * t]).to(dtype)
+        out["grads"] = [x.float().numpy() for x in torch.autograd.grad(o, (q, k, v), g)]
+    return out
+
+
+def collectives(rank: int, payload: dict) -> dict:
+    """Each differentiable collective forward and backward on
+    rank-dependent inputs."""
+    import torch
+    import torch.distributed as dist
+
+    from fedml_tpu_torch.parallel import collectives as c
+
+    n = dist.get_world_size()
+    group = dist.new_group(list(range(n)))
+    x = (torch.arange(2 * n * 3, dtype=torch.float64).reshape(2, n, 3) + 100 * rank
+         ).requires_grad_()
+    out = {}
+    for name, fn in (("copy_to", lambda t: c.copy_to(t, group)),
+                     ("reduce_from", lambda t: c.reduce_from(t, group)),
+                     ("gather_from", lambda t: c.gather_from(t, 1, group)),
+                     ("all_to_all", lambda t: c.all_to_all(t, 1, 0, group)),
+                     ("ring_shift", lambda t: c.ring_shift(t, group))):
+        y = fn(x)
+        wy = torch.arange(y.numel(), dtype=torch.float64).reshape(y.shape) + rank
+        (gx,) = torch.autograd.grad((y * wy).sum(), x)
+        out[name] = (y.detach().numpy(), gx.numpy())
+    return out
+
+
+def layer(rank: int, payload: dict) -> list:
+    """Each case of ``payload["cases"]``: an (MoE) transformer's logits
+    and parameter gradients under the case's sharded mesh, on the same
+    full params and tokens every rank holds; the layout's shards of the
+    gradients gathered whole (rank 0 returns them)."""
+    out = [_layer_one(case) for case in payload["cases"]]
+    return out if rank == 0 else None
+
+
+def _layer_one(case: dict) -> dict:
+    import torch
+    import torch.distributed as dist
+
+    from fedml_tpu_torch import models
+    from fedml_tpu_torch.models.moe import collect
+    from fedml_tpu_torch.parallel.expert import attach_ep, tp_ep_layout
+    from fedml_tpu_torch.parallel.mesh import build_mesh, resolve_mesh_shape
+    from fedml_tpu_torch.parallel.tensor import attach_tp, gather_full, local_shard
+
+    shape = resolve_mesh_shape(case["mesh_shape"], dist.get_world_size())
+    mesh = build_mesh(shape, "cpu")
+    coords = dict(zip(shape, (int(c) for c in np.unravel_index(dist.get_rank(),
+                                                               tuple(shape.values())))))
+    groups = {a: mesh.get_group(a) for a in shape}
+    model = models.create(_port_args(case["args"]), case["vocab"], device="cpu")
+    full = {k: torch.tensor(v) for k, v in case["params"].items()}
+    layout = tp_ep_layout(full, shape, model.module.num_heads)
+    if "tp" in shape:
+        attach_tp(model.module, layout, groups["tp"], shape["tp"])
+    if "ep" in shape:
+        attach_ep(model.module, layout, groups["ep"], coords["ep"], shape["ep"])
+    local = {k: (v if layout[k] is None else local_shard(
+        v, layout[k], coords[layout[k].axis], shape[layout[k].axis])).clone().requires_grad_()
+        for k, v in full.items()}
+    with collect(model.module) as sink:
+        logits = model.apply(local, torch.tensor(case["x"]))
+    loss = (logits * torch.tensor(case["w"])).sum() + sum(sink["moe_aux_loss"], 0.0)
+    grads = torch.autograd.grad(loss, list(local.values()))
+    gathered = {k: g if layout[k] is None else gather_full(g, layout[k], groups[layout[k].axis])
+                for k, g in zip(local, grads)}
+    return {"logits": logits.detach().numpy(),
+            "grads": {k: g.numpy() for k, g in gathered.items()},
+            "sharded": sorted(k for k, s in layout.items() if s is not None),
+            "local_shapes": {k: tuple(v.shape) for k, v in local.items()}}
