@@ -263,9 +263,11 @@ Phases, each of which fails the run:
    the same weights; the sequence run stopped after 1 of 2 epochs and
    resumed is bitwise the straight run (deterministic algorithms).
 The kernels phase also holds the rows route (head dims above 128),
-forward and backward, f32 and bf16, at D 192 and 256, causal and not,
-against its plain versions (the same tolerances as the tensor-core
-routes; SDPA's time beside each), and runs one bf16 causal forward and
+forward and backward, f32 and bf16, at D 160, 192, 256, 384 and 512,
+causal and not, at [2, 2048, 4, D], and at [8, 4096, 8, 256] causal,
+against its plain versions (the same tolerances as the D <= 128 routes;
+two launches bitwise; SDPA's time beside each; the ring plan the library
+reports equal to ``rows_plan``'s), and runs one bf16 causal forward and
 backward at T 4,194,368 (one tile past grid y's 65,535, so the tiles
 fold into grid x), D 16, batch x heads 1, holding sampled query and key
 rows past tile 65,535 to a plain f32 computation of those rows alone.
@@ -344,6 +346,8 @@ FLASH_CASES = [
     (2, 2048, 4, 128, torch.bfloat16, False),
     # the f32 transformer-training path's shape (8 clients x batch 4, f32)
     (32, 4096, 8, 64, torch.float32, True),
+    # the distributed MoE configuration's chunk (4 sequences of T 4096)
+    (4, 4096, 8, 64, torch.bfloat16, True),
 ]
 # tensor-core passes each forward route makes a tile, against the two
 # products the bound counts: bf16 (wgmma) S once and P V twice (P as bf16
@@ -427,6 +431,8 @@ FLASH_BWD_CASES = [
     (2, 1000, 4, 64, torch.float32, True),  # T not a multiple of the tile
     (1, 300, 2, 128, torch.float32, True),  # T not a multiple of the f32 kernels' 8-query steps
     (2, 1000, 4, 16, torch.float32, False),
+    # the distributed MoE configuration's chunk (4 sequences of T 4096)
+    (4, 4096, 8, 64, torch.bfloat16, True),
 ]
 # tensor-core passes each backward route makes, against the 5 products
 # the bound counts: bf16 (wgmma) S, dP twice and the products with P and
@@ -452,10 +458,12 @@ TRANSFORMER_CHECK_ROUNDS, TRANSFORMER_CHECK_FREQ = 4, 2
 # port's LayerNorm is written as elementwise ops and reductions, so its
 # time lands in those two kinds with the softmax, loss and metric sums.
 TRANSFORMER_KINDS = (
-    ("flash forward", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel", "rows_fwd_kernel")),
+    ("flash forward", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel", "rows_fwd_wgmma_kernel",
+                       "rows_fwd_bf16_kernel", "rows_fwd_split_kernel")),
     ("flash backward", ("dkdv_tf32_kernel", "dq_tf32_kernel", "dkdv_wgmma_kernel",
-                        "dq_wgmma_kernel", "delta_kernel", "rows_dq_kernel",
-                        "rows_dkdv_kernel")),
+                        "dq_wgmma_kernel", "delta_kernel", "rows_dq_wgmma_kernel",
+                        "rows_dkdv_wgmma_kernel", "rows_dq128_kernel", "rows_dkdv128_kernel",
+                        "rows_bwd_split_kernel")),
     ("GEMM", ("gemm", "gemv", "nvjet", "cutlass", "xmma")),
     ("embedding", ("embedding", "index", "scatter", "gather", "radix", "sort")),
     ("reductions (LayerNorm statistics, softmax, loss)", ("reduce", "softmax")),
@@ -924,11 +932,14 @@ def check_flash_backward():
 
 
 # the rows route (head dims above 128): (B, T, H, D, dtype, causal), each
-# forward and backward against its plain version
+# forward and backward against its plain version: every padded width the
+# route has (160 runs at 192) at [2, 2048, 4, D], then the serving width's
+# B, T and H at D 256, where launch latency does not swamp the bound
 ROWS_CASES = [
     (2, 2048, 4, D, dtype, causal)
-    for D in (192, 256) for dtype in (torch.float32, torch.bfloat16) for causal in (True, False)
-]
+    for D in (160, 192, 256, 384, 512) for dtype in (torch.float32, torch.bfloat16)
+    for causal in (True, False)
+] + [(8, 4096, 8, 256, dtype, True) for dtype in (torch.float32, torch.bfloat16)]
 # the long sequence: T one tile past the 65,535 tiles of 64 that grid y
 # holds, batch x heads 1, D 16, bf16, causal; sampled query rows past tile
 # 65,535 (and two early ones) for O, lse and dQ, sampled key rows past it
@@ -980,6 +991,33 @@ def sdpa_ms(q, k, v, causal, backward: bool):
     return cuda_time_ms(call, 10), (device_kernel_names(call)[:1] or ["not measured"])[0]
 
 
+def check_rows_plan() -> None:
+    """The rows route's rings as the built library reports them
+    (``flash_rows_plan``) against ``rows_plan``, the Python arithmetic the
+    CPU tests hold: stage bytes, stages, exchange (or resident Q) bytes and
+    shared memory of each kernel and dtype, at every head dim the bf16
+    forward instantiates."""
+    import ctypes
+
+    from fedml_tpu_torch.ops import _build
+    from fedml_tpu_torch.ops.flash_attention import rows_head_dim, rows_plan
+
+    fn = _build.load("flash_attention_rows").flash_rows_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for kernel, kid in (("fwd", 0), ("dkdv", 1), ("dq", 2)):
+            for D in (160, 192, 256, 384, 512):
+                bf16 = dtype == torch.bfloat16
+                dp = rows_head_dim(D, bf16 and kid == 0)
+                buf = (ctypes.c_int * 4)()
+                fn(code, kid, dp, ctypes.addressof(buf))
+                want = rows_plan(dtype, kernel, D)
+                if list(buf) != list(want.values()):
+                    fail(f"flash rows plan {dtype} {kernel} D {D}: the library's {list(buf)}, "
+                         f"rows_plan's {want}")
+            log(f"flash rows plan {dtype} {kernel}: {want} (D {D})")
+
+
 def check_flash_rows():
     """The rows route, forward and backward, at every case against the
     plain versions; returns the two kernels' ``kernels`` entries (main
@@ -991,6 +1029,7 @@ def check_flash_rows():
         flash_attention_reference,
     )
 
+    check_rows_plan()
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     fwd_cases, bwd_cases = [], []
     for B, T, H, D, dtype, causal in ROWS_CASES:
@@ -1131,6 +1170,33 @@ def long_sequence_shares(q, k, v, g, o, lse, dq, dk, dv, scale):
     }, (lse[0, 0, rows] - lse_ref).abs().max().item()
 
 
+def sdpa_once_s(q, k, v, g) -> dict:
+    """SDPA's causal forward and backward on the long sequence, one call
+    each on the host clock as the kernels are timed there, and the kernel
+    it ran; or the reason no backend takes the shape."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    gt = g.transpose(1, 2).contiguous()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        torch.autograd.grad(out, (qt, kt, vt), gt)
+        torch.cuda.synchronize()
+        bwd_s = time.perf_counter() - t0
+    except (RuntimeError, torch.cuda.OutOfMemoryError) as e:
+        torch.cuda.synchronize()
+        return {"refused": str(e)[:160]}
+    finally:
+        del qt, kt, vt, gt
+        torch.cuda.empty_cache()
+    return {"forward_s": fwd_s, "backward_s": bwd_s}
+
+
 def check_long_sequence():
     """One bf16 causal forward and backward at T one tile past grid y's
     65,535 tiles (the tiles fold into grid x): sampled rows past tile
@@ -1154,14 +1220,20 @@ def check_long_sequence():
     bwd_s = time.perf_counter() - t0
     shares, err_lse = long_sequence_shares(q, k, v, g, o, lse, dq, dk, dv, scale)
     finite = all(bool(torch.isfinite(x.float()).all()) for x in (o, lse, dq, dk, dv))
+    bound_ms, bound_by = flash_bound(1, T, 1, D, dtype, True)
+    bwd_bound_ms, bwd_bound_by = flash_bwd_bound(1, T, 1, D, dtype, True)
+    sdpa = sdpa_once_s(q, k, v, g)
     out = {"shape": [1, T, 1, D], "dtype": "bfloat16", "causal": True,
            "grid": list(tile_grid(1, T)), "forward_s": fwd_s, "backward_s": bwd_s,
+           "bound_ms": bound_ms, "bound_by": bound_by, "backward_bound_ms": bwd_bound_ms,
+           "backward_bound_by": bwd_bound_by, "sdpa": sdpa,
            "share_of_tolerance": shares, "round_rtol": LONG_ROUND_RTOL,
            "group_rtol": LONG_GROUP_RTOL, "lse_max_abs_err": err_lse,
            "lse_atol": LONG_LSE_ATOL, "query_rows": list(LONG_QUERY_ROWS),
            "key_rows": list(LONG_KEY_ROWS)}
     log(f"flash long sequence {out['shape']} bf16 causal, grid {out['grid']}: forward "
-        f"{fwd_s:.2f} s, backward {bwd_s:.2f} s (one call each, host clock); sampled rows, "
+        f"{fwd_s:.2f} s, backward {bwd_s:.2f} s (one call each, host clock; bound "
+        f"{bound_ms:.1f} / {bwd_bound_ms:.1f} ms, {bound_by}); SDPA {sdpa}; sampled rows, "
         f"largest error over its tolerance (fails above 1): "
         f"{', '.join(f'{name} {x:.3g}' for name, x in shares.items())}; lse err "
         f"{err_lse:.3g} (atol {LONG_LSE_ATOL})")
@@ -4349,14 +4421,15 @@ class StepRecorder:
 def dist_launches_wanted(args, trainer, attention: str) -> dict:
     """The flash launches a distributed run makes, reckoned from its
     config: per chunk of a step, one forward and one backward per layer
-    (no remat); per chunk of an evaluation, one forward per layer. The
-    ring launches none."""
+    (no remat); per test batch of an evaluation, one forward per layer
+    (the whole batch, whatever the accumulation). The ring launches
+    none."""
     L, accum = int(args.num_layers), int(getattr(args, "grad_accum_steps", 1) or 1)
     epochs = int(args.epochs)
     steps = trainer.dataset.train_data_global.num_batches * epochs
     freq = int(getattr(args, "frequency_of_the_test", 1) or 1)
     evals = sum(1 for ep in range(epochs) if (ep + 1) % freq == 0 or ep == epochs - 1)
-    test_passes = trainer.dataset.test_data_global.num_batches * accum * evals
+    test_passes = trainer.dataset.test_data_global.num_batches * evals
     if attention == "ring":
         return {**no_launches()}
     return {**no_launches(), "flash_attention_fwd": L * (accum * steps + test_passes),

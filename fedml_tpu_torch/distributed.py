@@ -35,8 +35,9 @@ divided by the global count (an all-reduce of counts), so the
 all-reduced gradients are the global mean's. The global batch is laid out so that a
 dp rank holds, of every accumulation chunk, its share of that chunk; the
 MoE routing pool is the chunk across the ranks (``models.moe.set_routing_pool``)
-as it is under SPMD. A sequence rank's position embeddings are its
-tokens' global positions.
+as it is under SPMD, and in evaluation the whole test batch, which the
+JAX package passes in one forward whatever the accumulation. A sequence
+rank's position embeddings are its tokens' global positions.
 
 The per-epoch shuffle permutes the global batch's real examples (padding
 kept at the tail) by a permutation drawn from a ``torch.Generator``
@@ -163,7 +164,7 @@ class DistributedTrainer:
                           self.shape["ep"])
         from .models.moe import set_routing_pool
 
-        # train and test batches both run in chunks of bs / accum
+        # training runs in chunks of bs / accum (evaluate pools whole batches)
         set_routing_pool(model.module, self._pool(bs // self.accum))
         if getattr(model.module, "remat", False):
             from .models.transformer import checkpoint_block
@@ -243,8 +244,8 @@ class DistributedTrainer:
                           for j in range(bs // chunk)])
 
     def _pool(self, chunk: int):
-        """The MoE routing pool of one chunk across the data group: each
-        rank's (ids within the chunk, sequence shard)."""
+        """The MoE routing pool of ``chunk`` examples across the data
+        group: each rank's (ids within the chunk, sequence shard)."""
         from .models.moe import RoutingPool
 
         if self.data_group is None:
@@ -407,29 +408,27 @@ class DistributedTrainer:
             self.metrics_reporter.report({"kind": "distributed_train", **stats})
 
     def evaluate(self) -> Dict[str, float]:
-        """Test loss and accuracy over the global test batches, one
-        accumulation chunk a forward pass: with ``grad_accum_steps`` 1 one
-        batch a pass, the JAX package's scan; with more, the training
-        step's chunks, each the MoE routing pool. (The JAX package passes
-        the whole batch whatever the accumulation: its [N, E, cap]
-        dispatch grows as the batch's square, 21.5 G elements at the MoE
-        configuration's 32 x 4096, which no card holds; the tests hold
-        these metrics to the JAX package's evaluation at batch_size /
-        accum.) A dense model's sums do not depend on the chunking."""
+        """Test loss and accuracy over the global test batches, each whole
+        batch one forward pass whatever ``grad_accum_steps`` is, as the JAX
+        package's ``_evaluate`` does: the MoE routing pool is the whole
+        batch across the data group while it runs (training's pool is one
+        accumulation chunk)."""
+        from .models.moe import set_routing_pool
+
         glob = self.dataset.test_data_global
         if glob.batch_size != self.bs:
             raise ValueError(f"test batch size {glob.batch_size} is not the training "
                              f"batch size {self.bs}")
-        chunk = self.bs // self.accum
-        test = self._local_batches(glob, chunk)
-        local = chunk // self.dp
+        test = self._local_batches(glob, self.bs)
         sums = torch.zeros(3, dtype=torch.float32, device=self.device)
-        with torch.no_grad():
-            for i in range(test.num_batches):
-                for j in range(self.accum):
-                    sl = slice(j * local, (j + 1) * local)
+        set_routing_pool(self.model.module, self._pool(self.bs))
+        try:
+            with torch.no_grad():
+                for i in range(test.num_batches):
                     nll, correct, count, _, _ = self._sums(
-                        self.params, test.x[i][sl], test.y[i][sl], test.mask[i][sl])
+                        self.params, test.x[i], test.y[i], test.mask[i])
                     sums += torch.stack([nll, correct, count])
+        finally:
+            set_routing_pool(self.model.module, self._pool(self.bs // self.accum))
         loss_sum, correct, count = self._reduce(sums).tolist()
         return {"test_loss": loss_sum / max(count, 1.0), "test_acc": correct / max(count, 1.0)}

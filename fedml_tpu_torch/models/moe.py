@@ -1,22 +1,31 @@
 """Mixture-of-Experts transformer, Switch top-1 routing (port of
 ``fedml_tpu/models/moe.py``).
 
-:class:`SwitchFFN` is the JAX layer step for step: an f32 router (its
-input cast to f32 and its weight promoted with it, so a float64 model
-routes in float64 logits), the softmax in f32, argmax routing, a capacity
-of ``ceil(N / E * capacity_factor)`` tokens an expert, positions by an f32
-cumsum, 0/1 dispatch and gate-weighted combine tensors ``[N, E, cap]``,
-and three batched einsums (dispatch, the experts' FFN, combine) through
-``torch.einsum``. Overflow tokens are dropped (the residual carries
-them). One-hots are comparisons with ``arange`` (no ``F.one_hot``, which
-has no batching rule), so the layer runs under ``torch.func.vmap``.
+:class:`SwitchFFN` is the JAX layer's function: an f32 router (its input
+cast to f32 and its weight promoted with it, so a float64 model routes in
+float64 logits), the softmax in f32, argmax routing, a capacity of
+``ceil(N / E * capacity_factor)`` tokens an expert and positions by an f32
+cumsum, as the JAX layer computes them. Where the JAX layer then builds
+0/1 dispatch and gate-weighted combine tensors ``[N, E, cap]`` and
+contracts them by einsum, the port routes by index: token n goes to
+expert e_n at slot c_n = pos[n, e_n] if c_n < cap. Its row of x is
+scattered into ``[E, cap, C]`` at (e_n, c_n) (slots are unique, so
+nothing accumulates), the experts' FFN runs as two batched einsums, and
+its output is y[n] = gate_n * out[e_n, c_n], 0 for a dropped token (the
+residual carries it). That is the einsums' one nonzero term each, so the
+function is the same, and its memory grows with N, not N^2 (the whole
+batch's one-hots of the MoE configuration, 32 x 4096 tokens over 8
+experts, would hold 21.5 G elements). Every gather and scatter has a
+fixed shape (a dropped token goes to a spare row), so the layer runs
+under ``torch.func.vmap``.
 
 Two seams on each layer replace the JAX package's ``sow`` and SPMD:
 
 - :func:`collect` (a model's layers, while it is open) records each
   layer's Switch aux loss ``E * sum_e f_e P_e`` and its slot occupancy
-  ``[E, cap]`` (which must be 0/1) under ``moe_aux_loss`` and
-  ``moe_slot_occupancy``, where the JAX package sows them.
+  ``[E, cap]`` (a count of the tokens in each slot, which must be 0/1)
+  under ``moe_aux_loss`` and ``moe_slot_occupancy``, where the JAX
+  package sows them.
 - :func:`set_routing_pool` makes a model's routing pool global across
   ranks that hold different tokens of one batch (dp, and sp in the
   sequence mode), as SPMD does over the global token axis: each rank's
@@ -26,8 +35,9 @@ Two seams on each layer replace the JAX package's ``sow`` and SPMD:
   Without it the pool is the layer's own tokens.
 
 With ``ep`` set (``parallel/expert.py``), a rank holds ``E / ep`` experts:
-it computes its experts' slots from the (ep-replicated) tokens and the
-partial combines are all-reduced over ep.
+it scatters the (ep-replicated) tokens of its experts into its
+``[E / ep, cap, C]`` slots, and the partial outputs are all-reduced over
+ep.
 """
 
 from __future__ import annotations
@@ -158,7 +168,8 @@ class SwitchFFN(nn.Module):
         logits = F.linear(xf.to(rdt), self.router.weight.to(rdt))
         probs = torch.softmax(logits.to(torch.float32), dim=-1)  # [N, E]
         gate = probs.amax(dim=-1)
-        onehot = _onehot(torch.argmax(probs, dim=-1), E)  # [N, E]
+        expert = torch.argmax(probs, dim=-1)  # [N]
+        onehot = _onehot(expert, E)  # [N, E]
 
         if pool is None:
             frac, mean_prob = onehot.mean(0), probs.mean(0)
@@ -169,29 +180,40 @@ class SwitchFFN(nn.Module):
             # rank's gradient flows through its own tokens' probs only
             mean_prob = reduce_from(probs.sum(0), pool.group) / n_global
             pos = _pool_positions(onehot, B, pool)
-        keep = onehot * (pos < cap)
-        disp_f32 = keep[..., None] * _onehot(pos.to(torch.int64), cap)  # [N, E, cap]
+        # token n's slot at its expert, kept below the capacity; a dropped
+        # token's index is the spare row E * cap
+        slot = pos.gather(1, expert[:, None])[:, 0]
+        kept = slot < cap
+        slot = slot.to(torch.int64)
+        spare = torch.full_like(expert, E * cap)
+        index = torch.where(kept, expert * cap + slot, spare)
         if sink is not None:
-            occupancy = disp_f32.sum(0)
+            occupancy = torch.zeros(E * cap + 1, dtype=torch.float32, device=x.device)
+            occupancy = occupancy.index_add(0, index, torch.ones_like(gate))[:-1].view(E, cap)
             if pool is not None:
                 occupancy = all_reduce_(occupancy, pool.group)
             sink["moe_aux_loss"].append(E * torch.sum(frac * mean_prob))
             sink["moe_slot_occupancy"].append(occupancy)
-        disp = disp_f32.to(x.dtype)
 
         wi, bi, wo, bo = self.wi, self.bi, self.wo, self.bo
         g = gate.to(x.dtype)
+        n_exp = E
         if self.ep is not None:
             # this rank's experts, from the tokens and gates every ep rank
             # holds: their gradients are the sum of the ranks' partials
-            e0, e1 = self.ep.start, self.ep.start + self.ep.count
-            disp = disp[:, e0:e1]
+            e0, n_exp = self.ep.start, self.ep.count
+            mine = kept & (expert >= e0) & (expert < e0 + n_exp)
+            index = torch.where(mine, (expert - e0) * cap + slot,
+                                torch.full_like(expert, n_exp * cap))
             xf, g = copy_to(xf, self.ep.group), copy_to(g, self.ep.group)
-        combine = disp * g[:, None, None]
-        expert_in = torch.einsum("nec,nd->ecd", disp, xf)  # [E, cap, C]
+        # each kept row lands alone in its slot (0 + x is x); the spare
+        # row collects the dropped ones and is cut off
+        slots = xf.new_zeros((n_exp * cap + 1, C)).index_add(0, index, xf)
+        expert_in = slots[:-1].view(n_exp, cap, C)
         h = F.gelu(torch.einsum("ecd,edh->ech", expert_in, wi) + bi[:, None], approximate="tanh")
         out = torch.einsum("ech,ehd->ecd", h, wo) + bo[:, None]  # [E, cap, C]
-        y = torch.einsum("nec,ecd->nd", combine, out)  # [N, C]
+        out = torch.cat([out.reshape(n_exp * cap, C), out.new_zeros((1, C))])
+        y = out.index_select(0, index) * g[:, None]  # [N, C]
         if self.ep is not None:
             y = reduce_from(y, self.ep.group)
         return y.reshape(B, T, C)

@@ -37,16 +37,25 @@ version the kernel is held against.
 Dispatch follows the tensor's device and nothing else: a CPU tensor takes
 the plain version; a CUDA tensor launches the kernel or raises. Every
 launch adds one to ``FWD_KERNEL.launches`` or ``BWD_KERNEL.launches``.
-The tensor-core kernels take head dims 16, 32, 64 and 128; the wrappers
+The D <= 128 kernels take head dims 16, 32, 64 and 128; the wrappers
 run any other D up to 128 at the next of those, zero-padded (the padded
 columns leave S, P and every real output column as they were). Head dims
-129 to 512 take the rows route, ``csrc/flash_attention_rows.cu``: a warp
-per query (or key) row, f32 arithmetic, no tensor cores
-(``ROWS_FWD_KERNEL`` and ``ROWS_BWD_KERNEL``, counted apart; on the CPU
-every D takes the same plain versions); above 512 the
-wrappers raise. Any batch x heads launches (the kernels' grid x), and so
-does any T: query and key tiles past grid y's 65,535 fold into grid x
-(``tile_grid``).
+129 to 512 take the rows route, ``csrc/flash_attention_rows.cu``
+(``ROWS_FWD_KERNEL`` and ``ROWS_BWD_KERNEL``, counted apart), run at D
+rounded up to a multiple of 64, or for the bf16 forward to 192, 256, 384
+or 512 (``rows_head_dim``), zero-padded the same way: the same TMA rings
+and ``wgmma`` products in blocks of two warpgroups. The bf16 forward
+gives each warpgroup 64 of a block's 128 queries with Q resident and one
+ring of K and V tiles both read, and so does the bf16 backward at 256
+columns (128 keys or queries a block); the f32 forward and the other
+backward launches split the head dim's chunks between the warpgroups,
+which add their partial scores, and hold the output in 64-column units,
+four a block (grid z past four, ``rows_grid``); f32 inputs go through a
+pre-pass that writes TF32 hi/lo planes into a scratch tensor the wrapper
+allocates (``rows_scratch``). On the CPU every D takes the same plain
+versions; above 512 the wrappers raise. Any batch x heads launches (the
+kernels' grid x), and so does any T: query and key tiles past grid y's
+65,535 fold into grid x (``tile_grid``).
 
 Both autograd functions carry ``vmap`` rules, so ``torch.func.vmap``
 over ``torch.func.grad`` (the federated trainer's vmapped client step)
@@ -82,6 +91,11 @@ __all__ = [
     "padded_backward",
     "padded_forward",
     "pick_block",
+    "rows_grid",
+    "rows_head_dim",
+    "rows_plan",
+    "rows_scratch",
+    "rows_share",
     "tile_grid",
 ]
 
@@ -97,8 +111,16 @@ ROWS_MAX_HEAD_DIM = 512
 _TILE = 64
 _GRID_Y = 65535
 _GRID_X = 2**31 - 1
-# rows per block of the rows route: its grid x counts B*H*T / 8 blocks
-_ROWS_PER_BLOCK = 8
+# the rows route's output columns a unit (the head dim is padded to a
+# multiple of it), units a block, and a block's shared memory
+ROWS_UNIT = 64
+_ROWS_BLOCK_UNITS = 4
+# the bf16 forward's head dims (``rows_fwd_bf16_kernel<DP>``), and the one
+# the bf16 backward runs on 128-row kernels (``rows_dkdv128_kernel``,
+# ``rows_dq128_kernel``; the others on the two-warpgroup split)
+_ROWS_BF16_FWD_DIMS = (192, 256, 384, 512)
+_ROWS_BWD128_DIM = 256
+_SMEM = 232448
 # TMA (and the backward's 16-byte loads) read from a 16-byte-aligned base
 # with 16-byte multiples as strides
 _TMA_ALIGN = 16
@@ -114,42 +136,152 @@ def kernel_head_dim(D: int) -> int:
                      f"{_HEAD_DIMS[-1]}")
 
 
-def tile_grid(bh: int, T: int) -> Tuple[int, int]:
+def tile_grid(bh: int, T: int, tile: int = _TILE) -> Tuple[int, int]:
     """The tensor-core kernels' launch grid (x, y) for ``bh`` = batch x
-    heads rows of ceil(T / 64) tiles: bh on x, tiles on y while they fit
-    y's 65,535; past that the tiles fold into x, ``fold`` = ceil(tiles /
-    65535) copies of the rows. ``work_grid`` in ``csrc/hopper.cuh`` is the
-    same arithmetic; the kernels' ``block_work`` maps a block's linear
-    index back to its (row, tile)."""
-    tiles = -(-T // _TILE)
+    heads rows of ceil(T / tile) tiles (64 rows; the rows route's bf16
+    forward 128): bh on x, tiles on y while they fit y's 65,535; past that
+    the tiles fold into x, ``fold`` = ceil(tiles / 65535) copies of the
+    rows. ``work_grid`` in ``csrc/hopper.cuh`` is the same arithmetic; the
+    kernels' ``block_work`` maps a block's linear index back to its (row,
+    tile)."""
+    tiles = -(-T // tile)
     fold = -(-tiles // _GRID_Y)
     return bh * fold, -(-tiles // fold)
 
 
+def rows_head_dim(D: int, bf16_forward: bool = False) -> int:
+    """The head dim the rows route runs a D-wide head at (129 <= D <=
+    512): D rounded up to a multiple of ``ROWS_UNIT``, or for the bf16
+    forward to one of its instantiations, 192, 256, 384 and 512; the
+    wrapper zero-pads. Raises outside that range."""
+    if not _HEAD_DIMS[-1] < D <= ROWS_MAX_HEAD_DIM:
+        raise ValueError(f"flash attention: head dim {D} is not in the rows route's "
+                         f"{_HEAD_DIMS[-1] + 1}-{ROWS_MAX_HEAD_DIM}")
+    dp = -(-D // ROWS_UNIT) * ROWS_UNIT
+    if bf16_forward:
+        dp = next(d for d in _ROWS_BF16_FWD_DIMS if d >= dp)
+    return dp
+
+
+def rows_grid(bh: int, T: int, D: int, bf16_forward: bool = False) -> Tuple[int, int, int]:
+    """The rows route's launch grid (x, y, z) for ``bh`` = batch x heads
+    rows at head dim ``D``: ``tile_grid`` on x and y over tiles of 64 rows
+    (``rows_grid`` in ``csrc/flash_attention_rows.cu``) and on z the
+    blocks a tile takes, one for every four 64-column units of the padded
+    head dim (two warpgroups of two units each); the bf16 forward's tiles
+    are 128 queries and its z is 1 up to 256 columns, 2 above (a block a
+    half of O's columns)."""
+    if bf16_forward:
+        return (*tile_grid(bh, T, 128), 1 if rows_head_dim(D, True) <= 256 else 2)
+    units = rows_head_dim(D) // ROWS_UNIT
+    return (*tile_grid(bh, T), -(-units // _ROWS_BLOCK_UNITS))
+
+
+def rows_share(D: int, dtype: torch.dtype, z: int, wg: int) -> Tuple[range, range]:
+    """Warpgroup ``wg`` (0 or 1) of block ``z``'s share of the padded head
+    dim (``Share`` in ``csrc/flash_attention_rows.cu``): the S chunks it
+    streams (64 columns in bf16, 32 in f32; the block's two warpgroups
+    split them in halves and add their partial scores) and the 64-column
+    output units it owns (two a warpgroup, four a block)."""
+    dp = rows_head_dim(D)
+    chunks = dp // _ROWS_ROUTE[dtype][1]
+    half = -(-chunks // 2)
+    c0 = wg * half
+    u0 = z * _ROWS_BLOCK_UNITS + wg * 2
+    return range(c0, min(chunks, c0 + half)), range(u0, max(u0, min(u0 + 2, dp // ROWS_UNIT)))
+
+
+# a dtype's planes per operand (f32: TF32 hi and lo), S-chunk columns (one
+# 128-byte box), and the dK/dV kernel's query step and the dQ kernel's key
+# step: ``Route`` in csrc/flash_attention_rows.cu
+_ROWS_ROUTE = {torch.bfloat16: (1, 64, 32, 32), torch.float32: (2, 32, 32, 32)}
+
+
+def rows_plan(dtype: torch.dtype, kernel: str, D: Optional[int] = None) -> dict:
+    """The rows route's ring for ``kernel`` ("fwd", "dkdv" or "dq") at
+    ``dtype``, as ``FwdCfg``/``DkdvCfg``/``DqCfg`` and ``Budget`` in
+    ``csrc/flash_attention_rows.cu`` compute it: a stage's bytes (the
+    larger of an S item, two chunk tiles, and a unit item), the stages a
+    warpgroup's ring holds, a warpgroup's exchange buffer (its partial S,
+    and dP in the backward, f32) and the block's shared memory (two rings,
+    two exchange buffers and 1 KB of barriers within 227 KB; bf16's
+    backward also two regions of resident tiles). The bf16
+    forward (``Bf16FwdCfg``, at head dim ``D``) has one ring the block's
+    two warpgroups share, a stage a K tile of the head dim (64 keys, 32
+    above 256 columns), and Q resident in place of the exchange buffers."""
+    if kernel in ("dkdv", "dq") and dtype == torch.bfloat16 and D is not None \
+            and rows_head_dim(D) == _ROWS_BWD128_DIM:
+        # 128 rows a block: two resident [128, 256] tiles, one shared ring of
+        # [32, 256] tiles
+        stage, res = 32 * 256 * 2, 2 * 128 * 256 * 2
+        stages = (_SMEM - 1024 - res) // stage
+        return {"stage_bytes": stage, "stages": stages, "resident_bytes": res,
+                "smem_bytes": res + stages * stage + 1024}
+    if kernel == "fwd" and dtype == torch.bfloat16:
+        dp = rows_head_dim(D, True)
+        bk = 64 if dp <= 256 else 32
+        stage, q_bytes = bk * dp * 2, 128 * dp * 2
+        stages = (_SMEM - 1024 - q_bytes) // stage
+        return {"stage_bytes": stage, "stages": stages, "resident_bytes": q_bytes,
+                "smem_bytes": q_bytes + stages * stage + 1024}
+    planes, _, dkdv_bq, dq_bk = _ROWS_ROUTE[dtype]
+    box = 64 * 128  # a 128-byte-wide box of 64 rows
+
+    def unit_item(n):  # bf16 [n, 64] natural; f32 [64, n] transposed, hi and lo
+        return n * 128 if planes == 1 else 2 * (n // 32) * box
+
+    # bf16's backward keeps the warpgroup's chunks of K and V (dK/dV) or Q
+    # and dO (dQ) resident, up to 4 boxes each, and streams the other pair
+    res = 8 * box if planes == 1 and kernel != "fwd" else 0
+    if kernel == "fwd":
+        s_item, u_item, x = 2 * box * planes, unit_item(64), 64 * 64 * 4
+    elif kernel == "dkdv":
+        s_item = 2 * dkdv_bq * 128 if res else box * planes + dkdv_bq * 128 * planes
+        u_item, x = unit_item(dkdv_bq), 2 * 64 * dkdv_bq * 4
+    elif kernel == "dq":
+        s_item = 2 * dq_bk * 128 if res else box * planes + dq_bk * 128 * planes
+        u_item, x = unit_item(dq_bk), 2 * 64 * dq_bk * 4
+    else:
+        raise ValueError(f"rows_plan: no kernel {kernel!r}")
+    stage = max(s_item, u_item)
+    stages = (_SMEM - 1024 - 2 * x - 2 * res) // 2 // stage
+    return {"stage_bytes": stage, "stages": stages, "exchange_bytes": x,
+            "smem_bytes": 2 * res + 2 * stages * stage + 2 * x + 1024}
+
+
+def rows_scratch(dtype: torch.dtype, backward: bool, B: int, T: int, H: int, D: int) -> int:
+    """f32 elements of the rows route's scratch at [B, T, H, D] (``D``
+    padded by ``rows_head_dim``): the pre-pass's TF32 hi and lo planes,
+    natural [B, T, H, D] and transposed [B, H, D, T rounded up to 64]: Q,
+    K and V^T forward; Q, K, V, dO and Q^T, dO^T, K^T backward. 0 for
+    bf16, which the kernels read as it is."""
+    if dtype != torch.float32:
+        return 0
+    D = rows_head_dim(D)
+    n, nt = B * T * H * D, B * H * D * (-(-T // 64) * 64)
+    return 8 * n + 6 * nt if backward else 4 * n + 2 * nt
+
+
 def check_shape(shape, dtype: torch.dtype, name: str = "flash attention") -> None:
     """Raises unless a kernel takes a [B, T, H, D] operand of ``dtype``:
-    f32 or bf16; D one of the tensor-core kernels' head dims, or 129 to
-    512 (the rows route); a grid that fits (``tile_grid``'s x, or the rows
-    route's B*H*T / 8 blocks, at most 2**31 - 1). Any T and any batch x
-    heads short of that launch."""
+    f32 or bf16; D one of the D <= 128 kernels' head dims, or 129 to 512
+    (the rows route, which the wrapper runs at ``rows_head_dim(D)``); a
+    grid that fits (``tile_grid``'s x at most 2**31 - 1). Any T and any
+    batch x heads short of that launch."""
     B, T, H, D = shape
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: dtype {dtype} unsupported (float32 or bfloat16)")
-    if D in _HEAD_DIMS:
-        x, _ = tile_grid(B * H, T)
-        if x > _GRID_X:
-            raise ValueError(
-                f"{name}: batch x heads {B * H} at seq len {T} needs a grid x of {x}: "
-                f"its tiles of {_TILE} fold into x past grid y's {_GRID_Y} tiles, and x "
-                f"takes at most {_GRID_X}"
-            )
-    elif _HEAD_DIMS[-1] < D <= ROWS_MAX_HEAD_DIM:
-        if -(-B * H * T // _ROWS_PER_BLOCK) > _GRID_X:
-            raise ValueError(f"{name}: {B * H * T} rows exceed the rows route's grid")
-    else:
+    if D not in _HEAD_DIMS and not _HEAD_DIMS[-1] < D <= ROWS_MAX_HEAD_DIM:
         raise ValueError(
             f"{name}: head dim {D} not in {_HEAD_DIMS} nor in the rows route's "
             f"{_HEAD_DIMS[-1] + 1}-{ROWS_MAX_HEAD_DIM}"
+        )
+    x, _ = tile_grid(B * H, T)
+    if x > _GRID_X:
+        raise ValueError(
+            f"{name}: batch x heads {B * H} at seq len {T} needs a grid x of {x}: "
+            f"its tiles of {_TILE} fold into x past grid y's {_GRID_Y} tiles, and x "
+            f"takes at most {_GRID_X}"
         )
 
 
@@ -175,25 +307,24 @@ def _cut_head(x: torch.Tensor, D: int) -> torch.Tensor:
     return x if x.shape[-1] == D else x[..., :D].contiguous()
 
 
-def padded_forward(forward, q, k, v, causal, scale):
+def padded_forward(forward, q, k, v, causal, scale, head_dim=kernel_head_dim):
     """``forward(q, k, v, causal, scale)`` -> (O, lse) run at the kernels'
-    head dim: q, k and v zero-padded to ``kernel_head_dim(D)`` and O cut
-    back to D. ``scale`` is the caller's, the original D's. The padded
-    columns add zeros to every score, so the result is the same
-    function."""
+    head dim: q, k and v zero-padded to ``head_dim(D)`` and O cut back to
+    D. ``scale`` is the caller's, the original D's. The padded columns add
+    zeros to every score, so the result is the same function."""
     D = q.shape[-1]
-    dim = kernel_head_dim(D)
+    dim = head_dim(D)
     o, lse = forward(*(_pad_head(x, dim) for x in (q, k, v)), causal, scale)
     return _cut_head(o, D), lse
 
 
-def padded_backward(backward, q, k, v, o, lse, g, causal, scale):
+def padded_backward(backward, q, k, v, o, lse, g, causal, scale, head_dim=kernel_head_dim):
     """``backward(q, k, v, o, lse, g, causal, scale)`` -> (dQ, dK, dV)
     run at the kernels' head dim, as ``padded_forward`` runs the forward:
     zero columns of O and dO leave delta as it is, and the gradients'
     padded columns, cut off here, are zero."""
     D = q.shape[-1]
-    dim = kernel_head_dim(D)
+    dim = head_dim(D)
     q, k, v, o, g = (_pad_head(x, dim) for x in (q, k, v, o, g))
     return tuple(_cut_head(x, D) for x in backward(q, k, v, o, lse, g, causal, scale))
 
@@ -277,15 +408,41 @@ class FlashForwardKernel(_Kernel):
 
 class RowsForwardKernel(FlashForwardKernel):
     """``flash_rows_fwd`` (``csrc/flash_attention_rows.cu``): the forward
-    at head dims 129 to 512, a warp per query row. Same arguments and
-    results as :class:`FlashForwardKernel`; no padding."""
+    at head dims 129 to 512, run at ``rows_head_dim(D)`` (zero-padded; for
+    bf16 the next of 192, 256, 384 and 512). Same arguments and results as
+    :class:`FlashForwardKernel`; f32 takes a scratch tensor for the
+    pre-pass's planes."""
 
     name = "flash_rows_fwd"
     library = "flash_attention_rows"
     error_string = "flash_rows_error_string"
+    argtypes = (
+        (ctypes.c_void_p,) * 6
+        + (ctypes.c_int,) * 5
+        + (ctypes.c_longlong,) * 9
+        + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+    )
 
     def __call__(self, q, k, v, causal, scale):
-        return self._run(q, k, v, causal, scale)
+        bf16 = q.dtype == torch.bfloat16
+        return padded_forward(self._run, q, k, v, causal, scale,
+                              head_dim=lambda D: rows_head_dim(D, bf16))
+
+    def _run(self, q, k, v, causal, scale):
+        self._check((("q", q), ("k", k), ("v", v)), q)
+        B, T, H, D = q.shape
+        (q, qs), (k, ks), (v, vs) = (kernel_operand(x) for x in (q, k, v))
+        o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+        lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+        scratch = torch.empty(rows_scratch(q.dtype, False, B, T, H, D), dtype=torch.float32,
+                              device=q.device)
+        self._launch(
+            q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), scratch.data_ptr() if scratch.numel() else None,
+            _DTYPE_CODES[q.dtype], B, T, H, D, *qs, *ks, *vs,
+            float(scale), int(bool(causal)),
+        )
+        return o, lse
 
 
 class FlashBackwardKernel(_Kernel):
@@ -340,17 +497,50 @@ class FlashBackwardKernel(_Kernel):
 
 
 class RowsBackwardKernel(FlashBackwardKernel):
-    """``flash_rows_bwd``: the backward at head dims 129 to 512, two
-    device kernels (dQ and delta a warp per query row, then dK and dV a
-    warp per key row), counted as one launch. Same arguments and results
-    as :class:`FlashBackwardKernel`; no padding."""
+    """``flash_rows_bwd``: the backward at head dims 129 to 512, run at
+    ``rows_head_dim(D)`` (zero-padded; bf16 at 256 on its 128-row
+    kernels): the f32 pre-pass, delta, dK and dV, then dQ, on the stream,
+    counted as one launch. Same arguments and results as
+    :class:`FlashBackwardKernel`."""
 
     name = "flash_rows_bwd"
     library = "flash_attention_rows"
     error_string = "flash_rows_error_string"
+    argtypes = (
+        (ctypes.c_void_p,) * 11
+        + (ctypes.c_int,) * 5
+        + (ctypes.c_longlong,) * 15
+        + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+    )
 
     def __call__(self, q, k, v, o, lse, g, causal, scale):
-        return self._run(q, k, v, o, lse, g, causal, scale)
+        return padded_backward(self._run, q, k, v, o, lse, g, causal, scale,
+                               head_dim=rows_head_dim)
+
+    def _run(self, q, k, v, o, lse, g, causal, scale):
+        self._check((("q", q), ("k", k), ("v", v), ("o", o), ("g", g)), q)
+        B, T, H, D = q.shape
+        if lse.dtype != torch.float32 or lse.shape != (B, H, T) or lse.device != q.device:
+            raise ValueError(
+                f"{self.name}: lse is {lse.dtype} {tuple(lse.shape)} on {lse.device}; "
+                f"want float32 {(B, H, T)} on {q.device}"
+            )
+        lse = lse.contiguous()
+        (q, qs), (k, ks), (v, vs), (o, os_), (g, gs) = (
+            kernel_operand(x) for x in (q, k, v, o, g)
+        )
+        grads = [torch.empty((B, T, H, D), dtype=q.dtype, device=q.device) for _ in range(3)]
+        delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+        scratch = torch.empty(rows_scratch(q.dtype, True, B, T, H, D), dtype=torch.float32,
+                              device=q.device)
+        self._launch(
+            q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), g.data_ptr(), *(x.data_ptr() for x in grads),
+            delta.data_ptr(), scratch.data_ptr() if scratch.numel() else None,
+            _DTYPE_CODES[q.dtype], B, T, H, D,
+            *qs, *ks, *vs, *os_, *gs, float(scale), int(bool(causal)),
+        )
+        return tuple(grads)
 
 
 FWD_KERNEL = FlashForwardKernel()

@@ -139,11 +139,9 @@ def test_sharded_dp_tp_ep_eight_ranks_matches_jax(tmp_path):
     want = jax_run(knobs)
     got = port_run(8, [{"args": knobs, "params": want["start"], "perms": want["perms"]}],
                    tmp_path)[0]
-    # the test metrics are not compared: with accumulation the port
-    # evaluates MoE chunk by chunk, the JAX package the whole batch
-    # (DistributedTrainer.evaluate; held to the JAX package evaluating
-    # chunk-sized batches in test_moe_evaluation_is_jax_at_the_chunk_batch)
-    assert_same_training(got, want, keys=("train_loss", "train_acc"))
+    # the test metrics too: both evaluate each whole test batch, one
+    # routing pool, whatever the accumulation
+    assert_same_training(got, want)
     local = got["local_shapes"]
     assert local["Block_1/SwitchFFN_0/wi"] == (2, 16, 64)  # 4 experts over ep 2
     assert local["Block_0/Dense_0/weight"] == (24, 16)  # q, k, v of one head of 2
@@ -189,15 +187,14 @@ def test_sequence_mode_moe_matches_jax(strategy, world, shape, extra, tmp_path):
     assert any(occ.sum() < occ.size for occ in got["occupancy"])  # tokens were dropped
 
 
-def test_moe_evaluation_is_jax_at_the_chunk_batch(tmp_path):
-    """With ``grad_accum_steps`` > 1 the port evaluates MoE one
-    accumulation chunk a forward pass (each chunk its own routing pool),
-    where the JAX package passes the whole test batch: the port's test
-    metrics are the JAX package's evaluation at batch_size / accum, on
-    the same weights, over {dp: 2}."""
+def test_moe_evaluation_routes_the_whole_batch_as_jax_does(tmp_path):
+    """With ``grad_accum_steps`` 2 over {dp: 2}, the port evaluates MoE one
+    whole test batch a forward pass (one routing pool), as the JAX
+    package's ``_evaluate`` does: the same test metrics on the same
+    weights. Chunked evaluation read test_loss 4.99236536 here against
+    the reference's 4.9955864."""
     knobs = dict(BASE, mesh_shape={"dp": 2}, grad_accum_steps=2)
-    args = fedml_tpu.init(_set(JaxArguments(), **dict(
-        knobs, batch_size=knobs["batch_size"] // 2, grad_accum_steps=1)))
+    args = fedml_tpu.init(_set(JaxArguments(), **knobs))
     ds = jax_data.load(args)
     trainer = JaxTrainer(args, None, ds, jax_models.create(args, ds.class_num))
     start = params_from_flax(jax.tree.map(np.asarray, trainer.params))
@@ -205,6 +202,7 @@ def test_moe_evaluation_is_jax_at_the_chunk_batch(tmp_path):
         want = trainer._evaluate(trainer._place_data(ds.test_data_global))
     got = torch_world.run_world(torch_world.evaluate, 2, {"runs": [
         {"args": knobs, "params": {k: v.numpy() for k, v in start.items()}}]}, tmp_path)[0][0]
+    assert want["test_loss"] == pytest.approx(4.9955864, abs=1e-6)
     for key in ("test_loss", "test_acc"):
         np.testing.assert_allclose(got[key], want[key], rtol=LOSS_RTOL, atol=1e-6, err_msg=key)
 

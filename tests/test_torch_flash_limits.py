@@ -6,14 +6,18 @@ into grid x (``tile_grid``, the arithmetic of ``work_grid`` in
 ``csrc/hopper.cuh``): checked here on its invariants and, through a
 Python mirror of the kernels' ``block_work`` at a small grid-y limit,
 for handing every (batch x head, tile) to exactly one block. Head dims
-129 to 512 dispatch to the rows route (``csrc/flash_attention_rows.cu``),
-whose plain versions run on the CPU: held here to the JAX Pallas kernel
-(interpret mode) and its ``_bwd``, which take any D. The kernels
-themselves run only on the card (``chip_smoke.py``'s kernels phase holds
-them to their plain versions at D 192 and 256, and the long sequence at
-T 4,194,368). That long-sequence check's rule is rehearsed here at a
-smaller T of the same row structure: right outputs pass it, outputs
-zeroed or shifted by a tile in the late rows fail it.
+129 to 512 dispatch to the rows route
+(``csrc/flash_attention_rows.cu``), whose plain versions run on the CPU:
+held here to the JAX Pallas kernel (interpret mode) and its ``_bwd``,
+which take any D, and whose host arithmetic (padded head dim, grid z,
+the warpgroups' shares of the head dim, the rings' shared memory, the
+f32 scratch) is checked here. The kernels themselves run only on the
+card (``chip_smoke.py``'s kernels phase holds them to their plain
+versions at D 160 to 512 and at [8, 4096, 8, 256], checks that the built
+library reports the same rings as ``rows_plan``, and runs the long
+sequence at T 4,194,368). That long-sequence check's rule is rehearsed
+here at a smaller T of the same row structure: right outputs pass it,
+outputs zeroed or shifted by a tile in the late rows fail it.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 2e-5
 GRAD_ATOL = 5e-4
+PAD_ATOL = 1e-5
 
 
 def _block_work(lin, gx, gy, n_bh, n_tiles, head_group=16):
@@ -88,7 +93,7 @@ def test_head_dims_above_512_raise_with_the_limit(D):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [160, 192, 256])
+@pytest.mark.parametrize("D", [160, 192, 256, 384, 512])
 def test_head_dims_above_128_take_the_rows_route(D, causal):
     """A D above 128 routes to the rows kernels (a D up to 128 to the
     tensor-core ones), and the wrappers compute the JAX kernel's O and
@@ -109,6 +114,146 @@ def test_head_dims_above_128_take_the_rows_route(D, causal):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=GRAD_ATOL)
 
 
+# -- the rows route's host arithmetic (csrc/flash_attention_rows.cu) --------
+
+
+@pytest.mark.parametrize("D, want", [(129, 192), (160, 192), (192, 192), (193, 256), (256, 256),
+                                     (300, 320), (384, 384), (449, 512), (512, 512)])
+def test_rows_head_dim_pads_to_a_multiple_of_64(D, want):
+    assert tfa.rows_head_dim(D) == want
+
+
+@pytest.mark.parametrize("D", [64, 128, 513, 1024])
+def test_rows_head_dim_refuses_outside_129_to_512(D):
+    with pytest.raises(ValueError, match="rows route's 129-512"):
+        tfa.rows_head_dim(D)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [160, 192, 256, 320, 384, 448, 512])
+def test_rows_shares_cover_every_chunk_and_unit_once(D, dtype):
+    """Grid z holds four 64-column output units a block; in each block the
+    two warpgroups split the head dim's S chunks (the whole head dim
+    between them) and own up to two units each, so every unit of the
+    padded head dim has exactly one owner."""
+    dp = tfa.rows_head_dim(D)
+    gx, gy, gz = tfa.rows_grid(3, 200, D)
+    assert (gx, gy) == tfa.tile_grid(3, 200)
+    assert gz == -(-dp // 256)
+    chunk = 64 if dtype == torch.bfloat16 else 32
+    units = []
+    for z in range(gz):
+        chunks = []
+        for wg in (0, 1):
+            c, u = tfa.rows_share(D, dtype, z, wg)
+            assert len(c) >= 1 and len(u) <= 2
+            chunks += list(c)
+            units += list(u)
+        assert chunks == list(range(dp // chunk))
+    assert units == list(range(dp // 64))
+
+
+# the design's rings: (stage bytes, stages a warpgroup) of each kernel
+# (the bf16 forward's: a block's one ring, at each head dim it is built for)
+RINGS = {
+    (torch.bfloat16, "dkdv"): (8192, 4), (torch.bfloat16, "dq"): (8192, 4),
+    (torch.float32, "fwd"): (32768, 3), (torch.float32, "dkdv"): (24576, 4),
+    (torch.float32, "dq"): (24576, 4),
+}
+BF16_FWD_RINGS = {192: (24576, 7), 256: (32768, 5), 384: (24576, 5), 512: (32768, 3)}
+
+
+@pytest.mark.parametrize("dtype, kernel", sorted(RINGS, key=str))
+def test_rows_rings_fill_one_block_of_shared_memory(dtype, kernel):
+    """Two rings (one a warpgroup), two exchange buffers (a warpgroup's
+    partial S, and dP in the backward: 128 threads' f32 accumulators),
+    bf16's resident tiles of the backward (K and V, or Q and dO, up to
+    four 8 KB boxes each a warpgroup) and 1 KB of barriers fit the 227 KB
+    a block may use, and one more stage would not; every stage starts on
+    a 1024-byte swizzle boundary."""
+    plan = tfa.rows_plan(dtype, kernel)
+    stage, stages, x = plan["stage_bytes"], plan["stages"], plan["exchange_bytes"]
+    res = 8 * 64 * 128 if dtype == torch.bfloat16 else 0
+    assert (stage, stages) == RINGS[dtype, kernel]
+    assert plan["smem_bytes"] == 2 * res + 2 * stages * stage + 2 * x + 1024 <= 232448
+    assert 2 * res + 2 * (stages + 1) * stage + 2 * x + 1024 > 232448
+    assert stages >= 3 and stage % 1024 == 0 and x % 1024 == 0
+    rows = 64 if kernel == "fwd" else 32  # keys of a forward tile, a backward step's rows
+    assert x == (1 if kernel == "fwd" else 2) * 64 * rows * 4
+
+
+@pytest.mark.parametrize("D", [160, 192, 200, 256, 300, 384, 449, 512])
+def test_rows_bf16_forward_shares_one_ring_with_q_resident(D):
+    """The bf16 forward runs 128-query tiles at the next of 192, 256, 384
+    and 512: Q resident (128 rows of the head dim), one ring of K tiles
+    (64 keys, 32 above 256 columns) that both warpgroups read, grid z 1 up
+    to 256 columns and 2 above (a block a half of O's columns)."""
+    dp = tfa.rows_head_dim(D, bf16_forward=True)
+    assert dp == min(d for d in (192, 256, 384, 512) if d >= D)
+    plan = tfa.rows_plan(torch.bfloat16, "fwd", D)
+    bk = 64 if dp <= 256 else 32
+    assert (plan["stage_bytes"], plan["stages"]) == BF16_FWD_RINGS[dp]
+    assert plan["stage_bytes"] == bk * dp * 2 and plan["resident_bytes"] == 128 * dp * 2
+    assert plan["smem_bytes"] == plan["resident_bytes"] + plan["stages"] * plan["stage_bytes"] + 1024
+    assert plan["smem_bytes"] <= 232448 < plan["smem_bytes"] + plan["stage_bytes"]
+    gx, gy, gz = tfa.rows_grid(5, 1000, D, bf16_forward=True)
+    assert (gx, gy) == tfa.tile_grid(5, 1000, 128) == (5, 8)
+    assert gz == (1 if dp <= 256 else 2)
+
+
+@pytest.mark.parametrize("D", [193, 200, 256])
+def test_rows_bf16_backward_at_256_keeps_128_rows_resident(D):
+    """The bf16 backward at a padded 256 (D 193-256) runs 128 rows a
+    block: two resident [128, 256] bf16 tiles (K and V, or Q and dO) and
+    one shared ring of [32, 256] tiles, in one block's shared memory; at
+    other head dims it keeps the two-warpgroup split."""
+    assert tfa.rows_head_dim(D) == 256
+    for kernel in ("dkdv", "dq"):
+        plan = tfa.rows_plan(torch.bfloat16, kernel, D)
+        assert plan == {"stage_bytes": 32 * 256 * 2, "stages": 6,
+                        "resident_bytes": 2 * 128 * 256 * 2, "smem_bytes": 230400}
+        assert plan["smem_bytes"] + plan["stage_bytes"] > 232448
+        assert tfa.rows_plan(torch.bfloat16, kernel, 192) == tfa.rows_plan(torch.bfloat16, kernel)
+
+
+def test_rows_scratch_holds_the_f32_planes():
+    """f32: hi and lo planes of Q, K (natural) and V (transposed, rows
+    padded to 64) forward; Q, K, V, dO natural and Q, dO, K transposed
+    backward. bf16 needs none."""
+    B, T, H = 2, 100, 3
+    n, nt = B * T * H * 192, B * H * 192 * 128
+    assert tfa.rows_scratch(torch.float32, False, B, T, H, 160) == 4 * n + 2 * nt
+    assert tfa.rows_scratch(torch.float32, True, B, T, H, 160) == 8 * n + 6 * nt
+    assert tfa.rows_scratch(torch.bfloat16, True, B, T, H, 160) == 0
+    with pytest.raises(ValueError, match="129-512"):
+        tfa.rows_scratch(torch.float32, False, B, T, H, 520)
+
+
+@pytest.mark.parametrize("D", [160, 200, 449])
+def test_rows_padding_leaves_the_function_as_it_was(D):
+    """The rows wrappers run a D-wide head zero-padded to rows_head_dim(D)
+    and cut back: through the plain versions, the same O, lse and
+    gradients as at D itself, to PAD_ATOL (the padded zeros add nothing,
+    but the einsums block a wider sum otherwise: f32 rounding, measured
+    1.3e-6 at D 449)."""
+    rng = np.random.default_rng(D)
+    q, k, v, g = (torch.tensor(rng.normal(size=(1, 24, 2, D)).astype(np.float32))
+                  for _ in range(4))
+    scale = D**-0.5
+    o, lse = tfa.padded_forward(tfa.flash_attention_reference, q, k, v, True, scale,
+                                head_dim=tfa.rows_head_dim)
+    want_o, want_lse = tfa.flash_attention_reference(q, k, v, True, scale)
+    assert o.shape == q.shape
+    torch.testing.assert_close(o, want_o, atol=PAD_ATOL, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=PAD_ATOL, rtol=0)
+    got = tfa.padded_backward(tfa.flash_attention_backward_reference, q, k, v, o, lse, g, True,
+                              scale, head_dim=tfa.rows_head_dim)
+    want = tfa.flash_attention_backward_reference(q, k, v, o, lse, g, True, scale)
+    for a, b in zip(got, want):
+        assert a.shape == q.shape
+        torch.testing.assert_close(a, b, atol=PAD_ATOL, rtol=0)
+
+
 def _chip_smoke():
     path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke_kinds", path)
@@ -125,10 +270,14 @@ def test_every_rows_kernel_counts_as_its_flash_kind():
     text = (Path(tfa.__file__).resolve().parent / "csrc" / "flash_attention_rows.cu").read_text()
     names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
                        text)
-    assert sorted(names) == ["rows_dkdv_kernel", "rows_dq_kernel", "rows_fwd_kernel"]
+    assert sorted(names) == ["rows_bwd_split_kernel", "rows_delta_kernel",
+                             "rows_dkdv128_kernel", "rows_dkdv_wgmma_kernel",
+                             "rows_dq128_kernel", "rows_dq_wgmma_kernel",
+                             "rows_fwd_bf16_kernel", "rows_fwd_split_kernel",
+                             "rows_fwd_wgmma_kernel"]
     for name in names:
-        profiled = f"void (anonymous namespace)::{name}<float, 8>(float const*)"
-        want = "flash forward" if name == "rows_fwd_kernel" else "flash backward"
+        profiled = f"void (anonymous namespace)::{name}<float>(float const*)"
+        want = "flash forward" if name.startswith("rows_fwd_") else "flash backward"
         assert chip_smoke.kernel_kind(profiled, chip_smoke.TRANSFORMER_KINDS) == want, name
 
 

@@ -36,6 +36,7 @@ ATOL = 1e-5
 F64_ATOL = 1e-6
 SHARD_ATOL = 1e-5
 SHARD_RTOL = 1e-5
+GRAD_ATOL = 1e-6
 
 
 def _switch_pair(E, cf, C=8, seed=0, B=2, T=12, dtype=np.float32):
@@ -110,6 +111,87 @@ def test_bf16_dispatch_is_exact_past_256_tokens_an_expert():
     np.testing.assert_array_equal(occ, np.asarray(mods["intermediates"]["moe_slot_occupancy"][0]))
     np.testing.assert_allclose(got, np.asarray(jy.astype(jnp.float32)), atol=0.05)
     del want, want_occ
+
+
+def _onehot_switch(layer, x, ep=None):
+    """The layer's function by the JAX package's route: 0/1 dispatch and
+    gate-weighted combine tensors [N, E, cap] and the dispatch and combine
+    einsums, on the layer's own weights (``ep`` = (start, count): those
+    experts' slots alone, the partial output)."""
+    import math
+
+    B, T, C = x.shape
+    N, E = B * T, layer.num_experts
+    cap = max(1, math.ceil(N / E * layer.capacity_factor))
+    xf = x.reshape(N, C)
+    probs = torch.softmax(torch.nn.functional.linear(xf.float(), layer.router.weight.float()), -1)
+    onehot = (probs.argmax(-1)[:, None] == torch.arange(E)).float()
+    pos = (torch.cumsum(onehot, 0) - 1.0) * onehot
+    keep = onehot * (pos < cap)
+    disp = (keep[..., None] * (pos.long()[..., None] == torch.arange(cap)).float()).to(x.dtype)
+    wi, bi, wo, bo = layer.wi, layer.bi, layer.wo, layer.bo
+    if ep is not None:
+        e0, n = ep
+        disp, wi, bi, wo, bo = (t[..., e0:e0 + n, :] if t is disp else t[e0:e0 + n]
+                                for t in (disp, wi, bi, wo, bo))
+    combine = disp * probs.amax(-1).to(x.dtype)[:, None, None]
+    expert_in = torch.einsum("nec,nd->ecd", disp, xf)
+    h = torch.nn.functional.gelu(torch.einsum("ecd,edh->ech", expert_in, wi) + bi[:, None],
+                                 approximate="tanh")
+    out = torch.einsum("ech,ehd->ecd", h, wo) + bo[:, None]
+    return torch.einsum("nec,ecd->nd", combine, out).reshape(B, T, C)
+
+
+@pytest.mark.parametrize("E, cf", [(4, 0.5), (3, 1.0), (4, 4.0)])
+def test_index_routing_is_the_onehot_einsums(E, cf):
+    """Routing by index (scatter into [E, cap, C], gather by expert and
+    slot) against the one-hot einsums it replaced, on the same weights and
+    tokens, with tokens dropped (cf 0.5) and not: the outputs bitwise in
+    f32 (each einsum term is one product or a copy), the gradients to
+    GRAD_ATOL (the gate's gradient sums its C products in another order);
+    then split over two expert shards (``ep``, no group: the ranks' partial
+    outputs summed here) to the same."""
+    from fedml_tpu_torch.models.moe import ExpertShard
+
+    torch.manual_seed(E)
+    layer = SwitchFFN(8, E, cf)
+    for p in (layer.wi, layer.wo, layer.bi, layer.bo):
+        torch.nn.init.normal_(p, std=0.3)
+    x = torch.tensor(np.random.default_rng(E).normal(size=(2, 12, 8)).astype(np.float32),
+                     requires_grad=True)
+    w = torch.tensor(np.random.default_rng(E + 1).normal(size=(2, 12, 8)).astype(np.float32))
+    params = [x, *layer.parameters()]
+
+    def value_and_grads(fn):
+        y = fn()
+        return y.detach(), torch.autograd.grad((y * w).sum(), params, allow_unused=True)
+
+    got, got_g = value_and_grads(lambda: layer(x))
+    want, want_g = value_and_grads(lambda: _onehot_switch(layer, x))
+    assert torch.equal(got, want)
+    if cf < 1:
+        assert (got.abs().sum(-1) == 0).any()  # tokens were dropped
+    for a, b in zip(got_g, want_g):
+        torch.testing.assert_close(a, b, atol=GRAD_ATOL, rtol=0)
+
+    halves = [(0, E // 2), (E // 2, E - E // 2)]
+
+    def sharded():
+        ys = []
+        for e0, n in halves:
+            layer.ep = ExpertShard(None, e0, n)
+            local = {k: v[e0:e0 + n] if k in ("wi", "bi", "wo", "bo") else v
+                     for k, v in layer.named_parameters()}
+            ys.append(torch.func.functional_call(layer, local, (x,)))
+        layer.ep = None
+        return ys[0] + ys[1]
+
+    got, got_g = value_and_grads(sharded)
+    want, want_g = value_and_grads(
+        lambda: sum(_onehot_switch(layer, x, ep) for ep in halves))
+    assert torch.equal(got, want)
+    for a, b in zip(got_g, want_g):
+        torch.testing.assert_close(a, b, atol=GRAD_ATOL, rtol=0)
 
 
 def _lm_pair(dtype=np.float32, **kw):
