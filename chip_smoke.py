@@ -348,6 +348,8 @@ FLASH_CASES = [
     (32, 4096, 8, 64, torch.float32, True),
     # the distributed MoE configuration's chunk (4 sequences of T 4096)
     (4, 4096, 8, 64, torch.bfloat16, True),
+    # the pipeline configuration's microbatch (16 sequences of T 4096)
+    (16, 4096, 8, 64, torch.bfloat16, True),
 ]
 # tensor-core passes each forward route makes a tile, against the two
 # products the bound counts: bf16 (wgmma) S once and P V twice (P as bf16
@@ -433,6 +435,8 @@ FLASH_BWD_CASES = [
     (2, 1000, 4, 16, torch.float32, False),
     # the distributed MoE configuration's chunk (4 sequences of T 4096)
     (4, 4096, 8, 64, torch.bfloat16, True),
+    # the pipeline configuration's microbatch (16 sequences of T 4096)
+    (16, 4096, 8, 64, torch.bfloat16, True),
 ]
 # tensor-core passes each backward route makes, against the 5 products
 # the bound counts: bf16 (wgmma) S, dP twice and the products with P and
@@ -2404,7 +2408,7 @@ def run_transformer_f32(passes: int):
 
 
 # -- phases 9-13: the fifth slice ---------------------------------------
-def measured_run(args, profiled=None) -> dict:
+def measured_run(args, profiled=None, backend: str = "single_process", **operators) -> dict:
     """``run_simulation`` on ``args`` as a user calls it, with its metrics
     written (and round ``profiled`` under ``torch.profiler``): the
     result, the history records, the pipeline record, the profile
@@ -2427,7 +2431,7 @@ def measured_run(args, profiled=None) -> dict:
         held = torch.cuda.memory_allocated()
         reset_launches()
         t0 = time.perf_counter()
-        final = fedml_tpu_torch.run_simulation(device=DEVICE, args=args)
+        final = fedml_tpu_torch.run_simulation(backend, device=DEVICE, args=args, **operators)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() - held
@@ -2817,7 +2821,9 @@ FOLD_CASES = [(610, 1), (11_173_962, 1), (11_173_962, 3)]
 EDGE_FOLD_CASES = [(4, 610, 0b1011)]
 MERGE_CASES = [(4, 610, 0b1111), (4, 11_173_962, 0b1111)]
 # exact_weighted_mean, (C, N, dtype): 16 clients of ResNet-18-GN in f32,
-# 10 of the flash TransformerLM (8,495,194 params) in bf16
+# 10 of the flash TransformerLM (8,495,194 params) in bf16; the fed-mesh
+# FedAvg path's own calls, one a leaf of the FEMNIST CNN over its 32
+# clients, are added at run time (mesh_mean_cases)
 MEAN_CASES = [(16, 11_173_962, torch.float32), (10, 8_495_194, torch.bfloat16)]
 # K2 cases, (C, S, dim): one of the planet path's two largest groups
 # (4,096 clients x 4 batches of 32, 60 features), FEMNIST-sized rows,
@@ -2922,6 +2928,17 @@ def _fold_case(label: str, limbs, run_kernel, run_plain, nbytes: int, f32_ops: i
             "library_ms": None, "library_kernel": None}
 
 
+def mesh_mean_cases():
+    """K1's ``weighted_mean`` calls on the fed-mesh FedAvg path
+    (``fedavg_femnist_cnn.yaml``): one a leaf, [clients a round, leaf
+    size], f32."""
+    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.models.cnn import CNNFedAvg
+
+    clients = int(load_arguments(str(FEDAVG_CONFIG)).client_num_per_round)
+    return [(clients, p.numel(), torch.float32) for p in CNNFedAvg().parameters()]
+
+
 def check_exact_fold():
     """K1 against its plain version, bitwise, at FOLD_CASES (``fold``),
     EDGE_FOLD_CASES (``fold_edges``: a group's edge terms, one launch),
@@ -2960,7 +2977,7 @@ def check_exact_fold():
             mask=mask, terms=3 * hit))
         del root, src
         torch.cuda.empty_cache()
-    for c, n, dtype in MEAN_CASES:
+    for c, n, dtype in MEAN_CASES + mesh_mean_cases():
         x = spread((c, n), gen).to(dtype)
         w = torch.rand(c, generator=gen, device=DEVICE)
         w = w / w.sum()
@@ -4336,6 +4353,10 @@ def run_other_algorithms():
 # -- phase 22: the distributed platform (the tenth slice) -----------------
 MOE_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "distributed_shakespeare_moe_transformer_bf16.yaml"
 SP_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "distributed_shakespeare_transformer_sp_bf16.yaml"
+PP_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "distributed_shakespeare_transformer_pp_bf16.yaml"
+# the pipeline's resume check: 2 epochs of this many sequences (2 steps an
+# epoch) straight, and 1 + 1 resumed
+PP_RESUME_SEQUENCES = 64
 # the optimizer step (counted from 0 over a run) that runs under
 # torch.profiler; step 0 warms up; the others are timed on the card's clock
 DIST_PROFILED_STEP = 2
@@ -4423,7 +4444,10 @@ def dist_launches_wanted(args, trainer, attention: str) -> dict:
     config: per chunk of a step, one forward and one backward per layer
     (no remat); per test batch of an evaluation, one forward per layer
     (the whole batch, whatever the accumulation). The ring launches
-    none."""
+    none. In the pipeline mode a rank runs its L / S layers once a tick,
+    M + S - 1 ticks a batch of M microbatches (the bubble's ticks too),
+    M from the reference's rule at the chunk's and the test batch's
+    size."""
     L, accum = int(args.num_layers), int(getattr(args, "grad_accum_steps", 1) or 1)
     epochs = int(args.epochs)
     steps = trainer.dataset.train_data_global.num_batches * epochs
@@ -4432,8 +4456,15 @@ def dist_launches_wanted(args, trainer, attention: str) -> dict:
     test_passes = trainer.dataset.test_data_global.num_batches * evals
     if attention == "ring":
         return {**no_launches()}
-    return {**no_launches(), "flash_attention_fwd": L * (accum * steps + test_passes),
-            "flash_attention_bwd": L * accum * steps}
+    train_ticks = eval_ticks = 1
+    if trainer.mode == "pipeline":
+        S = trainer.shape["pp"]
+        L //= S
+        train_ticks = trainer._microbatches(trainer.bs // accum) + S - 1
+        eval_ticks = trainer._microbatches(trainer.bs) + S - 1
+    return {**no_launches(),
+            "flash_attention_fwd": L * (train_ticks * accum * steps + eval_ticks * test_passes),
+            "flash_attention_bwd": L * train_ticks * accum * steps}
 
 
 def distributed_run(tag: str, args, attention: str) -> dict:
@@ -4526,18 +4557,73 @@ def sp_attention_losses(args) -> dict:
     return out
 
 
+def pp_plain_losses(args) -> dict:
+    """One batch's mean loss through the pipeline mode and through the
+    plain ``TransformerLM`` forward on the same seeded bf16 weights (the
+    pipeline trainer's start params are the model's init, stacked)."""
+    from fedml_tpu_torch import data, models
+    from fedml_tpu_torch.core.local_trainer import _cast_floats, compute_dtype_from_args
+    from fedml_tpu_torch.distributed import DistributedTrainer
+
+    dev = torch.device(DEVICE)
+    dataset = data.load(args, device=dev)
+    model = models.create(args, dataset.class_num, device=dev)
+    trainer = DistributedTrainer(args, dev, dataset, model)
+    b = trainer._local_batches(dataset.train_data_global, trainer.bs)
+    x, y, m = b.x[0], b.y[0], b.mask[0]
+    with torch.no_grad():
+        nll, _, count, _, _ = trainer._sums(trainer.params, x, y, m)
+        flat = model.init(torch.Generator().manual_seed(trainer.seed))
+        flat = _cast_floats({k: v.to(dev) for k, v in flat.items()},
+                            compute_dtype_from_args(args))
+        loss, _ = model.loss_fn(model.apply(flat, x).to(torch.float32), y, m)
+    return {"pipeline": float(nll / count), "plain": float(loss)}
+
+
+def pp_resume_check(tempfile) -> dict:
+    """The pipeline configuration cut to PP_RESUME_SEQUENCES sequences,
+    2 epochs straight against 1 epoch, checkpointed, then resumed to 2:
+    the params bitwise equal, under deterministic algorithms."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch.arguments import load_arguments
+
+    def run(epochs, ckpt=None):
+        args = load_arguments(str(PP_CONFIG))
+        args.epochs, args.checkpoint_dir = epochs, ckpt
+        args.synthetic_train_size = PP_RESUME_SEQUENCES
+        with StepRecorder() as rec:
+            fedml_tpu_torch.run_distributed(args, device=DEVICE)
+        return {k: v.detach().clone() for k, v in rec.trainer.full_params().items()}
+
+    t0 = time.perf_counter()
+    with deterministic(), tempfile.TemporaryDirectory() as ckpt:
+        straight = run(2)
+        run(1, ckpt)
+        resumed = run(2, ckpt)
+    equal = all(torch.equal(straight[k], resumed[k]) for k in straight)
+    log(f"distributed pipeline resume: 2 epochs straight vs 1 + resumed 1, params bitwise "
+        f"equal {equal} ({time.perf_counter() - t0:.1f} s)")
+    if not equal:
+        fail("distributed pipeline resume: the resumed run's params differ from the straight "
+             "run's")
+    return {"bitwise_equal": equal}
+
+
 def run_distributed_phase():
-    """The tenth slice's path: ``run_distributed`` on both distributed
+    """The tenth slice's path: ``run_distributed`` on the distributed
     configurations in a NCCL world of one rank, where every collective is
     the identity (the CPU tests' gloo worlds of 2-8 ranks prove the
     collectives; this phase proves the kernels, shapes, memory and time):
     the MoE transformer (sharded mode, {dp: 1, tp: 1, ep: 1}, the flash
     kernels), the sequence mode with ring attention (no flash launch) and
-    with Ulysses (the flash kernels at [8, 4096, 8, 64]). Gates: flash
-    launches as reckoned from each config and no plain flash call; the
-    loss falls; the MoE's slot occupancy 0/1; ring, Ulysses and dense
-    attention give one batch's loss within SP_LOSS_ATOL; the sequence run
-    stopped after 1 of 2 epochs and resumed is bitwise the straight run
+    with Ulysses (the flash kernels at [8, 4096, 8, 64]), and (the twelfth
+    slice) the pipeline mode at {pp: 1} (the flash kernels at the
+    microbatch's [16, 4096, 8, 64]). Gates: flash launches as reckoned
+    from each config and no plain flash call; the loss falls; the MoE's
+    slot occupancy 0/1; ring, Ulysses and dense attention give one
+    batch's loss within SP_LOSS_ATOL, and so do the pipeline and the plain
+    model on the same weights; the sequence and pipeline runs stopped
+    after 1 of 2 epochs and resumed are bitwise the straight runs
     (deterministic algorithms)."""
     import tempfile
 
@@ -4567,6 +4653,19 @@ def run_distributed_phase():
         if not gap <= SP_LOSS_ATOL:
             fail(f"distributed sequence: attention strategies disagree: {losses}")
         out["resume"] = distributed_resume_check(tempfile)
+        out["pipeline"], trainer = distributed_run("distributed pipeline",
+                                                   load_arguments(str(PP_CONFIG)), "flash")
+        out["pipeline"]["microbatches"] = trainer._microbatches(trainer.bs)
+        del trainer
+        pp_losses = pp_plain_losses(load_arguments(str(PP_CONFIG)))
+        gap = abs(pp_losses["pipeline"] - pp_losses["plain"])
+        out["pp_plain_losses"] = {**pp_losses, "gap": gap, "atol": SP_LOSS_ATOL}
+        log(f"distributed pipeline: one batch's loss pipelined / plain TransformerLM "
+            f"{pp_losses['pipeline']:.6f} / {pp_losses['plain']:.6f}, gap {gap:.3g} "
+            f"(atol {SP_LOSS_ATOL})")
+        if not gap <= SP_LOSS_ATOL:
+            fail(f"distributed pipeline: the pipelined loss is not the plain model's: {pp_losses}")
+        out["pp_resume"] = pp_resume_check(tempfile)
     launches = {name: sum(run["kernel_launches"][name] for key, run in out.items()
                           if isinstance(run, dict) and "kernel_launches" in run)
                 for name in no_launches()}
@@ -4598,6 +4697,162 @@ def distributed_resume_check(tempfile) -> dict:
     if not equal:
         fail("distributed resume: the resumed run's params differ from the straight run's")
     return {"bitwise_equal": equal}
+
+
+# -- the twelfth slice: the mesh simulator ------------------------------
+# the fed mesh's shape on one card; the planet's rounds on it (cut from
+# the configuration's 3)
+MESH_SHAPE = {"data": 1, "fsdp": 1}
+MESH_PLANET_ROUNDS = 2
+MESH_ATOL = 1e-5
+
+
+@contextlib.contextmanager
+def captured_trainers():
+    """The FedAvg APIs that the simulators ``run`` while open, in order."""
+    from fedml_tpu_torch.simulation import simulator
+
+    got, origs = [], {}
+    for cls in (simulator.SimulatorSingleProcess, simulator.SimulatorMesh):
+        origs[cls] = cls.run
+
+        def run(self, _orig=origs[cls]):
+            got.append(self.fl_trainer)
+            return _orig(self)
+
+        cls.run = run
+    try:
+        yield got
+    finally:
+        for cls, orig in origs.items():
+            cls.run = orig
+
+
+def mesh_pair(tag: str, make_args, wanted, **flat_operators) -> dict:
+    """``make_args(mesh=True)`` through ``run_simulation(backend="MESH")``
+    in a NCCL world of one rank (timed; its launches held to
+    ``wanted(api)``), then, under deterministic algorithms, that run again
+    and ``make_args(mesh=False)`` through the single-process backend with
+    ``flat_operators``: the largest distance between their params, held to
+    MESH_ATOL. The mesh run is made a second time under the default
+    algorithms, and the distance between the two default runs
+    (``default_repeat``) and between the first and the deterministic one
+    (``default_vs_deterministic``) are printed beside it: what the
+    default algorithms move between two runs of one configuration and
+    one aggregator."""
+
+    def mesh_run():
+        with world_of_one(), captured_trainers() as got:
+            run = measured_run(make_args(mesh=True), backend="MESH")
+            api = got[-1]
+            return run, api, {k: v.detach().clone() for k, v in api.full_params().items()}
+
+    def distance(a, b):
+        return max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+
+    mesh, api, default_params = mesh_run()
+    local = {k: tuple(v.shape) for k, v in api.global_params.items()}
+    want = wanted(api)
+    repeat = distance(mesh_run()[2], default_params)
+    with deterministic():
+        det, _, params = mesh_run()
+    drift = distance(params, default_params)
+    with deterministic():
+        with captured_trainers() as got:
+            flat_run = measured_run(make_args(mesh=False), **flat_operators)
+            flat = {k: v.detach().clone() for k, v in got[-1].global_params.items()}
+    err = distance(params, flat)
+    spans = mesh["pipe"]["round_spans_s"]
+    rounds_s = [b - a for a, b in spans]
+    # the same rounds with and without the mesh, both under deterministic
+    # algorithms: what the mesh's plumbing costs at world one
+    det_s = {name: [b - a for a, b in run["pipe"]["round_spans_s"]]
+             for name, run in (("mesh", det), ("flat", flat_run))}
+    log(f"{tag}: mesh {api.mesh.shape}, {len(spans)} rounds in {mesh['wall_s']:.1f} s wall; "
+        f"rounds on the card's clock {[round(r * 1e3, 1) for r in rounds_s]} ms; peak "
+        f"{mesh['peak_bytes'] / 2**20:.1f} MiB; kernel launches {mesh['launches']} (reckoned "
+        f"{want}); params at rest {local}; under deterministic algorithms, the largest "
+        f"distance from the run without a mesh {err:.3g} (atol {MESH_ATOL}), their rounds "
+        f"on the card's clock {[round(r * 1e3, 1) for r in det_s['mesh']]} and "
+        f"{[round(r * 1e3, 1) for r in det_s['flat']]} ms; under the default algorithms "
+        f"two mesh runs are {repeat:.3g} apart, and the first is {drift:.3g} from the "
+        f"deterministic one")
+    if mesh["launches"] != want:
+        fail(f"{tag}: kernel launches {mesh['launches']}, reckoned {want}")
+    if not err <= MESH_ATOL:
+        fail(f"{tag}: the mesh run is {err} from the run without a mesh")
+    return {"card": card_line(), "mesh_shape": dict(api.mesh.shape), "rounds": len(spans),
+            "round_s": rounds_s, "wall_s": mesh["wall_s"], "peak_bytes": mesh["peak_bytes"],
+            "max_abs_vs_flat": err, "default_repeat": repeat,
+            "default_vs_deterministic": drift,
+            "deterministic_round_s": det_s,
+            "records": mesh["records"], "pipeline": mesh["pipe"],
+            "kernel_launches": mesh["launches"], "launches_wanted": want}
+
+
+def plain_fold_aggregator():
+    """The fed mesh's plain aggregation, the exact fold, as a custom
+    server aggregator of the single-process backend, computed by K1's
+    plain PyTorch version (``weighted_mean_reference``) and not by the
+    kernel: the same run without a mesh, its fold independent of the
+    kernel the mesh run launches."""
+    from fedml_tpu_torch.core.frame import ServerAggregator
+    from fedml_tpu_torch.ops.exact_fold import weighted_mean_reference
+
+    class PlainFold(ServerAggregator):
+        def aggregate(self, global_params, stacked_params, weights, rng):
+            w = weights.to(torch.float32)
+            return {k: weighted_mean_reference(v.reshape(v.shape[0], -1), w).reshape(v.shape[1:])
+                    for k, v in stacked_params.items()}
+
+    return PlainFold(None)
+
+
+def run_mesh_phase():
+    """The twelfth slice's fed mesh on one card: the headline FedAvg
+    configuration (``fedavg_femnist_cnn.yaml``) through
+    ``run_simulation(backend="MESH")`` at MESH_SHAPE, whose plain FedAvg
+    aggregation is the exact fold (K1's ``weighted_mean``, one launch a
+    leaf a round), and the planet configuration there, its rounds cut to
+    MESH_PLANET_ROUNDS (K1's group folds and root merges and K2's
+    features, as the registry reckons them). Gates: those launches and no
+    other kernel; each within MESH_ATOL of its run without a mesh (the
+    FedAvg one with K1's plain version as its aggregator), under
+    deterministic algorithms; the FedAvg loss falls."""
+    from fedml_tpu_torch.arguments import load_arguments
+
+    def fedavg_args(mesh):
+        args = load_arguments(str(FEDAVG_CONFIG))
+        if mesh:
+            args.mesh_shape = dict(MESH_SHAPE)
+        return args
+
+    def fedavg_wanted(api):
+        rounds = int(api.args.comm_round)
+        from fedml_tpu_torch.ops.exact_fold import MEAN_KERNEL
+
+        return {**no_launches(), MEAN_KERNEL.name: len(api.global_params) * rounds}
+
+    out = {"fedavg": mesh_pair("mesh fedavg", fedavg_args, fedavg_wanted,
+                               server_aggregator=plain_fold_aggregator())}
+    log_records("mesh fedavg", {"pipe": out["fedavg"]["pipeline"],
+                                "records": out["fedavg"]["records"]})
+
+    def planet_wanted(api):
+        rounds = range(MESH_PLANET_ROUNDS)
+        _, groups, fold_launches = planet_launches_wanted(api.args, rounds)
+        from fedml_tpu_torch.ops.exact_fold import FOLD_KERNEL
+        from fedml_tpu_torch.ops.synth_features import SYNTH_KERNEL
+
+        return {**no_launches(), FOLD_KERNEL.name: sum(fold_launches),
+                SYNTH_KERNEL.name: sum(groups)}
+
+    def planet_mesh_args(mesh):
+        knobs = {"mesh_shape": dict(MESH_SHAPE)} if mesh else {}
+        return planet_args(comm_round=MESH_PLANET_ROUNDS, **knobs)
+
+    out["planet"] = mesh_pair("mesh planet", planet_mesh_args, planet_wanted)
+    return out
 
 
 def main() -> int:
@@ -4676,6 +4931,8 @@ def main() -> int:
     log(f"other algorithms numbers on {card}: {json.dumps(other_numbers)}")
     dist_numbers = phase("distributed", run_distributed_phase)
     log(f"distributed numbers on {card}: {json.dumps(dist_numbers, default=str)}")
+    mesh_numbers = phase("mesh", run_mesh_phase)
+    log(f"mesh numbers on {card}: {json.dumps(mesh_numbers, default=str)}")
     log(f"phase wall times (s): {json.dumps(walls)}")
     paths = {
         "serving": slice_numbers, "fedavg_headline": fedavg_numbers,
@@ -4690,6 +4947,7 @@ def main() -> int:
         **{f"other_{tag}": numbers for tag, numbers in other_numbers.items()},
         **{f"distributed_{tag}": numbers for tag, numbers in dist_numbers.items()
            if isinstance(numbers, dict) and "kernel_launches" in numbers},
+        **{f"mesh_{tag}": numbers for tag, numbers in mesh_numbers.items()},
     }
     for entry in kernels:  # each path's own count, reset just before it
         entry["launches_by_path"] = {

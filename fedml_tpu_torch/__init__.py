@@ -24,8 +24,10 @@ HS-FedAvg, the encoded and clipped streaming folds and the robust term
 kernel. The tenth brings ``training_type: distributed`` through
 ``run_distributed()``: the Switch-MoE transformer over dp x tp x ep and
 ring / Ulysses sequence parallelism on ``torch.distributed``
-(``distributed.py``, ``parallel/``). ROADMAP.md lists the slices still
-to come.
+(``distributed.py``, ``parallel/``); the twelfth its pipeline mode and
+the mesh simulator, ``run_simulation(backend="MESH")`` over the fed
+``(data, fsdp)`` mesh (``parallel/layout.py``). ROADMAP.md lists the
+slices still to come.
 """
 
 from __future__ import annotations
@@ -84,30 +86,38 @@ def run_simulation(
     evaluated round's stats. ``args`` defaults to ``--cf <yaml>`` from
     the command line. Custom L3 operators (``core.frame``) plug in as
     ``client_trainer`` / ``server_aggregator``, positionally as in the
-    reference. Only the single-process backend is ported."""
+    reference. ``backend="MESH"`` (alias ``"NCCL"``) runs the mesh
+    simulator over ``args.mesh_shape`` (``simulation.SimulatorMesh``),
+    each rank calling it, in a process group the caller initialised, one
+    made from ``torchrun``'s environment, or alone as a world of one
+    rank."""
     dev = get_device(device)
-    if backend in (constants.FEDML_SIMULATION_TYPE_MESH, constants.FEDML_SIMULATION_TYPE_NCCL):
-        raise NotImplementedError(
-            f"backend {backend!r}: the mesh simulator arrives with the fed "
-            "mesh, item 9b of the port (ROADMAP.md, queue A)"
-        )
-    if backend != constants.FEDML_SIMULATION_TYPE_SP:
+    mesh = backend in (constants.FEDML_SIMULATION_TYPE_MESH, constants.FEDML_SIMULATION_TYPE_NCCL)
+    if not mesh and backend != constants.FEDML_SIMULATION_TYPE_SP:
         raise ValueError(f"unknown simulation backend {backend!r}")
     from . import data, models
-    from .simulation import SimulatorSingleProcess
+    from .simulation import SimulatorMesh, SimulatorSingleProcess
 
     args = init(args)
-    dataset = data.load(args, device=dev)
-    model = models.create(args, dataset.class_num, device=dev)
-    return SimulatorSingleProcess(
-        args, dev, dataset, model,
-        client_trainer=client_trainer, server_aggregator=server_aggregator,
-    ).run()
+    if not mesh:
+        dataset = data.load(args, device=dev)
+        model = models.create(args, dataset.class_num, device=dev)
+        return SimulatorSingleProcess(
+            args, dev, dataset, model,
+            client_trainer=client_trainer, server_aggregator=server_aggregator,
+        ).run()
+    with _process_group(dev) as dev:
+        dataset = data.load(args, device=dev)
+        model = models.create(args, dataset.class_num, device=dev)
+        return SimulatorMesh(
+            args, dev, dataset, model,
+            client_trainer=client_trainer, server_aggregator=server_aggregator,
+        ).run()
 
 
 @contextlib.contextmanager
 def _process_group(dev):
-    """The default process group for a distributed run: the caller's if
+    """The default process group for a distributed or mesh run: the caller's if
     one is initialised; else one from ``torchrun``'s environment
     (``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``/``MASTER_PORT``), each rank
     on card ``LOCAL_RANK``; else a world of one rank in this process.

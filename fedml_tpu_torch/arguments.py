@@ -123,7 +123,7 @@ _DEFAULTS: Dict[str, Any] = {
     # fold (0 = the whole shard per hop)
     "sp_strategy": "ring",
     "sp_ring_block": 0,
-    "pp_microbatches": 0,  # the pipeline mode's (not ported yet): 0 = auto
+    "pp_microbatches": 0,  # the pipeline mode's microbatches: 0 = auto (2 x stages)
     # weight of the Switch MoE load-balancing aux loss in the distributed
     # trainer's objective (0 disables)
     "moe_aux_weight": 0.01,

@@ -27,7 +27,12 @@ This maps each parameter onto the port's module of the same name:
 With it, both packages compute the same function from the same weights.
 ``stacked=True`` keeps a leading axis on every leaf (one model per
 client, FedGKT's personal nets ``[C, ...]``) and maps the rest of each
-leaf as above.
+leaf as above. The distributed trainer's pipeline tree ``{"outer": ...,
+"stages": ...}`` maps to the port's pipeline layout: ``outer/<key>``, and
+``stages/<key>`` with the two leading axes ``[S, L/S]`` kept.
+``opt_state_from_flax`` carries an optax state across: every params tree
+in it mapped as above, each named tuple a dict of its fields (an empty
+state an empty tuple), as ``core/optimizers.py`` lays its states out.
 """
 
 from __future__ import annotations
@@ -84,14 +89,50 @@ def _kernel(key: str, module: str, arr: np.ndarray, lead: int) -> np.ndarray:
     )
 
 
+_PIPELINE = {"outer", "stages"}
+
+
 def params_from_flax(tree: Mapping[str, Any], stacked: bool = False) -> Dict[str, torch.Tensor]:
     """A flax params tree (nested dicts, or slash-joined keys, of numpy
     arrays) -> the port's ``{slash/joined/key: Tensor}`` params on the
     CPU; ``stacked`` keeps every leaf's leading axis. Raises
     ``ValueError`` on a leaf this mapping does not know."""
+    if set(tree) == _PIPELINE and all(isinstance(v, Mapping) for v in tree.values()):
+        out = {f"outer{_SEP}{k}": v for k, v in _convert(tree["outer"], 0).items()}
+        out.update({f"stages{_SEP}{k}": v for k, v in _convert(tree["stages"], 2).items()})
+        return out
+    return _convert(tree, 1 if stacked else 0)
+
+
+def _is_params(tree: Mapping[str, Any]) -> bool:
+    """A flax params tree: nested dicts down to arrays, its top keys
+    module names (or the pipeline tree's halves)."""
+    return set(tree) == _PIPELINE or (bool(tree) and all(
+        isinstance(v, Mapping) or k in _RAW for k, v in tree.items()))
+
+
+def opt_state_from_flax(state: Any) -> Any:
+    """An optax optimizer state -> the port's: params trees through
+    ``params_from_flax``, named tuples as dicts of their fields (an empty
+    one as ``()``), tuples as tuples, arrays as tensors."""
+    if isinstance(state, Mapping):
+        if _is_params(state):
+            return params_from_flax(state)
+        return {k: opt_state_from_flax(v) for k, v in state.items()}
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return ({f: opt_state_from_flax(getattr(state, f)) for f in state._fields}
+                if state._fields else ())
+    if isinstance(state, (tuple, list)):
+        return tuple(opt_state_from_flax(v) for v in state)
+    return torch.tensor(np.asarray(state))
+
+
+def _convert(tree: Mapping[str, Any], lead: int) -> Dict[str, torch.Tensor]:
+    """``params_from_flax`` with the first ``lead`` axes of every leaf
+    kept as they are."""
     out: Dict[str, torch.Tensor] = {}
     cells: Dict[str, Dict[tuple, np.ndarray]] = {}
-    lead = 1 if stacked else 0
+    stacked = lead > 0
     for key, val in _flatten(tree).items():
         parts = key.split(_SEP)
         if len(parts) >= 3 and parts[-3].startswith(_LSTM_CELL):

@@ -24,6 +24,13 @@ As in the JAX package:
   and the metric sums stay f32. Only floating inputs are cast: token ids
   stay integers (``_cast_floats``, as the JAX package casts its leaves).
 
+``data_group`` (the legacy simulator mesh's ``data`` axis) splits each
+batch's examples over that process group's ranks, after the shuffle:
+each rank differentiates the masked loss *sum* of its examples, the
+sums of gradients and counts are all-reduced, and the step takes their
+quotient (plus the prox term's own gradient), so the ranks take the
+one-rank step to f32 rounding and end every step with the same params.
+
 The shuffle draws its permutations from uniforms the caller passes
 (``rng``: ``[C, epochs, nb*bs]``), drawn by the round engine from its
 ``torch.Generator``; PyTorch's stream is not ``jax.random``'s, so the
@@ -108,6 +115,7 @@ def make_local_train_fn(
     prox_mu: float = 0.0,
     shuffle: bool = True,
     compute_dtype: Optional[torch.dtype] = None,
+    data_group=None,
 ) -> Callable:
     """Build ``local_train(params, batches, rng=None, lr_mult=None) ->
     (new_params, metrics)``.
@@ -140,15 +148,54 @@ def make_local_train_fn(
 
     grad_fn = torch.func.grad_and_value(batch_loss, has_aux=True)
 
-    def train_step(p, s, global_params, x, y, m, lr_mult):
-        grads, (_, metrics) = grad_fn(p, global_params, x, y, m)
+    def local_sum(params, x, y, mask):
+        """The masked loss sum of this rank's examples (its count is the
+        loss's own: examples or tokens)."""
+        loss, metrics = batch_loss(params, params, x, y, mask)
+        return loss * metrics["count"], metrics
+
+    sum_grad_fn = torch.func.vmap(torch.func.grad_and_value(local_sum, has_aux=True))
+
+    def apply_update(p, s, grads, count, lr_mult):
+        """The optimizer's step on ``grads``, scaled by ``lr_mult``; a
+        client whose step saw no example (``count`` 0) keeps its params
+        and state."""
         updates, s_new = optimizer.update(grads, s, p)
         if lr_mult is not None:
             updates = {k: u * lr_mult for k, u in updates.items()}
         p_new = {k: p[k] + updates[k] for k in p}
-        nonempty = m.sum() > 0
+        nonempty = count > 0
         p = pytree.tree_map(lambda a, b: torch.where(nonempty, a, b), p_new, p)
         s = pytree.tree_map(lambda a, b: torch.where(nonempty, a, b), s_new, s)
+        return p, s
+
+    def split_step(p, s, global_params, x, y, m, lr_mult):
+        """One step over the data group: this rank's share of each
+        client's batch (examples ``[lo, hi)``), the gradient sums and
+        counts all-reduced."""
+        import torch.distributed as dist
+
+        n, r = dist.get_world_size(data_group), dist.get_rank(data_group)
+        bs = m.shape[1]
+        lo, hi = r * bs // n, (r + 1) * bs // n
+        (gsum, (_, metrics)) = sum_grad_fn(p, x[:, lo:hi], y[:, lo:hi], m[:, lo:hi])
+        keys = list(gsum)
+        flat = torch.cat([gsum[k].reshape(gsum[k].shape[0], -1) for k in keys]
+                         + [metrics["count"].to(gsum[keys[0]].dtype)[:, None]], dim=1)
+        dist.all_reduce(flat, group=data_group)
+        count = flat[:, -1]
+        parts = flat[:, :-1].split([gsum[k][0].numel() for k in keys], dim=1)
+        denom = count.clamp_min(1.0)[:, None]
+        grads = {k: (part / denom).view_as(gsum[k]) for k, part in zip(keys, parts)}
+        if prox_mu > 0.0:  # the prox term's own gradient: the sums carry none
+            grads = {k: g + prox_mu * (p[k] - global_params[k]) for k, g in grads.items()}
+        p, s = torch.func.vmap(apply_update, in_dims=(0, 0, 0, 0, None))(
+            p, s, grads, count, lr_mult)
+        return p, s, metrics
+
+    def train_step(p, s, global_params, x, y, m, lr_mult):
+        grads, (_, metrics) = grad_fn(p, global_params, x, y, m)
+        p, s = apply_update(p, s, grads, m.sum(), lr_mult)
         return p, s, metrics
 
     def local_train(params: Params, batches: Batches, rng=None, lr_mult=None,
@@ -173,6 +220,11 @@ def make_local_train_fn(
 
             first = {k: v[0] for k, v in params.items()}
             p, s = dict(params), _stack(optimizer.init(first), C)
+        elif data_group is not None:
+            def step(p, s, x, y, m):
+                return split_step(p, s, params, x, y, m, lr_mult)
+
+            p, s = _stack(params, C), _stack(optimizer.init(params), C)
         else:
             step = torch.func.vmap(
                 lambda p, s, x, y, m: train_step(p, s, params, x, y, m, lr_mult)
@@ -189,7 +241,14 @@ def make_local_train_fn(
                 sums = {"loss_sum": sums["loss_sum"] + m["loss"] * m["count"],
                         "correct": sums["correct"] + m["correct"],
                         "count": sums["count"] + m["count"]}
-        return p, {k: v.to(torch.float32) for k, v in sums.items()}
+        sums = {k: v.to(torch.float32) for k, v in sums.items()}
+        if data_group is not None:  # each rank summed its own examples
+            import torch.distributed as dist
+
+            flat = torch.stack([sums[k] for k in sums])
+            dist.all_reduce(flat, group=data_group)
+            sums = dict(zip(sums, flat.unbind(0)))
+        return p, sums
 
     return local_train
 

@@ -138,8 +138,13 @@ class RoundPipeline:
         ``api._ckpt_freq`` rounds and after the last."""
         api = self.api
         cuda = api.device.type == "cuda"
+        # a bucket must tile the mesh's cohort axis, so every lane trains
+        # an equal share
+        from ..parallel.layout import cohort_axis_size
+
         bucket = bucket_cohort(int(api.args.client_num_per_round), self.bucket_policy,
-                               max_size=int(api.dataset.client_num))
+                               max_size=int(api.dataset.client_num),
+                               shard_multiple=cohort_axis_size(getattr(api, "mesh", None)))
         final_stats: Dict[str, float] = {}
         rounds = range(start_round, comm_rounds)
         if len(rounds) == 0:

@@ -19,8 +19,14 @@ the process group up), the mesh a ``DeviceMesh`` over it
   (``parallel/sequence.py``) with the token axis split over ``sp``, the
   batch over an optional ``dp``; parameters replicated, gradients
   all-reduced over every rank.
-- **pipeline** ({pp}, {dp, pp}): not ported yet; ``mesh_shape`` with
-  ``pp`` raises (item 9b).
+- **pipeline** ({pp} or {dp, pp}): the plain ``TransformerLM``'s block
+  stack cut into pp stages (stage-major ``[S, L/S, ...]`` stacking, each
+  pp rank holding its stage) and run on the GPipe schedule of
+  ``parallel/pipeline.py`` over microbatches of each accumulation chunk
+  (``pp_microbatches``, 0 = the reference's auto rule); an optional
+  ``dp`` splits each microbatch's examples. The embedding's gradient is
+  summed over the stages (only stage 0 reads it), the replicated
+  LayerNorm and head's are not.
 
 Each optimizer step is the JAX package's (``_epoch_scanner``): the loss
 is the model's masked mean over the global batch (tokens for an LM) plus
@@ -32,10 +38,17 @@ their token counts (exactly the unchunked gradient), the optimizer
 master params, a bf16 ``dtype`` running the forward and backward in bf16
 over them. Every rank computes the masked *sum* over its own examples
 divided by the global count (an all-reduce of counts), so the
-all-reduced gradients are the global mean's. The global batch is laid out so that a
-dp rank holds, of every accumulation chunk, its share of that chunk; the
-MoE routing pool is the chunk across the ranks (``models.moe.set_routing_pool``)
-as it is under SPMD, and in evaluation the whole test batch, which the
+all-reduced gradients are the global mean's. Each accumulation chunk
+(rows ``[j * chunk, (j + 1) * chunk)`` of the shuffled global batch, as
+the JAX package splits it) is spread over the dp ranks as evenly as it
+goes: dp rank d computes the chunk's rows ``[d * chunk // dp, (d + 1) *
+chunk // dp)`` (in the pipeline mode, its share of each microbatch),
+padded with masked rows to the largest share, so that a dp that divides
+the batch but not the chunk trains the reference's gradient too, and a
+rank with no rows of a chunk still joins every collective of it. The
+MoE routing pool is the chunk's real tokens across the ranks
+(``models.moe.set_routing_pool``) as it is under SPMD, the padded rows
+taking no capacity; in evaluation it is the whole test batch, which the
 JAX package passes in one forward whatever the accumulation. A sequence
 rank's position embeddings are its tokens' global positions.
 
@@ -67,15 +80,49 @@ import torch.distributed as dist
 from .core.local_trainer import _cast_floats, compute_dtype_from_args
 from .core.optimizers import create_client_optimizer
 from .core.types import Batches, flat_examples, rebatch
-from .parallel.collectives import all_reduce_
+from .parallel.collectives import all_reduce_, copy_to
 from .parallel.expert import attach_ep, tp_ep_layout
 from .parallel.mesh import build_mesh, resolve_mesh_shape
-from .parallel.tensor import attach_tp, gather_full, local_shard
+from .parallel.pipeline import (check_microbatch, check_stage_stack, pipeline_apply,
+                                 split_microbatches, stack_stage_params)
+from .parallel.tensor import Shard, attach_tp, gather_full, local_shard
 
 Params = Dict[str, torch.Tensor]
 
 # the shuffle's stream: the JAX package folds 0x51 into its init key for it
 _SHUFFLE_STREAM = 0x51
+
+# the pipeline mode's parameter split: what TransformerLM holds outside
+# its blocks (the reference's ``expected`` outer set), and the prefixes
+# of the two halves
+PP_OUTER = {"Embed_0", "Embed_1", "LayerNorm_0", "Dense_0"}
+PP_PREFIXES = ("outer/", "stages/")
+
+
+def pipeline_params(params: Params, num_layers: int, stages: int) -> Params:
+    """A ``TransformerLM``'s params in the pipeline mode's layout:
+    ``outer/<key>`` for the embeddings, the final LayerNorm and the head,
+    and ``stages/<block leaf>`` ``[S, L/S, ...]`` for the block stack,
+    stage-major (stage s holds blocks ``s * L/S`` to ``(s + 1) * L/S -
+    1``). Params already in that layout (carried from the JAX package by
+    ``convert.params_from_flax``) are checked and kept."""
+    if not any(k.startswith(PP_PREFIXES) for k in params):
+        per = num_layers // stages
+        leaves = sorted({k.split("/", 1)[1] for k in params if k.startswith("Block_")})
+        stacked = stack_stage_params([
+            {f"stages/{leaf}": torch.stack([params[f"Block_{s * per + i}/{leaf}"]
+                                            for i in range(per)]) for leaf in leaves}
+            for s in range(stages)])
+        params = {**{f"outer/{k}": v for k, v in params.items()
+                     if not k.startswith("Block_")}, **stacked}
+    outer = {k.split("/")[1] for k in params if k.startswith("outer/")}
+    if outer != PP_OUTER:
+        raise ValueError(
+            "pipeline mode mirrors TransformerLM's embed/head "
+            f"structure; unexpected params: {sorted(outer ^ PP_OUTER)}"
+        )
+    check_stage_stack({k: v for k, v in params.items() if k.startswith("stages/")}, stages)
+    return params
 
 
 def _map_params_trees(tree, keys, fn):
@@ -114,7 +161,8 @@ class DistributedTrainer:
         self.args, self.device, self.dataset, self.model = args, device, dataset, model
         self.shape = resolve_mesh_shape(getattr(args, "mesh_shape", None),
                                         dist.get_world_size())
-        self.mode = "sequence" if "sp" in self.shape else "sharded"
+        self.mode = ("pipeline" if "pp" in self.shape
+                     else "sequence" if "sp" in self.shape else "sharded")
         self.mesh = build_mesh(self.shape, device.type)
         self.groups = {axis: self.mesh.get_group(axis) for axis in self.shape}
         self.coords = self._coords(dist.get_rank())  # this rank's place on each axis
@@ -131,30 +179,37 @@ class DistributedTrainer:
         train = dataset.train_data_global
         bs, seq_len = int(train.x.shape[1]), int(train.x.shape[-1])
         dp, sp = self.shape.get("dp", 1), self.shape.get("sp", 1)
+        self.dp = dp
+        if params is None:
+            params = model.init(torch.Generator().manual_seed(self.seed))
         if self.mode == "sequence":
             self._build_sequence(seq_len)
+        elif self.mode == "pipeline":
+            params = self._build_pipeline(params)
         if "dp" in self.shape and bs % dp:
             raise ValueError(f"mesh axis dp={dp} must divide batch_size {bs}")
         if bs % self.accum:
             raise ValueError(f"grad_accum_steps={self.accum} must divide batch_size {bs}")
-        if (bs // self.accum) % dp:
-            raise ValueError(
-                f"mesh axis dp={dp} must divide each of the {self.accum} accumulation "
-                f"chunks of batch_size {bs} ({bs // self.accum} examples): a dp rank holds "
-                "its share of every chunk"
-            )
-        self.bs, self.seq_len, self.dp, self.sp = bs, seq_len, dp, sp
+        self.bs, self.seq_len, self.sp = bs, seq_len, sp
+        if self.mode == "pipeline":  # the reference's refusals, at both batch shapes
+            for b in (bs // self.accum, bs):
+                m = self._microbatches(b)
+                split_microbatches(torch.empty(b, 0), m)
+                check_microbatch(b // m, "dp" if dp > 1 else None, dp)
         # the ranks whose tokens make one batch (the gradient all-reduce
-        # and the routing pool): dp in the sharded mode, every rank in the
-        # sequence mode
+        # and the routing pool): dp in the sharded and pipeline modes,
+        # every rank in the sequence mode
         self.data_group = (dist.group.WORLD if self.mode == "sequence"
                            else self.groups.get("dp"))
-        if params is None:
-            params = model.init(torch.Generator().manual_seed(self.seed))
         params = {k: v.to(device) for k, v in params.items()}
         num_heads = getattr(model.module, "num_heads", 1)
-        self.layout = (tp_ep_layout(params, self.shape, num_heads)
-                       if self.mode == "sharded" else {k: None for k in params})
+        if self.mode == "sharded":
+            self.layout = tp_ep_layout(params, self.shape, num_heads)
+        elif self.mode == "pipeline":  # each pp rank holds its stage
+            self.layout = {k: Shard("pp", 0) if k.startswith("stages/") else None
+                           for k in params}
+        else:
+            self.layout = {k: None for k in params}
         self.params = self._shard(params)
         if self.mode == "sharded":
             if "tp" in self.shape:
@@ -209,6 +264,35 @@ class DistributedTrainer:
         if seq_len % sp:
             raise ValueError(f"mesh axis sp={sp} must divide seq_len {seq_len}")
 
+    def _build_pipeline(self, params: Params) -> Params:
+        """The reference's ``_build_pipeline`` checks, and ``params`` in
+        the pipeline layout (``pipeline_params``)."""
+        from .models.transformer import TransformerLM
+
+        module = self.model.module
+        if type(module) is not TransformerLM:
+            raise ValueError(
+                f"pipeline mode supports the plain TransformerLM block "
+                f"stack, got {type(module).__name__}"
+            )
+        S, L = self.shape["pp"], int(module.num_layers)
+        if L % S:
+            raise ValueError(f"pp={S} must divide num_layers {L}")
+        self.layers_per_stage = L // S
+        return pipeline_params(params, L, S)
+
+    def _microbatches(self, B: int) -> int:
+        """The microbatch count of a ``B``-example batch: ``pp_microbatches``,
+        or the reference's auto rule (``_pp_apply``): up to 2 x stages,
+        the largest that divides B with a microbatch dp divides."""
+        micro = int(getattr(self.args, "pp_microbatches", 0) or 0)
+        if micro <= 0:
+            dp = self.dp
+            micro = min(B // dp if B >= dp else B, max(2 * self.shape["pp"], 1))
+            while micro > 1 and (B % micro or (B // micro) % dp):
+                micro -= 1
+        return micro
+
     def _coords(self, rank: int) -> Dict[str, int]:
         """``rank``'s coordinate on each mesh axis (row-major, as the
         mesh lays ranks out)."""
@@ -236,21 +320,43 @@ class DistributedTrainer:
         return _map_params_trees(self.opt_state, set(self.params),
                                  lambda k, v: self._full(k, v))
 
-    def _example_ids(self, bs: int, chunk: int) -> torch.Tensor:
-        """This dp rank's examples of a ``bs`` batch split into chunks of
-        ``chunk`` examples: its share of each chunk, in order."""
-        share, d = chunk // self.dp, self.coords.get("dp", 0)
-        return torch.cat([torch.arange(j * chunk + d * share, j * chunk + (d + 1) * share)
-                          for j in range(bs // chunk)])
+    def _rank_rows(self, d: int, chunk: int) -> torch.Tensor:
+        """dp rank ``d``'s rows of a ``chunk``-example chunk, in order:
+        an even split (``[d * chunk // dp, (d + 1) * chunk // dp)``), or
+        in the pipeline mode its share of each microbatch (the reference
+        splits each microbatch's examples over dp)."""
+        if self.mode == "pipeline":
+            M = self._microbatches(chunk)
+            mb = chunk // M
+            part = mb // self.dp
+            return torch.cat([torch.arange(m * mb + d * part, m * mb + (d + 1) * part)
+                              for m in range(M)])
+        return torch.arange(d * chunk // self.dp, (d + 1) * chunk // self.dp)
+
+    def _width(self, chunk: int) -> int:
+        """The rows a rank computes for each chunk: the largest share."""
+        return -(-chunk // self.dp)
+
+    def _example_ids(self, bs: int, chunk: int):
+        """This dp rank's rows of a ``bs`` batch split into chunks of
+        ``chunk`` examples, ``_width(chunk)`` a chunk (a short share
+        padded with copies of the chunk's first row), and which of them
+        are real."""
+        d, width = self.coords.get("dp", 0), self._width(chunk)
+        rows = self._rank_rows(d, chunk)
+        pad = width - rows.numel()
+        ids = torch.cat([torch.cat([j * chunk + rows, torch.full((pad,), j * chunk)])
+                         for j in range(bs // chunk)])
+        real = torch.cat([torch.ones(rows.numel()), torch.zeros(pad)]).repeat(bs // chunk)
+        return ids, real
 
     def _pool(self, chunk: int):
         """The MoE routing pool of ``chunk`` examples across the data
-        group: each rank's (ids within the chunk, sequence shard)."""
+        group: each rank's (real ids within the chunk, sequence shard)."""
         from .models.moe import RoutingPool
 
         if self.data_group is None:
             return None
-        share = chunk // self.dp
         layout = []
         for r in range(dist.get_world_size(self.data_group)):
             if self.mode == "sequence":
@@ -258,14 +364,17 @@ class DistributedTrainer:
                 d, s = c.get("dp", 0), c["sp"]
             else:
                 d, s = r, 0
-            layout.append((torch.arange(d * share, (d + 1) * share), s))
+            layout.append((self._rank_rows(d, chunk), s))
         return RoutingPool(self.data_group, layout, chunk, self.sp)
 
     def _local_batches(self, b: Batches, chunk: int) -> Batches:
-        """This rank's part of global batches [nb, bs, T...]: its examples
-        (``_example_ids``) and, in the sequence mode, its time shard."""
-        idx = self._example_ids(b.batch_size, chunk).to(b.x.device)
-        x, y, m = b.x[:, idx], b.y[:, idx], b.mask[:, idx]
+        """This rank's part of global batches [nb, bs, T...]: its rows of
+        each chunk (``_example_ids``, padding masked) and, in the
+        sequence mode, its time shard."""
+        idx, real = self._example_ids(b.batch_size, chunk)
+        idx = idx.to(b.x.device)
+        x, y = b.x[:, idx], b.y[:, idx]
+        m = b.mask[:, idx] * real.to(b.mask.device, b.mask.dtype)
         if self.mode == "sequence":
             t = self.seq_len // self.sp
             s = self.coords["sp"] * t
@@ -296,9 +405,55 @@ class DistributedTrainer:
                        b.num_batches, b.batch_size)
 
     def _apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        if self.mode == "pipeline":
+            return self._pp_apply(params, x)
         named = {k.replace("/", "."): v for k, v in params.items()}
         return torch.func.functional_call(self.model.module, named, (x,),
                                           {"positions": self._positions()}, strict=True)
+
+    def _pp_apply(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        """``TransformerLM.forward`` with the block stack pipelined (the
+        reference's ``_pp_apply``): the embeddings, this rank's stage of
+        blocks on the GPipe schedule over the batch's microbatches, the
+        final LayerNorm and the head, each run by the model's own module
+        on the given params. ``tokens`` are this rank's rows, microbatch-
+        major (``_rank_rows``)."""
+        from torch.func import functional_call
+
+        from .models.transformer import Rematerialize
+
+        m = self.model.module
+
+        def outer(name: str, x):
+            sub = getattr(m, name)
+            return functional_call(sub, {leaf: params[f"outer/{name}/{leaf}"]
+                                         for leaf, _ in sub.named_parameters()}, (x,))
+
+        B, T = tokens.shape
+        x = outer("Embed_0", tokens) + outer("Embed_1", torch.arange(T, device=tokens.device))[None]
+        # only stage 0 reads the embeddings: their gradient is summed over
+        # the stages (the transpose of the reference's pcast to varying)
+        x = copy_to(x, self.groups["pp"])
+        names = [k[len("stages/"):] for k in params if k.startswith("stages/")]
+        stage = [params[f"stages/{n}"][0] for n in names]  # this rank's [L/S, ...]
+        dotted = [n.replace("/", ".") for n in names]
+        block = m.Block_0  # every block has Block_0's structure
+
+        def run_block(h, ps):
+            return functional_call(block, ps, (h,), strict=True)
+
+        def stage_fn(h):
+            for i in range(self.layers_per_stage):
+                ps = [t[i] for t in stage]
+                if m.remat:  # recompute the block in the backward pass
+                    h = Rematerialize.apply(run_block, tuple(dotted), h, *ps)
+                else:
+                    h = run_block(h, dict(zip(dotted, ps)))
+            return h
+
+        M = self._microbatches(B * self.dp)
+        out = pipeline_apply(stage_fn, split_microbatches(x, M), self.groups["pp"])
+        return outer("Dense_0", outer("LayerNorm_0", out.reshape(x.shape)))
 
     def _sums(self, params: Params, x, y, m):
         """(masked loss sum, correct, count, per-layer aux losses, slot
@@ -320,8 +475,7 @@ class DistributedTrainer:
     def _step(self, x, y, m) -> torch.Tensor:
         """One optimizer step on this rank's part of a global batch;
         returns its local (nll sum, correct, count)."""
-        chunk = self.bs // self.accum
-        local = chunk // self.dp
+        local = self._width(self.bs // self.accum)
         keys = list(self.params)
         gsum = {k: torch.zeros_like(v) for k, v in self.params.items()}
         sums = torch.zeros(3, dtype=torch.float32, device=self.device)  # nll, correct, count

@@ -32,6 +32,9 @@ Two seams on each layer replace the JAX package's ``sow`` and SPMD:
   capacity positions are offset by the counts of every token before its
   own in the global order (an all-gather of per-example counts), the
   capacity comes from the global N, and the aux loss's means are global.
+  A rank may hold more rows than its ids (the trainer pads a short share
+  of an accumulation chunk): the rows past them are padding, routed to no
+  expert, taking no capacity and adding nothing to the aux loss.
   Without it the pool is the layer's own tokens.
 
 With ``ep`` set (``parallel/expert.py``), a rank holds ``E / ep`` experts:
@@ -81,8 +84,9 @@ class RoutingPool:
 
     ``group`` spans the ranks whose tokens share a pool; ``layout[r]`` is
     group rank r's (example ids in the pool, sequence-shard index): its
-    local examples are the pool's examples ``ids``, and of each it holds
-    the ``sp_index``-th of ``sp_size`` equal shards of the time axis. The
+    first ``len(ids)`` local examples are the pool's examples ``ids`` (any
+    local rows after them are padding), and of each it holds the
+    ``sp_index``-th of ``sp_size`` equal shards of the time axis. The
     global token order is (example, time)."""
 
     group: object
@@ -123,11 +127,13 @@ def _pool_positions(onehot: torch.Tensor, B: int, pool: RoutingPool):
     table = torch.zeros((pool.examples, pool.sp_size, E), dtype=torch.float32,
                         device=onehot.device)
     for (ids, shard), c in zip(pool.layout, gathered):
-        table[ids.to(onehot.device), shard] = c
+        table[ids.to(onehot.device), shard] = c[:ids.numel()]
     flat = table.reshape(-1, E)
     before = torch.cumsum(flat, 0) - flat  # exclusive prefix in the global order
     ids, shard = pool.layout[dist.get_rank(pool.group)]
     offset = before.view(pool.examples, pool.sp_size, E)[ids.to(onehot.device), shard]
+    if ids.numel() < B:  # padded rows: routed nowhere, any offset does
+        offset = torch.cat([offset, offset.new_zeros((B - ids.numel(), E))])
     pos = offset[:, None, :] + torch.cumsum(per_ex, 1) - 1.0
     return (pos * per_ex).reshape(-1, E)
 
@@ -171,19 +177,28 @@ class SwitchFFN(nn.Module):
         expert = torch.argmax(probs, dim=-1)  # [N]
         onehot = _onehot(expert, E)  # [N, E]
 
+        real = None  # [N] 1 for a real token, 0 for padding (None: all real)
         if pool is None:
             frac, mean_prob = onehot.mean(0), probs.mean(0)
             pos = (torch.cumsum(onehot, 0) - 1.0) * onehot
         else:
+            held = pool.layout[dist.get_rank(pool.group)][0].numel()
+            pooled = probs
+            if held < B:  # padded rows: in no expert's pool
+                real = (torch.arange(B, device=x.device) < held).repeat_interleave(T)
+                onehot = onehot * real[:, None]
+                pooled = probs * real[:, None]
             frac = all_reduce_(onehot.sum(0), pool.group) / n_global
             # the aux loss is the same on every rank of the pool: each
             # rank's gradient flows through its own tokens' probs only
-            mean_prob = reduce_from(probs.sum(0), pool.group) / n_global
+            mean_prob = reduce_from(pooled.sum(0), pool.group) / n_global
             pos = _pool_positions(onehot, B, pool)
         # token n's slot at its expert, kept below the capacity; a dropped
         # token's index is the spare row E * cap
         slot = pos.gather(1, expert[:, None])[:, 0]
         kept = slot < cap
+        if real is not None:
+            kept = kept & real
         slot = slot.to(torch.int64)
         spare = torch.full_like(expert, E * cap)
         index = torch.where(kept, expert * cap + slot, spare)

@@ -1,4 +1,7 @@
-"""The distributed trainer's parallel planes: the mesh over the process
-group (``mesh``), differentiable collectives (``collectives``), the
-sequence-sharded attention, ring and Ulysses (``sequence``), and the
-tensor- and expert-parallel layouts (``tensor``, ``expert``)."""
+"""The port's parallel planes: the meshes over the process group
+(``mesh``: the distributed trainer's and the simulator's, with the
+federation's placement), differentiable collectives (``collectives``),
+the sequence-sharded attention, ring and Ulysses (``sequence``), the
+tensor- and expert-parallel layouts (``tensor``, ``expert``), the GPipe
+schedule (``pipeline``) and the fed mesh's parameter layout
+(``layout``)."""

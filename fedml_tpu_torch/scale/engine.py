@@ -22,6 +22,12 @@ Host memory a round is O(cohort x client data), independent of the
 registry's size. Evaluation runs on the dataset's global holdouts (the
 registry dataset builds no per-client evaluation data).
 
+On a fed ``(data, fsdp)`` mesh (``api.mesh``) every data rank
+materializes and trains its lane of each group against the params
+gathered whole at use, the trained params are all-gathered in slot order,
+and every rank computes the group's terms and folds them as the one-rank
+loop does; the finalized params rest fsdp-sharded again.
+
 In eager PyTorch nothing is traced: the per-(bucket, nb) state the JAX
 loop keeps as its jit cache is here the census of shapes seen, and
 ``trace_count`` counts each shape's first call, as the JAX loop counts
@@ -44,6 +50,7 @@ from ..core.round_pipeline import _mark, _seconds
 from ..core.telemetry import Telemetry
 from ..core.tracking import DeferredMetrics
 from ..core.types import Batches
+from ..parallel.mesh import train_lane
 from .cohort import pack_cohort
 from .registry import ClientRegistry
 from .tree import EdgeAggregationTree
@@ -58,6 +65,7 @@ def build_group_fn(
     *,
     use_round_lr: bool = False,
     mesh=None,
+    at_use=None,
     on_trace=None,
 ):
     """The per-(bucket, nb) group computation as a pure function of its
@@ -77,26 +85,43 @@ def build_group_fn(
     JAX function's donated carry is. ``on_trace``
     fires on the first call of each (bucket, nb) shape. ``rng`` is the
     shuffle's uniforms (``core/local_trainer.py``), or None.
+
+    With a fed ``mesh`` (``parallel/mesh.SimMesh``), ``global_params`` are
+    this rank's at-rest shards (``at_use`` gathers them whole),
+    ``batches`` are this rank's lane of the group (``mesh.lanes(C)`` of
+    its C slots; ``ns``, ``valid``, ``edge_onehot`` and ``rng`` stay the
+    whole group's), the trained params are gathered back in slot order
+    and the terms and metrics are the whole group's on every rank.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "build_group_fn(mesh=...): the fed (data, fsdp) mesh arrives with "
-            "ROADMAP.md, queue A item 9b"
+    from ..parallel.layout import is_fed_mesh
+
+    if mesh is not None and not is_fed_mesh(mesh):
+        raise ValueError(
+            "client_registry_size: the registry-backed round loop "
+            "aggregates via the streaming fold and synthesizes "
+            "cohort data on demand; unsupported with the legacy (clients) mesh"
         )
     seen: set = set()
 
     def group_fn(global_params, batches: Batches, ns, valid, edge_onehot, rng,
                  lr_mult=None):
-        C = batches.mask.shape[0]
+        C = ns.shape[0]
         if on_trace is not None and (C, batches.num_batches) not in seen:
             seen.add((C, batches.num_batches))
             on_trace()
-        vm = valid.reshape((-1,) + (1,) * (batches.mask.dim() - 1))
+        lo, hi = mesh.lanes(C) if mesh is not None else (0, C)
+        vm = valid[lo:hi].reshape((-1,) + (1,) * (batches.mask.dim() - 1))
         masked = Batches(x=batches.x, y=batches.y,
                          mask=batches.mask * vm.to(batches.mask.dtype))
-        stacked, metrics = local_train(
-            global_params, masked, rng, lr_mult if use_round_lr else None
+        params = at_use(global_params) if mesh is not None else global_params
+        stacked, metrics = train_lane(
+            local_train, params, masked, None if rng is None else rng[lo:hi],
+            lr_mult if use_round_lr else None
         )
+        summed = {k: v.sum() for k, v in metrics.items()}
+        if mesh is not None:
+            stacked = mesh.gather_stacked(stacked, C)
+            summed = mesh.sum_lanes(summed)
         w = ns * valid  # [C]; padded slots weigh zero
 
         def edge_sums(leaf: torch.Tensor) -> torch.Tensor:
@@ -105,7 +130,6 @@ def build_group_fn(
 
         terms = torch.cat([edge_sums(stacked[k]) for k in global_params], dim=1)
         edge_w = torch.einsum("c,ce->e", w, edge_onehot)
-        summed = {k: v.sum() for k, v in metrics.items()}
         return global_params, terms, edge_w, summed
 
     return group_fn
@@ -161,10 +185,16 @@ class PlanetRoundLoop:
 
     @staticmethod
     def _validate(api) -> None:
-        """The JAX loop's refusals, word for word (the port has no mesh:
-        ``build_group_fn`` refuses one)."""
+        """The JAX loop's refusals, word for word."""
+        from ..parallel.layout import is_fed_mesh
+
         args = api.args
         unsupported = []
+        if getattr(api, "mesh", None) is not None and not is_fed_mesh(api.mesh):
+            # the fed (data, fsdp) mesh splits each (bucket, nb) group over
+            # its data ranks; the legacy 'clients' mesh pre-shards an eager
+            # federation this loop never builds
+            unsupported.append("the legacy (clients) mesh")
         if getattr(api, "server_aggregator", None) is not None:
             unsupported.append("a custom server_aggregator")
         if getattr(api, "robust", None) is not None:
@@ -198,6 +228,7 @@ class PlanetRoundLoop:
             api._local_train,
             use_round_lr=api._round_lr is not None,
             mesh=getattr(api, "mesh", None),
+            at_use=api.full_params,
             on_trace=on_trace,
         )
 
@@ -222,8 +253,12 @@ class PlanetRoundLoop:
         # flat accumulator — the baseline the tree's bit-identity is
         # held against
         flat_fold = bool(getattr(args, "edge_flat_fold", False))
+        mesh = getattr(api, "mesh", None)
+        # the accumulators' template: the whole params (at rest on a mesh
+        # a rank holds its fsdp shards)
+        template = api.full_params()
         tree = (
-            EdgeAggregationTree(api.global_params, self.edge_num)
+            EdgeAggregationTree(template, self.edge_num)
             if self.edge_num >= 2 and not flat_fold
             else None
         )
@@ -267,7 +302,7 @@ class PlanetRoundLoop:
                         self.waste_cap,
                     )
             lr_mult = api._lr_mult(round_idx)
-            acc = tree if tree is not None else StreamingAccumulator(api.global_params)
+            acc = tree if tree is not None else StreamingAccumulator(template)
             summed = None
             round_folds = 0
             for group in plan.groups:
@@ -278,10 +313,21 @@ class PlanetRoundLoop:
                             "planet.trace", cat="compile",
                             bucket=group.bucket, nb=group.nb,
                         )
-                batches, _ = self.registry.materialize_group(
-                    group.client_idx, group.nb, bs, self.feature_shape, self.class_num,
-                    sigma=self.sigma, dtype=x_dtype, device=api.device,
-                )
+                # on a mesh a rank makes only its lane's clients (each
+                # client's data is keyed by its registry id, whatever the
+                # group it lands in)
+                lo, hi = mesh.lanes(group.bucket) if mesh is not None else (0, group.bucket)
+                if hi > lo:
+                    batches, _ = self.registry.materialize_group(
+                        group.client_idx[lo:hi], group.nb, bs, self.feature_shape,
+                        self.class_num, sigma=self.sigma, dtype=x_dtype, device=api.device,
+                    )
+                else:  # a group smaller than the data axis: an empty lane here
+                    batches = Batches(
+                        x=torch.zeros((0, group.nb, bs) + self.feature_shape, dtype=x_dtype,
+                                      device=api.device),
+                        y=torch.zeros((0, group.nb, bs), dtype=torch.int64, device=api.device),
+                        mask=torch.zeros((0, group.nb, bs), device=api.device))
                 # edge routing is a property of the CLIENT (registry id
                 # mod E), not of its slot — stable across cohorts
                 onehot = np.zeros((group.bucket, E), dtype=np.float32)
@@ -314,7 +360,7 @@ class PlanetRoundLoop:
                 summed = m if summed is None else {k: summed[k] + m[k] for k in summed}
             if tree is not None:  # the root merges each edge that was folded into
                 round_folds += sum(1 for e in range(E) if tree.acc(e).count)
-            api.global_params = acc.finalize()
+            api.global_params = api._at_rest(acc.finalize())
             if tree is not None:
                 tree.reset()
             end = _mark(cuda)
@@ -375,8 +421,8 @@ class PlanetRoundLoop:
         ring = DeferredMetrics()
         ring.push(round_idx, {
             "summed": summed,
-            "train": api._eval(api.global_params, ds.train_data_global),
-            "test": api._eval(api.global_params, ds.test_data_global),
+            "train": api._eval(api.full_params(), ds.train_data_global),
+            "test": api._eval(api.full_params(), ds.test_data_global),
         })
         (_, host), = ring.flush()
         if not isinstance(end, float):

@@ -6,6 +6,6 @@ from .fedavg_api import FedAvgAPI, FedNovaAPI, FedOptAPI, FedProxAPI  # noqa: F4
 from .fedgan import FedGANAPI  # noqa: F401
 from .fednas import FedNASAPI  # noqa: F401
 from .hierarchical_fl import HierarchicalFLAPI  # noqa: F401
-from .simulator import SimulatorSingleProcess  # noqa: F401
+from .simulator import SimulatorMesh, SimulatorSingleProcess  # noqa: F401
 from .split_learning import FedGKTAPI, SplitNNAPI, VFLAPI  # noqa: F401
 from .turboaggregate import TurboAggregateAPI  # noqa: F401

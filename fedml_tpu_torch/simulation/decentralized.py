@@ -53,6 +53,9 @@ class DecentralizedDSGDAPI(RoundLoop, FedAvgAPI):
 
     algorithm = "DSGD"
     directed = False
+    # the node axis is sized by the federation, not padded to a mesh: the
+    # mesh simulator refuses it, as the JAX package does
+    supports_mesh = False
 
     def __init__(self, args, device, dataset, model) -> None:
         super().__init__(args, device, dataset, model)

@@ -200,14 +200,20 @@ def make_hs_normalizer(h: int, w: int, L: float, momentum: float):
     band_np[max(ch - b, 0): ch + b + 1, max(cw - b, 0): cw + b + 1] = 1.0
     band_cpu = torch.from_numpy(band_np)
 
-    def normalize(x: torch.Tensor, mask: torch.Tensor, running_amp: torch.Tensor):
+    def normalize(x: torch.Tensor, mask: torch.Tensor, running_amp: torch.Tensor,
+                  total=None):
+        """``total`` sums the amplitude spectrum's sum and the image count
+        over the ranks holding the rest of the cohort (a mesh's lanes)."""
         band = band_cpu.to(x.device)
         xf = x.to(torch.float32)
         fft = torch.fft.fft2(xf, dim=(-3, -2))
         amp, pha = fft.abs(), fft.angle()
         mexp = mask.reshape(tuple(mask.shape) + (1, 1, 1)).to(torch.float32)
         lead = tuple(range(mask.dim()))
-        batch_amp = (amp * mexp).sum(dim=lead) / torch.clamp(mexp.sum(), min=1.0)
+        amp_sum, count = (amp * mexp).sum(dim=lead), mexp.sum()
+        if total is not None:
+            amp_sum, count = total(amp_sum), total(count)
+        batch_amp = amp_sum / torch.clamp(count, min=1.0)
         new_running = torch.where(
             running_amp.sum() == 0.0,
             batch_amp,
@@ -247,5 +253,8 @@ class HSFedAvgAPI(FedAvgAPI):
         return torch.zeros(self._img_hw, dtype=torch.float32, device=self.device)
 
     def _preprocess(self, cohort: Batches, server_state):
-        x_new, new_amp = self._normalize(cohort.x, cohort.mask, server_state)
+        # on a mesh ``cohort`` is this rank's lane: the spectrum is the
+        # whole cohort's
+        total = None if self.mesh is None else self.mesh.lane_total
+        x_new, new_amp = self._normalize(cohort.x, cohort.mask, server_state, total)
         return Batches(x=x_new, y=cohort.y, mask=cohort.mask), new_amp

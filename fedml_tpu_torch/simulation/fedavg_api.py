@@ -38,6 +38,19 @@ params after each round, on the synchronous loop; S-FedAvg), and
 in the checkpoint). The knobs of later slices (preemption, the stall
 watchdog, the metrics server) raise ``NotImplementedError`` instead of
 being ignored.
+
+On a simulator mesh (``attach_mesh``; ``simulation/simulator.SimulatorMesh``
+attaches it, ``parallel/mesh.py`` and ``parallel/layout.py`` hold the
+placement) the round follows the reference's ``build_round_fn`` fed
+branch: each cohort rank keeps its share of the federation, the round's
+cohort is assembled from its owners, the params are gathered whole at
+use (``fsdp``), every rank draws the whole cohort's shuffle uniforms and
+trains its lane of the cohort with its rows, the trained params are
+all-gathered over the cohort axis in client order, and every rank folds
+the same stacked cohort (on the fed mesh through ``exact_weighted_mean``,
+in client-index order), so every mesh shape finalizes to the same bits;
+the result rests fsdp-sharded again. Evaluation sums each rank's own
+clients' metrics over the cohort axis.
 """
 
 from __future__ import annotations
@@ -55,6 +68,7 @@ from .. import constants
 from ..core.aggregation import (
     RobustAggregator,
     derive_defense_rng,
+    exact_weighted_mean,
     normalize_weights,
     stack_pytrees,
     weighted_average,
@@ -77,6 +91,7 @@ from ..core.types import Batches
 from ..data.loader import FederatedDataset
 from ..device import DeviceLike, get_device
 from ..models.spec import FedModel
+from ..parallel.mesh import train_lane
 from ..scale.engine import PlanetRoundLoop, planet_knobs_active
 
 Params = Dict[str, torch.Tensor]
@@ -107,7 +122,8 @@ def _take(b: Batches, idx: torch.Tensor) -> Batches:
     )
 
 
-def build_round_fn(local_train, aggregate, preprocess=None, keep_stacked: bool = False):
+def build_round_fn(local_train, aggregate, preprocess=None, keep_stacked: bool = False,
+                   mesh=None, at_use=None, at_rest=None, aggregate_reads_masks: bool = False):
     """The round engine as a pure function of its collaborators:
     ``round_fn(global_params, server_state, packed, nsamples, idx, rng,
     lr_mult=None, valid=None) -> (new_global, new_state,
@@ -120,23 +136,54 @@ def build_round_fn(local_train, aggregate, preprocess=None, keep_stacked: bool =
     ``valid`` ([C] in {0, 1}) marks the real slots of a bucket-padded
     cohort: a padded slot's batches are all masked, so local training
     leaves its params as they were and counts nothing, and its
-    aggregation weight is zero."""
+    aggregation weight is zero.
+
+    With a simulator ``mesh`` (``parallel/mesh.SimMesh``), ``packed`` is
+    this cohort rank's share of the federation: the rank takes its lane
+    of the cohort from the lane's owners, ``at_use`` gathers the at-rest
+    params whole, the rank trains its lane (with its rows of ``rng``;
+    ``preprocess`` sees the lane), the trained params are gathered back
+    in client order, every rank aggregates the same stacked cohort,
+    ``at_rest`` shards the result, and the metrics are summed over the
+    cohort axis. The aggregation's ``cohort`` is then None, or with
+    ``aggregate_reads_masks`` the whole cohort's masks (a ``Batches``
+    whose ``x`` and ``y`` are None)."""
 
     def round_fn(global_params, server_state, packed: Batches, nsamples, idx, rng,
                  lr_mult=None, valid=None):
-        cohort = _take(packed, idx)
+        C = idx.shape[0]
+        if mesh is None:
+            lo, hi = 0, C
+            cohort = _take(packed, idx)
+        else:
+            lo, hi = mesh.lanes(C)
+            cohort = mesh.gather_lane(packed, idx, packed.mask.shape[0])
+            global_params = at_use(global_params)
         ns = nsamples.index_select(0, idx)
         if valid is not None:
-            vm = valid.reshape((-1,) + (1,) * (cohort.mask.dim() - 1))
+            vm = valid[lo:hi].reshape((-1,) + (1,) * (cohort.mask.dim() - 1))
             cohort = Batches(x=cohort.x, y=cohort.y, mask=cohort.mask * vm.to(cohort.mask.dtype))
         if preprocess is not None:
             cohort, server_state = preprocess(cohort, server_state)
-        new_stacked, train_metrics = local_train(global_params, cohort, rng, lr_mult)
+        if mesh is None:
+            new_stacked, train_metrics = local_train(global_params, cohort, rng, lr_mult)
+            seen = cohort
+        else:
+            trained, train_metrics = train_lane(
+                local_train, global_params, cohort, None if rng is None else rng[lo:hi], lr_mult)
+            new_stacked = mesh.gather_stacked(trained, C)
+            seen = None
+            if aggregate_reads_masks:
+                seen = Batches(x=None, y=None,
+                               mask=mesh.gather_stacked({"mask": cohort.mask}, C)["mask"])
         weights = normalize_weights(ns, valid)
         new_global, new_state = aggregate(
-            global_params, server_state, new_stacked, weights, cohort, rng
+            global_params, server_state, new_stacked, weights, seen, rng
         )
         summed = {k: v.sum() for k, v in train_metrics.items()}
+        if mesh is not None:
+            new_global = at_rest(new_global)
+            summed = mesh.sum_lanes(summed)
         if keep_stacked:
             return new_global, new_state, summed, new_stacked
         return new_global, new_state, summed
@@ -177,6 +224,9 @@ class FedAvgAPI:
     # (S-FedAvg's Shapley scoring) turn this on: they run on the
     # synchronous loop, which hands them to _post_round_stacked
     _keep_stacked = False
+    # the aggregation reads the cohort's masks (on a mesh they are
+    # gathered whole for it; its other leaves stay on their lanes)
+    _aggregate_reads_masks = False
     # algorithms whose server step IS the algorithm (FedOpt's optimizer,
     # FedNova's normalized combine) turn this off, so that a custom
     # server_aggregator raises instead of being dropped
@@ -190,6 +240,7 @@ class FedAvgAPI:
         model: FedModel,
         client_trainer=None,
         server_aggregator=None,
+        mesh=None,
     ) -> None:
         _reject_later_knobs(args)
         if server_aggregator is not None and not self._accepts_custom_aggregator:
@@ -239,20 +290,7 @@ class FedAvgAPI:
             self._client_train = client_trainer.make_train_fn(args)
             self._local_train = cohort_train_fn(self._client_train)
         else:
-            prox_mu = (float(getattr(args, "fedprox_mu", 0.0))
-                       if self.algorithm == "FedProx" else 0.0)
-            self._local_train = make_local_train_fn(
-                model.apply,
-                model.loss_fn,
-                create_client_optimizer(
-                    args,
-                    lr=float(args.learning_rate) if self._round_lr is not None else None,
-                ),
-                epochs=self.epochs,
-                prox_mu=prox_mu,
-                shuffle=self.shuffle,
-                compute_dtype=compute_dtype_from_args(args),
-            )
+            self._local_train = self._stock_local_train()
         self._eval = make_eval_fn(
             model.apply, model.loss_fn, compute_dtype=compute_dtype_from_args(args)
         )
@@ -260,12 +298,117 @@ class FedAvgAPI:
         # the round being run (weak DP's noise is drawn from a generator
         # seeded by the run seed and this index)
         self._round_idx = 0
-        preprocess = (self._preprocess
-                      if type(self)._preprocess is not FedAvgAPI._preprocess else None)
-        self._round_fn = build_round_fn(self._local_train, self._aggregate, preprocess,
-                                        keep_stacked=self._keep_stacked)
+        # the in-round hook, when the algorithm has one
+        self._round_preprocess = (
+            self._preprocess if type(self)._preprocess is not FedAvgAPI._preprocess else None)
+        self._round_fn = build_round_fn(self._local_train, self._aggregate,
+                                        self._round_preprocess, keep_stacked=self._keep_stacked)
         self.server_state = self._init_server_state()
         self.metrics_reporter = MetricsReporter(args)
+        # the simulator mesh (attach_mesh): None on one rank
+        self.mesh, self._fed_mesh, self._specs = None, False, None
+        if mesh is not None:
+            self.attach_mesh(mesh)
+
+    def _stock_local_train(self, data_group=None):
+        """The stock local training (FedProx's term for FedProx); with a
+        ``data_group``, each batch's examples split over its ranks."""
+        args = self.args
+        prox_mu = (float(getattr(args, "fedprox_mu", 0.0))
+                   if self.algorithm == "FedProx" else 0.0)
+        return make_local_train_fn(
+            self.model.apply,
+            self.model.loss_fn,
+            create_client_optimizer(
+                args,
+                lr=float(args.learning_rate) if self._round_lr is not None else None,
+            ),
+            epochs=self.epochs,
+            prox_mu=prox_mu,
+            shuffle=self.shuffle,
+            compute_dtype=compute_dtype_from_args(args),
+            data_group=data_group,
+        )
+
+    # -- the simulator mesh --------------------------------------------
+    def attach_mesh(self, mesh) -> None:
+        """Run on ``mesh`` (``parallel/mesh.SimMesh``): the packed
+        federation padded to the cohort axis and cut to this rank's share,
+        the params at rest per the layout (fsdp-sharded on a fed mesh,
+        whole on the legacy one), the round rebuilt on the mesh. On a fed
+        mesh the plain FedAvg/FedProx aggregation becomes the exact fold;
+        any other warns, as the JAX package warns, that it is not
+        bitwise across mesh shapes. A legacy mesh's ``data`` axis splits
+        each batch's examples over its ranks (the stock trainer's; a
+        custom trainer trains its clients whole on every data rank)."""
+        from ..parallel.layout import is_fed_mesh, shard_tree, tree_specs
+        from ..parallel.mesh import pad_federation, shard_federation
+
+        self.mesh = mesh
+        self._fed_mesh = is_fed_mesh(mesh)
+        ds = self.dataset
+        if getattr(ds, "packed_train", None) is not None:
+            n = mesh.lanes_count
+            train, ns = pad_federation(ds.packed_train, ds.packed_num_samples, n)
+            test, _ = pad_federation(ds.packed_test, ds.packed_num_samples, n)
+            ds.packed_train, _ = shard_federation(train, ns, mesh)
+            ds.packed_test, _ = shard_federation(test, ns, mesh)
+            ds.packed_num_samples = ns.numpy()
+        if self._fed_mesh and (
+            self.robust is not None
+            or self.server_aggregator is not None
+            or type(self)._aggregate is not FedAvgAPI._aggregate
+        ):
+            logging.warning(
+                "(data, fsdp) mesh with %s: aggregation does not go "
+                "through the exact expansion fold, so final params are "
+                "correct to float tolerance but NOT bitwise identical "
+                "across mesh shapes (the detail.multichip identity "
+                "gate covers the plain FedAvg/FedProx path only)",
+                "defense_type" if self.robust is not None
+                else ("a custom server_aggregator"
+                      if self.server_aggregator is not None
+                      else f"algorithm {self.algorithm}"),
+            )
+        if not self._fed_mesh and mesh.shape.get("data", 1) > 1 and self._client_train is None:
+            # a custom trainer's per-client function cannot be split: its
+            # data ranks train their lane's clients whole, the same function
+            self._local_train = self._stock_local_train(mesh.groups["data"])
+        self._specs = tree_specs(self.global_params, mesh)
+        self.global_params = shard_tree(self.global_params, mesh, self._specs)
+        self._round_fn = build_round_fn(self._local_train, self._aggregate,
+                                        self._round_preprocess, keep_stacked=self._keep_stacked,
+                                        mesh=mesh, at_use=self.full_params,
+                                        at_rest=self._at_rest,
+                                        aggregate_reads_masks=self._aggregate_reads_masks)
+
+    def full_params(self, params: Optional[Params] = None) -> Params:
+        """``params`` (default: the global params) whole: on a fed mesh
+        gathered from the fsdp ranks' at-rest shards."""
+        params = self.global_params if params is None else params
+        if not self._fed_mesh:
+            return params
+        from ..parallel.layout import gather_tree
+
+        return gather_tree(params, self.mesh, self._specs)
+
+    def _at_rest(self, params: Params) -> Params:
+        """Whole params as the API keeps them: this rank's fsdp shards on a
+        fed mesh, else themselves."""
+        if not self._fed_mesh:
+            return params
+        from ..parallel.layout import shard_tree
+
+        return shard_tree(params, self.mesh, self._specs)
+
+    def _cohort(self, idx: np.ndarray) -> Batches:
+        """The packed federation's clients ``idx``; on a mesh this rank's
+        lane of them, taken from their owners."""
+        packed = self.dataset.packed_train
+        t = torch.as_tensor(idx, dtype=torch.int64, device=packed.mask.device)
+        if self.mesh is None:
+            return _take(packed, t)
+        return self.mesh.gather_lane(packed, t, packed.mask.shape[0])
 
     # -- algorithm hooks ----------------------------------------------
     def _init_server_state(self):
@@ -283,6 +426,10 @@ class FedAvgAPI:
                 noise = derive_defense_rng(int(getattr(self.args, "random_seed", 0)),
                                            self._round_idx, self.device)
             return self.robust.aggregate(new_stacked, weights, global_params, noise), server_state
+        if self._fed_mesh:
+            # placement-independent: every mesh shape, {data: 1} included,
+            # finalizes to the same f32 params
+            return exact_weighted_mean(new_stacked, weights), server_state
         return weighted_average(new_stacked, weights), server_state
 
     def _preprocess(self, cohort: Batches, server_state):
@@ -398,7 +545,7 @@ class FedAvgAPI:
                 f"checkpoint under {ckpt.dir} holds params {sorted(params)}, the model "
                 f"has {sorted(self.global_params)}"
             )
-        self.global_params = {k: v.to(self.device) for k, v in params.items()}
+        self.global_params = self._at_rest({k: v.to(self.device) for k, v in params.items()})
         leaves, spec = pytree.tree_flatten(self.server_state)
         saved = state["server_state"]
         if len(saved) != len(leaves):
@@ -419,7 +566,7 @@ class FedAvgAPI:
         (the state the next round draws from), and the algorithm's
         ``extra`` state when it has one."""
         state = {
-            "params": self.global_params,
+            "params": self.full_params(),
             "server_state": pytree.tree_leaves(self.server_state),
             "generator": self.generator.get_state(),
             "round_idx": int(round_idx),
@@ -499,36 +646,42 @@ class FedAvgAPI:
         """Reference shape: a Python loop over the sampled clients, each
         with its slice of the round's shuffle draws: the stock trainer
         trains it as a cohort of one, a custom trainer's per-client
-        function takes it alone."""
+        function takes it alone. On a mesh a rank loops over its lane,
+        and the lanes' params and sums are gathered."""
         stacked, sums = [], None
-        packed = self.dataset.packed_train
-        for j, i in enumerate(idx):
+        cohort = self._cohort(idx)
+        lo, hi = (0, len(idx)) if self.mesh is None else self.mesh.lanes(len(idx))
+        params = self.full_params()
+        for j in range(hi - lo):
             if self._client_train is not None:
                 p, m = self._client_train(
-                    self.global_params,
-                    Batches(x=packed.x[i], y=packed.y[i], mask=packed.mask[i]),
-                    None if rng is None else rng[j],
+                    params,
+                    Batches(x=cohort.x[j], y=cohort.y[j], mask=cohort.mask[j]),
+                    None if rng is None else rng[lo + j],
                 )
                 stacked.append(p)
             else:
                 client = Batches(
-                    x=packed.x[i:i + 1], y=packed.y[i:i + 1], mask=packed.mask[i:i + 1]
+                    x=cohort.x[j:j + 1], y=cohort.y[j:j + 1], mask=cohort.mask[j:j + 1]
                 )
                 p, m = self._local_train(
-                    self.global_params, client, None if rng is None else rng[j:j + 1],
+                    params, client, None if rng is None else rng[lo + j:lo + j + 1],
                     lr_mult,
                 )
                 stacked.append({k: v[0] for k, v in p.items()})
                 m = {k: v[0] for k, v in m.items()}
             sums = m if sums is None else {k: sums[k] + m[k] for k in sums}
+        stacked = stack_pytrees(stacked)
+        if self.mesh is not None:
+            stacked = self.mesh.gather_stacked(stacked, len(idx))
+            sums = self.mesh.sum_lanes(sums)
         ns = nsamples.index_select(
             0, torch.as_tensor(idx, dtype=torch.int64, device=self.device)
         )
         new_global, self.server_state = self._aggregate(
-            self.global_params, self.server_state, stack_pytrees(stacked),
-            normalize_weights(ns), None, rng,
+            params, self.server_state, stacked, normalize_weights(ns), None, rng,
         )
-        return new_global, sums
+        return self._at_rest(new_global), sums
 
     # -- evaluation ----------------------------------------------------
     def _eval_sums(self) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -536,10 +689,14 @@ class FedAvgAPI:
         and test data, left on the device. The eval function sums over
         every leading axis, so one call covers all clients (the JAX
         package vmaps it: ``build_eval_all``)."""
-        return {
-            "train": self._eval(self.global_params, self.dataset.packed_train),
-            "test": self._eval(self.global_params, self.dataset.packed_test),
+        params = self.full_params()
+        sums = {
+            "train": self._eval(params, self.dataset.packed_train),
+            "test": self._eval(params, self.dataset.packed_test),
         }
+        if self.mesh is not None:  # each rank evaluated its own clients
+            sums = {k: self.mesh.sum_lanes(v) for k, v in sums.items()}
+        return sums
 
     def _stats_from_host(self, round_idx: int, host, round_time_s, train_time_s):
         """A round's history record from its fetched metrics: the global
@@ -563,7 +720,7 @@ class FedAvgAPI:
         }
 
     def evaluate_global(self) -> Dict[str, float]:
-        sums = self._eval(self.global_params, self.dataset.test_data_global)
+        sums = self._eval(self.full_params(), self.dataset.test_data_global)
         return self.model.metrics_from_sums(sums)
 
     def _local_test_on_all_clients(self, round_idx: int) -> Dict[str, float]:
@@ -613,6 +770,7 @@ class FedNovaAPI(FedAvgAPI):
 
     algorithm = "FedNova"
     _accepts_custom_aggregator = False
+    _aggregate_reads_masks = True
 
     def _aggregate(self, global_params, server_state, new_stacked, weights, cohort, rng):
         if cohort is None:

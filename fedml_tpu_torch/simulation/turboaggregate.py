@@ -67,4 +67,5 @@ class TurboAggregateAPI(FedAvgAPI):
         host = self._spec.flatten_stacked(stacked).cpu().numpy()
         agg = self.protocol.secure_weighted_sum(list(host), weights)
         flat = torch.from_numpy(agg.astype(np.float32)).to(self.device)
-        self.global_params = {k: v.clone() for k, v in self._spec.views(flat).items()}
+        self.global_params = self._at_rest(
+            {k: v.clone() for k, v in self._spec.views(flat).items()})

@@ -112,12 +112,6 @@ def test_mesh_refusals_match_jax_word_for_word(shape):
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("shape", [{"pp": 2}, {"dp": 2, "pp": 2}])
-def test_pipeline_mode_raises_naming_9b(shape):
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        resolve_mesh_shape(shape, 4 if "dp" in shape else 2)
-
-
 def test_mesh_defaults_and_must_span_the_world():
     assert resolve_mesh_shape(None, 4) == {"dp": 4}
     assert resolve_mesh_shape({"tp": 2, "dp": 2}, 4) == {"tp": 2, "dp": 2}  # YAML order kept
@@ -205,6 +199,32 @@ def test_moe_evaluation_routes_the_whole_batch_as_jax_does(tmp_path):
     assert want["test_loss"] == pytest.approx(4.9955864, abs=1e-6)
     for key in ("test_loss", "test_acc"):
         np.testing.assert_allclose(got[key], want[key], rtol=LOSS_RTOL, atol=1e-6, err_msg=key)
+
+
+@pytest.mark.parametrize("accum, pinned", [
+    (8, (4.4434128, 5.1364646)),  # chunks of 1 example over dp 2
+    (2, None),  # chunks of 4: dp divides them
+])
+def test_dp_over_accumulation_chunks_matches_jax(accum, pinned, tmp_path):
+    """{dp: 2} with MoE (4 experts, capacity 0.5) and ``grad_accum_steps``
+    chunks of batch 8, one epoch: a dp that divides the batch but not the
+    chunk trains the reference's count-weighted full-batch gradient (a
+    rank holding none of a chunk's examples joins its collectives with
+    masked rows that take no expert capacity), and a dp that divides the
+    chunk still does."""
+    knobs = dict(BASE, mesh_shape={"dp": 2}, grad_accum_steps=accum, epochs=1)
+    want = jax_run(knobs)
+    if pinned is not None:
+        assert want["stats"]["train_loss"] == pytest.approx(pinned[0], abs=1e-6)
+        assert want["stats"]["test_loss"] == pytest.approx(pinned[1], abs=1e-6)
+    got = port_run(2, [{"args": knobs, "params": want["start"], "perms": want["perms"]}],
+                   tmp_path)[0]
+    assert_same_training(got, want)
+    for occ in got["occupancy"]:
+        assert set(np.unique(occ)) <= {0.0, 1.0}
+    with pytest.raises(AssertionError, match="must divide batch_size 8"):
+        port_run(2, [{"args": dict(knobs, mesh_shape={"dp": 2}, grad_accum_steps=3)}],
+                 tmp_path, 60)
 
 
 def test_dp_routing_pool_and_one_rank_match_jax(tmp_path):
@@ -303,9 +323,10 @@ def test_run_distributed_entry(tmp_path):
             fedml_tpu_torch.run_distributed(_set(Arguments(), **knobs))
 
 
-def test_configs_read_the_same_in_both_packages():
+def test_configs_read_the_same_in_both_packages(tmp_path):
     for name in ("distributed_shakespeare_moe_transformer_bf16.yaml",
-                 "distributed_shakespeare_transformer_sp_bf16.yaml"):
+                 "distributed_shakespeare_transformer_sp_bf16.yaml",
+                 "distributed_shakespeare_transformer_pp_bf16.yaml"):
         path = f"fedml_tpu_torch/configs/{name}"
         ja = JaxArguments(argparse.Namespace(yaml_config_file=path))
         ta = load_arguments(path)
@@ -313,5 +334,19 @@ def test_configs_read_the_same_in_both_packages():
                     "embed_dim", "seq_len", "batch_size", "grad_accum_steps", "dtype",
                     "attention_impl", "sp_strategy", "sp_ring_block", "num_experts",
                     "capacity_factor", "moe_every", "learning_rate", "lr_schedule",
-                    "lr_total_steps", "epochs"):
+                    "lr_total_steps", "epochs", "pp_microbatches"):
             assert getattr(ta, key) == getattr(ja, key), (name, key)
+    # the fed mesh's knobs: the headline FedAvg config with a (data, fsdp)
+    # mesh, as the mesh simulator reads it
+    from fedml_tpu.parallel.layout import fed_mesh_shape as jax_fed
+    from fedml_tpu_torch.parallel.layout import fed_mesh_shape
+
+    src = open("fedml_tpu_torch/configs/fedavg_femnist_cnn.yaml").read()
+    path = tmp_path / "fed_mesh.yaml"
+    path.write_text(src + "\nmesh_args: {mesh_shape: {data: 4, fsdp: 2}}\n")
+    ja = JaxArguments(argparse.Namespace(yaml_config_file=str(path)))
+    ta = load_arguments(str(path))
+    for key in ("mesh_shape", "federated_optimizer", "client_num_per_round", "model"):
+        assert getattr(ta, key) == getattr(ja, key), key
+    assert ta.mesh_shape == {"data": 4, "fsdp": 2}
+    assert fed_mesh_shape(ta.mesh_shape) and jax_fed(ja.mesh_shape)

@@ -273,8 +273,8 @@ def test_later_knobs_raise(knob, value, match):
 def test_unported_algorithms_raise(name, exc):
     """An unknown name raises ``ValueError``; every algorithm of the JAX
     package's registry builds on one card (HierFedAvg, DSGD and SplitNN
-    since the ninth slice), and what stays unported for each is the mesh
-    backend, which raises ``NotImplementedError``."""
+    since the ninth slice), and the mesh backend runs them in a world of
+    one rank, DSGD refusing it in the JAX package's words."""
     args = fedml_tpu_torch.init(_set(Arguments(), **ORACLE))
     args.federated_optimizer = name
     ds = load(args, device="cpu")
@@ -284,8 +284,12 @@ def test_unported_algorithms_raise(name, exc):
     else:
         sim = SimulatorSingleProcess(args, "cpu", ds, models.create(args, 10, device="cpu"))
         assert sim.fl_trainer.algorithm == name
-    with pytest.raises(NotImplementedError, match="mesh"):
-        fedml_tpu_torch.run_simulation(backend="MESH", device="cpu", args=args)
+    if exc is ValueError or name == "DSGD":
+        with pytest.raises(ValueError, match="not supported|does not support the MESH"):
+            fedml_tpu_torch.run_simulation(backend="MESH", device="cpu", args=args)
+    else:
+        stats = fedml_tpu_torch.run_simulation(backend="MESH", device="cpu", args=args)
+        assert np.isfinite(stats["test_loss"])
 
 
 def test_init_maps_matmul_precision_onto_tf32():

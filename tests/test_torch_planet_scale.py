@@ -605,7 +605,7 @@ def test_stats_spans_and_a_warm_rerun_adds_no_shape():
     assert sum(api.pipeline_stats["round_folds"]) + sum(stats["round_folds"]) == groups
 
 
-def test_group_fn_matches_the_edge_einsum_and_refuses_a_mesh():
+def test_group_fn_matches_the_edge_einsum_and_runs_on_a_mesh():
     api = _api()
     loop = engine.PlanetRoundLoop(api)
     idx = np.asarray([5, 6, 7])
@@ -626,8 +626,21 @@ def test_group_fn_matches_the_edge_einsum_and_refuses_a_mesh():
         torch.testing.assert_close(terms[e], want)
     assert edge_w.tolist() == ((group.num_samples * group.valid) @ onehot.numpy()).tolist()
     assert float(summed["count"]) == float(group.num_samples.sum())
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        engine.build_group_fn(api._local_train, mesh=object())
+    # on a fed mesh of one rank (its lane the whole group): the same terms
+    import torch.distributed as dist
+
+    from fedml_tpu_torch.parallel.layout import build_fed_mesh
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = build_fed_mesh({"data": 1, "fsdp": 1}, 1, "cpu")
+        on_mesh = engine.build_group_fn(api._local_train, mesh=mesh, at_use=lambda p: p)
+        _, mterms, medge_w, msummed = on_mesh(api.global_params, batches, ns, valid, onehot,
+                                              None)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(mterms, terms) and torch.equal(medge_w, edge_w)
+    assert float(msummed["count"]) == float(summed["count"])
 
 
 @pytest.mark.parametrize("kw", [

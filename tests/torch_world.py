@@ -251,3 +251,218 @@ def _layer_one(case: dict) -> dict:
             "grads": {k: g.numpy() for k, g in gathered.items()},
             "sharded": sorted(k for k, s in layout.items() if s is not None),
             "local_shapes": {k: tuple(v.shape) for k, v in local.items()}}
+
+
+def train_ranks(rank: int, payload: dict) -> list:
+    """``train``'s runs, every rank returning its stats and its own local
+    params (the pipeline mode's replicated leaves must agree on every
+    stage)."""
+    out = []
+    for run in payload["runs"]:
+        trainer = _trainer(run)
+        perms = run.get("perms")
+        if perms is not None:
+            import torch
+
+            trainer.epoch_permutation = lambda ep, p=perms: torch.tensor(p[ep], dtype=torch.int64)
+        stats = trainer.run()
+        out.append({"stats": stats,
+                    "local": {k: v.detach().numpy() for k, v in trainer.params.items()},
+                    "params": {k: v.numpy() for k, v in trainer.full_params().items()}})
+    return out
+
+
+def pipeline_op(rank: int, payload: dict) -> dict:
+    """``parallel.pipeline.pipeline_apply`` over the world (one stage a
+    rank) with stage s ``tanh(h @ w[s] + b[s])`` on the payload's stacked
+    ``w`` [S, D, D], ``b`` [S, D] and microbatches ``x`` [M, mb, D]; the
+    output and this rank's gradients of sum(out * g) for w, b and x."""
+    import torch
+    import torch.distributed as dist
+
+    from fedml_tpu_torch.parallel.pipeline import pipeline_apply
+
+    group = dist.new_group(list(range(dist.get_world_size())))
+    params = {k: torch.tensor(payload[k]).requires_grad_() for k in ("w", "b")}
+    x = torch.tensor(payload["x"]).requires_grad_()
+    w, b = params["w"][rank], params["b"][rank]
+    out = pipeline_apply(lambda h: torch.tanh(h @ w + b), x, group)
+    gw, gb, gx = torch.autograd.grad((out * torch.tensor(payload["g"])).sum(),
+                                     (params["w"], params["b"], x))
+    return {"out": out.detach().numpy(), "w": gw.numpy(), "b": gb.numpy(), "x": gx.numpy()}
+
+
+def mesh_sim(rank: int, payload: dict) -> list:
+    """Each run of ``payload["runs"]``: ``SimulatorMesh`` over the world
+    with the run's knobs (its ``mesh_shape``), or ``SimulatorSingleProcess``
+    with ``"single": True``; on the run's ``dataset`` (numpy, carried in)
+    or the port's own loader's, from its ``params`` (whole, numpy) or the
+    model's init; with ``"custom_trainer": True`` the stock trainer goes
+    in as a custom ``client_trainer``. Every rank returns, for each, the stats, the whole
+    params, its own at-rest leaf shapes and the warnings logged, or the
+    error the construction raised."""
+    return [_mesh_one(run) for run in payload["runs"]]
+
+
+def _np_dataset(d: dict):
+    import torch
+
+    from fedml_tpu_torch.core.types import Batches
+    from fedml_tpu_torch.data.loader import FederatedDataset
+
+    def cv(b):
+        return Batches(x=torch.tensor(b[0]), y=torch.tensor(b[1], dtype=torch.int64),
+                       mask=torch.tensor(b[2]))
+
+    return FederatedDataset(
+        train_data_num=d["train_data_num"], test_data_num=d["test_data_num"],
+        train_data_global=cv(d["train_data_global"]), test_data_global=cv(d["test_data_global"]),
+        train_data_local_num_dict=dict(d["train_data_local_num_dict"]),
+        train_data_local_dict={}, test_data_local_dict={}, class_num=d["class_num"],
+        packed_train=cv(d["packed_train"]), packed_num_samples=np.asarray(d["packed_num_samples"]),
+        packed_test=cv(d["packed_test"]), client_num=d["client_num"], task=d["task"],
+    )
+
+
+def _mesh_one(run: dict) -> dict:
+    import logging
+
+    import torch
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch import data, models
+    from fedml_tpu_torch.simulation import SimulatorMesh, SimulatorSingleProcess
+
+    args = fedml_tpu_torch.init(_port_args(run["args"]))
+    dev = torch.device("cpu")
+    ds = _np_dataset(run["dataset"]) if run.get("dataset") else data.load(args, device=dev)
+    model = models.create(args, ds.class_num, device=dev)
+    warned: list = []
+
+    class _Catch(logging.Handler):
+        def emit(self, record):
+            warned.append(record.getMessage())
+
+    catch = _Catch(logging.WARNING)
+    logging.getLogger().addHandler(catch)
+    operators = {}
+    if run.get("custom_trainer"):  # the stock trainer through the operator seam
+        from fedml_tpu_torch.core.frame import DefaultClientTrainer
+
+        operators["client_trainer"] = DefaultClientTrainer(None)
+    try:
+        try:
+            sim = (SimulatorSingleProcess(args, dev, ds, model, **operators) if run.get("single")
+                   else SimulatorMesh(args, dev, ds, model, **operators))
+        except (ValueError, NotImplementedError) as e:
+            return {"error": f"{type(e).__name__}: {e}"}
+        api = sim.fl_trainer
+        if run.get("params") is not None:
+            full = {k: torch.tensor(v) for k, v in run["params"].items()}
+            api.global_params = api._at_rest(full) if hasattr(api, "_at_rest") else full
+        stats = sim.run()
+    finally:
+        logging.getLogger().removeHandler(catch)
+    full = api.full_params() if hasattr(api, "full_params") else api.global_params
+    return {"stats": stats, "params": {k: v.detach().numpy() for k, v in full.items()},
+            "local_shapes": {k: tuple(v.shape) for k, v in api.global_params.items()},
+            "history": list(getattr(api, "history", [])), "warned": warned}
+
+
+def mesh_api(rank: int, payload: dict) -> dict:
+    """``fedml_tpu_torch.run_simulation(backend=...)`` in the world's
+    process group."""
+    import fedml_tpu_torch
+
+    return fedml_tpu_torch.run_simulation(backend=payload.get("backend", "MESH"),
+                                          device="cpu", args=_port_args(payload["args"]))
+
+
+def mesh_folds(rank: int, payload: dict) -> dict:
+    """The streaming fold on fsdp-sharded params: over a {data: 1, fsdp:
+    world} mesh, each rank folds its at-rest shards of the payload's
+    trees (in two orders, and with part of them handed on as limbs by
+    ``fold_limbs``); the gathered results, and the exact weighted mean of
+    the stacked shards gathered whole."""
+    import torch
+    import torch.distributed as dist
+
+    from fedml_tpu_torch.core.aggregation import StreamingAccumulator, exact_weighted_mean
+    from fedml_tpu_torch.parallel.layout import build_fed_mesh, gather_tree, shard_tree, tree_specs
+
+    mesh = build_fed_mesh({"data": 1, "fsdp": dist.get_world_size()}, dist.get_world_size(),
+                          "cpu")
+    trees = [{k: torch.tensor(v) for k, v in t.items()} for t in payload["trees"]]
+    ws = payload["ws"]
+    specs = tree_specs(trees[0], mesh)
+    local = [shard_tree(t, mesh, specs) for t in trees]
+    a1, a2 = StreamingAccumulator(local[0]), StreamingAccumulator(local[0])
+    for i in range(len(local)):
+        a1.fold(local[i], ws[i])
+    for i in reversed(range(len(local))):
+        a2.fold(local[i], ws[i])
+    partial, root = StreamingAccumulator(local[0]), StreamingAccumulator(local[0])
+    for t, w in zip(local[2:], ws[2:]):
+        partial.fold(t, w)
+    for t, w in zip(local[:2], ws[:2]):
+        root.fold(t, w)
+    root.fold_limbs(partial._limbs, sum(ws[2:]), count=partial.count)
+    stacked = {k: torch.stack([t[k] for t in local]) for k in local[0]}
+    mean = exact_weighted_mean(stacked, torch.tensor(ws) / sum(ws))
+
+    def whole(tree):
+        return {k: v.numpy() for k, v in gather_tree(tree, mesh, specs).items()}
+
+    return {"forward": whole(a1.finalize()), "reverse": whole(a2.finalize()),
+            "limbs": whole(root.finalize()), "count": root.count, "mean": whole(mean),
+            "sharded": sorted(k for k, s in specs.items() if s is not None)}
+
+
+def lane_gather(rank: int, payload: dict) -> list:
+    """``SimMesh.gather_lane`` over a {data: world} mesh: each rank holds
+    its contiguous share of the payload's federation (``x``, ``y``,
+    ``mask`` numpy, [clients, ...]); for each cohort of ``payload["idx"]``
+    this rank's lane ``[lo, hi)`` and the rows it received."""
+    import torch
+    import torch.distributed as dist
+
+    from fedml_tpu_torch.core.types import Batches
+    from fedml_tpu_torch.parallel.layout import build_fed_mesh
+    from fedml_tpu_torch.parallel.mesh import shard_federation
+
+    world = dist.get_world_size()
+    mesh = build_fed_mesh({"data": world}, world, "cpu")
+    packed = Batches(**{k: torch.tensor(payload[k]) for k in ("x", "y", "mask")})
+    shard, _ = shard_federation(packed, packed.mask.sum(dim=(1, 2)), mesh)
+    per = shard.mask.shape[0]
+    out = []
+    for idx in payload["idx"]:
+        lane = mesh.gather_lane(shard, torch.tensor(idx, dtype=torch.int64), per)
+        out.append({"span": mesh.lanes(len(idx)),
+                    **{k: getattr(lane, k).numpy() for k in ("x", "y", "mask")}})
+    return out
+
+
+def planet_mesh(rank: int, payload: dict) -> dict:
+    """The planet config's knobs through ``FedAvgAPI(mesh=...)`` on the
+    payload's fed ``mesh_shape`` (none: no mesh); the whole params, the
+    loop's stats and every rank's at-rest shapes."""
+    import torch
+    import torch.distributed as dist
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch import data, models
+    from fedml_tpu_torch.parallel.layout import build_fed_mesh
+    from fedml_tpu_torch.simulation import FedAvgAPI
+
+    args = fedml_tpu_torch.init(_port_args(payload["args"]))
+    dev = torch.device("cpu")
+    ds = data.load(args, device=dev)
+    model = models.create(args, ds.class_num, device=dev)
+    shape = payload.get("mesh_shape")
+    mesh = build_fed_mesh(shape, dist.get_world_size(), "cpu") if shape else None
+    api = FedAvgAPI(args, dev, ds, model, mesh=mesh)
+    api.train()
+    return {"params": {k: v.numpy() for k, v in api.full_params().items()},
+            "stats": dict(api.pipeline_stats), "history": list(api.history),
+            "local_shapes": {k: tuple(v.shape) for k, v in api.global_params.items()}}
