@@ -10,6 +10,11 @@ version on the card:
   ``models.create``, ``convert.params_from_flax``, ``ModelEndpoint`` and
   ``ServingEngine``, at the full width of that configuration (embed 512,
   8 heads of 64, 4096 tokens, 2 layers, seeded random weights);
+- serving over the comm layer: the same configuration with
+  ``serve_fleet_size: 2`` behind ``FleetFrontend``, clients on ranks 1-8
+  over LOCAL and over TRPC on loopback, ``CheckpointWatcher`` publishes,
+  ``MeshModelEndpoint`` in a NCCL world of one, and
+  ``python -m fedml_tpu_torch.cli serve --dry-run``;
 - FedAvg training: ``fedml_tpu_torch.run_simulation`` on
   ``fedml_tpu_torch/configs/fedavg_femnist_cnn.yaml``, the bench's
   headline cohort at full width (32 clients x 600 samples of the
@@ -116,6 +121,26 @@ Phases, each of which fails the run:
    ``attention_impl: full``; the kernels' launch counts rose on the
    path; a hot swap advances the version and changes the answers; one
    burst runs under ``torch.profiler`` for the device time by kernel;
+4b. serving comm: the serving configuration with ``serve_fleet_size: 2``
+   (two engines on the card) behind ``FleetFrontend``; eight clients
+   (ranks 1-8, a thread each) send requests over LOCAL, then over TRPC
+   on loopback (free ports): p50 and p99 request latency and requests/s
+   (host clock), bytes per request and per response from the
+   instrumented counters, and one profiled round of eight requests'
+   busy share. Gates: the flash forward launches layers x the engines'
+   micro-batches (``serving_batches_total`` over its buckets) and the
+   backward and the plain version never; every answer within
+   ``LOGITS_ATOL`` of the full-attention logits of its row, over both
+   transports; a request dropped by ``fault_injection`` is counted and
+   answered on the client's retry; a ``RoundCheckpointer`` publish
+   reaches the fleet through ``CheckpointWatcher`` and the answers move
+   to the new params' logits; a corrupt latest step falls back to the
+   previous one; ``MeshModelEndpoint`` at {data: 1, fsdp: 1} in a NCCL
+   world of one answers a bucket bitwise as the plain endpoint does and
+   rejects (and counts) a stale version; every bucket the fleet ran is
+   among the kernel phase's flash cases; ``python -m
+   fedml_tpu_torch.cli serve --dry-run --fleet-size 2`` exits 0 and
+   prints its status line;
 5. fedavg: FedAvg equals centralized full-batch GD on the card (the
    reference's oracle 1, atol 1e-5); the vectorized round equals the
    sequential one (float64, atol 1e-5; the f32 error is printed); the headline configuration trains through
@@ -350,6 +375,11 @@ FLASH_CASES = [
     (4, 4096, 8, 64, torch.bfloat16, True),
     # the pipeline configuration's microbatch (16 sequences of T 4096)
     (16, 4096, 8, 64, torch.bfloat16, True),
+    # the serving fleet's smaller pow2 buckets (its engines drain what the
+    # clients' requests leave in their queues)
+    (1, 4096, 8, 64, torch.float32, True),
+    (2, 4096, 8, 64, torch.float32, True),
+    (4, 4096, 8, 64, torch.float32, True),
 ]
 # tensor-core passes each forward route makes a tile, against the two
 # products the bound counts: bf16 (wgmma) S once and P V twice (P as bf16
@@ -1416,6 +1446,379 @@ def run_slice(kernels):
             "kernel_launches": launches,
             "serving_forward_ms": float(np.median(fwd)) * 1e3,
             "logits_max_abs_err": err, "params": n_params, "profile": profiled}
+
+
+# -- phase 4b: serving over the comm layer -------------------------------
+SERVE_COMM_CLIENTS = 8  # ranks 1-8, a thread each
+SERVE_COMM_REQUESTS = 16  # requests each client sends in the timed round
+SERVE_COMM_FLEET = 2
+# the fault round's client waits this long for its dropped request
+SERVE_COMM_DROP_TIMEOUT_S = 3.0
+
+
+def free_port_block(n: int) -> int:
+    """The first of ``n`` consecutive free loopback ports."""
+    import random
+    import socket
+
+    rng = random.Random(os.getpid())
+    for _ in range(100):
+        base = rng.randint(20000, 55000)
+        socks = []
+        try:
+            for i in range(n):
+                sock = socket.socket()
+                sock.bind(("127.0.0.1", base + i))
+                socks.append(sock)
+            return base
+        except OSError:
+            continue
+        finally:
+            for sock in socks:
+                sock.close()
+    fail(f"no {n} consecutive free ports")
+
+
+def client_round(clients, pool, requests, timeout_s=120.0, retries=1):
+    """Every client in its own thread asks for ``requests`` rows of
+    ``pool`` (client c its rows c, c + 1, ...); returns [(row index,
+    answer, seconds)] and the round's wall seconds."""
+    import threading
+
+    out, errors = [], []
+    lock = threading.Lock()
+
+    def run(c, cl):
+        try:
+            for i in range(requests):
+                j = (c + i) % len(pool)
+                t0 = time.perf_counter()
+                y = cl.request(pool[j], timeout_s=timeout_s, retries=retries)
+                dt = time.perf_counter() - t0
+                with lock:
+                    out.append((j, y, dt))
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"client {c}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=run, args=(c, cl)) for c, cl in enumerate(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        fail(f"serving comm: {errors[:3]}")
+    return out, wall
+
+
+def answers_err(answers, ref) -> float:
+    return max(float(np.abs(y - ref[j]).max()) for j, y, _ in answers)
+
+
+@contextlib.contextmanager
+def fleet_clients(args, fleet, backend, run_id, clients=SERVE_COMM_CLIENTS, faults=None):
+    """A ``FleetFrontend`` of ``fleet`` on rank 0 over ``backend`` and
+    ``clients`` ``ServingClient``s on ranks 1..clients (with ``faults``
+    as their ``fault_injection``); stopped on the way out."""
+    import threading
+
+    from fedml_tpu_torch.serving import FleetFrontend, ServingClient, build_serving_com
+
+    world = clients + 1
+    a = copy.copy(args)
+    a.run_id = run_id
+    a.grpc_port_base = free_port_block(world)
+    fe = FleetFrontend(fleet, build_serving_com(a, 0, world, backend), a)
+    server = threading.Thread(target=fe.serve_forever, daemon=True)
+    server.start()
+    ca = copy.copy(a)
+    ca.fault_injection = faults
+    made = []
+    try:
+        for r in range(1, world):
+            ca.rank = r
+            made.append(ServingClient(build_serving_com(ca, r, world, backend), rank=r,
+                                      args=ca))
+        yield made
+    finally:
+        for cl in made:
+            cl.close()
+        fe.stop()
+        server.join(10)
+
+
+def serve_transport(args, fleet, backend, pool, ref):
+    """Eight clients over ``backend``: a warm-up round, one timed round and
+    one profiled round. Returns the numbers."""
+    from fedml_tpu_torch.core.telemetry import Telemetry
+
+    tel = Telemetry.get_instance()
+
+    def wire_counts():
+        """(messages, bytes) sent so far of requests (40) and responses (41)."""
+        return {t: (tel.get_counter("comm_messages_sent_total", msg_type=t),
+                    tel.get_counter("comm_bytes_sent_total", msg_type=t)) for t in (40, 41)}
+
+    with fleet_clients(args, fleet, backend, f"chip_serving_comm_{backend.lower()}") as clients:
+        client_round(clients, pool, 1)  # warm-up: every client's pipe open
+        before = wire_counts()
+        answers, wall = client_round(clients, pool, SERVE_COMM_REQUESTS)
+        after = wire_counts()
+        profiled = profile_clients(clients, pool)
+    per_message = {t: (after[t][1] - before[t][1]) / max(after[t][0] - before[t][0], 1)
+                   for t in (40, 41)}
+    lat = np.array([dt for _, _, dt in answers])
+    err = answers_err(answers, ref)
+    out = {
+        "requests": len(answers), "clients": SERVE_COMM_CLIENTS,
+        "p50_request_latency_ms": float(np.percentile(lat, 50)) * 1e3,
+        "p99_request_latency_ms": float(np.percentile(lat, 99)) * 1e3,
+        "requests_per_s": len(answers) / wall,
+        "request_bytes": per_message[40], "response_bytes": per_message[41],
+        "logits_max_abs_err": err, "profile": profiled,
+    }
+    log(f"serving comm {backend}: {len(answers)} requests from {SERVE_COMM_CLIENTS} clients "
+        f"in {wall:.3f} s: p50 {out['p50_request_latency_ms']:.2f} ms, p99 "
+        f"{out['p99_request_latency_ms']:.2f} ms, {out['requests_per_s']:.2f} requests/s "
+        f"(host clock); {out['request_bytes']:.0f} B a request, {out['response_bytes']:.0f} B "
+        f"a response (instrumented counters); busy share of a profiled round "
+        f"{profiled['busy_share']}; logits err {err:.3g} (atol {LOGITS_ATOL})")
+    if err > LOGITS_ATOL:
+        fail(f"serving comm {backend}: answers off the full-attention logits by {err}")
+    return out
+
+
+def profile_clients(clients, pool):
+    """One round of one request from each client under ``torch.profiler``:
+    the device's busy share of the round's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = client_round(clients, pool, 1)
+    busy = sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+               if e.device_type == DeviceType.CUDA)
+    if not busy:
+        log("serving comm: the profiler saw no device events; busy share not measured")
+        return {"wall_ms": wall * 1e3, "device_busy_ms": None, "busy_share": None}
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy, "busy_share": busy / (wall * 1e3)}
+
+
+def serve_fault_round(args, fleet, pool, ref) -> dict:
+    """One client whose first request ``fault_injection`` drops: counted,
+    and answered on the client's retry."""
+    from fedml_tpu_torch import constants
+    from fedml_tpu_torch.core.telemetry import Telemetry
+
+    tel = Telemetry.get_instance()
+    retries0 = tel.get_counter("serving_client_retries_total")
+    faults = {"drop_prob": 1.0, "max_faults": 1,
+              "msg_types": [constants.MSG_TYPE_C2S_INFER_REQUEST]}
+    with fleet_clients(args, fleet, "LOCAL", "chip_serving_comm_fault", clients=1,
+                       faults=faults) as (cl,):
+        y = cl.request(pool[0], timeout_s=SERVE_COMM_DROP_TIMEOUT_S, retries=2)
+    dropped = tel.get_counter("comm_faults_injected_total", fault="drop",
+                              msg_type=constants.MSG_TYPE_C2S_INFER_REQUEST)
+    retries = tel.get_counter("serving_client_retries_total") - retries0
+    err = float(np.abs(y - ref[0]).max())
+    log(f"serving comm fault: {dropped:.0f} request dropped by fault_injection, "
+        f"{retries:.0f} client retry, answer err {err:.3g}")
+    if dropped != 1 or retries < 1 or err > LOGITS_ATOL:
+        fail(f"serving comm fault: dropped {dropped}, retries {retries}, err {err}")
+    return {"dropped": dropped, "retries": retries, "logits_max_abs_err": err}
+
+
+def serve_publish_rounds(args, fleet, pool, params_by_step, output_dim, ref0) -> dict:
+    """Checkpoint publishes into the serving fleet: step 1 through
+    ``CheckpointWatcher.watch``, which the answers follow; then steps 2
+    and 3 with step 3 corrupt: a watcher falls back to step 2."""
+    import tempfile
+
+    from fedml_tpu_torch.core.checkpoint import CheckpointWatcher, RoundCheckpointer
+
+    out = {}
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        ckpt = RoundCheckpointer(ckpt_dir)
+        watcher = CheckpointWatcher(ckpt_dir, poll_interval_s=0.05,
+                                    restore_target=fleet.restore_target)
+        watcher.watch(lambda step, state: fleet.publish_state(state, step))
+        t0 = time.perf_counter()
+        ckpt.save(1, {"params": params_by_step[1], "round_idx": 1})
+        deadline = time.monotonic() + 60
+        while (any(e.endpoint.version != 1 for e in fleet.engines)
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        out["publish_to_swap_s"] = time.perf_counter() - t0
+        watcher.close()
+        if any(e.endpoint.version != 1 for e in fleet.engines):
+            fail("serving comm: the step-1 publish never reached the fleet")
+        ref1 = full_attention_logits(args, output_dim, params_by_step[1], np.stack(pool))
+        out["step1"] = serve_local_check(args, fleet, pool, ref1, "after publish 1")
+        out["moved"] = float(np.abs(ref1 - ref0).max())
+        if out["moved"] < 1e-2:
+            fail(f"serving comm: the published params moved the logits by {out['moved']} only")
+        ckpt.save(2, {"params": params_by_step[2], "round_idx": 2})
+        ckpt.save(3, {"params": params_by_step[1], "round_idx": 3})
+        for root, _, names in os.walk(os.path.join(ckpt_dir, "3")):
+            for name in names:
+                with open(os.path.join(root, name), "wb") as fh:
+                    fh.write(b"GARBAGE")
+        watcher2 = CheckpointWatcher(ckpt_dir, restore_target=fleet.restore_target)
+        watcher2.published_step = 1
+        update = watcher2.poll()
+        bad = sorted(watcher2._bad)
+        watcher2.close()
+        if update is None or update[0] != 2 or bad != [3]:
+            fail(f"serving comm: the corrupt step 3 did not fall back to step 2 "
+                 f"(poll {None if update is None else update[0]}, bad steps {bad})")
+        fleet.publish_state(update[1], update[0])
+        ref2 = full_attention_logits(args, output_dim, params_by_step[2], np.stack(pool))
+        out["step2"] = serve_local_check(args, fleet, pool, ref2, "after the fallback to 2")
+    log(f"serving comm publish: step 1 reached both engines "
+        f"{out['publish_to_swap_s'] * 1e3:.1f} ms after its save; corrupt step 3 fell "
+        f"back to step 2; answers followed (logits moved by {out['moved']:.3g})")
+    return out
+
+
+def serve_local_check(args, fleet, pool, ref, tag) -> dict:
+    """Eight LOCAL clients, one request each: every answer against ``ref``."""
+    run_id = f"chip_serving_comm_check_{tag.replace(' ', '_')}"
+    with fleet_clients(args, fleet, "LOCAL", run_id) as clients:
+        answers, _ = client_round(clients, pool, 1)
+    err = answers_err(answers, ref)
+    log(f"serving comm {tag}: logits err {err:.3g} (atol {LOGITS_ATOL})")
+    if err > LOGITS_ATOL:
+        fail(f"serving comm {tag}: answers off the published params' logits by {err}")
+    return {"logits_max_abs_err": err}
+
+
+def serve_mesh_check(model, params, params2, pool) -> dict:
+    """``MeshModelEndpoint`` at {data: 1, fsdp: 1} in a NCCL world of one:
+    a bucket's answers bitwise the plain endpoint's; a stale version
+    rejected and counted."""
+    import torch.distributed as dist
+
+    from fedml_tpu_torch.core.telemetry import Telemetry
+    from fedml_tpu_torch.ops.flash_attention import FWD_KERNEL
+    from fedml_tpu_torch.parallel.layout import build_fed_mesh
+    from fedml_tpu_torch.serving import MeshModelEndpoint, ModelEndpoint
+
+    rows = np.stack(pool)
+    with world_of_one():
+        mesh = build_fed_mesh({"data": 1, "fsdp": 1}, dist.get_world_size(), DEVICE)
+        mep = MeshModelEndpoint(model, params, mesh)
+        plain = ModelEndpoint(model, params)
+        launches0 = FWD_KERNEL.launches
+        y_mesh = mep.infer(rows).cpu()
+        y_plain = plain.infer(rows).cpu()
+        launched = FWD_KERNEL.launches - launches0
+        bitwise = torch.equal(y_mesh, y_plain)
+        v_new = mep.swap(params2, version=5)
+        v_stale = mep.swap(params, version=3)
+        rejected = Telemetry.get_instance().get_counter(
+            "serving_swaps_rejected_total", reason="stale_version")
+        mep.release()
+        del mep, plain
+    torch.cuda.empty_cache()
+    log(f"serving comm mesh: {{data: 1, fsdp: 1}} bucket of {len(rows)} bitwise the plain "
+        f"endpoint's: {bitwise}; swap to version 5 -> {v_new}, stale version 3 -> "
+        f"{v_stale}, rejected {rejected:.0f}")
+    if not bitwise:
+        fail("serving comm: the mesh endpoint's answers differ from the plain endpoint's "
+             f"by {float((y_mesh - y_plain).abs().max())}")
+    if v_new != 5 or v_stale != 5 or rejected != 1:
+        fail(f"serving comm: the stale version was not rejected and counted "
+             f"({v_new}, {v_stale}, {rejected})")
+    return {"bitwise": bitwise, "stale_rejected": rejected, "launches": launched}
+
+
+def serve_cli_dry_run() -> dict:
+    """``python -m fedml_tpu_torch.cli serve --dry-run`` as a user runs it."""
+    argv = [sys.executable, "-m", "fedml_tpu_torch.cli", "serve", "--dry-run", "--cf",
+            str(CONFIG), "--fleet-size", str(SERVE_COMM_FLEET), "--output-dim", "90"]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    t0 = time.perf_counter()
+    out = subprocess.run(argv, cwd=str(REPO), env=env, capture_output=True, text=True,
+                         timeout=300)
+    wall = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    try:
+        status = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        status = None
+    log(f"serving comm cli: exit {out.returncode} in {wall:.1f} s, status {status}")
+    if out.returncode != 0 or not status or status.get("fleet_size") != SERVE_COMM_FLEET \
+            or status.get("model") != "transformer_lm":
+        fail(f"cli serve --dry-run: exit {out.returncode}, stdout {out.stdout[-500:]!r}, "
+             f"stderr {out.stderr[-1500:]!r}")
+    return {"status": status, "wall_s": wall}
+
+
+def run_serving_comm():
+    from fedml_tpu_torch import models
+    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.convert import params_from_flax
+    from fedml_tpu_torch.core.telemetry import Telemetry
+    from fedml_tpu_torch.ops.flash_attention import FWD_KERNEL
+    from fedml_tpu_torch.serving import ServingFleet
+
+    args = load_arguments(str(CONFIG))
+    args.serve_fleet_size = SERVE_COMM_FLEET
+    args.serve_deadline_ms = 0.0  # no default deadline: every request is answered
+    output_dim = 90
+    model = models.create(args, output_dim, device=DEVICE)
+    vocab, T, L = model.input_bound, int(args.seq_len), int(args.num_layers)
+    rng = np.random.default_rng(int(args.random_seed) + 17)
+    params_by_step = {s: params_from_flax(flax_params(args, vocab, rng)) for s in (0, 1, 2)}
+    pool = list(rng.integers(0, vocab, size=(SERVE_COMM_CLIENTS, T)))
+    ref0 = full_attention_logits(args, output_dim, params_by_step[0], np.stack(pool))
+    Telemetry.reset()
+    fleet = ServingFleet.build(model, params_by_step[0], args).start()
+    log(f"serving comm: {len(fleet.engines)} engines, {SERVE_COMM_CLIENTS} clients, T {T}, "
+        f"{L} layers; a request's x is {T * 8} B of token ids, a response's y "
+        f"{T * output_dim * 4} B of f32 logits")
+    reset_launches()  # count only this path's own launches
+    out = {}
+    try:
+        with plain_flash_calls() as plain:
+            out["local"] = serve_transport(args, fleet, "LOCAL", pool, ref0)
+            out["trpc"] = serve_transport(args, fleet, "TRPC", pool, ref0)
+            out["fault"] = serve_fault_round(args, fleet, pool, ref0)
+            out["publish"] = serve_publish_rounds(args, fleet, pool, params_by_step,
+                                                  output_dim, ref0)
+    finally:
+        fleet.stop()
+    tel = Telemetry.get_instance()
+    batches = tel.counters_matching("serving_batches_total")
+    n_batches = int(sum(batches.values()))
+    buckets = sorted(int(k.split("bucket=")[1].rstrip("}")) for k in batches)
+    launches = launch_counts()
+    log(f"serving comm: micro-batches by bucket {batches}, kernel launches {launches}, "
+        f"plain flash calls {plain}")
+    if launches[FWD_KERNEL.name] != L * n_batches:
+        fail(f"serving comm: flash forward launched {launches[FWD_KERNEL.name]} times for "
+             f"{n_batches} micro-batches of a {L}-layer model (want {L * n_batches})")
+    if launches["flash_attention_bwd"] != 0 or plain["forward"] or plain["backward"]:
+        fail(f"serving comm: backward launches {launches['flash_attention_bwd']}, plain "
+             f"flash calls {plain}: the serving path runs the forward kernel only")
+    cases = {(b, T, int(args.num_heads), int(args.embed_dim) // int(args.num_heads),
+              torch.float32, True) for b in buckets}
+    missing = sorted(c[0] for c in cases - set(FLASH_CASES))
+    if missing:
+        fail(f"serving comm: the fleet ran buckets {missing} that the kernels phase "
+             "does not hold against the plain version")
+    out["mesh"] = serve_mesh_check(model, params_by_step[0], params_by_step[1], pool)
+    out["cli"] = serve_cli_dry_run()
+    out["micro_batches"] = batches
+    out["kernel_launches"] = launch_counts()
+    if out["kernel_launches"][FWD_KERNEL.name] != L * (n_batches + 2):
+        fail(f"serving comm: the mesh check launched "
+             f"{out['kernel_launches'][FWD_KERNEL.name] - L * n_batches} flash forwards "
+             f"for 2 buckets of a {L}-layer model")
+    del fleet
+    torch.cuda.empty_cache()
+    return out
 
 
 # -- phase 5 -----------------------------------------------------------
@@ -4894,6 +5297,8 @@ def main() -> int:
         entry["long_sequence"] = long_sequence
     slice_numbers = phase("serving", run_slice, kernels)
     log(f"slice numbers on {card}: {json.dumps(slice_numbers)}")
+    serving_comm_numbers = phase("serving comm", run_serving_comm)
+    log(f"serving comm numbers on {card}: {json.dumps(serving_comm_numbers, default=str)}")
     fedavg_numbers = phase("fedavg", run_fedavg)
     log(f"fedavg numbers on {card}: {json.dumps(fedavg_numbers)}")
     dense_numbers = phase("dense", run_dense)
@@ -4935,7 +5340,8 @@ def main() -> int:
     log(f"mesh numbers on {card}: {json.dumps(mesh_numbers, default=str)}")
     log(f"phase wall times (s): {json.dumps(walls)}")
     paths = {
-        "serving": slice_numbers, "fedavg_headline": fedavg_numbers,
+        "serving": slice_numbers, "serving_comm": serving_comm_numbers,
+        "fedavg_headline": fedavg_numbers,
         "fedavg_dense": dense_numbers, "fedavg_transformer": transformer_numbers,
         "fedavg_transformer_f32": transformer_f32_numbers, "fedavg_rnn": rnn_numbers,
         "fedavg_rnn_stackoverflow": so_numbers, "seam": seam_numbers,

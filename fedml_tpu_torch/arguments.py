@@ -2,8 +2,9 @@
 
 The subset the ported slices read: the YAML load and section
 flattening, the defaults for the seed, the dataset and its
-partitioning, the model geometry, the FedAvg training knobs and the
-serving knobs, and their validation. A YAML written for the JAX package
+partitioning, the model geometry, the FedAvg training knobs, the
+serving and fleet knobs and the comm layer's knobs, and their
+validation. A YAML written for the JAX package
 loads here unchanged; knobs this subset has no default for still land
 on the object as the YAML sets them (the training loop raises on the
 ones whose slice has not arrived).
@@ -234,6 +235,57 @@ _DEFAULTS: Dict[str, Any] = {
     "serve_deadline_ms": 100.0,
     # serving batch-shape bucket policy: "pow2" or "exact"
     "serve_bucket": "pow2",
+    # checkpoint publish/watch poll interval for weight hot-swaps
+    "serve_watch_interval_s": 1.0,
+    # serving fleet: number of endpoints behind the fleet frontend
+    # (1 = the classic single-endpoint plane, no fleet layer)
+    "serve_fleet_size": 1,
+    # serve on a named (data, fsdp) mesh of the process group:
+    # {"data": D, "fsdp": F} makes every endpoint a MeshModelEndpoint
+    # (params at rest in their fsdp shards, batches split along data).
+    # None = serve on one device
+    "serve_mesh": None,
+    # fleet routing policy: "least_loaded" (argmin queue depth per
+    # request) or "static" (the boustrophedon deal cycled —
+    # core/scheduler.assign_by_load)
+    "serve_route_policy": "least_loaded",
+    # fleet SLO shed signal: when the p99 of serving_request_latency_s
+    # exceeds this, new requests shed at the fleet door
+    # (serving_fleet_shed_total{reason=slo}). 0 disables
+    "serve_route_slo_ms": 0.0,
+    # on an immediately-shed submission (queue full / stopped engine)
+    # retry this many more candidates before giving up
+    "serve_route_failover": 1,
+    # comm layer (core/comm, core/managers.py)
+    "run_id": "0",
+    "grpc_ipconfig_path": None,  # gRPC fabric rank->ip CSV
+    "grpc_port_base": 8890,  # gRPC first port (rank k = base+k)
+    # per-attempt deadline of one gRPC unary send; the transport retries
+    # transient RPC errors a small fixed number of times, then raises a
+    # typed CommSendError
+    "grpc_send_timeout_s": 300.0,
+    "trpc_ipconfig_path": None,  # TRPC fabric rank->ip CSV
+    "trpc_port_base": None,  # TRPC first port (rank k = base+k)
+    "broker_host": "127.0.0.1",  # MQTT broker bind address
+    "broker_port": 0,  # MQTT broker port (0 = per-run local broker)
+    "payload_store_dir": None,  # MQTT_S3's payload store directory
+    # fault injection (core/comm/faults.py): a mapping of {drop_prob,
+    # duplicate_prob, delay_s, delay_prob, seed, msg_types, max_faults};
+    # None disables
+    "fault_injection": None,
+    # reliable delivery (core/comm/reliable.py): ack/retransmit channel
+    # with receive-side dedup. Enable on ALL processes of a world together
+    "reliable_comm": False,
+    # reliable channel: retransmits before a send is given up
+    "comm_retry_max": 5,
+    # first-retry backoff; doubles per attempt with up to +50% jitter
+    "comm_retry_base_s": 0.2,
+    # client liveness beats (core/comm/heartbeat.py); 0 disables
+    "heartbeat_interval_s": 0.0,
+    # failure detector: a client silent this long is dead; 0 disables
+    "heartbeat_timeout_s": 0.0,
+    # flight-recorder telemetry: False disables every instrument
+    "telemetry": True,
 }
 
 _SECTIONS = (
@@ -303,10 +355,16 @@ class Arguments:
         for int_key in (
             "random_seed", "serve_queue_size", "serve_max_batch",
             "client_num_in_total", "client_num_per_round", "comm_round",
-            "epochs", "batch_size", "pipeline_depth",
+            "epochs", "batch_size", "pipeline_depth", "serve_fleet_size",
+            "serve_route_failover", "comm_retry_max",
         ):
             setattr(self, int_key, int(getattr(self, int_key)))
-        for float_key in ("learning_rate", "server_lr", "partition_alpha", "fedprox_mu"):
+        for float_key in (
+            "learning_rate", "server_lr", "partition_alpha", "fedprox_mu",
+            "serve_batch_wait_ms", "serve_deadline_ms", "serve_watch_interval_s",
+            "serve_route_slo_ms", "comm_retry_base_s", "grpc_send_timeout_s",
+            "heartbeat_interval_s", "heartbeat_timeout_s",
+        ):
             setattr(self, float_key, float(getattr(self, float_key)))
         for size_key in ("seq_len", "synthetic_train_size", "synthetic_test_size"):
             if getattr(self, size_key, None) is not None:
@@ -336,7 +394,10 @@ class Arguments:
                 f"serve_queue_size={self.serve_queue_size} / "
                 f"serve_max_batch={self.serve_max_batch}: both must be >= 1"
             )
-        for nonneg_key in ("serve_batch_wait_ms", "serve_deadline_ms"):
+        for nonneg_key in (
+            "serve_batch_wait_ms", "serve_deadline_ms", "serve_watch_interval_s",
+            "serve_route_slo_ms", "serve_route_failover",
+        ):
             if getattr(self, nonneg_key) < 0:
                 raise ValueError(
                     f"{nonneg_key}={getattr(self, nonneg_key)}: must be >= 0"
@@ -345,8 +406,52 @@ class Arguments:
             raise ValueError(
                 f"serve_bucket {self.serve_bucket!r}: pick 'pow2' or 'exact'"
             )
+        self._validate_fleet()
+        self._validate_comm()
         self._validate_population()
         self._validate_robustness()
+
+    def _validate_fleet(self) -> None:
+        """The fleet knobs, with the JAX package's words."""
+        if self.serve_fleet_size < 1:
+            raise ValueError(
+                f"serve_fleet_size={self.serve_fleet_size}: must be >= 1 "
+                "(1 = single endpoint, no fleet layer)"
+            )
+        if self.serve_route_policy not in ("least_loaded", "static"):
+            raise ValueError(
+                f"serve_route_policy {self.serve_route_policy!r}: pick "
+                "'least_loaded' or 'static'"
+            )
+        serve_mesh = self.serve_mesh
+        if serve_mesh is not None:
+            if not isinstance(serve_mesh, dict) or not set(
+                serve_mesh
+            ) <= {"data", "fsdp"}:
+                raise ValueError(
+                    f"serve_mesh={serve_mesh!r}: expected a dict with "
+                    "'data'/'fsdp' axis sizes (e.g. {'data': 2, 'fsdp': 2})"
+                )
+            self.serve_mesh = {k: int(v) for k, v in serve_mesh.items()}
+
+    def _validate_comm(self) -> None:
+        """The comm layer's knobs, with the JAX package's words."""
+        if self.comm_retry_max < 0:
+            raise ValueError(
+                f"comm_retry_max={self.comm_retry_max}: must be >= 0 "
+                "(0 = no retransmits/retries)"
+            )
+        for nonneg_key in (
+            "comm_retry_base_s", "heartbeat_interval_s", "heartbeat_timeout_s",
+        ):
+            if getattr(self, nonneg_key) < 0:
+                raise ValueError(
+                    f"{nonneg_key}={getattr(self, nonneg_key)}: must be >= 0"
+                )
+        if self.grpc_send_timeout_s <= 0:
+            raise ValueError(
+                f"grpc_send_timeout_s={self.grpc_send_timeout_s}: must be > 0"
+            )
 
     def _validate_population(self) -> None:
         """The planet-scale knobs, as the JAX package validates them."""

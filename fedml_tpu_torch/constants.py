@@ -1,7 +1,8 @@
 """Framework-wide names (port subset of ``fedml_tpu/constants.py``).
 
-The partition methods, simulation backends, federated optimizer names
-and the defense and attack vocabularies the ported slices read. The
+The partition methods, simulation backends, federated optimizer names,
+the defense and attack vocabularies, and the comm backends, message
+types and message keys of the comm layer and serving. The
 values are the JAX package's, so one YAML drives either package.
 """
 
@@ -34,3 +35,63 @@ DEFENSE_WEAK_DP = "weak_dp"
 DEFENSE_MEDIAN = "median"
 DEFENSE_TYPES = (DEFENSE_NORM_DIFF_CLIPPING, DEFENSE_WEAK_DP, DEFENSE_MEDIAN)
 POISON_TYPES = ("label_flip", "targeted_flip", "backdoor_pattern", "edge_case")
+
+# Communication backends (the reference's client_manager.py:27-94
+# dispatch table)
+COMM_BACKEND_LOCAL = "LOCAL"  # in-process queues (tests / single host)
+COMM_BACKEND_GRPC = "GRPC"
+COMM_BACKEND_TRPC = "TRPC"  # persistent-pipe raw-tensor RPC (TensorPipe analog)
+COMM_BACKEND_MPI = "MPI"  # accepted; mapped onto the LOCAL transport
+COMM_BACKEND_MQTT = "MQTT"
+COMM_BACKEND_MQTT_S3 = "MQTT_S3"
+COMM_BACKEND_SP = "sp"
+COMM_BACKEND_MESH = "MESH"
+
+# Message protocol shared by the managers (reference: simulation/
+# mpi_p2p_mp/fedavg/message_define.py:1-31)
+MSG_TYPE_S2C_INIT_CONFIG = 1
+MSG_TYPE_S2C_SYNC_MODEL_TO_CLIENT = 2
+MSG_TYPE_C2S_SEND_MODEL_TO_SERVER = 3
+MSG_TYPE_C2S_CLIENT_STATUS = 5
+MSG_TYPE_S2C_FINISH = 7
+MSG_TYPE_C2S_FINISH_ACK = 8
+MSG_TYPE_CONNECTION_IS_READY = 0
+# liveness beats and the reconnect downlink (core/comm/heartbeat.py)
+MSG_TYPE_C2S_HEARTBEAT = 9
+MSG_TYPE_S2C_RESYNC = 10
+# server-internal loopbacks: the aggregation deadline fired, the failure
+# detector declared a client dead
+MSG_TYPE_S2S_AGG_DEADLINE = 30
+MSG_TYPE_S2S_CLIENT_DEAD = 31
+# the serving plane's request/response pair (serving/frontends.py)
+MSG_TYPE_C2S_INFER_REQUEST = 40
+MSG_TYPE_S2C_INFER_RESPONSE = 41
+# the reliable channel's comm-layer ACK (core/comm/reliable.py): never
+# reaches an application handler
+MSG_TYPE_COMM_ACK = 50
+
+MSG_ARG_KEY_TYPE = "msg_type"
+MSG_ARG_KEY_SENDER = "sender"
+MSG_ARG_KEY_RECEIVER = "receiver"
+MSG_ARG_KEY_MODEL_PARAMS = "model_params"
+MSG_ARG_KEY_NUM_SAMPLES = "num_samples"
+MSG_ARG_KEY_CLIENT_INDEX = "client_idx"
+MSG_ARG_KEY_CLIENT_STATUS = "client_status"
+MSG_ARG_KEY_ROUND_INDEX = "round_idx"
+MSG_ARG_KEY_MODEL_FILE_URL = "model_file_url"
+# compressed uplinks carry an encoded delta instead of model_params
+MSG_ARG_KEY_MODEL_DELTA = "model_delta"
+# reliable channel: (channel id, sequence) of a tracked message, echoed
+# by its ACK
+MSG_ARG_KEY_COMM_SEQ = "comm_seq"
+MSG_ARG_KEY_COMM_CHAN = "comm_chan"
+MSG_ARG_KEY_COMM_ACK_SEQ = "comm_ack_seq"
+MSG_ARG_KEY_COMM_ACK_CHAN = "comm_ack_chan"
+MSG_ARG_KEY_RANK = "rank"
+# distributed-tracing context (core/tracing.py): the run-wide trace id,
+# the sending span (the receiver's parent) and a per-send flow id
+MSG_ARG_KEY_TRACE_ID = "trace_id"
+MSG_ARG_KEY_TRACE_SPAN = "trace_span"
+MSG_ARG_KEY_TRACE_FLOW = "trace_flow"
+MSG_ARG_KEY_TRAIN_SECONDS = "train_seconds"
+MSG_ARG_KEY_MODEL_VERSION = "model_version"

@@ -1,12 +1,14 @@
 """Flight-recorder telemetry: metrics registry + trace ring (port subset).
 
-The port of ``fedml_tpu/core/telemetry.py``, cut to what the serving
-path calls: the process-wide ``Telemetry`` registry (counters, gauges,
-histograms with explicit buckets, heartbeats) and its ``FlightRecorder``
-ring of Chrome-trace events (``begin``/``end``/``instant``). Names,
-tags and semantics match the JAX package, so a dashboard reads either.
-Exporters, the stall watchdog and the metrics server arrive with a
-later slice.
+The port of ``fedml_tpu/core/telemetry.py``, cut to what serving and the
+comm layer call: the process-wide ``Telemetry`` registry (counters,
+gauges, histograms with explicit buckets, heartbeats, status probes,
+``snapshot``) with its base labels (``run_id``, ``rank``, ``role``) and its
+``FlightRecorder`` ring of Chrome-trace events (``begin``/``end``/
+``instant`` and the cross-process flow edges ``flow_start``/``flow_end``).
+Names, tags and semantics match the JAX package, so a dashboard reads
+either. Exporters, the stall watchdog and the metrics server arrive with
+a later slice.
 
 Hot-loop contract, as in the JAX package: every instrument is
 host-side only (counter bumps, deque appends, ``perf_counter`` reads)
@@ -19,7 +21,7 @@ import os
 import threading
 import time
 from collections import defaultdict, deque
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 __all__ = ["Telemetry", "FlightRecorder"]
 
@@ -36,7 +38,11 @@ class FlightRecorder:
         self._t0 = time.perf_counter()
         self.dropped = 0
 
-    def _emit(self, ph: str, name: str, cat: str, args: Optional[dict]) -> None:
+    def __len__(self) -> int:
+        return len(self._events)
+
+    def _emit(self, ph: str, name: str, cat: str, args: Optional[dict],
+              extra: Optional[dict] = None) -> None:
         if not self.enabled:
             return
         ev: Dict[str, Any] = {
@@ -49,6 +55,8 @@ class FlightRecorder:
         }
         if ph == "i":
             ev["s"] = "t"  # thread-scoped instant
+        if extra:
+            ev.update(extra)
         if args:
             ev["args"] = args
         with self._lock:
@@ -65,6 +73,17 @@ class FlightRecorder:
     def instant(self, name: str, cat: str = "event", **args: Any) -> None:
         self._emit("i", name, cat, args or None)
 
+    def flow_start(self, flow_id: int, name: str = "msg", cat: str = "flow",
+                   **args: Any) -> None:
+        """Flow-start ("s") edge of a cross-thread/process arrow, emitted
+        inside an open B/E span (the slice it binds to)."""
+        self._emit("s", name, cat, args or None, extra={"id": int(flow_id)})
+
+    def flow_end(self, flow_id: int, name: str = "msg", cat: str = "flow",
+                 **args: Any) -> None:
+        """Flow-finish ("f", binding point "e": the enclosing slice)."""
+        self._emit("f", name, cat, args or None, extra={"id": int(flow_id), "bp": "e"})
+
     def tail(self, n: int = 200) -> List[Dict[str, Any]]:
         """Last ``n`` events."""
         with self._lock:
@@ -74,12 +93,19 @@ class FlightRecorder:
 
 class Telemetry:
     """Process-wide registry of tagged counters / gauges / histograms
-    plus the flight recorder."""
+    plus the flight recorder; base labels (run_id / rank / role) come
+    from ``args``."""
 
     _instance: Optional["Telemetry"] = None
 
     def __init__(self, args=None) -> None:
         self.args = args
+        self.run_id = str(getattr(args, "run_id", "0")) if args else "0"
+        self.rank = int(getattr(args, "rank", 0) or 0) if args else 0
+        self.role = (
+            getattr(args, "role", None) or ("server" if self.rank == 0 else "client")
+        )
+        self._probes: Dict[str, Callable[[], Any]] = {}
         self._enabled = bool(getattr(args, "telemetry", True)) if args else True
         self._lock = threading.Lock()
         self._counters: Dict[Tuple[str, Tuple], float] = defaultdict(float)
@@ -98,17 +124,25 @@ class Telemetry:
         if cls._instance is None:
             cls._instance = cls(args)
         elif args is not None and cls._instance.args is None:
-            # a later caller finally supplied args: adopt its enable flag
-            cls._instance.args = args
-            cls._instance.enabled = bool(
-                getattr(args, "telemetry", cls._instance.enabled)
-            )
+            # a later caller finally supplied args: adopt its identity
+            cls._instance.rebind(args)
         return cls._instance
 
     @classmethod
     def reset(cls) -> None:
         """Drop the singleton (tests)."""
         cls._instance = None
+
+    def rebind(self, args) -> None:
+        """Adopt base labels and the enable flag from ``args`` without
+        dropping accumulated state."""
+        self.args = args
+        self.run_id = str(getattr(args, "run_id", self.run_id))
+        self.rank = int(getattr(args, "rank", self.rank) or 0)
+        self.role = getattr(args, "role", None) or (
+            "server" if self.rank == 0 else "client"
+        )
+        self.enabled = bool(getattr(args, "telemetry", self._enabled))
 
     # -- enable switch -------------------------------------------------
     @property
@@ -166,6 +200,52 @@ class Telemetry:
     def get_counter(self, name: str, **tags: Any) -> float:
         with self._lock:
             return self._counters.get(self._key(name, tags), 0.0)
+
+    def counters_matching(self, name: str) -> Dict[str, float]:
+        """All tag-series of one counter, rendered ``name{k=v,...}``."""
+        with self._lock:
+            return {self._fmt(n, t): v for (n, t), v in self._counters.items() if n == name}
+
+    def add_probe(self, name: str, fn: Callable[[], Any]) -> None:
+        """Register a status callable (e.g. a comm wrapper's queue depth)."""
+        with self._lock:
+            self._probes[name] = fn
+
+    def probes(self) -> Dict[str, Callable[[], Any]]:
+        with self._lock:
+            return dict(self._probes)
+
+    @staticmethod
+    def _fmt(name: str, tags: Tuple) -> str:
+        if not tags:
+            return name
+        return name + "{" + ",".join(f"{k}={v}" for k, v in tags) + "}"
+
+    def snapshot(self) -> Dict[str, Any]:
+        """Every series, rendered ``name{k=v,...}``, with the base labels."""
+        with self._lock:
+            counters = {self._fmt(n, t): v for (n, t), v in self._counters.items()}
+            gauges = {self._fmt(n, t): v for (n, t), v in self._gauges.items()}
+            hists = {
+                self._fmt(n, t): {k: (list(v) if isinstance(v, list) else v)
+                                  for k, v in h.items()}
+                for (n, t), h in self._hists.items()
+            }
+            heartbeats = {
+                n: {"value": v, "age_s": round(time.monotonic() - ts, 3)}
+                for n, (v, ts) in self._heartbeats.items()
+            }
+        return {
+            "kind": "telemetry_snapshot",
+            "run_id": self.run_id,
+            "rank": self.rank,
+            "role": self.role,
+            "counters": counters,
+            "gauges": gauges,
+            "histograms": hists,
+            "heartbeats": heartbeats,
+            "trace_events_buffered": len(self.recorder),
+        }
 
     def heartbeat(self, name: str, value: Any = None) -> None:
         """Mark progress, stamped on the monotonic clock."""

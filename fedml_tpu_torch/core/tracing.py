@@ -1,5 +1,17 @@
-"""On-demand device profiling of listed rounds (port of ``RoundProfiler``).
+"""Trace context of the comm layer, and on-demand device profiling of
+listed rounds (port of part of ``fedml_tpu/core/tracing.py``).
 
+**Context propagation.** The instrumented comm wrapper
+(``core/comm/instrument.py``) stamps every outbound message with
+``trace_id`` (one per run, from ``run_id``) and ``trace_flow`` (a per-send
+id unique across the world) through :func:`stamp_context`; a handler
+links an effect to its cause with :func:`continue_context` (the reply
+names the request's flow as its parent span). A message that comes back
+through the layer already stamped (a reliable-channel retransmit, an
+injected duplicate) keeps its flow id. The stitcher and the round
+analyzer of the JAX module belong to a later slice.
+
+**Round profiling** (``RoundProfiler``):
 ``args.profile_rounds`` (a list or a comma-separated string of round
 indices) names the rounds to capture; the captures land under
 ``<telemetry_dir>/profile/round_NNNN/``. The round loop calls
@@ -18,13 +30,70 @@ summary's device entries are empty.
 
 from __future__ import annotations
 
+import itertools
 import json
 import logging
 import os
+import threading
 import time
 from typing import Optional
 
 import torch
+
+from .. import constants
+
+# message keys the comm layer's byte estimate ignores (comm metadata, not
+# payload; see instrument.payload_nbytes)
+TRACE_CTX_KEYS = (
+    constants.MSG_ARG_KEY_TRACE_ID,
+    constants.MSG_ARG_KEY_TRACE_SPAN,
+    constants.MSG_ARG_KEY_TRACE_FLOW,
+)
+
+# flow-id space: (rank + 1) in the high bits, a process-wide counter low,
+# so ids are unique across every rank of a world without coordination
+_flow_counter = itertools.count(1)
+_flow_lock = threading.Lock()
+
+
+def _next_flow_id(rank: int) -> int:
+    with _flow_lock:
+        n = next(_flow_counter)
+    return ((int(rank) + 1) << 40) | n
+
+
+def trace_id_for(telemetry) -> str:
+    """One trace per run: every process of a federation derives the same
+    id from the shared ``run_id``."""
+    return f"fedrun-{telemetry.run_id}"
+
+
+def stamp_context(msg, telemetry, rank: int = 0):
+    """Stamp trace context onto an outbound message; returns
+    ``(flow_id, is_resend)``. ``flow_id`` is None for a self-addressed
+    loopback (it never crosses a wire); ``is_resend`` is True when the
+    message already carried a flow id, which is kept."""
+    existing = msg.get(constants.MSG_ARG_KEY_TRACE_FLOW)
+    if existing is not None:
+        return int(existing), True
+    if int(msg.get_sender_id()) == int(msg.get_receiver_id()):
+        return None, False
+    flow_id = _next_flow_id(rank)
+    msg.add_params(constants.MSG_ARG_KEY_TRACE_ID, trace_id_for(telemetry))
+    msg.add_params(constants.MSG_ARG_KEY_TRACE_FLOW, flow_id)
+    return flow_id, False
+
+
+def continue_context(in_msg, out_msg) -> None:
+    """Causally link ``out_msg`` to the message that triggered it: the
+    trace id carries over and the inbound flow becomes the parent span.
+    A no-op when the inbound message was never stamped."""
+    trace_id = in_msg.get(constants.MSG_ARG_KEY_TRACE_ID)
+    parent_flow = in_msg.get(constants.MSG_ARG_KEY_TRACE_FLOW)
+    if trace_id is not None:
+        out_msg.add_params(constants.MSG_ARG_KEY_TRACE_ID, trace_id)
+    if parent_flow is not None:
+        out_msg.add_params(constants.MSG_ARG_KEY_TRACE_SPAN, int(parent_flow))
 
 
 class RoundProfiler:

@@ -61,6 +61,8 @@ class ModelEndpoint:
         }
 
     # -- inference -----------------------------------------------------
+    shard_multiple: int = 1
+
     def params(self) -> Params:
         with self._lock:
             return self._params
@@ -79,8 +81,13 @@ class ModelEndpoint:
         """Atomically replace the served params; returns the new version
         (``version`` or the old version + 1). Raises ``ValueError`` when
         the new params change any key, shape, dtype or device."""
-        new_params = self._place(new_params)
-        old, new = _spec(self._params), _spec(new_params)
+        return self._install(self._placed_checked(new_params), version)
+
+    def _placed_checked(self, new_params: Dict) -> Params:
+        """``new_params`` placed as the served ones are, after checking
+        that they match them key by key."""
+        placed = self._place(new_params)
+        old, new = _spec(self.params()), _spec(placed)
         if old != new:
             diff = [(a, b) for a, b in zip(old, new) if a != b][:3]
             raise ValueError(
@@ -89,8 +96,11 @@ class ModelEndpoint:
                 f"({len(old)} served, {len(new)} published; first "
                 f"differences served->published: {diff})"
             )
+        return placed
+
+    def _install(self, placed: Params, version: Optional[int]) -> int:
         with self._lock:
-            self._params = new_params
+            self._params = placed
             self.version = int(version) if version is not None else self.version + 1
             self.swaps += 1
             v = self.version
@@ -102,3 +112,9 @@ class ModelEndpoint:
             tel.set_gauge("serving_model_version", v)
             tel.recorder.instant("serve.swap", cat="serving", version=v)
         return v
+
+    def swap_from_checkpoint_state(self, state: Dict, version: int) -> int:
+        """Swap in a ``CheckpointWatcher``-published state (the round
+        loop's ``{params, server_state, generator, round_idx}``): its flat
+        params dict, under the published step as the version."""
+        return self.swap(state["params"], version=version)

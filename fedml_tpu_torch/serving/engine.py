@@ -4,8 +4,9 @@ Port of ``fedml_tpu/serving/engine.py``. ``ServingEngine`` is the
 in-process serving plane for the federated global model: a bounded
 request queue (``admission.py``), a continuous micro-batcher
 (``batcher.py``) and a versioned, hot-swappable endpoint
-(``endpoint.py``) driven by one worker thread. Frontends, the fleet and
-the checkpoint watcher come with a later slice of the port.
+(``endpoint.py``) driven by one worker thread. Frontends
+(``frontends.py``), the fleet (``fleet.py``) and the checkpoint watcher
+(``core/checkpoint.py``) publish into it.
 
 Telemetry (all host-side, the core/telemetry.py hot-loop contract):
 
@@ -99,6 +100,7 @@ class ServingEngine:
         self.batcher = MicroBatcher(
             self.admission.queue, self.max_batch, self.batch_wait_s,
             self.bucket_policy,
+            shard_multiple=int(getattr(endpoint, "shard_multiple", 1)),
         )
         self._stop_evt = threading.Event()
         self._paused = threading.Event()
@@ -152,6 +154,20 @@ class ServingEngine:
                 self.admission.shed(
                     req, "stopped", ServingShedError("serving engine stopped")
                 )
+
+    def alive(self) -> bool:
+        """Is the worker thread serving? False before ``start``, after
+        ``stop`` and after a worker crash — the fleet's routing excludes
+        dead engines on exactly this."""
+        return (
+            self._thread is not None
+            and self._thread.is_alive()
+            and not self._stop_evt.is_set()
+        )
+
+    def depth(self) -> int:
+        """Queued (not yet drained) requests — the fleet's load signal."""
+        return self.admission.depth()
 
     def __enter__(self) -> "ServingEngine":
         return self.start()

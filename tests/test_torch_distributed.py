@@ -350,3 +350,28 @@ def test_configs_read_the_same_in_both_packages(tmp_path):
         assert getattr(ta, key) == getattr(ja, key), key
     assert ta.mesh_shape == {"data": 4, "fsdp": 2}
     assert fed_mesh_shape(ta.mesh_shape) and jax_fed(ja.mesh_shape)
+    # the serve and comm knobs: the serving config with a fleet, a mesh
+    # and a lossy, reliable comm stack, and every default
+    src = open("fedml_tpu_torch/configs/serve_transformer_flash.yaml").read()
+    path = tmp_path / "serve_comm.yaml"
+    path.write_text(src + (
+        "fleet_args: {serve_fleet_size: 2, serve_mesh: {data: 2, fsdp: 1},\n"
+        "             serve_route_policy: static, serve_route_slo_ms: 250,\n"
+        "             serve_route_failover: 2, serve_watch_interval_s: 0.5}\n"
+        "comm_args: {grpc_port_base: 9100, grpc_send_timeout_s: 30, trpc_port_base: 9200,\n"
+        "            reliable_comm: true, comm_retry_max: 3, comm_retry_base_s: 0.1,\n"
+        "            heartbeat_interval_s: 1, heartbeat_timeout_s: 4, broker_port: 1883,\n"
+        "            fault_injection: {drop_prob: 0.1, seed: 2}, run_id: serve7}\n"))
+    knobs = ("serve_max_batch", "serve_queue_size", "serve_batch_wait_ms", "serve_deadline_ms",
+             "serve_bucket", "serve_fleet_size", "serve_mesh", "serve_route_policy",
+             "serve_route_slo_ms", "serve_route_failover", "serve_watch_interval_s",
+             "grpc_port_base", "grpc_send_timeout_s", "grpc_ipconfig_path", "trpc_port_base",
+             "trpc_ipconfig_path", "reliable_comm", "comm_retry_max", "comm_retry_base_s",
+             "heartbeat_interval_s", "heartbeat_timeout_s", "broker_host", "broker_port",
+             "payload_store_dir", "fault_injection", "run_id", "telemetry")
+    for p in (path, "fedml_tpu_torch/configs/serve_transformer_flash.yaml"):
+        ja = JaxArguments(argparse.Namespace(yaml_config_file=str(p)))
+        ta = load_arguments(str(p))
+        for key in knobs:
+            assert getattr(ta, key) == getattr(ja, key), (p, key)
+            assert type(getattr(ta, key)) is type(getattr(ja, key)), (p, key)

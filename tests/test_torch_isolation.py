@@ -90,6 +90,29 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def test_serving_and_comm_load_neither_msgpack_nor_grpc():
+    """The port writes the wire format itself and imports ``grpc`` only
+    when a GRPC manager is built."""
+    mods = ["fedml_tpu_torch.serving", "fedml_tpu_torch.core.comm",
+            "fedml_tpu_torch.core.managers", "fedml_tpu_torch.cli",
+            "fedml_tpu_torch.core.comm.tensor_rpc", "fedml_tpu_torch.core.comm.grpc_backend",
+            "fedml_tpu_torch.core.comm.mqtt_backend", "fedml_tpu_torch.core.comm.payload_store"]
+    code = (
+        "import sys\n"
+        f"for m in {mods!r}: __import__(m)\n"
+        "from fedml_tpu_torch.arguments import Arguments\n"
+        "from fedml_tpu_torch.core.managers import build_comm_stack\n"
+        "build_comm_stack(Arguments(), 0, 1, 'LOCAL')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('msgpack', 'grpc'))\n"
+        "assert not bad, bad\n"
+        "from fedml_tpu_torch.core.comm.grpc_backend import import_grpc\n"
+        "import_grpc()\n"
+        "assert 'grpc' in sys.modules\n"
+    )
+    out = _run(["-c", code], REPO, {"PYTHONPATH": REPO})
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 @pytest.mark.parametrize("alone", [True, False])
 def test_chip_smoke_fails_without_card_or_port(tmp_path, alone):
     """Alone in a directory the smoke run has no port to import; beside

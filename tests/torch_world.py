@@ -80,6 +80,30 @@ def run_world(fn: Callable, world: int, payload: Any, tmp_path, timeout: float =
     return out
 
 
+def free_port_block(n: int, attempts: int = 50) -> int:
+    """The first of ``n`` consecutive free loopback ports (a TRPC or gRPC
+    rank binds ``base + rank``)."""
+    import random
+    import socket
+
+    rng = random.Random()
+    for _ in range(attempts):
+        base = rng.randint(20000, 55000)
+        socks = []
+        try:
+            for i in range(n):
+                s = socket.socket()
+                s.bind(("127.0.0.1", base + i))
+                socks.append(s)
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise RuntimeError(f"no contiguous {n}-port block found")
+
+
 # -- workers ------------------------------------------------------------
 
 
@@ -466,3 +490,127 @@ def planet_mesh(rank: int, payload: dict) -> dict:
     return {"params": {k: v.numpy() for k, v in api.full_params().items()},
             "stats": dict(api.pipeline_stats), "history": list(api.history),
             "local_shapes": {k: tuple(v.shape) for k, v in api.global_params.items()}}
+
+
+def mesh_serve(rank: int, payload: dict) -> list:
+    """Each run of ``payload["runs"]``: the run's model (port knobs
+    ``args``, whole ``params`` numpy) served through ``MeshModelEndpoint``
+    over the fed ``mesh_shape`` of the world: rank 0 runs a
+    ``ServingEngine`` and sends ``xs`` as one paused burst, then again
+    after each of the ``pubs`` swapped in as versions 1, 2, ... (and, with
+    ``remesh``, after re-meshing onto that shape); the other ranks follow.
+    Rank 0 returns the bursts' rows, the refusals it met and every rank's
+    at-rest leaf shapes; with ``fleet`` the bursts go through a
+    ``FleetFrontend`` of two mesh endpoints over LOCAL instead."""
+    return [_mesh_serve_one(rank, run) for run in payload["runs"]]
+
+
+def _mesh_serve_one(rank: int, payload: dict) -> dict:
+    import torch
+    import torch.distributed as dist
+
+    from fedml_tpu_torch import models
+    from fedml_tpu_torch.core.telemetry import Telemetry
+    from fedml_tpu_torch.parallel.layout import build_fed_mesh
+    from fedml_tpu_torch.serving import MeshModelEndpoint, ServingEngine, ServingFleet
+
+    Telemetry.reset()  # this run's counters alone
+    args = _port_args(payload["args"])
+    model = models.create(args, payload["output_dim"], device="cpu")
+    params = {k: torch.tensor(v) for k, v in payload["params"].items()}
+    mesh = build_fed_mesh(payload["mesh_shape"], dist.get_world_size(), "cpu")
+    pubs = [{k: torch.tensor(v) for k, v in p.items()} for p in payload["pubs"]]
+    if payload.get("fleet"):
+        fleet = ServingFleet.build(model, params, args, fleet_size=2, mesh=mesh)
+        if rank != 0:
+            fleet.follow()
+            return {"local_shapes": _shapes(fleet.engines[0].endpoint)}
+        return _fleet_bursts(args, fleet, payload, pubs)
+    ep = MeshModelEndpoint(model, params, mesh)
+    shapes = _shapes(ep)
+    if rank != 0:
+        ep.follow()
+        return {"local_shapes": shapes}
+    out = {"local_shapes": shapes, "rows": [], "errors": []}
+    xs = [np.asarray(x) for x in payload["xs"]]
+    with ServingEngine(ep, args) as eng:
+        out["rows"].append(_mesh_burst(eng, xs))
+        for v, pub in enumerate(pubs):
+            ep.swap(pub, version=v + 1)
+            out["rows"].append(_mesh_burst(eng, xs))
+        # a stale publish is dropped and counted; a ragged batch refused
+        out["stale_version"] = ep.swap(params, version=1)
+        out["rejected"] = Telemetry.get_instance().get_counter(
+            "serving_swaps_rejected_total", reason="stale_version")
+        if ep.shard_multiple > 1:
+            try:
+                ep.infer(np.stack(xs[:1] * (ep.shard_multiple + 1)))
+            except ValueError as e:
+                out["errors"].append(str(e))
+        try:
+            ep.remesh(devices=[0])
+        except NotImplementedError as e:
+            out["errors"].append(str(e))
+        if payload.get("remesh"):
+            eng.stop()
+            ep.remesh(mesh_shape=payload["remesh"])
+            eng.batcher.shard_multiple = ep.shard_multiple
+            eng.start()
+            out["rows"].append(_mesh_burst(eng, xs))
+        out["version"], out["swaps"] = ep.version, ep.swaps
+    ep.release()
+    return out
+
+
+def _shapes(ep) -> dict:
+    return {k: tuple(v.shape) for k, v in ep.params().items()}
+
+
+def _mesh_burst(engine, xs):
+    engine.pause()
+    futs = engine.submit_many(xs, deadline_s=60.0)
+    engine.resume()
+    return np.stack([f.result(timeout=60) for f in futs])
+
+
+def _fleet_bursts(args, fleet, payload, pubs) -> dict:
+    """Rank 0 of a mesh fleet: clients over LOCAL ask the FleetFrontend
+    for each of ``xs``, before and after each publish."""
+    import threading
+
+    from fedml_tpu_torch.serving import FleetFrontend, ServingClient, build_serving_com
+
+    out = {"local_shapes": _shapes(fleet.engines[0].endpoint), "rows": []}
+    xs = [np.asarray(x) for x in payload["xs"]]
+    fleet.start()
+    fe = FleetFrontend(fleet, build_serving_com(args, 0, 2, "LOCAL"), args)
+    t = threading.Thread(target=fe.serve_forever, daemon=True)
+    t.start()
+    cl = ServingClient(build_serving_com(args, 1, 2, "LOCAL"), rank=1, args=args)
+    try:
+        out["rows"].append(np.stack([cl.request(x, timeout_s=30.0) for x in xs]))
+        for v, pub in enumerate(pubs):
+            fleet.hot_swap(pub, version=v + 1)
+            out["rows"].append(np.stack([cl.request(x, timeout_s=30.0) for x in xs]))
+        out["routed"] = list(fleet.routed)
+    finally:
+        cl.close()
+        fe.stop()
+        fleet.stop()
+        fleet.release()
+    return out
+
+
+def cli_serve(rank: int, payload: dict) -> str:
+    """``python -m fedml_tpu_torch.cli serve`` (its ``main``) on every rank
+    of the world; rank 0 returns what it printed."""
+    import contextlib
+    import io
+
+    from fedml_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(payload["argv"])
+    assert rc == 0, rc
+    return buf.getvalue()
