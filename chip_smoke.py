@@ -80,7 +80,20 @@ version on the card:
   mode, ring attention, and Ulysses by override: the flash kernels at
   [8, 4096, 8, 64]); and the flash wrappers past their old limits, head
   dims 129-512 on the rows route (``flash_attention_rows.cu``) and T past
-  grid y's 65,535 tiles.
+  grid y's 65,535 tiles;
+- the fourteenth slice, cross silo: ``fedml_tpu_torch/configs/
+  cross_silo_femnist_cnn.yaml`` (a server and 8 silos of the headline's
+  CNN, 600 FEMNIST stand-in samples each) through the port's
+  ``cross_silo.Server`` and ``Client``s as threads: LOCAL stream and
+  buffered, TRPC on loopback, TRPC with norm-diff clipping and int8
+  uplinks (every streamed upload one launch of the exact fold, every
+  clipped or encoded one one of the robust term too), a chaos schedule
+  killing the server at ``server.round_close`` and the restarted server
+  RESYNCing the clients, the edge tier over ranks (``edge_plane:
+  ranks``, 2 edges: each fold and each root merge a launch), and
+  ``run_hierarchical_cross_silo_server`` / ``_client`` with 2 one-rank
+  silos of the bf16 flash transformer at full width (the flash kernels
+  behind the federation's wire).
 The CNN, ResNet, RNN and logistic-regression paths run no other hand-written
 kernel: their
 convolutions and matrix products are cuDNN's and cuBLAS's through
@@ -287,6 +300,18 @@ Phases, each of which fails the run:
    and dense attention (f32 scores) give one batch's loss within 1e-2 on
    the same weights; the sequence run stopped after 1 of 2 epochs and
    resumed is bitwise the straight run (deterministic algorithms).
+23. cross silo (after the mesh phase): World A, the cross-silo
+   configuration at 1 local epoch over LOCAL stream and buffered, TRPC
+   stream and TRPC with clipping and int8 uplinks (rounds/s on the host's
+   clock, upload bytes a round, each close's ms, a profiled round's busy
+   share and launches by kind); a chaos kill at ``server.round_close``
+   of round 1 and the restart (kill-to-close seconds); World B, the edge
+   tier over 2 ranks; World C, 2 one-rank hierarchical silos of the bf16
+   flash transformer. Gates: stream = buffered = TRPC = the restarted
+   run = World B bitwise (deterministic algorithms), World C bitwise its
+   horizontal world; K1 = the uploads (+ the root's merges), K3 = the
+   clipped or encoded uploads, flash = layers x steps (+ evaluations);
+   no plain fold, term or flash call; the loss falls.
 The kernels phase also holds the rows route (head dims above 128),
 forward and backward, f32 and bf16, at D 160, 192, 256, 384 and 512,
 causal and not, at [2, 2048, 4, D], and at [8, 4096, 8, 256] causal,
@@ -3214,8 +3239,9 @@ F32_FLOPS = 67e12
 # K1 cases, (N, K): ``fold`` at the planet path's model
 # (logistic regression, 60 x 10 + 10 = 610 params, one term a fold),
 # then ResNet-18-GN's 11,173,962 params with one term (a streaming fold)
-# and three (a limb-set merge)
-FOLD_CASES = [(610, 1), (11_173_962, 1), (11_173_962, 3)]
+# and three (a limb-set merge), and the cross-silo path's: the FEMNIST
+# CNN's 428,350 params, an upload's fold and an edge report's merge
+FOLD_CASES = [(610, 1), (11_173_962, 1), (11_173_962, 3), (428_350, 1), (428_350, 3)]
 # the one-launch calls at the planet path's 4 edges: a group's edge
 # terms into their edges (E, N, mask; the planet's model, edge 2 skipped
 # as a group with no client of it skips it) and the root merge of the
@@ -3933,6 +3959,18 @@ def _path_shapes():
     return int(n_cnn), sizes
 
 
+def cnn_leaf_sizes():
+    """The cross-silo configuration's CNN, leaf by leaf."""
+    from fedml_tpu_torch import models
+    from fedml_tpu_torch.arguments import load_arguments
+
+    args = load_arguments(str(CROSS_SILO_CONFIG))
+    sizes = [p.numel() for p in models.create(args, 62, device="cpu").module.parameters()]
+    if sum(sizes) != CROSS_SILO_CNN_PARAMS:
+        fail(f"the cross-silo CNN holds {sum(sizes)} params, not {CROSS_SILO_CNN_PARAMS}")
+    return sizes
+
+
 def _k3_operands(R, sizes, gen):
     """K3's operands at a path shape, laid out by the port's own
     producers: the global model flat (``_FlatSpec.flatten``); the deltas
@@ -3977,10 +4015,15 @@ def check_robust_term():
     n_cnn, resnet = _path_shapes()
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     cases = []
-    for R, sizes in ((32, [n_cnn]), (1, resnet)):
+    # the cross-silo path's one: an int8, clipped upload of the CNN, one
+    # scale a leaf
+    for R, sizes, only in ((32, [n_cnn], None), (1, resnet, None),
+                           (1, cnn_leaf_sizes(), "int8 encoded clipped")):
         n = sum(sizes)
         delta, g, q, off, sc, s, w = _k3_operands(R, sizes, gen)
         modes = K3_MODES + ([K3_UNALIGNED] if R > 1 else [])
+        if only is not None:
+            modes = [m for m in modes if m[0] == only]
         for name, src, base, clipped, weighted in modes:
             kw = dict(g=g if base else None, add_g=base, s=s if clipped else None,
                       w=w if weighted else None)
@@ -4411,10 +4454,7 @@ KL_EQUAL_ATOL = 1e-7  # |KL| of equal logits in f32
 def profiled_call(fn):
     """``fn()`` under ``torch.profiler``: its result and a summary in
     ``core/tracing.py``'s form (wall, device busy, kernels by name)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from fedml_tpu_torch.core.tracing import _union_us
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4423,8 +4463,17 @@ def profiled_call(fn):
     with profile(activities=[activity]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    by_name, counts, spans = {}, {}, []
+    return out, kineto_summary(prof, time.perf_counter() - t0)
+
+
+def kineto_summary(prof, wall: float) -> dict:
+    """A finished profiler's device events in ``core/tracing.py``'s
+    summary form (wall, device busy, kernels by name)."""
+    from torch.autograd import DeviceType
+
+    from fedml_tpu_torch.core.tracing import _union_us
+
+    by_name, counts, spans, end_ns = {}, {}, [], 0
     # the raw records: prof.events() builds a Python object tree, ~30 s
     # for 500,000 events
     for e in prof.profiler.kineto_results.events():
@@ -4433,10 +4482,11 @@ def profiled_call(fn):
             by_name[name] = by_name.get(name, 0.0) + e.duration_ns() / 1e9
             counts[name] = counts.get(name, 0) + 1
             spans.append((start, start + e.duration_ns() / 1e3))
-    return out, {"wall_s": wall, "device_busy_s": _union_us(spans) / 1e6,
-                 "device_kernel_s": sum(by_name.values()), "device_launches": len(spans),
-                 "device_s_by_kernel": dict(sorted(by_name.items(), key=lambda kv: -kv[1])),
-                 "device_launches_by_kernel": counts}
+            end_ns = max(end_ns, e.start_ns() + e.duration_ns())
+    return {"wall_s": wall, "device_busy_s": _union_us(spans) / 1e6, "device_end_ns": end_ns,
+            "device_kernel_s": sum(by_name.values()), "device_launches": len(spans),
+            "device_s_by_kernel": dict(sorted(by_name.items(), key=lambda kv: -kv[1])),
+            "device_launches_by_kernel": counts}
 
 
 def round_samples(api, round_idx: int) -> float:
@@ -5258,6 +5308,534 @@ def run_mesh_phase():
     return out
 
 
+# -- the fourteenth slice: cross silo ------------------------------------
+CROSS_SILO_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "cross_silo_femnist_cnn.yaml"
+CROSS_SILO_CNN_PARAMS = 428_350
+# the round each World A run profiles: from its broadcast to the next
+# broadcast (the clients' training, the folds and the close)
+CROSS_SILO_PROFILED = 1
+CROSS_SILO_JOIN_S = 300.0  # a world's threads must end within this
+# the profiler stays on this long past the window's end before it stops.
+# Stopped at the window's end, late in the whole script it kept 1 of a
+# round's 8 K1 launches (the round's last kernels: its folds and its
+# evaluation), while the counters saw all 8; it drops the events it dates
+# after its stop. The pause is left out of the window and of the run's
+# rounds/s, and cs_run fails if the trace still misses a counted launch.
+CROSS_SILO_TRACE_PAUSE_S = 0.5
+# local epochs a round on the card: the configuration's 5 cut to 1, a cut
+# of the script's time limit. At 5 a round of the 8 silo threads took
+# 9.1-11.4 s on the host (3.1-3.8% busy: the host dispatches each silo's
+# steps), and the phase's 19 rounds took 200.5 s
+CROSS_SILO_EPOCHS = 1
+# World C: the bf16 flash transformer config as 2 one-rank silos of 32
+# sequences each, 2 rounds, evaluated on 8 test sequences
+CROSS_SILO_HIER_SILOS = 2
+CROSS_SILO_HIER_SEQS = 32
+CROSS_SILO_HIER_TEST = 8
+CROSS_SILO_HIER_ROUNDS = 2
+CROSS_SILO_KINDS = (
+    ("exact fold (K1)", ("fold_kernel",)),
+    ("robust term (K3)", ("robust_term_kernel",)),
+    *KERNEL_KINDS,
+)
+
+
+@contextlib.contextmanager
+def plain_fold_calls():
+    """Counts the calls of the exact fold's and the robust term's plain
+    versions while it is open: a path on the card must make none."""
+    from fedml_tpu_torch.ops import exact_fold as ef
+    from fedml_tpu_torch.ops import robust_term as rt
+
+    names = [(ef, "fold_reference"), (ef, "fold_edges_reference"), (ef, "fold_set_reference"),
+             (ef, "weighted_mean_reference"), (rt, "robust_term_reference")]
+    calls = {name: 0 for _, name in names}
+    real = {name: getattr(mod, name) for mod, name in names}
+
+    def counted(name):
+        def call(*a, **kw):
+            calls[name] += 1
+            return real[name](*a, **kw)
+        return call
+
+    for mod, name in names:
+        setattr(mod, name, counted(name))
+    try:
+        yield calls
+    finally:
+        for mod, name in names:
+            setattr(mod, name, real[name])
+
+
+def cs_args(run_id: str, rank: int, backend: str = "LOCAL", config=None, **kw):
+    """One rank's args of the cross-silo configuration (or ``config``)."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch.arguments import load_arguments
+
+    args = load_arguments(str(config or CROSS_SILO_CONFIG))
+    if config is None:
+        args.epochs = CROSS_SILO_EPOCHS
+    args.training_type = "cross_silo"
+    args.rank, args.run_id, args.backend = rank, run_id, backend
+    for k, v in kw.items():
+        setattr(args, k, v)
+    args._validate()
+    return fedml_tpu_torch.init(args, DEVICE)
+
+
+def cs_world(run_id: str, backend: str = "LOCAL", dataset=None, **kw):
+    """(server, clients, dataset): the configuration's server and silos
+    on the card, each rank with its own model (``FedModel.apply`` loads
+    the params into the module: two threads must never share one), the
+    one federation shared read-only."""
+    from fedml_tpu_torch import data, models
+    from fedml_tpu_torch.cross_silo import Client, Server
+
+    if backend == "TRPC":
+        kw["trpc_port_base"] = free_port_block(9)
+    a0 = cs_args(run_id, 0, backend, **kw)
+    ds = dataset if dataset is not None else data.load(a0, device=DEVICE)
+    server = Server(a0, DEVICE, ds, models.create(a0, ds.class_num, device=DEVICE))
+    clients = []
+    for r in range(1, int(a0.client_num_per_round) + 1):
+        a = cs_args(run_id, r, backend, **kw)
+        clients.append(Client(a, DEVICE, ds, models.create(a, ds.class_num, device=DEVICE)))
+    return server, clients, ds
+
+
+class RoundWindowProfiler:
+    """``torch.profiler`` over the card's activity between ``start`` and
+    ``stop`` (called from the server's dispatch thread), summarized as
+    ``profiled_call`` summarizes, with the hand-written kernels' counted
+    launches in the window (``launches``) to hold the trace against."""
+
+    def __init__(self):
+        self.prof, self.summary, self._t0 = None, None, 0.0
+        self.launches, self.paused_s, self.late_ms = None, 0.0, None
+
+    def start(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        activity = ProfilerActivity.CUDA if DEVICE == "cuda" else ProfilerActivity.CPU
+        self.prof = profile(activities=[activity])
+        self.prof.__enter__()
+        self.launches = launch_counts()
+        self._t0 = time.perf_counter()
+
+    def stop(self):
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - self._t0
+        stop_ns = time.time_ns()
+        self.launches = _delta(launch_counts(), self.launches)
+        time.sleep(CROSS_SILO_TRACE_PAUSE_S)
+        self.paused_s = time.perf_counter() - self._t0 - wall
+        self.prof.__exit__(None, None, None)
+        self.summary, self.prof = kineto_summary(self.prof, wall), None
+        # how far past the host's stop the profiler dated the last event
+        self.late_ms = (self.summary["device_end_ns"] - stop_ns) / 1e6
+
+
+def cs_instrument(server, profile_round=None) -> dict:
+    """Wraps the server for measurement only: each close's aggregate on
+    the host clock (the finalize fetches the limbs, so it waits for the
+    card), each evaluation's loss, the first broadcast's and the finish's
+    times, and a profiler window over round ``profile_round``."""
+    agg, mgr = server.aggregator, server.manager
+    rec = {"close_ms": [], "losses": [], "t_first": None, "t_end": None,
+           "window": RoundWindowProfiler()}
+    aggregate, test, bcast, finish = (agg.aggregate, agg.test_on_server_for_all_clients,
+                                      mgr._broadcast_model, mgr.send_finish)
+
+    def timed_aggregate():
+        t0 = time.perf_counter()
+        out = aggregate()
+        torch.cuda.synchronize()
+        rec["close_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def evaluated(round_idx):
+        stats = test(round_idx)
+        rec["losses"].append(float(stats["loss"]))
+        return stats
+
+    def broadcast(msg_type):
+        if rec["t_first"] is None:
+            rec["t_first"] = time.perf_counter()
+        window = rec["window"]
+        if profile_round is not None:
+            if mgr.round_idx == profile_round and window.prof is None and window.summary is None:
+                window.start()
+            elif mgr.round_idx == profile_round + 1 and window.prof is not None:
+                window.stop()
+        bcast(msg_type)
+
+    def finished():
+        rec["t_end"] = time.perf_counter()
+        finish()
+
+    agg.aggregate, agg.test_on_server_for_all_clients = timed_aggregate, evaluated
+    mgr._broadcast_model, mgr.send_finish = broadcast, finished
+    return rec
+
+
+def cs_threads(fns, names):
+    import threading
+
+    errors = []
+
+    def guarded(fn):
+        def run():
+            try:
+                fn()
+            except BaseException as e:  # surfaced by cs_join, never swallowed
+                errors.append(e)
+        return run
+
+    threads = [threading.Thread(target=guarded(f), daemon=True, name=n)
+               for f, n in zip(fns, names)]
+    for t in threads:
+        t.start()
+    return threads, errors
+
+
+def cs_join(tag, threads, errors, timeout=CROSS_SILO_JOIN_S):
+    deadline = time.monotonic() + timeout
+    for t in threads:
+        t.join(max(0.0, deadline - time.monotonic()))
+    hung = [t.name for t in threads if t.is_alive()]
+    if hung:
+        fail(f"{tag}: threads still alive after {timeout} s: {hung}")
+    if errors:
+        fail(f"{tag}: a rank failed: {errors[0]!r}")
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def cs_params(server) -> dict:
+    return {k: v.detach().clone() for k, v in server.aggregator.get_global_model_params().items()}
+
+
+def cs_run(tag, run_id, backend="LOCAL", dataset=None, **kw) -> dict:
+    """One World A run: the server on this thread, the silos on theirs;
+    rounds/s on the host clock (first broadcast to finish), upload bytes a
+    round from the instrumented counters, each close's milliseconds, the
+    profiled round's busy share and launches by kind, and K1/K3's
+    launches against the counts the uploads reckon."""
+    from fedml_tpu_torch import constants
+    from fedml_tpu_torch.core.telemetry import Telemetry
+
+    Telemetry.reset()
+    server, clients, ds = cs_world(run_id, backend, dataset, **kw)
+    rec = cs_instrument(server, CROSS_SILO_PROFILED)
+    before = launch_counts()
+    threads, errors = cs_threads([c.run for c in clients],
+                                 [f"{tag}-silo{i + 1}" for i in range(len(clients))])
+    server.run()
+    cs_join(tag, threads, errors)
+    launches = _delta(launch_counts(), before)
+    tel = Telemetry.get_instance()
+    up = constants.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER
+    uploads = int(tel.get_counter("comm_messages_received_total", msg_type=up))
+    up_bytes = tel.get_counter("comm_bytes_sent_total", msg_type=up)
+    rounds = server.manager.round_idx
+    args = server.args
+    defended = bool(getattr(args, "defense_type", None)) or args.compression != "none"
+    from fedml_tpu_torch.ops.exact_fold import FOLD_KERNEL
+    from fedml_tpu_torch.ops.robust_term import TERM_KERNEL
+
+    want = {**no_launches(), FOLD_KERNEL.name: uploads,
+            TERM_KERNEL.name: uploads if defended else 0}
+    window = rec["window"]
+    wall = rec["t_end"] - rec["t_first"] - window.paused_s
+    card = card_line()
+    profile = profile_summary(f"{tag}: profile of round {CROSS_SILO_PROFILED} (broadcast to "
+                              f"the next broadcast) on {card}", window.summary,
+                              CROSS_SILO_KINDS)
+    traced = {FOLD_KERNEL.name: profile.get("launches_by_kind", {}).get("exact fold (K1)", 0),
+              TERM_KERNEL.name: profile.get("launches_by_kind", {}).get("robust term (K3)", 0)}
+    counted = {k: window.launches[k] for k in traced}
+    log(f"{tag}: the profiled round's K1/K3 launches: traced {traced}, counted {counted}; the "
+        f"last traced event ends {window.late_ms:.3f} ms after the window's stop on the host "
+        f"clock (the trace ran {window.paused_s * 1e3:.1f} ms past it)")
+    if traced != counted or counted[FOLD_KERNEL.name] != len(clients):
+        fail(f"{tag}: the profiled round's trace holds K1/K3 launches {traced}, the counters "
+             f"{counted} ({len(clients)} uploads a round)")
+    log(f"{tag} on {card}: {rounds} rounds of {len(clients)} silos ({args.epochs} local "
+        f"epoch(s) of batch {args.batch_size}, deterministic algorithms) in {wall:.3f} s "
+        f"({rounds / wall:.4f} rounds/s on the host clock, first broadcast to finish); "
+        f"{uploads} uploads, {up_bytes / rounds:.0f} B of uploads a round "
+        f"({up_bytes / max(uploads, 1):.0f} B each); round close (aggregate) "
+        f"{[round(x, 3) for x in rec['close_ms']]} ms; evaluation losses "
+        f"{[round(x, 5) for x in rec['losses']]}; kernel launches {launches} (reckoned from "
+        f"the uploads: {want}); folds {server.aggregator.folds_total}, clipped "
+        f"{server.aggregator.defense_clipped}")
+    if rounds != int(args.comm_round):
+        fail(f"{tag}: {rounds} rounds closed, want {args.comm_round}")
+    if uploads != rounds * len(clients) or server.aggregator.folds_total != uploads:
+        fail(f"{tag}: {uploads} uploads and {server.aggregator.folds_total} folds for "
+             f"{rounds} rounds of {len(clients)} silos")
+    if launches != want:
+        fail(f"{tag}: kernel launches {launches}, reckoned {want}")
+    if not rec["losses"][-1] < rec["losses"][0]:
+        fail(f"{tag}: the evaluation loss did not fall: {rec['losses']}")
+    return {"card": card, "rounds": rounds, "wall_s": wall, "rounds_per_s": rounds / wall,
+            "uploads": uploads, "upload_bytes_per_round": up_bytes / rounds,
+            "close_ms": rec["close_ms"], "losses": rec["losses"], "profile": profile,
+            "launches": launches, "launches_reckoned": want,
+            "clipped": server.aggregator.defense_clipped,
+            "params": cs_params(server), "dataset": ds}
+
+
+def cs_restart(straight: dict) -> dict:
+    """A chaos schedule kills the LOCAL server at ``server.round_close``
+    of round 1; a new server restores the checkpoint and WAL, the silos
+    re-announce by heartbeat and are RESYNCed. Gate: the final global is
+    bitwise the straight run's; K1 = the two incarnations' folds."""
+    import shutil
+    import tempfile
+
+    from fedml_tpu_torch import models
+    from fedml_tpu_torch.core.chaos import ProcessKilled, reset_chaos
+    from fedml_tpu_torch.cross_silo import Server
+
+    ck = tempfile.mkdtemp(prefix="cross_silo_restart-")
+    kw = dict(checkpoint_dir=ck, checkpoint_freq=1, heartbeat_interval_s=0.2,
+              heartbeat_timeout_s=600.0,
+              chaos_schedule=[{"at": {"event": "barrier", "name": "server.round_close",
+                                      "round": 1}, "fault": "kill_server"}])
+    try:
+        server1, clients, ds = cs_world("cs_restart", dataset=straight["dataset"], **kw)
+        before = launch_counts()
+        threads, errors = cs_threads([c.run for c in clients],
+                                     [f"restart-silo{i + 1}" for i in range(len(clients))])
+        try:
+            server1.run()
+            fail("cross silo restart: the chaos schedule never killed the server")
+        except ProcessKilled:
+            t_kill = time.perf_counter()
+        server1.manager._failure_detector.stop()
+        a0 = cs_args("cs_restart", 0, **kw)
+        server2 = Server(a0, DEVICE, ds, models.create(a0, ds.class_num, device=DEVICE))
+        if not server2.manager._resumed:
+            fail("cross silo restart: the second server did not resume from the checkpoint")
+        closes = []
+        report = server2.manager._report_round
+
+        def reported(*a):
+            closes.append(time.perf_counter())
+            report(*a)
+
+        server2.manager._report_round = reported
+        resumed_at = server2.manager.round_idx
+        server2.run()
+        cs_join("cross silo restart", threads, errors)
+        launches = _delta(launch_counts(), before)
+        recs = [r["round_idx"] for r in server2.manager._wal.records()]
+    finally:
+        reset_chaos()
+        shutil.rmtree(ck, ignore_errors=True)
+    from fedml_tpu_torch.ops.exact_fold import FOLD_KERNEL
+
+    folds = server1.aggregator.folds_total + server2.aggregator.folds_total
+    want = {**no_launches(), FOLD_KERNEL.name: folds}
+    params = cs_params(server2)
+    same = all(bits_equal(params[k], straight["params"][k]) for k in params)
+    seconds = closes[0] - t_kill
+    log(f"cross silo restart on {card_line()}: killed at server.round_close of round 1; the "
+        f"second server resumed at round {resumed_at}, WAL rounds {recs}; {seconds:.3f} s from "
+        f"the kill to the first round closed after the restart; folds {folds} "
+        f"({server1.aggregator.folds_total} before the kill); kernel launches {launches} "
+        f"(reckoned {want}); final global bitwise the straight run's: {same}")
+    if not same:
+        fail("cross silo restart: the restarted federation's global differs from the straight run's")
+    if launches != want:
+        fail(f"cross silo restart: kernel launches {launches}, reckoned {want}")
+    if server2.manager.round_idx != 3 or recs != [0, 1, 2]:
+        fail(f"cross silo restart: round {server2.manager.round_idx}, WAL rounds {recs}")
+    return {"kill_to_close_s": seconds, "resumed_at": resumed_at, "wal_rounds": recs,
+            "folds": folds, "launches": launches, "bitwise": same}
+
+
+def cs_edge_world(straight: dict) -> dict:
+    """World B: the same 8 silos behind 2 edge aggregators that are ranks
+    (``edge_plane: ranks``), LOCAL fabrics. Gates: the root's global is
+    bitwise World A's LOCAL stream result; K1 = the edges' folds + the
+    root's merges."""
+    from fedml_tpu_torch import models
+    from fedml_tpu_torch.core.telemetry import Telemetry
+    from fedml_tpu_torch.cross_silo.hierarchical import run_local_hier_world
+    from fedml_tpu_torch.ops.exact_fold import FOLD_KERNEL
+
+    Telemetry.reset()
+    ds = straight["dataset"]
+
+    def mk(role, rank):
+        a = cs_args("cs_edges", rank, edge_plane="ranks", edge_num=2)
+        return a, ds, models.create(a, ds.class_num, device=DEVICE)
+
+    before = launch_counts()
+    t0 = time.perf_counter()
+    world = run_local_hier_world(mk, 8, 2, join_timeout_s=CROSS_SILO_JOIN_S)
+    wall = time.perf_counter() - t0
+    launches = _delta(launch_counts(), before)
+    tel = Telemetry.get_instance()
+    merges = int(sum(tel.counters_matching("hier_edge_merges_total").values()))
+    edge_folds = sum(e.aggregator.folds_total for e in world["edges"].values())
+    want = {**no_launches(), FOLD_KERNEL.name: edge_folds + merges}
+    params = cs_params(world["root"])
+    same = all(bits_equal(params[k], straight["params"][k]) for k in params)
+    rounds = world["root"].manager.round_idx
+    log(f"cross silo edges on {card_line()}: partition {world['partition']}; {rounds} rounds in "
+        f"{wall:.3f} s wall (set-up included); {edge_folds} edge folds + {merges} root merges; "
+        f"kernel launches {launches} (reckoned {want}); root global bitwise World A's LOCAL "
+        f"stream: {same}")
+    if not same:
+        fail("cross silo edges: the root's global differs from the flat server's")
+    if launches != want:
+        fail(f"cross silo edges: kernel launches {launches}, reckoned {want}")
+    if rounds != 3 or edge_folds != 24 or merges != 6:
+        fail(f"cross silo edges: {rounds} rounds, {edge_folds} folds, {merges} merges")
+    return {"rounds": rounds, "wall_s": wall, "edge_folds": edge_folds, "root_merges": merges,
+            "launches": launches, "bitwise": same}
+
+
+def cs_hier_args(run_id, rank):
+    return cs_args(run_id, rank, config=TRANSFORMER_CONFIG,
+                   client_num_in_total=CROSS_SILO_HIER_SILOS,
+                   client_num_per_round=CROSS_SILO_HIER_SILOS,
+                   synthetic_train_size=CROSS_SILO_HIER_SILOS * CROSS_SILO_HIER_SEQS,
+                   synthetic_test_size=CROSS_SILO_HIER_TEST,
+                   comm_round=CROSS_SILO_HIER_ROUNDS, frequency_of_the_test=1)
+
+
+def cs_hier_world(run_id, server_fn, client_fn) -> tuple:
+    """World C through the one-line entry points: the server on this
+    thread, each silo's process 0 on its own; the server's final global
+    read where the aggregator evaluates it (measurement only)."""
+    from fedml_tpu_torch.cross_silo.horizontal import fedml_aggregator as fa
+
+    seen = {}
+    test = fa.FedMLAggregator.test_on_server_for_all_clients
+
+    def evaluated(self, round_idx):
+        seen["params"] = {k: v.detach().clone() for k, v in self.global_params.items()}
+        return test(self, round_idx)
+
+    fa.FedMLAggregator.test_on_server_for_all_clients = evaluated
+    try:
+        threads, errors = cs_threads(
+            [lambda r=r: client_fn(cs_hier_args(run_id, r), device=DEVICE)
+             for r in range(1, CROSS_SILO_HIER_SILOS + 1)],
+            [f"{run_id}-silo{r}" for r in range(1, CROSS_SILO_HIER_SILOS + 1)])
+        t0 = time.perf_counter()
+        stats = server_fn(cs_hier_args(run_id, 0), device=DEVICE)
+        wall = time.perf_counter() - t0
+        cs_join(run_id, threads, errors)
+    finally:
+        fa.FedMLAggregator.test_on_server_for_all_clients = test
+    return seen["params"], stats, wall
+
+
+def cs_hierarchical() -> dict:
+    """World C: ``run_hierarchical_cross_silo_server`` / ``_client`` with
+    2 one-rank silos of the bf16 flash transformer at full width. Gates:
+    flash forward and backward launches = layers x steps (+ the server's
+    evaluations' forward passes); the global bitwise the horizontal
+    ``Client`` world's on the same configuration; no plain flash runs."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch import data
+    from fedml_tpu_torch.core.local_trainer import eval_batches_per_pass
+    from fedml_tpu_torch.ops.exact_fold import FOLD_KERNEL
+    from fedml_tpu_torch.ops.flash_attention import BWD_KERNEL, FWD_KERNEL
+
+    args = cs_hier_args("cs_hier_probe", 0)
+    ds = data.load(args, device=DEVICE)
+    L, epochs = int(args.num_layers), int(args.epochs)
+    nb, bs = ds.packed_train.num_batches, ds.packed_train.batch_size
+    test = ds.test_data_global
+    passes = -(-(test.mask.numel() // test.batch_size) // eval_batches_per_pass(test))
+    del ds
+    steps = CROSS_SILO_HIER_ROUNDS * CROSS_SILO_HIER_SILOS * epochs * nb
+    # and the server's fold of each upload
+    want = {**no_launches(), FWD_KERNEL.name: L * (steps + CROSS_SILO_HIER_ROUNDS * passes),
+            BWD_KERNEL.name: L * steps,
+            FOLD_KERNEL.name: CROSS_SILO_HIER_ROUNDS * CROSS_SILO_HIER_SILOS}
+    out = {}
+    with plain_flash_calls() as plain, deterministic():
+        before = launch_counts()
+        hier, stats, wall = cs_hier_world("cs_hier", fedml_tpu_torch.run_hierarchical_cross_silo_server,
+                                          fedml_tpu_torch.run_hierarchical_cross_silo_client)
+        launches = _delta(launch_counts(), before)
+        flat, flat_stats, flat_wall = cs_hier_world("cs_hier_flat",
+                                                    fedml_tpu_torch.run_cross_silo_server,
+                                                    fedml_tpu_torch.run_cross_silo_client)
+    same = all(bits_equal(hier[k], flat[k]) for k in hier)
+    card = card_line()
+    log(f"cross silo hierarchical on {card}: {CROSS_SILO_HIER_SILOS} one-rank silos of "
+        f"{args.model} ({args.attention_impl}, {args.dtype}), embed {args.embed_dim}, "
+        f"{args.num_heads} heads, {L} layers, T {args.seq_len}, batch {bs}, "
+        f"{CROSS_SILO_HIER_SEQS} sequences a silo ({nb} steps a local epoch), "
+        f"{CROSS_SILO_HIER_ROUNDS} rounds in {wall:.3f} s (set-up included; the horizontal "
+        f"world {flat_wall:.3f} s); final stats {stats}; flash launches {launches} (reckoned "
+        f"{want}: {L} layers x {steps} steps, + {CROSS_SILO_HIER_ROUNDS} evaluations of "
+        f"{passes} forward passes); plain flash calls {plain}; the global bitwise the "
+        f"horizontal Client world's: {same}")
+    if launches != want:
+        fail(f"cross silo hierarchical: flash launches {launches}, reckoned {want}")
+    if any(plain.values()):
+        fail(f"cross silo hierarchical: the flash plain versions ran: {plain}")
+    if not same:
+        fail("cross silo hierarchical: the hierarchical global differs from the horizontal one")
+    out.update(wall_s=wall, horizontal_wall_s=flat_wall, stats=stats, launches=launches,
+               launches_reckoned=want, bitwise=same, steps=steps, eval_passes=passes)
+    return out
+
+
+def run_cross_silo():
+    """The fourteenth slice's phase: World A (the cross-silo config four
+    ways), the restart, World B (the edge tier over ranks) and World C
+    (hierarchical silos of the flash transformer). Every World A run, the
+    restart and World B run under deterministic algorithms (their results
+    are compared bitwise; cuDNN's convolution backward may sum with
+    atomics otherwise)."""
+    reset_launches()  # count only this path's own launches
+    out = {}
+    with plain_fold_calls() as plain:
+        with deterministic():
+            runs = {
+                "local_stream": cs_run("cross silo LOCAL stream", "cs_local_stream"),
+            }
+            ds = runs["local_stream"]["dataset"]
+            runs["local_buffered"] = cs_run("cross silo LOCAL buffered", "cs_local_buffered",
+                                            dataset=ds, agg_mode="buffered")
+            runs["trpc_stream"] = cs_run("cross silo TRPC stream", "cs_trpc_stream", "TRPC",
+                                         dataset=ds)
+            runs["trpc_clip_int8"] = cs_run("cross silo TRPC clip int8", "cs_trpc_defended",
+                                            "TRPC", dataset=ds,
+                                            defense_type="norm_diff_clipping",
+                                            compression="int8")
+            base = runs["local_stream"]["params"]
+            for name in ("local_buffered", "trpc_stream"):
+                if not all(bits_equal(runs[name]["params"][k], base[k]) for k in base):
+                    fail(f"cross silo: {name} differs from LOCAL stream")
+            log("cross silo: LOCAL stream, LOCAL buffered and TRPC stream are bitwise equal")
+            out["restart"] = cs_restart(runs["local_stream"])
+            out["edges"] = cs_edge_world(runs["local_stream"])
+        out["hierarchical"] = cs_hierarchical()
+    log(f"cross silo: plain fold and robust term calls {plain}")
+    if any(plain.values()):
+        fail(f"cross silo: the exact fold's or the robust term's plain version ran: {plain}")
+    for name, run in runs.items():
+        out[name] = {k: v for k, v in run.items() if k not in ("params", "dataset")}
+    del runs
+    torch.cuda.empty_cache()
+    out["kernel_launches"] = launch_counts()
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, str(REPO))
     try:
@@ -5338,6 +5916,8 @@ def main() -> int:
     log(f"distributed numbers on {card}: {json.dumps(dist_numbers, default=str)}")
     mesh_numbers = phase("mesh", run_mesh_phase)
     log(f"mesh numbers on {card}: {json.dumps(mesh_numbers, default=str)}")
+    cross_silo_numbers = phase("cross silo", run_cross_silo)
+    log(f"cross silo numbers on {card}: {json.dumps(cross_silo_numbers, default=str)}")
     log(f"phase wall times (s): {json.dumps(walls)}")
     paths = {
         "serving": slice_numbers, "serving_comm": serving_comm_numbers,
@@ -5354,6 +5934,7 @@ def main() -> int:
         **{f"distributed_{tag}": numbers for tag, numbers in dist_numbers.items()
            if isinstance(numbers, dict) and "kernel_launches" in numbers},
         **{f"mesh_{tag}": numbers for tag, numbers in mesh_numbers.items()},
+        "cross_silo": cross_silo_numbers,
     }
     for entry in kernels:  # each path's own count, reset just before it
         entry["launches_by_path"] = {

@@ -26,8 +26,17 @@ kernel. The tenth brings ``training_type: distributed`` through
 ring / Ulysses sequence parallelism on ``torch.distributed``
 (``distributed.py``, ``parallel/``); the twelfth its pipeline mode and
 the mesh simulator, ``run_simulation(backend="MESH")`` over the fed
-``(data, fsdp)`` mesh (``parallel/layout.py``). ROADMAP.md lists the
-slices still to come.
+``(data, fsdp)`` mesh (``parallel/layout.py``); the thirteenth the comm
+layer and serving over it. The fourteenth brings the cross-silo
+scenario (``cross_silo/``): ``run_cross_silo_server`` /
+``run_cross_silo_client`` over LOCAL, TRPC, gRPC or MQTT, with the
+streaming, buffered and async aggregation modes, the deadline and quorum
+closes, elastic membership, the failure detector, crash recovery with
+RESYNC and the anomaly screen; ``run_hierarchical_cross_silo_server`` /
+``run_hierarchical_cross_silo_client`` for silos that are
+``torch.distributed`` process groups; the edge tier over ranks
+(``edge_plane: ranks``); and the chaos plane (``core/chaos.py``).
+ROADMAP.md lists the slices still to come.
 """
 
 from __future__ import annotations
@@ -45,9 +54,13 @@ from .arguments import MATMUL_PRECISIONS, Arguments, add_args
 from .device import DeviceLike, get_device
 
 
-def init(args: Optional[Arguments] = None) -> Arguments:
+def init(args: Optional[Arguments] = None, device: DeviceLike = None) -> Arguments:
     """Load args (``--cf <yaml>`` from the command line when none are
     given), seed ``random`` and ``numpy``, and set the matmul precision.
+    A cross-silo run takes its ``process_id`` from ``rank``, and a
+    hierarchical silo with a ``distributed_coordinator`` joins its
+    ``torch.distributed`` group here, before anything is built: gloo for
+    a CPU ``device``, NCCL for a card.
 
     ``matmul_precision`` maps onto the two process-wide TF32 switches,
     ``torch.backends.cuda.matmul.allow_tf32`` and
@@ -70,6 +83,16 @@ def init(args: Optional[Arguments] = None) -> Arguments:
         "matmul_precision=%s: TF32 %s for cuBLAS and cuDNN",
         args.matmul_precision, "on" if tf32 else "off",
     )
+    if args.training_type == constants.FEDML_TRAINING_PLATFORM_CROSS_SILO:
+        args.process_id = int(getattr(args, "rank", 0))
+        if getattr(args, "distributed_coordinator", None):
+            from .cross_silo.hierarchical.process_group_manager import (
+                ensure_distributed_initialized,
+            )
+
+            ensure_distributed_initialized(args, device if device is not None else "cuda")
+    else:
+        args.process_id = 0
     return args
 
 
@@ -161,3 +184,84 @@ def run_distributed(args: Optional[Arguments] = None, *, device: DeviceLike = "c
         dataset = data.load(args, device=dev)
         model = models.create(args, dataset.class_num, device=dev)
         return DistributedTrainer(args, dev, dataset, model).run()
+
+
+def _cross_silo_parts(args, device):
+    """init -> data.load -> models.create for one cross-silo process, on
+    ``device``; a silo process of a group on card (silo - 1) *
+    silo_device_count + proc_rank_in_silo when that knob is set."""
+    import torch
+
+    from . import data, models
+
+    dev = get_device(device)
+    args = init(args, dev)
+    if args.training_type != constants.FEDML_TRAINING_PLATFORM_CROSS_SILO:
+        raise ValueError(
+            f"training_type={args.training_type!r}: the cross-silo entry "
+            "points run training_type=cross_silo"
+        )
+    cnt = int(getattr(args, "silo_device_count", 0) or 0)
+    if dev.type == "cuda" and cnt > 0:
+        silo = max(int(getattr(args, "rank", 1)), 1)
+        dev = torch.device("cuda", (silo - 1) * cnt + int(args.proc_rank_in_silo))
+    if dev.type == "cuda" and dev.index is not None:
+        torch.cuda.set_device(dev)
+    dataset = data.load(args, device=dev)
+    model = models.create(args, dataset.class_num, device=dev)
+    return args, dev, dataset, model
+
+
+def run_cross_silo_server(args: Optional[Arguments] = None, server_aggregator=None, *,
+                          device: DeviceLike = "cuda"):
+    """One-line cross-silo server (the reference's __init__.py:172-191):
+    rank 0 of the federation, serving ``comm_round`` rounds to the silos
+    over ``args.backend``; with ``edge_plane: ranks`` the root of the
+    edge tier. Returns the last evaluated round's stats."""
+    from .cross_silo import Server
+    from .cross_silo.hierarchical import HierRoot
+
+    args, dev, dataset, model = _cross_silo_parts(args, device)
+    if str(getattr(args, "edge_plane", "inproc")) == "ranks":
+        root = HierRoot(args, dev, dataset, model, server_aggregator=server_aggregator)
+        root.run()
+        return getattr(root.aggregator, "last_stats", None)
+    return Server(args, dev, dataset, model, server_aggregator=server_aggregator).run()
+
+
+def run_cross_silo_client(args: Optional[Arguments] = None, client_trainer=None, *,
+                          device: DeviceLike = "cuda"):
+    """One-line cross-silo client (the reference's __init__.py:193-211):
+    silo ``args.rank`` (>= 1) of the federation; with ``edge_plane:
+    ranks`` it connects to its edge aggregator's fabric."""
+    from .cross_silo import Client
+    from .cross_silo.hierarchical import hier_partition, prepare_client_args
+
+    args, dev, dataset, model = _cross_silo_parts(args, device)
+    if str(getattr(args, "edge_plane", "inproc")) == "ranks":
+        prepare_client_args(args, hier_partition(args, dataset))
+    Client(args, dev, dataset, model, client_trainer=client_trainer).run()
+
+
+def run_hierarchical_cross_silo_server(args: Optional[Arguments] = None,
+                                       server_aggregator=None, *,
+                                       device: DeviceLike = "cuda"):
+    """One-line hierarchical cross-silo server (the reference's
+    __init__.py:214-233): protocol-identical to the horizontal server;
+    the hierarchy lives in the silos (each FL client a process group)."""
+    return run_cross_silo_server(args, server_aggregator=server_aggregator, device=device)
+
+
+def run_hierarchical_cross_silo_client(args: Optional[Arguments] = None,
+                                       client_trainer=None, *,
+                                       device: DeviceLike = "cuda"):
+    """One-line hierarchical cross-silo client (the reference's
+    __init__.py:235-253): one process of silo ``args.rank``; master or
+    slave as ``args.proc_rank_in_silo`` says, the way the reference forks
+    on the torchrun-derived process rank. A silo of several processes
+    joins its ``torch.distributed`` group at ``distributed_coordinator``
+    (or the one the caller initialised)."""
+    from .cross_silo import HierarchicalClient
+
+    args, dev, dataset, model = _cross_silo_parts(args, device)
+    HierarchicalClient(args, dev, dataset, model, client_trainer=client_trainer).run()

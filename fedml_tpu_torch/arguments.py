@@ -3,8 +3,10 @@
 The subset the ported slices read: the YAML load and section
 flattening, the defaults for the seed, the dataset and its
 partitioning, the model geometry, the FedAvg training knobs, the
-serving and fleet knobs and the comm layer's knobs, and their
-validation. A YAML written for the JAX package
+serving and fleet knobs, the comm layer's knobs, the cross-silo knobs
+(aggregation mode, quorum, deadline, elastic membership, async
+staleness, the silo's process group, the edge plane) and the chaos
+plane's, and their validation. A YAML written for the JAX package
 loads here unchanged; knobs this subset has no default for still land
 on the object as the YAML sets them (the training loop raises on the
 ones whose slice has not arrived).
@@ -116,6 +118,9 @@ _DEFAULTS: Dict[str, Any] = {
     # more forward per block; gradients bitwise the same)
     "remat": False,
     "training_type": constants.FEDML_TRAINING_PLATFORM_SIMULATION,
+    # the comm backend of a cross-silo world (LOCAL, TRPC, GRPC, MQTT,
+    # MQTT_S3); the simulation default maps to LOCAL there
+    "backend": constants.FEDML_SIMULATION_TYPE_SP,
     # the distributed platform (distributed.py): mesh axes -> sizes, from
     # {dp, tp, ep} (sharded) or {sp} / {dp, sp} (sequence); None = one dp
     # axis over every rank
@@ -140,11 +145,18 @@ _DEFAULTS: Dict[str, Any] = {
     "client_registry_size": 0,
     # clients a registry round samples (0 = client_num_per_round)
     "cohort_size": 0,
-    # edge aggregators of the two-tier fold tree (0 or 1 = flat)
+    # edge aggregators of the two-tier fold tree (0 or 1 = flat): the
+    # registry simulator's and the cross-silo streaming server's
     "edge_num": 0,
-    # where the edge tier runs: "inproc" (the in-process tree); "ranks"
-    # (edge aggregators as real ranks) arrives with cross_silo/
+    # where the cross-silo edge tier runs: "inproc" (the in-process tree
+    # inside the server) or "ranks" (edge aggregators as real ranks over
+    # the comm layer, cross_silo/hierarchical: each edge folds its
+    # clients' uploads and ships one limb-set a round to the root)
     "edge_plane": "inproc",
+    # gRPC port stride between per-edge client fabrics (each binds
+    # grpc_port_base + edge_rank * stride + rank); must exceed the client
+    # count. LOCAL fabrics are name-strided and ignore it
+    "hier_port_stride": 64,
     # keep the registry's columns in <dir>/<name>.npy memmaps (None =
     # host RAM)
     "registry_dir": None,
@@ -286,6 +298,61 @@ _DEFAULTS: Dict[str, Any] = {
     "heartbeat_timeout_s": 0.0,
     # flight-recorder telemetry: False disables every instrument
     "telemetry": True,
+    # -- cross-silo (cross_silo/) --------------------------------------
+    # real edge-device ids of ranks 1..N (a JSON string or list); None =
+    # the ranks themselves
+    "client_id_list": None,
+    # server aggregation: "stream" folds each upload the moment it lands
+    # (bitwise the same result as "buffered"; falls back to buffered
+    # LOUDLY for the median or a custom ServerAggregator); "buffered"
+    # keeps the uploads until the round closes; "async" is FedBuff-style:
+    # no round barrier, staleness-weighted folds, a publish every
+    # async_publish_every folds
+    "agg_mode": "stream",
+    # quorum close: once this fraction of the round's live cohort has
+    # folded, arm a round_grace_s timer; when it fires the round closes
+    # over the partial cohort. 0 disables
+    "round_quorum_frac": 0.0,
+    "round_grace_s": 0.0,  # how long past quorum the server waits
+    # async: an upload s publishes stale folds with weight
+    # sample_num * staleness_decay^s; staler than staleness_max is dropped
+    "staleness_decay": 0.5,
+    "staleness_max": 10,
+    "async_publish_every": 4,  # async publish cadence, in folds
+    # deadline cohort: aggregate whoever reported within this many
+    # seconds of the broadcast. 0 = wait for everyone
+    "aggregation_deadline_s": 0.0,
+    # a deadline with ZERO uploads rebroadcasts at most this many times
+    "aggregation_deadline_max_extensions": 3,
+    # elastic membership: start once client_num_per_round clients are
+    # online, accept joins, survive OFFLINE leaves
+    "elastic_membership": False,
+    # highest rank an unknown ONLINE may register as (elastic)
+    "max_clients": 4096,
+    # round SLO: a round longer than this counts slo_violations_total
+    "round_deadline_s": 0.0,
+    # hierarchical silos: the silo's processes (one torch.distributed
+    # rank each, gloo on the CPU, NCCL on the card), this process's rank
+    # among them, and the TCP rendezvous of their process group
+    # ("host:port", hosted by process 0)
+    "n_proc_in_silo": 1,
+    "proc_rank_in_silo": 0,
+    "distributed_coordinator": None,
+    # the silo's control fabric (the round broadcast master -> slaves):
+    # "LOCAL" (threads of one process) or "GRPC"
+    "silo_backend": "LOCAL",
+    "silo_grpc_port_base": 9890,  # the silo fabric's first gRPC port
+    "silo_grpc_ipconfig_path": None,  # the silo fabric's rank->ip CSV
+    # cards of a silo process group: rank p of silo s uses card
+    # (s - 1) * silo_device_count + p; 0 = the card the caller names
+    "silo_device_count": 0,
+    # -- the chaos plane (core/chaos.py) -------------------------------
+    # ordered one-shot fault steps {at: {event, occurrence, round?, rank?,
+    # msg_type?, name?}, fault: kind-or-mapping}; None disables
+    "chaos_schedule": None,
+    "chaos_seed": 0,  # seeds latency jitter; same pair -> same faults
+    # IO-only fault steps (wal_create / wal_append / ckpt_publish)
+    "io_faults": None,
 }
 
 _SECTIONS = (
@@ -408,6 +475,7 @@ class Arguments:
             )
         self._validate_fleet()
         self._validate_comm()
+        self._validate_cross_silo()
         self._validate_population()
         self._validate_robustness()
 
@@ -453,6 +521,104 @@ class Arguments:
                 f"grpc_send_timeout_s={self.grpc_send_timeout_s}: must be > 0"
             )
 
+    def _validate_cross_silo(self) -> None:
+        """The cross-silo and chaos knobs, with the JAX package's words."""
+        if (
+            self.training_type == constants.FEDML_TRAINING_PLATFORM_CROSS_SILO
+            and self.backend
+            in (constants.COMM_BACKEND_SP, constants.FEDML_SIMULATION_TYPE_SP)
+        ):
+            # the simulation default backend makes no sense cross-silo;
+            # LOCAL runs single-host worlds, GRPC/TRPC the networked path
+            self.backend = constants.COMM_BACKEND_LOCAL
+        if self.agg_mode not in ("stream", "buffered", "async"):
+            raise ValueError(
+                f"agg_mode {self.agg_mode!r}: pick 'stream' (aggregate-on-"
+                "arrival), 'buffered' (reference shape) or 'async' (FedBuff)"
+            )
+        for float_key in ("round_quorum_frac", "round_grace_s", "staleness_decay",
+                          "aggregation_deadline_s", "round_deadline_s"):
+            setattr(self, float_key, float(getattr(self, float_key) or 0.0))
+        if not 0.0 <= self.round_quorum_frac <= 1.0:
+            raise ValueError(
+                f"round_quorum_frac={self.round_quorum_frac}: must be in "
+                "[0, 1] (0 disables the quorum close)"
+            )
+        if self.round_grace_s < 0:
+            raise ValueError(
+                f"round_grace_s={self.round_grace_s}: must be >= 0"
+            )
+        if not 0.0 < self.staleness_decay <= 1.0:
+            raise ValueError(
+                f"staleness_decay={self.staleness_decay}: must be in (0, 1] "
+                "(1 = no staleness discount)"
+            )
+        for int_key in ("staleness_max", "async_publish_every",
+                        "n_proc_in_silo", "proc_rank_in_silo", "silo_device_count"):
+            setattr(self, int_key, int(getattr(self, int_key) or 0))
+        if self.staleness_max < 0:
+            raise ValueError(
+                f"staleness_max={self.staleness_max}: must be >= 0 "
+                "(0 = only fresh updates fold)"
+            )
+        if self.async_publish_every < 1:
+            raise ValueError(
+                f"async_publish_every={self.async_publish_every}: must be >= 1"
+            )
+        if self.agg_mode == "async" and self.aggregation_deadline_s > 0:
+            raise ValueError(
+                "agg_mode=async has no round barrier; "
+                "aggregation_deadline_s does not apply — unset one of them"
+            )
+        if self.round_deadline_s < 0:
+            raise ValueError(
+                f"round_deadline_s={self.round_deadline_s}: must be >= 0 "
+                "(0 disables the round SLO)"
+            )
+        raw = self.max_clients
+        try:
+            # a YAML `max_clients: null` must name the knob, never coerce
+            self.max_clients = int(raw)
+        except (TypeError, ValueError):
+            raise ValueError(
+                f"max_clients={raw!r}: must be an integer"
+            ) from None
+        if self.max_clients < 1:
+            raise ValueError(
+                f"max_clients={self.max_clients}: must be >= 1"
+            )
+        if self.n_proc_in_silo < 1:
+            raise ValueError(f"n_proc_in_silo={self.n_proc_in_silo}: must be >= 1")
+        if not 0 <= self.proc_rank_in_silo < self.n_proc_in_silo:
+            raise ValueError(
+                f"proc_rank_in_silo={self.proc_rank_in_silo}: must be in "
+                f"[0, n_proc_in_silo={self.n_proc_in_silo})"
+            )
+        if str(self.silo_backend or "LOCAL").upper() not in ("LOCAL", "GRPC"):
+            raise ValueError(f"unsupported silo_backend {self.silo_backend!r}")
+        # -- chaos plane knobs -------------------------------------------
+        from .core.chaos import validate_schedule
+
+        validate_schedule(getattr(self, "chaos_schedule", None), "chaos_schedule")
+        io_steps = validate_schedule(getattr(self, "io_faults", None), "io_faults")
+        bad_io = [
+            s for s in io_steps
+            if s["at"]["event"] not in ("wal_create", "wal_append", "ckpt_publish")
+        ]
+        if bad_io:
+            raise ValueError(
+                f"io_faults only takes IO events (wal_create / wal_append / "
+                f"ckpt_publish); got {sorted(s['at']['event'] for s in bad_io)}"
+                " — use chaos_schedule for comm/barrier steps"
+            )
+        raw = getattr(self, "chaos_seed", 0)
+        try:
+            self.chaos_seed = int(raw or 0)
+        except (TypeError, ValueError):
+            raise ValueError(
+                f"chaos_seed={raw!r}: must be an integer"
+            ) from None
+
     def _validate_population(self) -> None:
         """The planet-scale knobs, as the JAX package validates them."""
         for int_key in ("client_registry_size", "cohort_size", "edge_num"):
@@ -495,11 +661,62 @@ class Arguments:
                 "tree) or 'ranks' (edge aggregators as real ranks)"
             )
         self.edge_plane = plane
-        if plane == "ranks":
-            raise NotImplementedError(
-                "edge_plane='ranks' (edge aggregators as real ranks) is not ported to "
-                "PyTorch yet; it arrives with cross_silo/ (ROADMAP.md, queue A item 11)"
+        raw_stride = getattr(self, "hier_port_stride", 64)
+        try:
+            self.hier_port_stride = int(
+                64 if raw_stride is None else raw_stride
             )
+        except (TypeError, ValueError):
+            raise ValueError(
+                f"hier_port_stride={raw_stride!r}: must be an integer"
+            ) from None
+        if self.hier_port_stride < 1:
+            raise ValueError(
+                f"hier_port_stride={self.hier_port_stride}: must be >= 1"
+            )
+        if plane == "ranks":
+            if t != constants.FEDML_TRAINING_PLATFORM_CROSS_SILO:
+                raise ValueError(
+                    "edge_plane=ranks needs training_type=cross_silo "
+                    f"(real edge processes over the comm seam); got {t!r}"
+                )
+            if getattr(self, "agg_mode", "stream") != "stream":
+                raise ValueError(
+                    "edge_plane=ranks requires agg_mode=stream: the edge "
+                    "tier IS the streaming fold (one merged limb-set per "
+                    "round crosses the root link); buffered has no "
+                    "limb-set to ship and async hierarchy is ROADMAP work"
+                )
+            if self.edge_num < 1:
+                raise ValueError(
+                    f"edge_plane=ranks needs edge_num >= 1; got "
+                    f"{self.edge_num}"
+                )
+            if self.edge_num > int(self.client_num_per_round):
+                raise ValueError(
+                    f"edge_num={self.edge_num} exceeds "
+                    f"client_num_per_round={self.client_num_per_round}: an "
+                    "edge tier wider than its clients is a "
+                    "misconfiguration, not a topology"
+                )
+            if getattr(self, "defense_type", None) == constants.DEFENSE_MEDIAN:
+                raise ValueError(
+                    "edge_plane=ranks cannot run defense_type=median: a "
+                    "full-cohort reduction needs every upload in one "
+                    "place, which is exactly what the edge tier removes"
+                )
+            if bool(getattr(self, "elastic_membership", False)):
+                raise ValueError(
+                    "edge_plane=ranks does not support elastic_membership "
+                    "yet: the client->edge partition is planned per run "
+                    "(joins would need repartitioning)"
+                )
+            if float(getattr(self, "aggregation_deadline_s", 0) or 0) > 0:
+                raise ValueError(
+                    "edge_plane=ranks closes rounds per edge and uses the "
+                    "quorum close at the root (round_quorum_frac/"
+                    "round_grace_s); aggregation_deadline_s does not apply"
+                )
 
 
     def _validate_robustness(self) -> None:

@@ -14,8 +14,9 @@ builds everything, prints one status JSON line, and exits.
 
 The JAX package's other subcommands (version, login, logout, build, edge,
 device, trace, check, lint, audit, perf) are parsed and refused: they
-come with the deployment and observability slice (ROADMAP.md, queue A
-item 11), as does ``telemetry_dir``'s run-artifact export.
+come with the rest of ROADMAP.md queue A item 11 (``edge`` with
+``cross_device/`` and ``edge_agent.py``), as does ``telemetry_dir``'s
+run-artifact export (with the telemetry exporters).
 """
 
 from __future__ import annotations
@@ -30,9 +31,10 @@ _LATER = ("version", "login", "logout", "build", "edge", "device", "trace", "che
 
 def _not_ported(args) -> int:
     raise NotImplementedError(
-        f"`{args.command}` is not ported to PyTorch yet; it arrives with the "
-        "deployment and observability slice (ROADMAP.md, queue A item 11). "
-        "`serve` is the port's subcommand so far"
+        f"`{args.command}` is not ported to PyTorch yet; it arrives with "
+        "cross_device/ and edge_agent.py, the remainder of ROADMAP.md queue A "
+        "item 11 (`cli edge` and the other subcommands). `serve` is the "
+        "port's subcommand so far"
     )
 
 

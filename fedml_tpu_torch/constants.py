@@ -2,8 +2,10 @@
 
 The partition methods, simulation backends, federated optimizer names,
 the defense and attack vocabularies, and the comm backends, message
-types and message keys of the comm layer and serving. The
-values are the JAX package's, so one YAML drives either package.
+types and message keys of the comm layer, serving and the cross-silo
+managers (the silo control plane and the edge tier's). The values are
+the JAX package's, so one YAML drives either package and the two
+interoperate on the wire.
 """
 
 # the MNIST LEAF archive (reference constants.py:18)
@@ -24,6 +26,7 @@ FED_OPTIMIZER_FEDAVG = "FedAvg"
 # training platforms
 FEDML_TRAINING_PLATFORM_SIMULATION = "simulation"
 FEDML_TRAINING_PLATFORM_DISTRIBUTED = "distributed"
+FEDML_TRAINING_PLATFORM_CROSS_SILO = "cross_silo"
 
 # Robust-aggregation defenses and the poisoning attacks they defend
 # against: ONE vocabulary, which the knob validation (arguments.py),
@@ -95,3 +98,33 @@ MSG_ARG_KEY_TRACE_SPAN = "trace_span"
 MSG_ARG_KEY_TRACE_FLOW = "trace_flow"
 MSG_ARG_KEY_TRAIN_SECONDS = "train_seconds"
 MSG_ARG_KEY_MODEL_VERSION = "model_version"
+
+# presence states a client announces (OFFLINE: an elastic leave)
+CLIENT_STATUS_ONLINE = "ONLINE"
+CLIENT_STATUS_IDLE = "IDLE"
+CLIENT_STATUS_OFFLINE = "OFFLINE"
+
+# the hierarchical silo's control plane: the master ships [round_idx,
+# params, client_index] to its slaves, then a finish
+MSG_TYPE_SILO_SYNC_PROCESS_GROUP = 20
+MSG_TYPE_SILO_FINISH = 21
+
+# server-internal loopback: the quorum grace timer fired
+MSG_TYPE_S2S_QUORUM_GRACE = 32
+
+# the edge tier (cross_silo/hierarchical): an edge ships one merged
+# limb-set a round (its folded and cohort ranks beside it) and forwards
+# client death/leave/anomaly evidence; the root's round downlinks carry
+# the edge's client -> silo assignment and the quarantine decision
+MSG_TYPE_E2R_EDGE_REPORT = 60
+MSG_TYPE_E2R_CLIENT_EVENT = 61
+MSG_ARG_KEY_EDGE_STATE = "edge_state"
+MSG_ARG_KEY_HIER_ASSIGNMENT = "hier_assignment"
+MSG_ARG_KEY_QUARANTINED = "quarantined"
+MSG_ARG_KEY_EVENT_KIND = "event_kind"
+MSG_ARG_KEY_COHORT = "cohort"
+MSG_ARG_KEY_FOLDED = "folded"
+HIER_EVENT_DEAD = "dead"
+HIER_EVENT_LEAVE = "leave"
+HIER_EVENT_ONLINE = "online"
+HIER_EVENT_QUARANTINE = "quarantine_evidence"

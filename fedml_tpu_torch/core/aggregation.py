@@ -326,6 +326,23 @@ def _weighted_delta_term_decoded_clipped(spec, codec, encoded, bound: float, w: 
                w=_row(w, spec.device)), norm
 
 
+def reconcile_to_device(tree, device):
+    """A payload tree (params, an encoded delta, a fold state) with every
+    array leaf a tensor on ``device``: a networked transport hands the
+    receiver read-only numpy arrays (and bf16 as CPU tensors), the LOCAL
+    fabric the sender's own tensors. A tensor already there is returned
+    as it is (the in-process path stays zero-copy); scalars pass."""
+    if isinstance(tree, dict):
+        return {k: reconcile_to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(reconcile_to_device(v, device) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, np.ndarray):
+        return torch.from_numpy(np.array(tree)).to(device)
+    return tree
+
+
 def derive_defense_rng(seed: int, index: int, device="cuda") -> torch.Generator:
     """THE defense generator convention: a ``torch.Generator`` on
     ``device`` (the card unless asked otherwise; the model's device, where

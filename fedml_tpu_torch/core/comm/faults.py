@@ -246,16 +246,16 @@ def maybe_wrap_faulty(com: BaseCommunicationManager, args) -> BaseCommunicationM
     (e.g. every round-0 uplink), which is a correlated-failure scenario
     the user did not ask for. Rank mixing keeps each process's stream
     deterministic while decorrelating streams across the world.
-
-    The injector is built with ``plan=None``: the chaos plane's scheduled
-    exact-message faults (the JAX package's ``core/chaos.py comm_plan``)
-    come with a later slice of the port, so only ``fault_injection``'s
-    knobs arm it.
     """
     spec = getattr(args, "fault_injection", None)
     rank = int(getattr(args, "rank", 0))
-    plan = None
-    if not spec:
+    # the deterministic chaos plan (core/chaos.py): an installed
+    # ChaosSchedule with send steps wraps the injector even with no
+    # probabilistic knobs, so scheduled exact-message faults work alone
+    from ..chaos import comm_plan
+
+    plan = comm_plan(rank)
+    if not spec and plan is None:
         return com
     if spec and not isinstance(spec, dict):
         raise ValueError(

@@ -17,8 +17,9 @@ same host floats. Decisions depend on the arrival order (the running
 aggregate does), so the stream == buffered guarantee holds with the
 screen off (``defense_anomaly_threshold: 0``, the default).
 
-The cross-silo aggregator that calls it arrives with ``cross_silo/``
-(ROADMAP.md, queue A item 11).
+The cross-silo aggregator (``cross_silo/horizontal/fedml_aggregator.py``)
+calls it on every upload; the edge tier over ranks reports its trips to
+the root, which decides the quarantine.
 """
 
 from __future__ import annotations

@@ -102,6 +102,12 @@ def _shuffle_batches(b: Batches, u: torch.Tensor) -> Batches:
     return rebatch(shuffled, b.num_batches, b.batch_size)
 
 
+def example_share(batch_size: int, ranks: int, rank: int):
+    """Rank ``rank`` of a ``data_group`` of ``ranks``: its rows ``[lo,
+    hi)`` of each batch of ``batch_size`` examples."""
+    return rank * batch_size // ranks, (rank + 1) * batch_size // ranks
+
+
 def _stack(tree, count: int):
     """Every leaf broadcast along a new leading client axis."""
     return pytree.tree_map(lambda t: t.expand((count,) + tuple(t.shape)), tree)
@@ -176,8 +182,7 @@ def make_local_train_fn(
         import torch.distributed as dist
 
         n, r = dist.get_world_size(data_group), dist.get_rank(data_group)
-        bs = m.shape[1]
-        lo, hi = r * bs // n, (r + 1) * bs // n
+        lo, hi = example_share(m.shape[1], n, r)
         (gsum, (_, metrics)) = sum_grad_fn(p, x[:, lo:hi], y[:, lo:hi], m[:, lo:hi])
         keys = list(gsum)
         flat = torch.cat([gsum[k].reshape(gsum[k].shape[0], -1) for k in keys]

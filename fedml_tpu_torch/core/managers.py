@@ -86,9 +86,13 @@ def _wrap_comm_stack(com: BaseCommunicationManager, args):
     instrumentation innermost (wire-traffic semantics — a dropped
     message never left, a duplicated one left twice), fault injection
     above it, the ReliableChannel OUTERMOST so retransmits re-traverse
-    the injector. (The JAX package installs its chaos plane first; that
-    plane comes with a later slice of the port.)"""
+    the injector. The chaos plane (``core/chaos.py``) is installed
+    first, so the injector's scheduled send faults see this world's
+    schedule."""
+    from .chaos import maybe_install_chaos
     from .comm.faults import maybe_wrap_faulty
+
+    maybe_install_chaos(args)
     from .comm.instrument import wrap_instrumented
     from .comm.reliable import maybe_wrap_reliable
 

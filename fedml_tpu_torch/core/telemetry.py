@@ -36,6 +36,9 @@ class FlightRecorder:
         self._lock = threading.Lock()
         self._events: deque = deque(maxlen=self.capacity)
         self._t0 = time.perf_counter()
+        # the wall-clock anchor of this process's timeline (the chaos
+        # plane's clock_skew fault steps it, an NTP-step analog)
+        self.wall_t0 = time.time()
         self.dropped = 0
 
     def __len__(self) -> int:
@@ -117,6 +120,10 @@ class Telemetry:
             if args else 65536
         )
         self.recorder.enabled = self._enabled
+
+    def attach_profiler(self, profiler) -> None:
+        """Mirror a ``ProfilerEvent``'s spans into the flight recorder."""
+        profiler.recorder = self.recorder
 
     # -- singleton -----------------------------------------------------
     @classmethod

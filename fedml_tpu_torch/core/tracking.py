@@ -5,7 +5,10 @@ device until a flush fetches them all at once. ``MetricsReporter`` fans
 each round's record out to the log (``args.log_metrics``) and, when
 ``args.metrics_jsonl_path`` is set, to one JSON line per record in that
 file. The round's history of record stays on the API
-(``FedAvgAPI.history``).
+(``FedAvgAPI.history``). ``ProfilerEvent`` is the reference's span
+recorder the cross-silo managers time their phases with; each span is
+also a ``torch.profiler.record_function`` range, so a profiled round
+shows it beside the device's work.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import json
 import logging
 import os
 import time
+from collections import defaultdict
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -96,3 +100,57 @@ class MetricsReporter:
 
     def report_server_training_metric(self, metric: Dict[str, Any]) -> None:
         self.report({"kind": "server_train", **metric})
+
+
+class ProfilerEvent:
+    """Span recorder. ``log_event_started(name)`` /
+    ``log_event_ended(name)`` mirror the reference API; ``span(name)`` is
+    the context-manager form. ``Telemetry.attach_profiler`` mirrors the
+    spans into the flight recorder."""
+
+    def __init__(self, args=None) -> None:
+        self.args = args
+        self.run_id = getattr(args, "run_id", "0") if args else "0"
+        self._open: Dict[str, float] = {}
+        self.spans: List[Dict[str, Any]] = []
+        self.totals: Dict[str, float] = defaultdict(float)
+        self.counts: Dict[str, int] = defaultdict(int)
+        self.recorder = None
+
+    def log_event_started(self, event_name: str, value: Any = None,
+                          **trace_args: Any) -> None:
+        self._open[event_name] = time.perf_counter()
+        if self.recorder is not None:
+            self.recorder.begin(event_name, cat="profiler", **trace_args)
+
+    def log_event_ended(self, event_name: str, value: Any = None,
+                        **trace_args: Any) -> None:
+        t0 = self._open.pop(event_name, None)
+        if t0 is None:
+            logging.warning("span %r ended without start", event_name)
+            return
+        if self.recorder is not None:
+            self.recorder.end(event_name, cat="profiler", **trace_args)
+        dt = time.perf_counter() - t0
+        self.spans.append({"name": event_name, "duration_s": dt, "ended_at": time.time()})
+        self.totals[event_name] += dt
+        self.counts[event_name] += 1
+
+    def span(self, name: str, **trace_args: Any) -> "_Span":
+        return _Span(self, name, **trace_args)
+
+
+class _Span:
+    def __init__(self, ev: ProfilerEvent, name: str, **trace_args: Any) -> None:
+        self.ev, self.name, self.trace_args = ev, name, trace_args
+        self._range = None
+
+    def __enter__(self) -> "_Span":
+        self.ev.log_event_started(self.name, **self.trace_args)
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._range.__exit__(*exc)
+        self.ev.log_event_ended(self.name, **self.trace_args)

@@ -5,9 +5,9 @@ The port of ``fedml_tpu/scale/tree.py`` over the port's
 limbs the rows of one ``[E, 3, N]`` f32 buffer), so a group's edge terms
 fold in one launch (``fold_edge_terms``) and the root merges every
 touched edge in one launch of its 3·E' limb rows (``finalize``), each
-bitwise the per-edge folds and merges it replaces.
-The cross-silo server's use of it arrives with ``cross_silo/``
-(ROADMAP.md, queue A item 11). The text below is the JAX package's own.
+bitwise the per-edge folds and merges it replaces. The cross-silo
+server (``cross_silo/horizontal/fedml_aggregator.py``) uses it as its
+in-process edge tier. The text below is the JAX package's own.
 
 ``core/topology.py`` carried the hierarchical (edge-aggregator)
 topology as a mixing-matrix abstraction; this module makes it a real

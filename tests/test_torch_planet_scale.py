@@ -18,9 +18,10 @@ against the JAX package's (``fedml_tpu/scale/``).
   are the JAX package's, word for word.
 
 The int8-quantized tree is held to the flat fold in
-``tests/test_torch_robust_fold.py``. Left for their slices (ROADMAP.md):
-the cross-silo aggregator's edge tier (queue A item 11) and the
-preempted run resumed on a reshaped mesh (items 9 and 11).
+``tests/test_torch_robust_fold.py``, the cross-silo aggregator's edge
+tier in ``tests/test_torch_hierarchical.py``. Left for its slice
+(ROADMAP.md): the preempted run resumed on a reshaped mesh (items 9 and
+11).
 """
 
 from __future__ import annotations
@@ -663,8 +664,11 @@ def test_knobs_that_validate_and_the_ones_that_wait():
     assert _args(training_type="cross_silo", edge_num=4).edge_num == 4
     a = _args(client_registry_size="600", cohort_size=64, client_num_per_round=8)
     assert (a.client_registry_size, a.cohort_size, a.edge_plane) == (600, 64, "inproc")
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
+    # the edge tier over ranks is the cross-silo scenario's: simulation
+    # refuses it with the JAX package's words, cross-silo takes it
+    with pytest.raises(ValueError, match="edge_plane=ranks needs training_type=cross_silo"):
         _args(edge_plane="ranks")
+    assert _args(training_type="cross_silo", edge_plane="ranks", edge_num=2).edge_plane == "ranks"
 
 
 _FAKE = dict(server_aggregator=None, robust=None, _keep_stacked=False, algorithm="FedAvg",

@@ -614,3 +614,35 @@ def cli_serve(rank: int, payload: dict) -> str:
         rc = cli.main(payload["argv"])
     assert rc == 0, rc
     return buf.getvalue()
+
+
+def silo_step(rank: int, payload: dict) -> dict:
+    """One silo of the world's ranks (``n_proc_in_silo`` = the world):
+    ``TrainerDistAdapter.train`` of ``payload["silo"]`` at round 0 over
+    the group, and, in the same process, the plain trainer's; each rank
+    returns both params (numpy) and its ``batch_share``."""
+    import torch.distributed as dist
+
+    from fedml_tpu_torch import data, models
+    from fedml_tpu_torch.cross_silo.hierarchical import (
+        ProcessGroupManager,
+        TrainerDistAdapter,
+    )
+    from fedml_tpu_torch.cross_silo.horizontal.fedml_client_manager import FedMLTrainer
+
+    args = _port_args(dict(payload["args"], n_proc_in_silo=dist.get_world_size(),
+                           proc_rank_in_silo=rank))
+    dataset = data.load(args, device="cpu")
+    model = models.create(args, dataset.class_num, device="cpu")
+    params = model.init(__import__("torch").Generator().manual_seed(0))
+    pg = ProcessGroupManager(args, device="cpu")
+    adapter = TrainerDistAdapter(args, dataset, model, pg)
+    adapter.update_dataset(payload["silo"])
+    split, n = adapter.train(params, 0)
+    plain = FedMLTrainer(args, dataset, models.create(args, dataset.class_num, device="cpu"))
+    plain.update_dataset(payload["silo"])
+    whole, n_whole = plain.train(params, 0)
+    return {"split": {k: v.numpy() for k, v in split.items()},
+            "whole": {k: v.numpy() for k, v in whole.items()},
+            "n": (n, n_whole), "share": adapter.batch_share(),
+            "group": pg.group is not None}
