@@ -93,7 +93,18 @@ version on the card:
   ranks``, 2 edges: each fold and each root merge a launch), and
   ``run_hierarchical_cross_silo_server`` / ``_client`` with 2 one-rank
   silos of the bf16 flash transformer at full width (the flash kernels
-  behind the federation's wire).
+  behind the federation's wire);
+- the fifteenth slice, cross device: ``run_beehive_world`` on
+  ``fedml_tpu_torch/configs/cross_device_beehive_lr.yaml`` (bench.py's
+  point: a 100,000-device registry, cohorts of 256, 3 rounds, 30% of
+  each cohort vanishing at upload, masked and unmasked; every (tier,
+  bucket) group's features one launch of the keyed feature kernel), the
+  legacy model-file plane (``run_edge_server``'s ``ServerEdge`` and 10
+  ``EdgeClientSim`` threads over MQTT on the port's broker,
+  ``cross_device_mnist_lr.yaml``, 5 of its 10 rounds), and
+  ``CentralizedTrainer`` on the bf16 flash transformer config (one
+  epoch of its 1,024 sequences coalesced: the flash kernels forward and
+  backward).
 The CNN, ResNet, RNN and logistic-regression paths run no other hand-written
 kernel: their
 convolutions and matrix products are cuDNN's and cuBLAS's through
@@ -312,6 +323,21 @@ Phases, each of which fails the run:
    horizontal world; K1 = the uploads (+ the root's merges), K3 = the
    clipped or encoded uploads, flash = layers x steps (+ evaluations);
    no plain fold, term or flash call; the loss falls.
+24. cross device (after cross silo): the Beehive world masked and
+   unmasked under one churn schedule, and a one-round world under the
+   profiler (folds/s and seconds a round on the host's clock, the round
+   split into training, masking and folding by the host's timers, busy
+   share and launches by kind, K2's device time, the registry's bytes);
+   the legacy plane (rounds/s, a model file's bytes); the centralized
+   trainer (step ms on the card's clock, tokens/s, peak memory). Gates:
+   every round closes on its target, masked == unmasked bitwise, the
+   WAL fold ledger = the fold counter, the four device invariants on
+   the WAL and counters, one group function a (tier, bucket), K2 = the
+   groups trained, no plain K2 call; the legacy history at the
+   configured frequency, its test loss falling, every client's FINISH
+   ack; the centralized flash launches = layers x (steps + evaluation
+   passes) forward and layers x steps backward, no plain flash call, the
+   train loss falling.
 The kernels phase also holds the rows route (head dims above 128),
 forward and backward, f32 and bf16, at D 160, 192, 256, 384 and 512,
 causal and not, at [2, 2048, 4, D], and at [8, 4096, 8, 256] causal,
@@ -3258,7 +3284,10 @@ MEAN_CASES = [(16, 11_173_962, torch.float32), (10, 8_495_194, torch.bfloat16)]
 # (4,096 clients x 4 batches of 32, 60 features), FEMNIST-sized rows,
 # then samples a client that are not a power of two (100), so that the
 # kernels' multiply-high for a row's client is not a shift
-SYNTH_CASES = [(4096, 128, 60), (64, 512, 784), (3000, 100, 60)]
+SYNTH_CASES = [(4096, 128, 60), (64, 512, 784), (3000, 100, 60),
+               # the Beehive group: a tier padded to 128 devices x 13
+               # batches of 32, 8 features (cross_device_beehive_lr.yaml)
+               (128, 416, 8)]
 # K2 against its plain version: the Philox words bitwise; the features
 # (|x| below ~10) to 1e-5, the kernel's logf, sqrtf and sincosf against
 # PyTorch's log, sqrt, sin and cos (both IEEE-rounded adds and products
@@ -5836,6 +5865,372 @@ def run_cross_silo():
     return out
 
 
+# -- the fifteenth slice: cross device -----------------------------------
+BEEHIVE_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "cross_device_beehive_lr.yaml"
+LEGACY_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "cross_device_mnist_lr.yaml"
+# bench.py's point (bench.py:3833-3845): 8 features, 4 classes, 30% of
+# each round's cohort vanishing at device.upload
+BEEHIVE_FEATURES, BEEHIVE_CLASSES, BEEHIVE_VANISH = 8, 4, 0.3
+FIELD_PRIME = 2**31 - 1
+CD_JOIN_S = 300.0  # the legacy world's threads must end within this
+# the legacy plane runs 5 of the config's 10 rounds (tested after rounds 0
+# and 4): at 10 it took 59.6 s of a 1,081.7 s script (1,200 s allowed) on
+# an NVIDIA H100 80GB HBM3 at 700 W, whose host-bound phases vary 30-50%
+# from call to call
+LEGACY_ROUNDS = 5
+# the profiled Beehive world's trace runs this long before and after the
+# world (left out of its wall). One whole-script call's trace missed ~3
+# training steps and one K2 launch (2 of 3 K2, 2,067 of 2,135 launches);
+# eight probes of the world alone missed none. A trace that does not
+# hold every K2 launch is taken again, up to CD_TRACE_ATTEMPTS worlds;
+# the phase fails if none does
+CD_TRACE_PAUSE_S = 0.5
+CD_TRACE_ATTEMPTS = 3
+
+
+def paused_profiled_call(fn, pause: float = CD_TRACE_PAUSE_S):
+    """``profiled_call`` with the profiler running ``pause`` seconds
+    before and after ``fn``; the summary's wall is ``fn``'s alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    activity = ProfilerActivity.CUDA if DEVICE == "cuda" else ProfilerActivity.CPU
+    with profile(activities=[activity]) as prof:
+        time.sleep(pause)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        time.sleep(pause)
+    return out, kineto_summary(prof, wall)
+
+
+@contextlib.contextmanager
+def plain_synth_calls():
+    """Counts the calls of K2's plain version while it is open: a path on
+    the card must make none."""
+    from fedml_tpu_torch.ops import synth_features as sf
+
+    calls = {"synth_features_reference": 0}
+    real = sf.synth_features_reference
+
+    def counted(*a, **kw):
+        calls["synth_features_reference"] += 1
+        return real(*a, **kw)
+
+    sf.synth_features_reference = counted
+    try:
+        yield calls
+    finally:
+        sf.synth_features_reference = real
+
+
+def beehive_schedule(args) -> list:
+    """bench.py's churn: each round's cohort drawn from a twin registry,
+    its first 30% vanishing at upload."""
+    from fedml_tpu_torch.cross_device.driver import beehive_cohort, beehive_registry
+
+    twin, cohort, steps = beehive_registry(args), beehive_cohort(args), []
+    for r in range(int(args.comm_round)):
+        ids = twin.sample_available_cohort(r, cohort)
+        for d in ids[:max(1, int(BEEHIVE_VANISH * len(ids)))]:
+            steps.append({"at": {"event": "device.upload", "device": int(d), "round": r},
+                          "fault": {"kind": "vanish"}})
+    return steps
+
+
+def device_violations(records, counters) -> list:
+    """The four device invariants of docs/cross_device.md on a world's
+    ``crossdevice`` WAL records and counters (the JAX package's
+    ``InvariantChecker`` checks; ``core/invariants.py`` is not ported)."""
+    bad, total = set(), 0
+    for rec in records:
+        checkins, folded = set(rec["checkins"]), list(rec["folded"])
+        total += len(folded)
+        if not checkins <= set(rec["cohort"]) or not set(folded) <= checkins:
+            bad.add("device_fold_requires_checkin")
+        if rec["close_reason"] not in ("target", "window") or (
+                rec["close_reason"] == "target" and len(folded) < int(rec["fold_target"])):
+            bad.add("device_round_close_accounted")
+        if rec["masked"]:
+            ups = sum(int(v) for v in rec["upload_checksums"].values())
+            corrs = sum(int(v) for v in rec["correction_checksums"].values())
+            if int(rec["field_checksum"]) != (ups - corrs) % FIELD_PRIME:
+                bad.add("device_masked_folds_balance")
+    if counters["device_uploads_folded_total"] != total:
+        bad.add("device_round_close_accounted")
+    if counters["device_mask_recovery_failures_total"] > 0:
+        bad.add("device_mask_recovery_verified")
+    return sorted(bad)
+
+
+def beehive_world(tag: str, schedule, masked: bool, rounds=None, profiled=False) -> dict:
+    """One world of the Beehive config on the card; its gates checked,
+    its numbers returned."""
+    import tempfile
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.core.chaos import reset_chaos
+    from fedml_tpu_torch.core.checkpoint import RoundWAL
+    from fedml_tpu_torch.core.telemetry import Telemetry
+    from fedml_tpu_torch.cross_device import run_beehive_world
+
+    a = load_arguments(str(BEEHIVE_CONFIG))
+    a.run_id = f"cd-{tag.replace(' ', '-')}"
+    a.crossdevice_secure_agg = masked
+    a.chaos_schedule = schedule
+    a.checkpoint_dir = tempfile.mkdtemp(prefix="cd_ck_")
+    if rounds is not None:
+        a.comm_round = rounds
+    a._validate()
+    fedml_tpu_torch.init(a)
+    Telemetry.reset()
+    reset_chaos()
+
+    def world():
+        return run_beehive_world(a, feature_dim=BEEHIVE_FEATURES, class_num=BEEHIVE_CLASSES,
+                                 device=DEVICE)
+
+    t0 = time.perf_counter()
+    out, summary = paused_profiled_call(world) if profiled else (world(), None)
+    wall = time.perf_counter() - t0
+    tel = Telemetry.get_instance()
+    counters = {k: tel.get_counter(k) for k in (
+        "device_checkins_total", "device_uploads_folded_total", "device_uploads_late_total",
+        "device_mask_recoveries_total", "device_mask_recovery_failures_total")}
+    wal = [r for r in RoundWAL(a.checkpoint_dir).records() if r.get("kind") == "crossdevice"]
+    recs = out["round_records"]
+    folds = sum(r["folds"] for r in recs)
+    for rec in recs:
+        if rec["close_reason"] != "target" or rec["folds"] < rec["fold_target"]:
+            fail(f"cross device {tag}: round {rec['round_idx']} closed {rec}")
+    if counters["device_uploads_folded_total"] != sum(len(r["folded"]) for r in wal):
+        fail(f"cross device {tag}: the WAL's fold ledger differs from the fold counter "
+             f"{counters}")
+    violated = device_violations(wal, counters)
+    if violated:
+        fail(f"cross device {tag}: device invariants violated: {violated}")
+    if out["trace_count"] != len(out["shape_keys"]):
+        fail(f"cross device {tag}: {out['trace_count']} group functions for "
+             f"{len(out['shape_keys'])} (tier, bucket) shapes")
+    n = len(recs)
+    numbers = {"rounds": n, "wall_s": wall, "seconds_a_round": wall / n,
+               "folds": folds, "folds_per_s": folds / wall,
+               "train_s_a_round": out["train_s"] / n, "mask_s_a_round": out["mask_s"] / n,
+               "fold_s_a_round": out["fold_s"] / n, "round_records": recs,
+               "shape_keys": [list(k) for k in out["shape_keys"]],
+               "groups_trained": out["groups_trained"], "counters": counters,
+               "final_flat": out["final_flat"]}
+    log(f"cross device {tag}: {n} rounds in {wall:.3f} s (host clock), {folds} folds, "
+        f"{folds / wall:.1f} folds/s, {wall / n:.3f} s a round: training "
+        f"{out['train_s'] / n:.3f} s, masking {out['mask_s'] / n:.3f} s, folding "
+        f"{out['fold_s'] / n:.3f} s (host timers); {out['groups_trained']} groups, shapes "
+        f"{out['shape_keys']}; records {recs}")
+    if summary is not None:
+        numbers["profile"] = profile_summary(f"cross device {tag} (profiled)", summary,
+                                             PLANET_KINDS)
+        k2 = {k: v for k, v in summary["device_s_by_kernel"].items() if "synth_kernel" in k}
+        k2n = sum(v for k, v in summary["device_launches_by_kernel"].items()
+                  if "synth_kernel" in k)
+        numbers["k2_device_ms"] = sum(k2.values()) * 1e3 / max(k2n, 1)
+        numbers["k2_traced_launches"] = k2n
+        log(f"cross device {tag}: K2 {k2n} launches in the trace, "
+            f"{numbers['k2_device_ms']:.4f} ms device time each")
+    return numbers
+
+
+def cd_beehive() -> dict:
+    """The Beehive part: masked and unmasked worlds under one churn
+    schedule, then a one-round masked world under the profiler."""
+    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.cross_device.driver import beehive_registry
+    from fedml_tpu_torch.ops.synth_features import SYNTH_KERNEL
+
+    args = load_arguments(str(BEEHIVE_CONFIG))
+    schedule = beehive_schedule(args)
+    registry_bytes = beehive_registry(args).nbytes()
+    reset_launches()
+    with plain_synth_calls() as plain:
+        masked = beehive_world("masked", schedule, True)
+        unmasked = beehive_world("unmasked", schedule, False)
+        traced = []
+        for attempt in range(CD_TRACE_ATTEMPTS):
+            traced.append(beehive_world(f"profiled {attempt}", schedule, True, rounds=1,
+                                        profiled=True))
+            if traced[-1]["k2_traced_launches"] == traced[-1]["groups_trained"]:
+                break
+            log(f"cross device: trace {attempt} holds {traced[-1]['k2_traced_launches']} K2 "
+                f"launches for {traced[-1]['groups_trained']} groups: it dropped events")
+    launches = launch_counts()
+    profiled = traced[-1]
+    diff = float(np.max(np.abs(masked["final_flat"] - unmasked["final_flat"])))
+    if diff != 0.0 or masked["final_flat"].tobytes() != unmasked["final_flat"].tobytes():
+        fail(f"cross device: masked and unmasked worlds differ (max abs diff {diff})")
+    if not any(r["recovered"] > 0 for r in masked["round_records"]):
+        fail("cross device: the masked world recovered no vanished device's mask")
+    groups = sum(w["groups_trained"] for w in [masked, unmasked] + traced)
+    if SYNTH_KERNEL.launches != groups:
+        fail(f"cross device: K2 launched {SYNTH_KERNEL.launches} times for {groups} "
+             "(tier, bucket) groups")
+    if profiled["k2_traced_launches"] != profiled["groups_trained"]:
+        fail(f"cross device: {len(traced)} profiled worlds' traces each missed K2 launches "
+             f"(the last holds {profiled['k2_traced_launches']} for "
+             f"{profiled['groups_trained']} groups)")
+    if any(plain.values()):
+        fail(f"cross device: K2's plain version ran: {plain}")
+    log(f"cross device: masked == unmasked bitwise (max abs diff {diff}); K2 "
+        f"{SYNTH_KERNEL.launches} launches = {groups} groups; registry "
+        f"{registry_bytes} B; plain K2 calls {plain}")
+    for w in [masked, unmasked] + traced:
+        del w["final_flat"]
+    return {"masked": masked, "unmasked": unmasked, "profiled": profiled,
+            "trace_attempts": len(traced),
+            "masked_vs_unmasked_max_abs_diff": diff, "registry_bytes": registry_bytes,
+            "kernel_launches": launches}
+
+
+def cd_legacy() -> dict:
+    """The legacy part: ``run_edge_server``'s ``ServerEdge`` (built as it
+    builds it) and 10 ``EdgeClientSim`` threads over MQTT."""
+    import tempfile
+    import threading
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch import data, models
+    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.core.comm.payload_store import FilePayloadStore
+    from fedml_tpu_torch.core.local_trainer import make_local_train_fn
+    from fedml_tpu_torch.core.optimizers import create_client_optimizer
+    from fedml_tpu_torch.core.types import Batches
+    from fedml_tpu_torch.cross_device import EdgeClientSim, ServerEdge, params_to_model_bytes
+
+    a = load_arguments(str(LEGACY_CONFIG))
+    a.run_id = "cd-legacy"
+    a.comm_round = LEGACY_ROUNDS
+    a.payload_store_dir = tempfile.mkdtemp(prefix="cd_store_")
+    a._validate()
+    dev = torch.device(DEVICE)
+    fedml_tpu_torch.init(a, dev)
+    ds = data.load(a, device=dev)
+    store = FilePayloadStore(a.payload_store_dir)
+    reset_launches()
+    server = ServerEdge(a, DEVICE, ds, models.create(a, ds.class_num, device=dev), store=store)
+    n = int(a.client_num_per_round)
+    clients = []
+    for rank in range(1, n + 1):
+        model = models.create(a, ds.class_num, device=dev)  # a module a thread
+        trainer = make_local_train_fn(model.apply, model.loss_fn, create_client_optimizer(a),
+                                      epochs=int(a.epochs))
+        local = Batches(x=ds.packed_train.x[rank - 1], y=ds.packed_train.y[rank - 1],
+                        mask=ds.packed_train.mask[rank - 1])
+        clients.append(EdgeClientSim(a, trainer, local, store, rank=rank, size=n + 1))
+    threads = [threading.Thread(target=server.run, name="edge-server", daemon=True)]
+    threads += [threading.Thread(target=c.run, name=f"edge-client-{c.rank}", daemon=True)
+                for c in clients]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(CD_JOIN_S)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        fail(f"cross device legacy: threads still running after {CD_JOIN_S} s")
+    launches = launch_counts()
+    rounds, freq = int(a.comm_round), int(a.frequency_of_the_test)
+    want = [r for r in range(rounds) if r % freq == 0 or r == rounds - 1]
+    hist = server.aggregator.history
+    if [h["round"] for h in hist] != want:
+        fail(f"cross device legacy: evaluated rounds {[h['round'] for h in hist]}, want {want}")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        fail(f"cross device legacy: the test loss did not fall: {hist}")
+    if server.manager.finish_acks != {r: True for r in range(1, n + 1)}:
+        fail(f"cross device legacy: FINISH acks {server.manager.finish_acks}")
+    file_bytes = len(params_to_model_bytes(server.aggregator.global_params))
+    log(f"cross device legacy: {rounds} rounds of {n} edge clients over MQTT in {wall:.3f} s "
+        f"(host clock), {rounds / wall:.4f} rounds/s; a model file {file_bytes} B; history "
+        f"{hist}; every client acknowledged FINISH")
+    return {"rounds": rounds, "clients": n, "wall_s": wall, "rounds_per_s": rounds / wall,
+            "model_file_bytes": file_bytes, "history": hist, "kernel_launches": launches}
+
+
+def cd_centralized() -> dict:
+    """The centralized part: ``CentralizedTrainer`` on the bf16 flash
+    transformer config, one epoch of the coalesced training split."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch import data, models
+    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.centralized import CentralizedTrainer
+    from fedml_tpu_torch.core.local_trainer import eval_batches_per_pass
+    from fedml_tpu_torch.ops.flash_attention import BWD_KERNEL, FWD_KERNEL
+
+    a = load_arguments(str(TRANSFORMER_CONFIG))
+    a.epochs = 1
+    a._validate()
+    dev = torch.device(DEVICE)
+    fedml_tpu_torch.init(a, dev)
+    ds = data.load(a, device=dev)
+    model = models.create(a, ds.class_num, device=dev)
+    trainer = CentralizedTrainer(a, DEVICE, ds, model)
+    train, test = ds.train_data_global, ds.test_data_global
+
+    def passes(b):
+        return -(-(b.mask.numel() // b.batch_size) // eval_batches_per_pass(b))
+
+    steps, layers = int(train.mask.shape[0]), int(a.num_layers)
+    fwd_want = layers * (steps + 2 * passes(train) + passes(test))
+    bwd_want = layers * steps
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    inner = trainer._train_fn
+
+    def timed(*args, **kw):
+        start.record()
+        out = inner(*args, **kw)
+        end.record()
+        return out
+
+    trainer._train_fn = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with plain_flash_calls() as plain:
+        before = model.metrics_from_sums(trainer._eval(trainer.params, train))
+        final = trainer.train()
+        end.synchronize()
+    launches = launch_counts()
+    ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    tokens = steps * train.batch_size * int(a.seq_len)
+    if launches[FWD_KERNEL.name] != fwd_want or launches[BWD_KERNEL.name] != bwd_want:
+        fail(f"centralized: flash launches forward {launches[FWD_KERNEL.name]}, backward "
+             f"{launches[BWD_KERNEL.name]}; the reckoning {fwd_want}, {bwd_want}")
+    if any(plain.values()):
+        fail(f"centralized: the flash plain versions ran: {plain}")
+    if not final["train_loss"] < before["loss"]:
+        fail(f"centralized: the train loss did not fall ({before['loss']} -> "
+             f"{final['train_loss']})")
+    log(f"centralized: {steps} steps of [{train.batch_size}, {a.seq_len}] in {ms:.1f} ms on "
+        f"the card's clock, {ms / steps:.3f} ms a step, {tokens / (ms / 1e3):.0f} tokens/s; "
+        f"peak {peak:.1f} MiB; train loss {before['loss']:.4f} -> {final['train_loss']:.4f}, "
+        f"test loss {final['test_loss']:.4f}; flash {launches[FWD_KERNEL.name]} forward = "
+        f"{layers} x ({steps} + 2 x {passes(train)} + {passes(test)}), "
+        f"{launches[BWD_KERNEL.name]} backward = {layers} x {steps}; plain flash calls {plain}")
+    return {"steps": steps, "train_ms": ms, "step_ms": ms / steps,
+            "tokens_per_s": tokens / (ms / 1e3), "peak_mib": peak,
+            "train_loss_before": before["loss"], "record": final,
+            "flash_forward_wanted": fwd_want, "flash_backward_wanted": bwd_want,
+            "kernel_launches": launches}
+
+
+def run_cross_device():
+    """The fifteenth slice's phase: the Beehive worlds, the legacy
+    plane and the centralized trainer, each path's launches counted from
+    0 just before it."""
+    out = {"beehive": cd_beehive(), "legacy": cd_legacy(), "centralized": cd_centralized()}
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, str(REPO))
     try:
@@ -5918,6 +6313,8 @@ def main() -> int:
     log(f"mesh numbers on {card}: {json.dumps(mesh_numbers, default=str)}")
     cross_silo_numbers = phase("cross silo", run_cross_silo)
     log(f"cross silo numbers on {card}: {json.dumps(cross_silo_numbers, default=str)}")
+    cross_device_numbers = phase("cross device", run_cross_device)
+    log(f"cross device numbers on {card}: {json.dumps(cross_device_numbers, default=str)}")
     log(f"phase wall times (s): {json.dumps(walls)}")
     paths = {
         "serving": slice_numbers, "serving_comm": serving_comm_numbers,
@@ -5935,6 +6332,7 @@ def main() -> int:
            if isinstance(numbers, dict) and "kernel_launches" in numbers},
         **{f"mesh_{tag}": numbers for tag, numbers in mesh_numbers.items()},
         "cross_silo": cross_silo_numbers,
+        **{f"cross_device_{tag}": numbers for tag, numbers in cross_device_numbers.items()},
     }
     for entry in kernels:  # each path's own count, reset just before it
         entry["launches_by_path"] = {

@@ -35,8 +35,15 @@ closes, elastic membership, the failure detector, crash recovery with
 RESYNC and the anomaly screen; ``run_hierarchical_cross_silo_server`` /
 ``run_hierarchical_cross_silo_client`` for silos that are
 ``torch.distributed`` process groups; the edge tier over ranks
-(``edge_plane: ranks``); and the chaos plane (``core/chaos.py``).
-ROADMAP.md lists the slices still to come.
+(``edge_plane: ranks``); and the chaos plane (``core/chaos.py``). The
+fifteenth brings the cross-device planes (``cross_device/``): the
+Beehive check-in federation (``run_beehive_world``: a gateway folding
+pairwise-masked uploads of devices that check in and vanish, a device
+host training them by speed tier on the card) and the legacy model-file
+server (``run_edge_server``), with ``centralized.py``, the edge agent
+(``edge_agent.py``) and the CLI's ``version``, ``login``, ``logout``,
+``build``, ``edge`` and ``device``. ROADMAP.md lists the slices still to
+come.
 """
 
 from __future__ import annotations
@@ -53,14 +60,17 @@ from . import constants
 from .arguments import MATMUL_PRECISIONS, Arguments, add_args
 from .device import DeviceLike, get_device
 
+__version__ = "0.1.0"
+
 
 def init(args: Optional[Arguments] = None, device: DeviceLike = None) -> Arguments:
     """Load args (``--cf <yaml>`` from the command line when none are
     given), seed ``random`` and ``numpy``, and set the matmul precision.
-    A cross-silo run takes its ``process_id`` from ``rank``, and a
-    hierarchical silo with a ``distributed_coordinator`` joins its
-    ``torch.distributed`` group here, before anything is built: gloo for
-    a CPU ``device``, NCCL for a card.
+    A cross-silo run takes its ``process_id`` from ``rank`` (a
+    cross-device one is rank 0, process 0), and a hierarchical silo
+    with a ``distributed_coordinator`` joins its ``torch.distributed``
+    group here, before anything is built: gloo for a CPU ``device``,
+    NCCL for a card.
 
     ``matmul_precision`` maps onto the two process-wide TF32 switches,
     ``torch.backends.cuda.matmul.allow_tf32`` and
@@ -91,6 +101,9 @@ def init(args: Optional[Arguments] = None, device: DeviceLike = None) -> Argumen
             )
 
             ensure_distributed_initialized(args, device if device is not None else "cuda")
+    elif args.training_type == constants.FEDML_TRAINING_PLATFORM_CROSS_DEVICE:
+        args.rank = 0
+        args.process_id = 0
     else:
         args.process_id = 0
     return args
@@ -265,3 +278,20 @@ def run_hierarchical_cross_silo_client(args: Optional[Arguments] = None,
 
     args, dev, dataset, model = _cross_silo_parts(args, device)
     HierarchicalClient(args, dev, dataset, model, client_trainer=client_trainer).run()
+
+
+def run_edge_server(args: Optional[Arguments] = None, *, device: DeviceLike = "cuda"):
+    """One-line cross-device server, the reference's ``run_mnn_server``
+    (its __init__.py:256-274): edge clients ship model files over the
+    pub/sub plane (``args.cross_device_backend``, MQTT by default) and
+    the server averages and evaluates them on ``device``. Serves
+    ``comm_round`` rounds to ``client_num_per_round`` edge clients and
+    returns the evaluation history."""
+    from . import data, models
+    from .cross_device import ServerEdge
+
+    dev = get_device(device)
+    args = init(args, dev)
+    dataset = data.load(args, device=dev)
+    model = models.create(args, dataset.class_num, device=dev)
+    return ServerEdge(args, dev, dataset, model).run()

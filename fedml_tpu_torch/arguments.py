@@ -346,6 +346,19 @@ _DEFAULTS: Dict[str, Any] = {
     # cards of a silo process group: rank p of silo s uses card
     # (s - 1) * silo_device_count + p; 0 = the card the caller names
     "silo_device_count": 0,
+    # -- the cross-device planes (cross_device/) -------------------------
+    # the legacy model-file server's fabric (cross_device/server.py)
+    "cross_device_backend": constants.COMM_BACKEND_MQTT,
+    # the Beehive check-in plane (cross_device/gateway.py, device.py):
+    # devices sampled a round (0 = cohort_size, then client_num_per_round)
+    "crossdevice_cohort": 0,
+    "crossdevice_fold_target_frac": 0.6,  # share of the roster whose folds close a round
+    "crossdevice_report_window_s": 30.0,  # the report window after the offer
+    "crossdevice_secure_agg": True,  # pairwise-masked uploads (they cancel in the fold)
+    "crossdevice_quant_scale": 65536.0,  # field quantization scale of the deltas
+    "crossdevice_mask_threshold": 2,  # Shamir threshold of the dropout recovery
+    "crossdevice_duty_hours": 14,  # hours a day a device is reachable
+    "crossdevice_verify_pubkey": True,  # check each recovered secret against its key
     # -- the chaos plane (core/chaos.py) -------------------------------
     # ordered one-shot fault steps {at: {event, occurrence, round?, rank?,
     # msg_type?, name?}, fault: kind-or-mapping}; None disables
@@ -478,6 +491,7 @@ class Arguments:
         self._validate_cross_silo()
         self._validate_population()
         self._validate_robustness()
+        self._validate_cross_device()
 
     def _validate_fleet(self) -> None:
         """The fleet knobs, with the JAX package's words."""
@@ -794,6 +808,59 @@ class Arguments:
                 "must be in (0, 1]"
             )
         self.target_label = int(getattr(self, "target_label", 0) or 0)
+
+
+    def _validate_cross_device(self) -> None:
+        """The Beehive knobs, as the JAX package validates them, word for
+        word."""
+        for int_key in ("crossdevice_cohort", "crossdevice_mask_threshold",
+                        "crossdevice_duty_hours"):
+            raw = getattr(self, int_key)
+            try:
+                setattr(self, int_key, int(raw or 0))
+            except (TypeError, ValueError):
+                raise ValueError(f"{int_key}={raw!r}: must be an integer") from None
+        if self.crossdevice_cohort < 0:
+            raise ValueError(
+                f"crossdevice_cohort={self.crossdevice_cohort}: must be "
+                ">= 0 (0 = client_num_per_round)"
+            )
+        if self.crossdevice_mask_threshold < 1:
+            raise ValueError(
+                f"crossdevice_mask_threshold="
+                f"{self.crossdevice_mask_threshold}: must be >= 1 "
+                "(shares needed to reconstruct a vanished device's mask)"
+            )
+        if not 1 <= self.crossdevice_duty_hours <= 24:
+            raise ValueError(
+                f"crossdevice_duty_hours={self.crossdevice_duty_hours}: "
+                "must be in [1, 24] (hours per day a device is reachable)"
+            )
+        for float_key in ("crossdevice_fold_target_frac", "crossdevice_report_window_s",
+                          "crossdevice_quant_scale"):
+            raw = getattr(self, float_key)
+            try:
+                setattr(self, float_key, float(raw))
+            except (TypeError, ValueError):
+                raise ValueError(f"{float_key}={raw!r}: must be a number") from None
+        if not 0.0 < self.crossdevice_fold_target_frac <= 1.0:
+            raise ValueError(
+                f"crossdevice_fold_target_frac="
+                f"{self.crossdevice_fold_target_frac}: must be in (0, 1] "
+                "(fraction of the offered cohort whose folds close a round)"
+            )
+        if self.crossdevice_report_window_s <= 0:
+            raise ValueError(
+                f"crossdevice_report_window_s="
+                f"{self.crossdevice_report_window_s}: must be > 0"
+            )
+        if self.crossdevice_quant_scale <= 0:
+            raise ValueError(
+                f"crossdevice_quant_scale={self.crossdevice_quant_scale}: "
+                "must be > 0"
+            )
+        self.crossdevice_secure_agg = bool(self.crossdevice_secure_agg)
+        self.crossdevice_verify_pubkey = bool(self.crossdevice_verify_pubkey)
 
 
 def load_arguments(path: str) -> Arguments:

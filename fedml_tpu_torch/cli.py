@@ -1,41 +1,244 @@
 """Command-line interface of the port (of ``fedml_tpu/cli.py``).
 
-``python -m fedml_tpu_torch.cli serve`` stands up the serving plane for
-the federated global model: the model from the YAML config (``--cf``),
-the newest restorable checkpoint of ``--checkpoint-dir`` (a corrupt
-latest falls back to the previous one), a fleet of ``--fleet-size``
-micro-batching engines behind one load-aware frontend on the card, and
-weights hot-swapped as the trainer publishes new rounds. ``--mesh DxF``
-serves every endpoint over a named (data, fsdp) mesh of a
-``torch.distributed`` world of D·F ranks (the caller's process group, or
-one from ``torchrun``'s environment; on one card, ``1x1``): rank 0
-serves and prints, the other ranks follow its collectives. ``--dry-run``
-builds everything, prints one status JSON line, and exits.
+Parity with the reference's ``python/fedml/cli/cli.py`` (``fedml
+version/login/logout/build``, :17-250), on argparse:
 
-The JAX package's other subcommands (version, login, logout, build, edge,
-device, trace, check, lint, audit, perf) are parsed and refused: they
-come with the rest of ROADMAP.md queue A item 11 (``edge`` with
-``cross_device/`` and ``edge_agent.py``), as does ``telemetry_dir``'s
-run-artifact export (with the telemetry exporters).
+- ``version``: print the package version.
+- ``login``: persist the account binding and start the edge-agent daemon
+  (``python -m fedml_tpu_torch.edge_agent``; the reference spawns
+  ``FedMLClientRunner``, cli/cli.py:27-43 -> edge_deployment/login.py:31).
+- ``logout``: stop the daemon and clear the binding (cli/cli.py:131).
+- ``build``: package user training code into a client/server zip (the
+  user's source, the entry point and a manifest the edge agent runs).
+- ``serve``: stand up the serving plane for the federated global model:
+  the model from the YAML config (``--cf``), the newest restorable
+  checkpoint of ``--checkpoint-dir`` (a corrupt latest falls back to the
+  previous one), a fleet of ``--fleet-size`` micro-batching engines
+  behind one load-aware frontend on the card, and weights hot-swapped as
+  the trainer publishes new rounds. ``--mesh DxF`` serves every endpoint
+  over a named (data, fsdp) mesh of a ``torch.distributed`` world of D·F
+  ranks (the caller's process group, or one from ``torchrun``'s
+  environment; on one card, ``1x1``): rank 0 serves and prints, the
+  other ranks follow its collectives.
+- ``edge``: launch one edge aggregator rank of the hierarchical server
+  plane (``cross_silo/hierarchical``; ``edge_agent.run_edge``).
+- ``device``: run the cross-device Beehive federation
+  (``cross_device.run_beehive_world``) on the in-process fabric.
+
+``serve``, ``edge`` and ``device`` take ``--device`` (``cuda``, the
+default, or ``cpu``); their ``--dry-run`` builds everything, prints one
+status JSON line and exits. State lives under ``~/.fedml_tpu_torch/``
+(``FEDML_TPU_HOME`` overrides it).
+
+The JAX package's other subcommands are parsed and refused, each naming
+what it waits for (ROADMAP.md queue A item 11): ``trace`` the telemetry
+exporters, ``check`` ``core/invariants.py`` with ``parallel/elastic.py``,
+and ``lint``, ``audit`` and ``perf`` the analysis planes. So is
+``telemetry_dir``'s run-artifact export (the telemetry exporters).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import signal
 import sys
+import zipfile
 
-_LATER = ("version", "login", "logout", "build", "edge", "device", "trace", "check",
-          "lint", "audit", "perf")
+_ANALYSIS = "the analysis planes (a port-side counterpart of fedml_tpu/analysis/)"
+# refused subcommand -> what it waits for (ROADMAP.md, queue A item 11)
+_LATER = {
+    "trace": "the telemetry exporters (the trace stitcher and the round analyzer)",
+    "check": "core/invariants.py, with parallel/elastic.py",
+    "lint": _ANALYSIS,
+    "audit": _ANALYSIS,
+    "perf": _ANALYSIS,
+}
 
 
 def _not_ported(args) -> int:
     raise NotImplementedError(
         f"`{args.command}` is not ported to PyTorch yet; it arrives with "
-        "cross_device/ and edge_agent.py, the remainder of ROADMAP.md queue A "
-        "item 11 (`cli edge` and the other subcommands). `serve` is the "
-        "port's subcommand so far"
+        f"{_LATER[args.command]} (ROADMAP.md, queue A item 11)"
     )
+
+
+def _home() -> str:
+    root = os.environ.get(
+        "FEDML_TPU_HOME", os.path.join(os.path.expanduser("~"), ".fedml_tpu_torch")
+    )
+    os.makedirs(root, exist_ok=True)
+    return root
+
+
+def _account_path() -> str:
+    return os.path.join(_home(), "account.json")
+
+
+def _pid_path() -> str:
+    return os.path.join(_home(), "edge_agent.pid")
+
+
+def cmd_version(_args) -> int:
+    from . import __version__
+
+    print(f"fedml_tpu_torch version {__version__}")
+    return 0
+
+
+def cmd_login(args) -> int:
+    account = {
+        "account_id": args.account_id,
+        "server": args.server,
+        "role": args.role,
+        "broker_host": args.broker_host,
+        "broker_port": args.broker_port,
+    }
+    with open(_account_path(), "w") as f:
+        json.dump(account, f)
+    print(f"login: bound account {args.account_id} (role={args.role})")
+    if args.no_daemon:
+        return 0
+    import subprocess
+
+    with open(os.path.join(_home(), "edge_agent.log"), "ab") as log:
+        proc = subprocess.Popen(
+            [
+                sys.executable, "-m", "fedml_tpu_torch.edge_agent",
+                "--account-id", str(args.account_id),
+                "--broker-host", args.broker_host,
+                "--broker-port", str(args.broker_port),
+            ],
+            stdout=log,
+            stderr=subprocess.STDOUT,
+            start_new_session=True,
+        )
+    with open(_pid_path(), "w") as f:
+        f.write(str(proc.pid))
+    print(f"edge agent daemon started (pid {proc.pid})")
+    return 0
+
+
+def cmd_logout(_args) -> int:
+    if os.path.exists(_pid_path()):
+        try:
+            with open(_pid_path()) as f:
+                pid = int(f.read().strip())
+            os.kill(pid, signal.SIGTERM)
+            print(f"edge agent daemon (pid {pid}) stopped")
+        except (OSError, ValueError) as e:
+            # a stale or corrupt pid file, or a daemon already gone: logout
+            # goes on either way, and says what happened
+            print(f"logout: daemon already gone ({e})", file=sys.stderr)
+        os.remove(_pid_path())
+    if os.path.exists(_account_path()):
+        os.remove(_account_path())
+    print("logout: account binding cleared")
+    return 0
+
+
+def cmd_build(args) -> int:
+    """Zip the user's source folder, entry point and a manifest
+    (cli/cli.py:141-250's build, without the platform templates)."""
+    from . import __version__
+
+    src = os.path.abspath(args.source_folder)
+    if not os.path.isdir(src):
+        print(f"build: source folder {src!r} not found", file=sys.stderr)
+        return 2
+    entry = args.entry_point
+    if not os.path.exists(os.path.join(src, entry)):
+        print(f"build: entry {entry!r} not in {src!r}", file=sys.stderr)
+        return 2
+    os.makedirs(args.dest_folder, exist_ok=True)
+    out = os.path.join(args.dest_folder, f"fedml_{args.type}_package.zip")
+    manifest = {
+        "type": args.type,
+        "entry": entry,
+        "config": args.config_folder,
+        "version": __version__,
+    }
+    with zipfile.ZipFile(out, "w", zipfile.ZIP_DEFLATED) as z:
+        for base, _, files in os.walk(src):
+            for name in files:
+                path = os.path.join(base, name)
+                z.write(path, os.path.relpath(path, src))
+        if args.config_folder:
+            cfg = os.path.abspath(args.config_folder)
+            for base, _, files in os.walk(cfg):
+                for name in files:
+                    path = os.path.join(base, name)
+                    z.write(path, os.path.join("config", os.path.relpath(path, cfg)))
+        z.writestr("MANIFEST.json", json.dumps(manifest))
+    print(f"build: {args.type} package -> {out}")
+    return 0
+
+
+def cmd_edge(args) -> int:
+    """Launch one edge aggregator rank of the hierarchical server plane
+    on ``--device``: the federation config (``--cf``) with ``edge_plane:
+    ranks`` forced, rank ``--rank`` of the root fabric, server of its own
+    client fabric (``edge_agent.run_edge``)."""
+    from .arguments import Arguments
+    from .edge_agent import run_edge
+
+    ns = argparse.Namespace(
+        yaml_config_file=args.cf or "",
+        rank=int(args.rank),
+        role="edge_server",
+        run_id=args.run_id,
+    )
+    a = Arguments(ns)
+    a.edge_plane = "ranks"
+    if args.backend:
+        a.backend = args.backend
+    a._validate()
+    return run_edge(a, dry_run=args.dry_run, device=args.device)
+
+
+def cmd_device(args) -> int:
+    """Run the cross-device Beehive federation (docs/cross_device.md):
+    the config's device registry, ``comm_round`` connectionless check-in
+    rounds on the in-process fabric, the devices training on
+    ``--device``."""
+    from .arguments import Arguments
+    from .cross_device.driver import beehive_cohort, beehive_registry, run_beehive_world
+    from .cross_device.protocol import flat_dim
+    from .device import get_device
+
+    dev = get_device(args.device)
+    ns = argparse.Namespace(
+        yaml_config_file=args.cf or "",
+        rank=0,
+        role="server",
+        run_id=args.run_id,
+    )
+    a = Arguments(ns)
+    a._validate()
+    registry = beehive_registry(a)
+    feature_dim = int(args.feature_dim)
+    class_num = int(args.output_dim)
+    status = {
+        "plane": "crossdevice",
+        "registry_size": registry.size,
+        "registry_bytes": registry.nbytes(),
+        "cohort": beehive_cohort(a),
+        "rounds": int(a.comm_round),
+        "fold_target_frac": float(a.crossdevice_fold_target_frac),
+        "secure_agg": bool(a.crossdevice_secure_agg),
+        "quant_scale": float(a.crossdevice_quant_scale),
+        "update_dim": flat_dim(feature_dim, class_num),
+    }
+    if args.dry_run:
+        print(json.dumps(status))
+        return 0
+    out = run_beehive_world(a, feature_dim=feature_dim, class_num=class_num,
+                            registry=registry, device=dev)
+    status["round_records"] = out["round_records"]
+    status["trace_count"] = out["trace_count"]
+    print(json.dumps(status))
+    return 0
 
 
 def cmd_serve(args) -> int:
@@ -66,7 +269,7 @@ def cmd_serve(args) -> int:
         raise NotImplementedError(
             "telemetry_dir: exporting the run's artifacts (trace.json, metrics.prom, "
             "telemetry.jsonl) is not ported to PyTorch yet; it arrives with the "
-            "observability slice (ROADMAP.md, queue A item 11). Unset telemetry_dir"
+            "telemetry exporters (ROADMAP.md, queue A item 11). Unset telemetry_dir"
         )
     dev = get_device(args.device)
     if not a.serve_mesh:
@@ -158,6 +361,19 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="fedml-tpu-torch")
     sub = p.add_subparsers(dest="command", required=True)
 
+    sub.add_parser("version").set_defaults(fn=cmd_version)
+
+    login = sub.add_parser("login")
+    login.add_argument("account_id")
+    login.add_argument("--server", default="local")
+    login.add_argument("--role", default="client", choices=["client", "edge_server"])
+    login.add_argument("--broker-host", default="127.0.0.1")
+    login.add_argument("--broker-port", type=int, default=18830)
+    login.add_argument("--no-daemon", action="store_true")
+    login.set_defaults(fn=cmd_login)
+
+    sub.add_parser("logout").set_defaults(fn=cmd_logout)
+
     serve = sub.add_parser("serve")
     serve.add_argument("--cf", "--yaml_config_file", dest="cf", default="")
     serve.add_argument("--checkpoint-dir", default=None)
@@ -181,6 +397,38 @@ def build_parser() -> argparse.ArgumentParser:
                        help="'cuda' (the default) or 'cpu'")
     serve.add_argument("--dry-run", action="store_true")
     serve.set_defaults(fn=cmd_serve)
+
+    edge = sub.add_parser("edge")
+    edge.add_argument("--cf", "--yaml_config_file", dest="cf", default="")
+    edge.add_argument(
+        "--rank", type=int, required=True,
+        help="this edge's rank on the root fabric (1..edge_num)",
+    )
+    edge.add_argument(
+        "--backend", default=None,
+        type=lambda s: s.upper(), choices=[None, "LOCAL", "GRPC"],
+    )
+    edge.add_argument("--run-id", dest="run_id", default="0")
+    edge.add_argument("--device", default="cuda", help="'cuda' (the default) or 'cpu'")
+    edge.add_argument("--dry-run", action="store_true")
+    edge.set_defaults(fn=cmd_edge)
+
+    device = sub.add_parser("device")
+    device.add_argument("--cf", "--yaml_config_file", dest="cf", default="")
+    device.add_argument("--feature-dim", type=int, default=8)
+    device.add_argument("--output-dim", type=int, default=4)
+    device.add_argument("--run-id", dest="run_id", default="0")
+    device.add_argument("--device", default="cuda", help="'cuda' (the default) or 'cpu'")
+    device.add_argument("--dry-run", action="store_true")
+    device.set_defaults(fn=cmd_device)
+
+    build = sub.add_parser("build")
+    build.add_argument("-t", "--type", required=True, choices=["client", "server"])
+    build.add_argument("-sf", "--source-folder", required=True)
+    build.add_argument("-ep", "--entry-point", required=True)
+    build.add_argument("-cf", "--config-folder", default=None)
+    build.add_argument("-df", "--dest-folder", default="./dist")
+    build.set_defaults(fn=cmd_build)
 
     for name in _LATER:
         sub.add_parser(name).set_defaults(fn=_not_ported)

@@ -2,8 +2,10 @@
 
 The partition methods, simulation backends, federated optimizer names,
 the defense and attack vocabularies, and the comm backends, message
-types and message keys of the comm layer, serving and the cross-silo
-managers (the silo control plane and the edge tier's). The values are
+types and message keys of the comm layer, serving, the cross-silo
+managers (the silo control plane and the edge tier's) and the
+cross-device planes (the legacy model-file server's status and finish
+messages above, the Beehive check-in protocol below). The values are
 the JAX package's, so one YAML drives either package and the two
 interoperate on the wire.
 """
@@ -27,6 +29,7 @@ FED_OPTIMIZER_FEDAVG = "FedAvg"
 FEDML_TRAINING_PLATFORM_SIMULATION = "simulation"
 FEDML_TRAINING_PLATFORM_DISTRIBUTED = "distributed"
 FEDML_TRAINING_PLATFORM_CROSS_SILO = "cross_silo"
+FEDML_TRAINING_PLATFORM_CROSS_DEVICE = "cross_device"
 
 # Robust-aggregation defenses and the poisoning attacks they defend
 # against: ONE vocabulary, which the knob validation (arguments.py),
@@ -128,3 +131,35 @@ HIER_EVENT_DEAD = "dead"
 HIER_EVENT_LEAVE = "leave"
 HIER_EVENT_ONLINE = "online"
 HIER_EVENT_QUARANTINE = "quarantine_evidence"
+
+# the cross-device Beehive check-in protocol (cross_device/gateway.py and
+# device.py): a device CHECKs IN with its round-scoped mask public key,
+# pulls the ROUND_OFFER (int8 params, the participants' keys), pushes
+# ONE masked quantized delta and disappears. WINDOW_TICKs stand in for
+# the windows' wall-clock expiry; SHARE_REQUEST/REVEAL recovers the
+# masks of devices that vanished; ROUND_RESULT announces a close
+MSG_TYPE_D2S_DEVICE_CHECKIN = 70
+MSG_TYPE_S2D_ROUND_OFFER = 71
+MSG_TYPE_D2S_MASKED_UPLOAD = 72
+MSG_TYPE_D2S_WINDOW_TICK = 73
+MSG_TYPE_S2D_SHARE_REQUEST = 74
+MSG_TYPE_D2S_SHARE_REVEAL = 75
+MSG_TYPE_S2D_ROUND_RESULT = 76
+MSG_ARG_KEY_DEVICE_ID = "device_id"
+MSG_ARG_KEY_DEVICE_PUBKEY = "device_pubkey"
+MSG_ARG_KEY_MASKED_DELTA = "masked_delta"
+MSG_ARG_KEY_MASK_CHECKSUM = "mask_checksum"
+MSG_ARG_KEY_PARTICIPANTS = "participants"
+MSG_ARG_KEY_QUANT_SCALE = "quant_scale"
+MSG_ARG_KEY_SHARE_REVEALS = "share_reveals"
+MSG_ARG_KEY_WINDOW_PHASE = "window_phase"
+MSG_ARG_KEY_CLOSE_INFO = "close_info"
+
+# the window a WINDOW_TICK closes (check-in gathers the participants,
+# the report window bounds the uploads)
+DEVICE_WINDOW_CHECKIN = "checkin"
+DEVICE_WINDOW_REPORT = "report"
+# why the gateway closed a round: its fold target, or the window's end
+# (never cohort completeness)
+DEVICE_CLOSE_TARGET = "target"
+DEVICE_CLOSE_WINDOW = "window"

@@ -31,6 +31,7 @@ import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
+from torch._C._functorch import is_batchedtensor
 
 Params = Dict[str, torch.Tensor]
 State = Any
@@ -83,14 +84,30 @@ def add_decayed_weights(weight_decay: float) -> GradientTransformation:
 def scale_by_learning_rate(lr: Union[float, Schedule]) -> GradientTransformation:
     """``-lr * u``; a schedule is optax's ``scale_by_schedule``: step k
     (counted in the state, from 0) scales by ``-lr(k)``. The count is an
-    int32 on the CPU, so reading it costs no wait for the card."""
+    int32 on the CPU, so reading it costs no wait for the card. Under
+    ``vmap`` (a cohort's step, where no count can be read on the host) the
+    schedule is a table of its values up to ``lr.steps``, past which it is
+    constant, indexed by the count and cast to the updates' dtype: the
+    same product as the host read's Python float, which the multiply
+    casts to that dtype."""
     if callable(lr):
+        table = []  # made at the first step under vmap
+
         def init(params):
             return {"count": torch.zeros((), dtype=torch.int32)}
 
         def scheduled(updates, state, params):
-            step = lr(int(state["count"]))
-            return _map(lambda u: -step * u, updates), {"count": state["count"] + 1}
+            count = state["count"]
+            if is_batchedtensor(count):
+                if not table:
+                    table.append(torch.tensor([lr(k) for k in range(int(lr.steps) + 1)],
+                                              dtype=torch.float64))
+                values = table[0]
+                step = values[count.clamp(max=len(values) - 1).long()]
+                return (_map(lambda u: -step.to(u.device, u.dtype) * u, updates),
+                        {"count": count + 1})
+            step = lr(int(count))
+            return _map(lambda u: -step * u, updates), {"count": count + 1}
 
         return GradientTransformation(init, scheduled)
 
@@ -229,6 +246,7 @@ def cosine_decay_schedule(init_value: float, decay_steps: int) -> Schedule:
         count = min(count, decay_steps)
         return init_value * 0.5 * (1 + math.cos(math.pi * count / decay_steps))
 
+    schedule.steps = decay_steps  # constant from here on
     return schedule
 
 
@@ -245,6 +263,7 @@ def warmup_cosine_decay_schedule(
             return (init_value - peak_value) * frac + peak_value
         return decay(count - warmup_steps)
 
+    schedule.steps = decay_steps  # constant from here on
     return schedule
 
 

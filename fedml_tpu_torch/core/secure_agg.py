@@ -15,10 +15,18 @@ for the same inputs and seeds. Only the flat layout of a params tree is
 the port's own: ``flatten_params`` / ``unflatten_params`` lay a
 ``{name: Tensor}`` dict end to end in its key order, and unflatten
 casts back to float32 as the JAX package does.
+
+Two host shortcuts give the same numbers faster, as the cross-device
+plane needs at cohorts of hundreds (a device's mask is a PRG vector per
+peer): a scalar power mod p is Python's ``pow`` (exact integers, where
+``modpow`` squares in int64), and the seeded ``RandomState`` draws come
+from one generator a thread reseeded by ``.seed(s)``, the same stream as
+``RandomState(s)`` without the entropy read its constructor makes first.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Any, Dict, List, Sequence
 
 import numpy as np
@@ -135,12 +143,25 @@ def additive_share(
 # regenerates the dangling terms, and subtracts them.
 
 
+_THREAD = threading.local()
+
+
+def _seeded(seed: int) -> np.random.RandomState:
+    """This thread's ``RandomState``, reseeded: the stream of
+    ``RandomState(seed)``."""
+    rs = getattr(_THREAD, "rs", None)
+    if rs is None:
+        rs = _THREAD.rs = np.random.RandomState()
+    rs.seed(int(seed))
+    return rs
+
+
 def derive_mask_secret(
     device_seed: int, round_idx: int, p: int = FIELD_PRIME
 ) -> int:
     """Round-scoped mask secret b in [1, p-2], deterministic per
     (device seed, round) — replayable worlds need replayable masks."""
-    rs = np.random.RandomState(
+    rs = _seeded(
         (int(device_seed) * 2_654_435_761 + int(round_idx) * 97 + 13)
         % (2**32)
     )
@@ -151,19 +172,18 @@ def mask_public_key(
     secret: int, p: int = FIELD_PRIME, g: int = MASK_GENERATOR
 ) -> int:
     """Published half of the pairwise key exchange: g^secret mod p."""
-    return int(modpow(np.int64(g), int(secret), p))
+    return pow(int(g) % p, int(secret), p)
 
 
 def pairwise_seed(secret_i: int, public_j: int, p: int = FIELD_PRIME) -> int:
     """Shared seed s_ij = p_j^b_i = g^(b_i*b_j) — symmetric, so both
     devices expand the identical mask vector from it."""
-    return int(modpow(np.int64(public_j), int(secret_i), p))
+    return pow(int(public_j) % p, int(secret_i), p)
 
 
 def prg_field_vector(seed: int, dim: int, p: int = FIELD_PRIME) -> np.ndarray:
     """Deterministic pseudorandom field vector from a shared seed."""
-    rs = np.random.RandomState(int(seed) % (2**32))
-    return rs.randint(0, p, size=int(dim), dtype=np.int64)
+    return _seeded(int(seed) % (2**32)).randint(0, p, size=int(dim), dtype=np.int64)
 
 
 def pairwise_mask_vector(

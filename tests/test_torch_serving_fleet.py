@@ -434,7 +434,7 @@ class TestCliServe:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli.main(["serve", "--dry-run"])
 
-    @pytest.mark.parametrize("command", ["trace", "lint", "edge", "login"])
+    @pytest.mark.parametrize("command", ["trace", "lint", "check", "audit", "perf"])
     def test_other_subcommands_name_their_slice(self, command):
         from fedml_tpu_torch import cli
 
