@@ -42,8 +42,15 @@ pairwise-masked uploads of devices that check in and vanish, a device
 host training them by speed tier on the card) and the legacy model-file
 server (``run_edge_server``), with ``centralized.py``, the edge agent
 (``edge_agent.py``) and the CLI's ``version``, ``login``, ``logout``,
-``build``, ``edge`` and ``device``. ROADMAP.md lists the slices still to
-come.
+``build``, ``edge`` and ``device``. The sixteenth brings the evidence
+and recovery plane: the run-artifact exporters (``core/telemetry.py``:
+``trace.json``, ``metrics.prom``, ``telemetry.jsonl``, the stall
+watchdog, the ``/metrics`` server; ``core/sys_stats.py``), the trace
+stitcher and round analyzer (``core/tracing.py``, ``cli trace``), the
+post-hoc invariant checker (``core/invariants.py``, ``cli check``) and
+elastic preemption (``parallel/elastic.py``: a signal polled at the
+round boundary, a durable exit, a resume on the surviving ranks).
+ROADMAP.md lists the slices still to come.
 """
 
 from __future__ import annotations

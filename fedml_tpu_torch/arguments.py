@@ -5,14 +5,15 @@ flattening, the defaults for the seed, the dataset and its
 partitioning, the model geometry, the FedAvg training knobs, the
 serving and fleet knobs, the comm layer's knobs, the cross-silo knobs
 (aggregation mode, quorum, deadline, elastic membership, async
-staleness, the silo's process group, the edge plane) and the chaos
-plane's, and their validation. A YAML written for the JAX package
+staleness, the silo's process group, the edge plane), the chaos
+plane's, the telemetry exporters' (watchdog, ``/metrics`` server,
+trace ring) and elastic preemption's, and their validation. A YAML written for the JAX package
 loads here unchanged; knobs this subset has no default for still land
-on the object as the YAML sets them (the training loop raises on the
-ones whose slice has not arrived).
+on the object as the YAML sets them.
 
-Validation imports nothing else of the port, and nothing of JAX: the
-dtype knob is checked here against its own table.
+Validation imports nothing of JAX, and of the port only
+``parallel/elastic.py``'s signal parser: the dtype knob is checked here
+against its own table.
 """
 
 from __future__ import annotations
@@ -100,7 +101,25 @@ _DEFAULTS: Dict[str, Any] = {
     # metrics and profiling
     "log_metrics": True,  # mirror round metrics into the log
     "metrics_jsonl_path": None,  # also append them as JSON lines here
-    "telemetry_dir": None,  # run artifacts (profile captures) land here
+    # run artifacts land here: trace.json (the flight record),
+    # metrics.prom (Prometheus text), telemetry.jsonl (registry
+    # snapshots), stall debug bundles and profile captures. None = keep
+    # everything in-process
+    "telemetry_dir": None,
+    # stall watchdog: when no progress heartbeat (pipeline round, comm
+    # send/receive, cross-silo round) advances for this many seconds,
+    # dump a debug bundle to telemetry_dir. 0 disables
+    "stall_timeout_s": 0.0,
+    # flight-recorder ring capacity (events); overflow evicts the oldest,
+    # counted in telemetry_trace_dropped_total and the trace's meta
+    "trace_ring_size": 65536,
+    # serve Telemetry.prometheus_text() at
+    # http://<metrics_host>:<metrics_port>/metrics for the run's
+    # lifetime; 0 = off. Loopback unless metrics_host says otherwise
+    "metrics_port": 0,
+    "metrics_host": "127.0.0.1",
+    # a torch.profiler trace of the whole run lands here (None = off)
+    "profile_dir": None,
     "profile_rounds": None,  # rounds to capture with torch.profiler
     # model
     "model": "lr",
@@ -366,6 +385,15 @@ _DEFAULTS: Dict[str, Any] = {
     "chaos_seed": 0,  # seeds latency jitter; same pair -> same faults
     # IO-only fault steps (wal_create / wal_append / ckpt_publish)
     "io_faults": None,
+    # -- elastic preemption (parallel/elastic.py) ----------------------
+    # None/"none" disables; "round:K" a scripted drill at round K;
+    # "file:PATH" fires when PATH exists; "metadata" polls the GCE
+    # metadata maintenance-event endpoint; "chaos" rides a scheduled
+    # preempt/device.loss fault on the elastic.check event. Requires
+    # checkpoint_dir
+    "preempt_signal": None,
+    # the resume floor: refuse to resume on fewer surviving devices
+    "elastic_min_devices": 1,
 }
 
 _SECTIONS = (
@@ -492,6 +520,56 @@ class Arguments:
         self._validate_population()
         self._validate_robustness()
         self._validate_cross_device()
+        self._validate_telemetry()
+        self._validate_elastic()
+
+    def _validate_telemetry(self) -> None:
+        """The exporters' knobs, with the JAX package's words."""
+        self.stall_timeout_s = float(self.stall_timeout_s)
+        if self.stall_timeout_s < 0:
+            raise ValueError(
+                f"stall_timeout_s={self.stall_timeout_s}: must be >= 0 "
+                "(0 disables the stall watchdog)"
+            )
+        for int_key in ("trace_ring_size", "metrics_port"):
+            setattr(self, int_key, int(getattr(self, int_key)))
+        if self.trace_ring_size < 1:
+            raise ValueError(
+                f"trace_ring_size={self.trace_ring_size}: must be >= 1"
+            )
+        if not 0 <= self.metrics_port <= 65535:
+            raise ValueError(
+                f"metrics_port={self.metrics_port}: must be a port number "
+                "(0 disables the /metrics server)"
+            )
+
+    def _validate_elastic(self) -> None:
+        """The elastic preemption knobs, with the JAX package's words."""
+        from .parallel.elastic import make_signal
+
+        # parse-validate (the factory raises the naming ValueError); the
+        # signal itself is rebuilt at train() time, not stored here
+        signal = make_signal(getattr(self, "preempt_signal", None))
+        if signal is not None and not getattr(self, "checkpoint_dir", None):
+            raise ValueError(
+                f"preempt_signal={self.preempt_signal!r} needs "
+                "checkpoint_dir: a preemption notice forces a durable "
+                "checkpoint — with nowhere to land it the drained round "
+                "would be lost"
+            )
+        raw = getattr(self, "elastic_min_devices", 1)
+        try:
+            self.elastic_min_devices = int(raw if raw is not None else 1)
+        except (TypeError, ValueError):
+            raise ValueError(
+                f"elastic_min_devices={raw!r}: must be an integer >= 1"
+            ) from None
+        if self.elastic_min_devices < 1:
+            raise ValueError(
+                f"elastic_min_devices={self.elastic_min_devices}: must be "
+                ">= 1 (the resume floor — below it the run refuses to "
+                "continue)"
+            )
 
     def _validate_fleet(self) -> None:
         """The fleet knobs, with the JAX package's words."""

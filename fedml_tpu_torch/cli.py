@@ -30,11 +30,18 @@ default, or ``cpu``); their ``--dry-run`` builds everything, prints one
 status JSON line and exits. State lives under ``~/.fedml_tpu_torch/``
 (``FEDML_TPU_HOME`` overrides it).
 
-The JAX package's other subcommands are parsed and refused, each naming
-what it waits for (ROADMAP.md queue A item 11): ``trace`` the telemetry
-exporters, ``check`` ``core/invariants.py`` with ``parallel/elastic.py``,
-and ``lint``, ``audit`` and ``perf`` the analysis planes. So is
-``telemetry_dir``'s run-artifact export (the telemetry exporters).
+- ``trace``: stitch a run's trace shards (``--telemetry-dir``) into one
+  timeline and attribute each round's critical path
+  (``core/tracing.trace_run``); one JSON line, exit 2 on a directory
+  without shards.
+- ``check``: the post-hoc invariant checker over a run's artifacts
+  (``core/invariants.py``); one JSON line ``{ok, checked, skipped,
+  violations}``, exit 1 on a violation, 2 on a missing directory.
+
+``serve`` exports the run's artifacts to ``telemetry_dir`` when it stops.
+The JAX package's other subcommands, ``lint``, ``audit`` and ``perf``,
+are parsed and refused, naming what they wait for (ROADMAP.md queue A
+item 11): the analysis planes.
 """
 
 from __future__ import annotations
@@ -49,8 +56,6 @@ import zipfile
 _ANALYSIS = "the analysis planes (a port-side counterpart of fedml_tpu/analysis/)"
 # refused subcommand -> what it waits for (ROADMAP.md, queue A item 11)
 _LATER = {
-    "trace": "the telemetry exporters (the trace stitcher and the round analyzer)",
-    "check": "core/invariants.py, with parallel/elastic.py",
     "lint": _ANALYSIS,
     "audit": _ANALYSIS,
     "perf": _ANALYSIS,
@@ -265,12 +270,6 @@ def cmd_serve(args) -> int:
                   file=sys.stderr)
             return 2
         a.serve_mesh = {"data": d, "fsdp": f}
-    if a.telemetry_dir:
-        raise NotImplementedError(
-            "telemetry_dir: exporting the run's artifacts (trace.json, metrics.prom, "
-            "telemetry.jsonl) is not ported to PyTorch yet; it arrives with the "
-            "telemetry exporters (ROADMAP.md, queue A item 11). Unset telemetry_dir"
-        )
     dev = get_device(args.device)
     if not a.serve_mesh:
         return _serve(args, a, dev, None)
@@ -349,12 +348,62 @@ def _serve(args, a, dev, mesh) -> int:
             pass
         finally:
             frontend.stop()
+            from .core.telemetry import Telemetry
+
+            Telemetry.get_instance().export_run_artifacts(getattr(a, "telemetry_dir", None))
         return 0
     finally:
         fleet.stop()
         fleet.release()
         if watcher is not None:
             watcher.close()
+
+
+def cmd_trace(args) -> int:
+    """Stitch a run's trace shards and analyze its rounds' critical
+    paths: one JSON summary line (shards, matched flows, rounds analyzed,
+    artifact paths); the per-round detail goes to ``round_report.json``.
+    ``--summary`` also prints the per-round segment table to stderr."""
+    from .core.tracing import trace_run
+
+    try:
+        out = trace_run(args.telemetry_dir, out_dir=args.out)
+    except FileNotFoundError as e:
+        print(f"trace: {e}", file=sys.stderr)
+        return 2
+    if args.summary:
+        with open(out["round_report"]) as fh:
+            report = json.load(fh)
+        for r in report["rounds"]:
+            segs = ", ".join(f"{k}={v * 1e3:.1f}ms" for k, v in r["segments_s"].items())
+            print(
+                f"round {r['round']}: wall={r['wall_s'] * 1e3:.1f}ms "
+                f"straggler=rank{r['straggler_rank']} [{segs}]",
+                file=sys.stderr,
+            )
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_check(args) -> int:
+    """The post-hoc invariant checker over a run's artifacts: one JSON
+    line ``{ok, checked, skipped, violations}``; exit 1 when an invariant
+    is violated. The WAL is read from ``--checkpoint-dir`` when the run
+    kept its checkpoints elsewhere than its telemetry."""
+    from .core.invariants import InvariantChecker
+
+    if not os.path.isdir(args.telemetry_dir):
+        print(f"check: {args.telemetry_dir!r} not found", file=sys.stderr)
+        return 2
+    report = InvariantChecker(
+        telemetry_dir=args.telemetry_dir, checkpoint_dir=args.checkpoint_dir,
+    ).check()
+    print(json.dumps(report.to_dict()))
+    if not report.ok:
+        for v in report.violations:
+            print(f"check: VIOLATED {v['invariant']}: {v['detail']}", file=sys.stderr)
+        return 1
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -429,6 +478,23 @@ def build_parser() -> argparse.ArgumentParser:
     build.add_argument("-cf", "--config-folder", default=None)
     build.add_argument("-df", "--dest-folder", default="./dist")
     build.set_defaults(fn=cmd_build)
+
+    trace = sub.add_parser("trace")
+    trace.add_argument("--telemetry-dir", required=True,
+                       help="directory holding the run's trace*.json shards")
+    trace.add_argument("--out", default=None,
+                       help="where to write trace_merged.json / round_report.json "
+                       "(default: the telemetry dir itself)")
+    trace.add_argument("--summary", action="store_true",
+                       help="also print a per-round segment table to stderr")
+    trace.set_defaults(fn=cmd_trace)
+
+    check = sub.add_parser("check")
+    check.add_argument("--telemetry-dir", required=True,
+                       help="directory holding the run's telemetry.jsonl / trace.json")
+    check.add_argument("--checkpoint-dir", default=None,
+                       help="directory holding round_wal.jsonl (default: the telemetry dir)")
+    check.set_defaults(fn=cmd_check)
 
     for name in _LATER:
         sub.add_parser(name).set_defaults(fn=_not_ported)

@@ -52,6 +52,18 @@ from, and the resumed run is bitwise the run that never stopped.
 Without ``checkpoint_dir`` nothing here changes: the hot loop fetches
 only at its flushes.
 
+**Preemption** (``parallel/elastic.py``). After the cadence save the
+loop polls the API's preemption signal (rank 0's answer on a mesh of
+several ranks); on notice it drains the window (every queued round's
+event waited on, every deferred record flushed), then ``preempt_now``
+makes the round durable and raises ``Preempted``.
+
+**Telemetry.** Each dispatch bumps ``pipeline_rounds_dispatched_total``,
+marks the ``pipeline.round`` heartbeat (the stall watchdog's progress
+signal) and records a ``pipeline.dispatch`` instant; each flush a
+``pipeline.flush`` (``pipeline.drain`` at the end) instant; the run's
+depth, bucket and host syncs a round land in gauges. All host-side.
+
 A round's ``train_time_s`` is its training time on the card, read from
 CUDA events before and after its dispatch when the record is flushed
 (on the CPU, where every op runs before it returns, the host clock
@@ -152,6 +164,14 @@ class RoundPipeline:
             return final_stats
         idx_plan, valid_plan, sizes, samples, lr_plan = self._precompute(rounds, bucket)
 
+        # telemetry: host-side counter bumps and ring appends only, so the
+        # hot loop gains no device fetch with telemetry on
+        tel = getattr(api, "telemetry", None)
+        tel = tel if tel is not None and tel.enabled else None
+        rec = tel.recorder if tel is not None else None
+        if tel is not None:
+            tel.attach_deferred(self.deferred)
+
         inflight: deque = deque()
         # per round: (start, end) CUDA events, or host clock readings on
         # the CPU
@@ -165,7 +185,11 @@ class RoundPipeline:
 
         def flush(upto: Optional[int]) -> None:
             nonlocal final_stats
-            for r, host in self.deferred.flush(upto):
+            flushed = self.deferred.flush(upto)
+            if rec is not None and flushed:
+                rec.instant("pipeline.flush" if upto is not None else "pipeline.drain",
+                            cat="pipeline", records=len(flushed), upto=upto)
+            for r, host in flushed:
                 t0r = t_dispatch.pop(r)
                 dt = durations.pop(r, None)
                 if dt is None:
@@ -176,6 +200,12 @@ class RoundPipeline:
                 api.history.append(stats)
                 final_stats = stats
                 api.metrics_reporter.report_server_training_metric(stats)
+
+        def drain() -> None:
+            """Every queued round's event waited on, every record flushed."""
+            while inflight:
+                inflight.popleft().synchronize()
+            flush(None)
 
         for i, round_idx in enumerate(rounds):
             profiler.tick(round_idx)
@@ -200,6 +230,10 @@ class RoundPipeline:
                 inflight.append(end)
                 while len(inflight) >= self.depth:
                     inflight.popleft().synchronize()
+            if tel is not None:
+                tel.inc("pipeline_rounds_dispatched_total")
+                tel.heartbeat("pipeline.round", round_idx)
+                rec.instant("pipeline.dispatch", cat="pipeline", round=round_idx)
 
             if round_idx % freq == 0 or round_idx == comm_rounds - 1:
                 sums = api._eval_sums()
@@ -210,6 +244,7 @@ class RoundPipeline:
                 # waits on a round in flight (K=1: this round's record)
                 flush(round_idx - (self.depth - 1))
 
+            saved = False
             if ckpt is not None and ((round_idx + 1) % api._ckpt_freq == 0
                                      or round_idx == comm_rounds - 1):
                 # the records up to this round out first, then the save
@@ -217,6 +252,12 @@ class RoundPipeline:
                 flush(None)
                 api._save_checkpoint(ckpt, round_idx)
                 self.checkpoints += 1
+                saved = True
+            # on a preemption notice the depth-K window drains before the
+            # forced snapshot: every queued round's event waited on, the
+            # deferred records out, so the checkpoint holds exactly the
+            # rounds the WAL says it does
+            api._maybe_preempt(ckpt, round_idx, saved=saved, drain=drain)
 
         flush(None)  # drain
         if cuda:
@@ -243,4 +284,9 @@ class RoundPipeline:
             **(timings or {}),
         }
         self.api.pipeline_stats = self.stats
+        tel = getattr(self.api, "telemetry", None)
+        if tel is not None and tel.enabled:
+            tel.set_gauge("pipeline_depth", self.depth)
+            tel.set_gauge("pipeline_bucket", bucket)
+            tel.set_gauge("pipeline_host_syncs_per_round", self.stats["host_syncs_per_round"])
         logging.debug("round pipeline: %s", self.stats)

@@ -1,14 +1,18 @@
-"""Round metrics (port subset of ``fedml_tpu/core/tracking.py``).
+"""Observability: round metrics, event spans, run logging, device
+traces (port of ``fedml_tpu/core/tracking.py``).
 
 ``DeferredMetrics`` holds the round pipeline's metric tensors on the
 device until a flush fetches them all at once. ``MetricsReporter`` fans
-each round's record out to the log (``args.log_metrics``) and, when
-``args.metrics_jsonl_path`` is set, to one JSON line per record in that
-file. The round's history of record stays on the API
-(``FedAvgAPI.history``). ``ProfilerEvent`` is the reference's span
-recorder the cross-silo managers time their phases with; each span is
-also a ``torch.profiler.record_function`` range, so a profiled round
-shows it beside the device's work.
+each record out to pluggable sinks: the log (``args.log_metrics``), one
+JSON line per record in ``args.metrics_jsonl_path`` or any file given to
+``add_jsonl_sink``, and any callable given to ``add_sink`` (a failing
+sink is logged, never raised). The round's history of record stays on
+the API (``FedAvgAPI.history``). ``ProfilerEvent`` is the reference's
+span recorder; each span is also a ``torch.profiler.record_function``
+range, so a profiled round shows it beside the device's work.
+``RunLogger`` is per-run file logging with a chunked-upload seam, and
+``device_trace`` captures a ``torch.profiler`` trace of a whole run on
+the explicit device when ``args.profile_dir`` is set.
 """
 
 from __future__ import annotations
@@ -76,13 +80,20 @@ class DeferredMetrics:
 
 
 class MetricsReporter:
-    def __init__(self, args=None) -> None:
+    """Round/train/test metrics to pluggable sinks."""
+
+    def __init__(self, args=None, keep_history: bool = True) -> None:
         self.sinks: List[Sink] = []
+        self.keep_history = keep_history
+        self.history: List[Dict[str, Any]] = []
         path = getattr(args, "metrics_jsonl_path", None) if args else None
         if path:
             self.add_jsonl_sink(path)
         if args is None or getattr(args, "log_metrics", True):
             self.sinks.append(lambda rec: logging.info("metrics: %s", rec))
+
+    def add_sink(self, sink: Sink) -> None:
+        self.sinks.append(sink)
 
     def add_jsonl_sink(self, path: str) -> None:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -95,11 +106,110 @@ class MetricsReporter:
 
     def report(self, record: Dict[str, Any]) -> None:
         rec = {"ts": time.time(), **record}
+        if self.keep_history:
+            self.history.append(rec)
         for sink in self.sinks:
-            sink(rec)
+            try:
+                sink(rec)
+            except Exception:  # noqa: BLE001 — a sink must not kill the run
+                logging.exception("metrics sink failed")
 
+    # reference-API aliases (mlops_metrics.py)
     def report_server_training_metric(self, metric: Dict[str, Any]) -> None:
         self.report({"kind": "server_train", **metric})
+
+    def report_client_training_metric(self, metric: Dict[str, Any]) -> None:
+        self.report({"kind": "client_train", **metric})
+
+
+class RunLogger:
+    """Per-run file logging with an upload seam."""
+
+    _instance: Optional["RunLogger"] = None
+    CHUNK_LINES = 100  # mlops_runtime_log.py:13
+
+    def __init__(self, args=None) -> None:
+        self.args = args
+        self.uploader: Optional[Callable[[List[str]], None]] = None
+        self._pending: List[str] = []
+
+    @classmethod
+    def get_instance(cls, args=None) -> "RunLogger":
+        if cls._instance is None:
+            cls._instance = cls(args)
+        elif args is not None and cls._instance.args is None:
+            # adopt late-supplied args instead of silently ignoring them
+            cls._instance.args = args
+        return cls._instance
+
+    @classmethod
+    def reset(cls) -> None:
+        """Drop the singleton so state cannot leak across tests."""
+        cls._instance = None
+
+    def init_logs(self, log_dir: Optional[str] = None) -> None:
+        run_id = getattr(self.args, "run_id", "0") if self.args else "0"
+        rank = getattr(self.args, "rank", 0) if self.args else 0
+        handlers: List[logging.Handler] = [logging.StreamHandler()]
+        if log_dir:
+            os.makedirs(log_dir, exist_ok=True)
+            path = os.path.join(log_dir, f"run_{run_id}_rank_{rank}.log")
+            handlers.append(logging.FileHandler(path))
+        logging.basicConfig(
+            level=logging.INFO,
+            format="[%(asctime)s %(levelname)s rank" + str(rank) + "] %(message)s",
+            handlers=handlers,
+            force=True,
+        )
+
+    def set_uploader(self, fn: Callable[[List[str]], None]) -> None:
+        """Chunked-upload seam (mlops_runtime_log.py:41-47)."""
+        self.uploader = fn
+
+    def upload_line(self, line: str) -> None:
+        if self.uploader is None:
+            return
+        self._pending.append(line)
+        if len(self._pending) >= self.CHUNK_LINES:
+            self.flush()
+
+    def flush(self) -> None:
+        if self.uploader and self._pending:
+            self.uploader(list(self._pending))
+            self._pending.clear()
+
+
+class device_trace:
+    """Capture a ``torch.profiler`` trace of a whole run when
+    ``args.profile_dir`` is set; inert otherwise. The device's activity
+    is traced when ``device`` is a CUDA device, the host's always; the
+    Chrome trace lands in ``<profile_dir>/trace.json`` (perfetto or
+    chrome://tracing)."""
+
+    def __init__(self, args=None, device="cuda") -> None:
+        self.logdir = getattr(args, "profile_dir", None) if args else None
+        self.device = device
+        self._prof = None
+
+    def __enter__(self) -> "device_trace":
+        if self.logdir:
+            from torch.profiler import ProfilerActivity, profile
+
+            os.makedirs(self.logdir, exist_ok=True)
+            activities = [ProfilerActivity.CPU]
+            if torch.device(self.device).type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=activities)
+            self._prof.__enter__()
+            logging.info("device trace capturing to %s", self.logdir)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._prof is not None:
+            self._prof.__exit__(*exc)
+            self._prof.export_chrome_trace(os.path.join(self.logdir, "trace.json"))
+            self._prof = None
+        return False
 
 
 class ProfilerEvent:

@@ -18,6 +18,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from ..core.telemetry import Telemetry
 from ..device import DeviceLike, get_device
 from ..scale.registry import ClientRegistry
 from .device import DeviceHost
@@ -66,12 +67,6 @@ def run_beehive_world(
     plane's census), ``registry_size`` and the host timers
     (``train_s``, ``mask_s``, ``fold_s``)."""
     dev = get_device(device)
-    if getattr(args, "telemetry_dir", None):
-        raise NotImplementedError(
-            "telemetry_dir: exporting the run's artifacts (trace.json, metrics.prom, "
-            "telemetry.jsonl) is not ported to PyTorch yet; it arrives with the "
-            "telemetry exporters (ROADMAP.md, queue A item 11). Unset telemetry_dir"
-        )
     a = copy.copy(args)
     a.run_id = f"{getattr(args, 'run_id', '0')}-beehive"
     if registry is None:
@@ -110,6 +105,11 @@ def run_beehive_world(
         if errors:
             raise RuntimeError("a beehive rank failed") from errors[0]
     finally:
+        # artifacts before teardown: the invariant checker reads the
+        # exported counter snapshot next to the WAL even on failure
+        tel = Telemetry.get_instance()
+        tel.bind_device(dev)
+        tel.export_run_artifacts(getattr(a, "telemetry_dir", None))
         gateway.com_manager.stop_receive_message()
         host.com_manager.stop_receive_message()
         inner = gateway.com_manager

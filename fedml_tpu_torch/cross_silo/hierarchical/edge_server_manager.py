@@ -186,6 +186,7 @@ class EdgeServerManager(ServerManager):
             self._heartbeat = None
         if self._failure_detector is not None:
             self._failure_detector.stop()
+        self.telemetry.export_run_artifacts(getattr(self.args, "telemetry_dir", None))
         self.uplink.stop_receive_message()
         super().finish()
 

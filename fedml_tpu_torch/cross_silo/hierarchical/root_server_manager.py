@@ -72,6 +72,7 @@ class RootServerManager(ServerManager):
         self.profiler = ProfilerEvent(args)
         self.metrics_reporter = MetricsReporter(args)
         self.telemetry.attach_profiler(self.profiler)
+        self.telemetry.maybe_start_watchdog(args)
         # -- membership state ------------------------------------------
         self.edge_online: Dict[int, bool] = {}
         self._dead_edges: Set[int] = set()
@@ -674,3 +675,5 @@ class RootServerManager(ServerManager):
         )
         if self._failure_detector is not None:
             self._failure_detector.stop()
+        self.telemetry.stop_watchdog()
+        self.telemetry.export_run_artifacts(getattr(self.args, "telemetry_dir", None))

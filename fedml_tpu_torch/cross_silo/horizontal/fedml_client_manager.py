@@ -214,6 +214,9 @@ class FedMLClientManager(ClientManager):
 
     def finish(self) -> None:
         self._stop_heartbeat()
+        # client-side telemetry (spans, comm counters) must survive the
+        # process: rank-suffixed artifacts next to the server's
+        self.telemetry.export_run_artifacts(getattr(self.args, "telemetry_dir", None))
         super().finish()
 
     def _stop_heartbeat(self) -> None:

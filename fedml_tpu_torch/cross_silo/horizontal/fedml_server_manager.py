@@ -181,9 +181,15 @@ class FedMLServerManager(ServerManager):
         # 71-74, :123-150: server.wait / aggregate spans + round info)
         self.profiler = ProfilerEvent(args)
         self.metrics_reporter = MetricsReporter(args)
-        # flight recorder (core/telemetry.py): spans on the shared
-        # timeline (self.telemetry comes from _ManagerBase)
+        # flight recorder + stall surface (core/telemetry.py): spans on
+        # the shared timeline; round progress heartbeats for the
+        # watchdog (self.telemetry comes from _ManagerBase)
         self.telemetry.attach_profiler(self.profiler)
+        self.telemetry.bind_device(aggregator.device)
+        self.telemetry.maybe_start_watchdog(args)
+        # pull-based exposition: the live /metrics scrape endpoint for the
+        # run, off unless metrics_port
+        self.telemetry.maybe_start_metrics_server(args)
         # on-demand per-round device profiling (core/tracing.py)
         from ...core.tracing import RoundProfiler
 
@@ -1662,3 +1668,6 @@ class FedMLServerManager(ServerManager):
         if self._failure_detector is not None:
             self._failure_detector.stop()
         self._round_profiler.close()
+        self.telemetry.stop_watchdog()
+        self.telemetry.stop_metrics_server()
+        self.telemetry.export_run_artifacts(getattr(self.args, "telemetry_dir", None))

@@ -148,10 +148,15 @@ def synthetic_sequences(
     trans = rng.dirichlet(np.full(vocab_size, 0.05), size=vocab_size)
     toks = np.zeros((n_samples, seq_len + 1), np.int64)
     toks[:, 0] = rng.randint(0, vocab_size, n_samples)
+    # each row's running sum once, not once a step: a row sums in the same
+    # order either way, so the bits are the same; and every step's
+    # uniforms in one draw, which takes them from the stream in the order
+    # the steps would
+    cum = trans.cumsum(axis=1)
+    del trans
+    u = rng.rand(seq_len, n_samples, 1)
     for t in range(seq_len):
-        cum = trans[toks[:, t]].cumsum(axis=1)
-        u = rng.rand(n_samples, 1)
-        toks[:, t + 1] = (u > cum).sum(axis=1)
+        toks[:, t + 1] = (u[t] > cum[toks[:, t]]).sum(axis=1)
     return toks[:, :-1], toks[:, 1:]
 
 

@@ -3,5 +3,5 @@
 federation's placement), differentiable collectives (``collectives``),
 the sequence-sharded attention, ring and Ulysses (``sequence``), the
 tensor- and expert-parallel layouts (``tensor``, ``expert``), the GPipe
-schedule (``pipeline``) and the fed mesh's parameter layout
-(``layout``)."""
+schedule (``pipeline``), the fed mesh's parameter layout
+(``layout``) and elastic preemption (``elastic``)."""

@@ -24,10 +24,11 @@ At rest a rank's leaf is its ``local_shard`` (``parallel/tensor.py``);
 :func:`gather_tree` all-gathers it whole over the fsdp group.
 
 The mesh (``parallel/mesh.SimMesh``) runs one process a rank over the
-process group, so it spans the world; the refusals of
+process group, so it spans the world (or, for the elastic shrink onto
+survivors, the ranks it is given); the refusals of
 :func:`build_fed_mesh` are the reference's, word for word, and a shape
-smaller than the world (which the reference serves from a prefix of its
-devices) is refused too.
+smaller than those ranks (which the reference serves from a prefix of
+its devices) is refused too.
 """
 
 from __future__ import annotations
@@ -158,13 +159,15 @@ def fed_mesh_shape(mesh_shape: Optional[dict]) -> bool:
     )
 
 
-def build_fed_mesh(mesh_shape: Optional[dict], world_size: int, device_type: str):
+def build_fed_mesh(mesh_shape: Optional[dict], world_size: int, device_type: str,
+                   ranks: Optional[list] = None):
     """The named (data, fsdp) mesh over the process group's ``world_size``
     ranks; a missing axis is size 1 (``data`` by default takes the rest of
-    the world)."""
+    the world). ``ranks`` (the elastic shrink onto survivors) lays the
+    mesh over those ranks of the world instead, which it must span."""
     from .mesh import SimMesh
 
-    n = int(world_size)
+    n = int(world_size) if ranks is None else len(ranks)
     shape = dict(mesh_shape or {})
     unknown = set(shape) - {AXIS_COHORT, AXIS_PARAM}
     if unknown:
@@ -201,7 +204,7 @@ def build_fed_mesh(mesh_shape: Optional[dict], world_size: int, device_type: str
             f"the {n} ranks: the port runs one process a rank, so the mesh must span "
             "the world"
         )
-    return SimMesh({AXIS_COHORT: data, AXIS_PARAM: fsdp}, device_type)
+    return SimMesh({AXIS_COHORT: data, AXIS_PARAM: fsdp}, device_type, ranks=ranks)
 
 
 def cohort_axis_size(mesh) -> int:

@@ -34,7 +34,7 @@ in the local trainer), and a cohort must tile the cohort axis
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -99,14 +99,30 @@ class SimMesh:
     """The simulator's mesh over the process group: ``shape`` (axis ->
     size, in order; ranks row-major, the last axis fastest), this rank's
     coordinate on each axis (``coords``) and each axis's process group
-    (``groups``). ``axis_names`` and ``shape`` read as a JAX mesh's do."""
+    (``groups``). ``axis_names`` and ``shape`` read as a JAX mesh's do.
+    ``ranks`` (default: the world) lays it over those ranks of the world
+    only; ``member`` says whether this rank is one of them."""
 
-    def __init__(self, shape: Dict[str, int], device_type: str) -> None:
+    def __init__(self, shape: Dict[str, int], device_type: str,
+                 ranks: Optional[Sequence[int]] = None) -> None:
         self.shape = dict(shape)
         self.axis_names = tuple(shape)
-        mesh = build_mesh(self.shape, device_type)
-        self.groups = {a: mesh.get_group(a) for a in self.shape}
-        self.coords = {a: dist.get_rank(self.groups[a]) for a in self.shape}
+        self.device_type = device_type
+        world = dist.get_world_size()
+        if ranks is None or list(ranks) == list(range(world)):
+            # the whole world: the mesh's own groups
+            self.ranks = list(range(world))
+            mesh = build_mesh(self.shape, device_type)
+            self.groups = {a: mesh.get_group(a) for a in self.shape}
+        else:
+            # a subset of the world's ranks (the elastic shrink onto
+            # survivors): every rank of the world takes part in making
+            # the groups, and only the members hold a coordinate
+            self.ranks = [int(r) for r in ranks]
+            self.groups = _subset_groups(self.shape, self.ranks)
+        self.member = dist.get_rank() in self.ranks
+        self.coords = ({a: dist.get_rank(self.groups[a]) for a in self.shape}
+                       if self.member else {})
         from .layout import cohort_axis_size, is_fed_mesh
 
         self.cohort_axis = "data" if is_fed_mesh(self) else "clients"
@@ -203,6 +219,24 @@ class SimMesh:
         flat = all_reduce_(torch.stack([tree[k].to(torch.float32) for k in keys]),
                            self._group())
         return dict(zip(keys, flat.unbind(0)))
+
+
+def _subset_groups(shape: Dict[str, int], ranks: Sequence[int]) -> dict:
+    """Each axis's process group of the member ranks ``ranks`` laid out
+    row-major over ``shape`` (the last axis fastest), made on every rank
+    of the world in one order (``new_group`` is collective over the
+    default group); a rank keeps the group of each axis it belongs to."""
+    sizes = list(shape.values())
+    me = dist.get_rank()
+    grid = torch.tensor(list(ranks)).view(sizes)
+    groups = {}
+    for d, axis in enumerate(shape):
+        moved = grid.movedim(d, -1).reshape(-1, sizes[d])
+        for row in moved.tolist():
+            g = dist.new_group(row)
+            if me in row:
+                groups[axis] = g
+    return groups
 
 
 def build_sim_mesh(mesh_shape: Optional[dict], world_size: int, device_type: str) -> SimMesh:

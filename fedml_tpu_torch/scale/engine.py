@@ -377,14 +377,16 @@ class PlanetRoundLoop:
                 api.history.append(stats)
                 final_stats = stats
                 api.metrics_reporter.report_server_training_metric(stats)
+            saved = False
             if ckpt is not None and (
                 (round_idx + 1) % ckpt_freq == 0 or round_idx == comm_rounds - 1
             ):
                 api._save_checkpoint(ckpt, round_idx)
                 checkpoints += 1
-            # the elastic seam of the JAX loop (a preemption notice forces
-            # a durable exit here) waits for the elastic slice: its knob,
-            # preempt_signal, raises when the API is built
+                saved = True
+            # the elastic seam: a preemption notice forces a durable exit
+            # at the round boundary (the round's fold is final)
+            api._maybe_preempt(ckpt, round_idx, saved=saved)
 
         if cuda and spans:
             spans[-1][1].synchronize()

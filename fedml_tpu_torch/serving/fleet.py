@@ -392,10 +392,9 @@ class ServingFleet:
 
     # -- elastic re-mesh ----------------------------------------------
     def remesh(self, devices=None, mesh_shape=None) -> int:
-        """Re-mesh every mesh endpoint (``mesh_shape`` over the same
-        world; a ``devices`` subset raises until the elastic plane is
-        ported), one engine at a time so the rest of the fleet keeps
-        serving:
+        """Re-mesh every mesh endpoint (``mesh_shape``, over the
+        surviving ranks ``devices`` when given, the elastic shrink), one
+        engine at a time so the rest of the fleet keeps serving:
         each engine is stopped (its queued requests shed TYPED and
         counted — ``serving_shed_total{reason=stopped}`` — and routing
         excludes the dead engine, so the stream flows around it),

@@ -227,34 +227,38 @@ class MeshModelEndpoint(ModelEndpoint):
 
     # -- elastic re-mesh -----------------------------------------------
     def remesh(self, devices=None, mesh_shape=None) -> None:
-        """Rebuild this endpoint over a new (data, fsdp) ``mesh_shape`` of
-        the same world (rank 0; the followers replay it): the params
-        gathered whole on the old mesh and re-sharded onto the new one.
+        """Rebuild this endpoint over a new (data, fsdp) ``mesh_shape``
+        (rank 0; the followers replay it): the params gathered whole on the
+        old mesh and re-sharded onto the new one. ``devices`` (the elastic
+        shrink onto survivors) lays the new mesh over those ranks of the
+        world, a subset of the old mesh's that keeps rank 0 (it serves);
+        the ranks left out stay in the world's channel and serve nothing.
         The response identity across mesh shapes is what makes this safe.
 
-        ``devices`` (the elastic shrink onto a surviving subset) waits for
-        ``parallel/elastic.py``, which comes with a later slice. Caller
-        contract: quiesce the engine first (the fleet's ``remesh`` does).
-        Counted ``serving_remesh_total``."""
-        if devices is not None:
-            raise NotImplementedError(
-                "MeshModelEndpoint.remesh(devices=...) shrinks onto a surviving "
-                "device subset through parallel/elastic.py, which is not ported "
-                "to PyTorch yet (ROADMAP.md, queue A item 11); pass mesh_shape= "
-                "to re-shard over the same world"
-            )
+        Caller contract: quiesce the engine first (the fleet's ``remesh``
+        does). Counted ``serving_remesh_total``."""
         shape = dict(mesh_shape or {})
+        ranks = None if devices is None else [int(d) for d in devices]
+        if ranks is not None and (0 not in ranks or not set(ranks) <= set(self.mesh.ranks)):
+            raise ValueError(
+                f"remesh(devices={ranks}): the surviving ranks must be a subset of "
+                f"the mesh's {self.mesh.ranks} and keep rank 0, which serves"
+            )
         ch = self._channel
         with ch.lock:
-            ch.send(("remesh", self._eid, shape))
-            self._apply_remesh(shape)
+            ch.send(("remesh", self._eid, shape, ranks))
+            self._apply_remesh(shape, ranks)
 
-    def _apply_remesh(self, shape: Dict[str, int]) -> None:
+    def _apply_remesh(self, shape: Dict[str, int], ranks=None) -> None:
         import torch.distributed as dist
 
-        full = gather_tree(self.params(), self.mesh, self._specs)
-        new_mesh = build_fed_mesh(shape, dist.get_world_size(), self.device.type)
+        full = gather_tree(self.params(), self.mesh, self._specs) if self.mesh.member else None
+        new_mesh = build_fed_mesh(shape, dist.get_world_size(), self.device.type, ranks=ranks)
         new_mesh._serve_channel = self._channel
+        if not new_mesh.member:  # left out of the shrink: nothing to serve
+            with self._lock:
+                self.mesh, self._params = new_mesh, {}
+            return
         specs = tree_specs(full, new_mesh)
         placed = shard_tree(full, new_mesh, specs)
         with self._lock:
@@ -288,13 +292,16 @@ class MeshModelEndpoint(ModelEndpoint):
         ch = self._channel
         if op == "infer":
             shape, dtype = rest
-            self._forward(ch.recv_tensor(shape, dtype))
+            x = ch.recv_tensor(shape, dtype)
+            if self.mesh.member:
+                self._forward(x)
         elif op == "swap":
             version, table = rest
             full = {k: ch.recv_tensor(shape, dtype) for k, shape, dtype in table}
-            self._install(self._placed_checked(full), version)
+            if self.mesh.member:
+                self._install(self._placed_checked(full), version)
         elif op == "remesh":
-            self._apply_remesh(rest[0])
+            self._apply_remesh(*rest)
         else:
             raise ValueError(f"unknown serving channel op {op!r}")
 

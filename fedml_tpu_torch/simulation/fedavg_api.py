@@ -35,9 +35,13 @@ into (``simulation/defenses.py``): ``_init_server_state``,
 ``_keep_stacked`` with ``_post_round_stacked`` (the cohort's trained
 params after each round, on the synchronous loop; S-FedAvg), and
 ``_extra_checkpoint_state`` / ``_restore_extra_state`` (algorithm state
-in the checkpoint). The knobs of later slices (preemption, the stall
-watchdog, the metrics server) raise ``NotImplementedError`` instead of
-being ignored.
+in the checkpoint); the evidence-and-recovery plane: ``train()`` arms
+the stall watchdog (``stall_timeout_s``), the ``/metrics`` server
+(``metrics_port``) and the round profiler, exports the run's artifacts
+to ``telemetry_dir`` in its ``finally``, and polls the preemption
+signal (``preempt_signal``, ``parallel/elastic.py``) at each round
+boundary after the cadence save; a restore that consumes a WAL preempt
+record appends the paired resume record.
 
 On a simulator mesh (``attach_mesh``; ``simulation/simulator.SimulatorMesh``
 attaches it, ``parallel/mesh.py`` and ``parallel/layout.py`` hold the
@@ -85,6 +89,7 @@ from ..core.optimizers import (
     resolve_round_lr_schedule,
 )
 from ..core.round_pipeline import RoundPipeline
+from ..core.telemetry import Telemetry
 from ..core.tracing import RoundProfiler
 from ..core.tracking import DeferredMetrics, MetricsReporter
 from ..core.types import Batches
@@ -96,22 +101,13 @@ from ..scale.engine import PlanetRoundLoop, planet_knobs_active
 
 Params = Dict[str, torch.Tensor]
 
-# knob -> (is it set?, the slice that brings it)
-_LATER_KNOBS = {
-    "preempt_signal": (lambda v: str(v or "none").lower() != "none", "the elastic-mesh slice"),
-    "stall_timeout_s": (lambda v: float(v or 0) > 0, "the telemetry exporters"),
-    "metrics_port": (lambda v: int(v or 0) > 0, "the telemetry exporters"),
-}
 
+def dist_rank() -> int:
+    """This process's rank in the initialised process group (0 without
+    one)."""
+    import torch.distributed as dist
 
-def _reject_later_knobs(args) -> None:
-    for knob, (is_set, where) in _LATER_KNOBS.items():
-        value = getattr(args, knob, None)
-        if is_set(value):
-            raise NotImplementedError(
-                f"{knob}={value!r} is not ported to PyTorch yet; it arrives "
-                f"with {where} (ROADMAP.md, queue A)"
-            )
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
 
 def _take(b: Batches, idx: torch.Tensor) -> Batches:
@@ -242,7 +238,6 @@ class FedAvgAPI:
         server_aggregator=None,
         mesh=None,
     ) -> None:
-        _reject_later_knobs(args)
         if server_aggregator is not None and not self._accepts_custom_aggregator:
             raise ValueError(
                 f"{self.algorithm} defines its own server aggregation; a "
@@ -304,7 +299,17 @@ class FedAvgAPI:
         self._round_fn = build_round_fn(self._local_train, self._aggregate,
                                         self._round_preprocess, keep_stacked=self._keep_stacked)
         self.server_state = self._init_server_state()
-        self.metrics_reporter = MetricsReporter(args)
+        # self.history is the round record of truth; the reporter only
+        # fans out to sinks
+        self.metrics_reporter = MetricsReporter(args, keep_history=False)
+        # the process-wide registry and flight recorder (the round
+        # pipeline's events land on trace.json's timeline); the export's
+        # sys_* gauges read this API's card
+        self.telemetry = Telemetry.get_instance(args)
+        self.telemetry.bind_device(self.device)
+        # the preemption seam (parallel/elastic.py): a caller may set a
+        # signal object here; train() otherwise builds it from the knob
+        self._preempt_signal = None
         # the simulator mesh (attach_mesh): None on one rank
         self.mesh, self._fed_mesh, self._specs = None, False, None
         if mesh is not None:
@@ -499,6 +504,14 @@ class FedAvgAPI:
         comm_rounds = int(args.comm_round)
         freq = max(1, int(getattr(args, "frequency_of_the_test", 5)))
         ckpt, start_round = self._maybe_restore()
+        if self._preempt_signal is None:
+            from ..parallel.elastic import make_signal
+
+            self._preempt_signal = make_signal(getattr(args, "preempt_signal", None))
+        # the stall watchdog (armed only when stall_timeout_s > 0) and the
+        # pull-based /metrics endpoint (off unless metrics_port)
+        watchdog = self.telemetry.maybe_start_watchdog(args)
+        self.telemetry.maybe_start_metrics_server(args)
         profiler = RoundProfiler(args, self.device)
         try:
             if planet:
@@ -517,6 +530,12 @@ class FedAvgAPI:
             profiler.close()
             if ckpt is not None:
                 ckpt.close()
+            if watchdog is not None:
+                self.telemetry.stop_watchdog()
+            self.telemetry.stop_metrics_server()
+            # one trace.json + metrics.prom + telemetry.jsonl snapshot per
+            # run when telemetry_dir is set
+            self.telemetry.export_run_artifacts(getattr(args, "telemetry_dir", None))
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -557,8 +576,61 @@ class FedAvgAPI:
         self.generator.set_state(state["generator"])
         self._restore_extra_state(state.get("extra"))
         start_round = int(state["round_idx"]) + 1
+        self._note_elastic_resume(ckpt, start_round)
         logging.info("resuming from round %d", start_round)
         return ckpt, start_round
+
+    def _writes_state(self) -> bool:
+        """Whether this process writes the run's checkpoints and WAL:
+        rank 0 of a mesh's world, or the process of a one-rank run."""
+        return self.mesh is None or dist_rank() == 0
+
+    def _note_elastic_resume(self, ckpt, start_round: int) -> None:
+        """If the WAL's last word is ``kind="preempt"``, this restore is
+        the elastic resume: append the paired ``kind="resume"`` record
+        (the invariant checker's evidence,
+        ``preempt_paired_with_checkpoint``) and count it. A WAL ending in
+        anything else (or none) is a plain restart: no record, no
+        counter. Rank 0 appends; every rank reads the same last word."""
+        from ..core.checkpoint import RoundWAL
+        from ..parallel.elastic import _mesh_devices, _mesh_shape
+
+        wal = RoundWAL(ckpt.dir)
+        last = wal.last()
+        if last is None or last.get("kind") != "preempt":
+            return
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            dist.barrier()  # every rank has read the preempt before rank 0 answers it
+        if self._writes_state():
+            wal.append(int(start_round), int(last.get("ckpt_step") or 0), [], kind="resume",
+                       extra={"devices": _mesh_devices(self.mesh),
+                              "mesh_shape": _mesh_shape(self.mesh)})
+        if self.telemetry.enabled:
+            self.telemetry.inc("elastic_resumes_total")
+        logging.warning(
+            "elastic resume: preempt record at round %s consumed; continuing "
+            "from round %d on %d device(s)",
+            last.get("round_idx"), int(start_round), len(_mesh_devices(self.mesh)) or 1,
+        )
+
+    def _maybe_preempt(self, ckpt, round_idx: int, saved: bool = False, drain=None) -> None:
+        """Poll the preemption signal at the round boundary (rank 0's
+        answer, on a mesh of several ranks); on notice call ``drain``
+        (the round pipeline empties its window there), make the round
+        durable (WAL ``kind="preempt"`` write-ahead of a forced
+        checkpoint) and raise ``Preempted``. ``saved=True``: the cadence
+        block already published this round's step."""
+        if self._preempt_signal is None:
+            return
+        from ..parallel.elastic import poll_world, preempt_now
+
+        notice = poll_world(self._preempt_signal, round_idx, self.mesh)
+        if notice is not None:
+            if drain is not None:
+                drain()
+            preempt_now(self, ckpt, round_idx, notice, saved=saved)
 
     def _save_checkpoint(self, ckpt, round_idx: int) -> None:
         """Round ``round_idx``'s state: the global params, the server
@@ -574,7 +646,8 @@ class FedAvgAPI:
         extra = self._extra_checkpoint_state()
         if extra is not None:
             state["extra"] = extra
-        ckpt.save(round_idx, state)
+        if self._writes_state():  # every rank gathers, rank 0 writes
+            ckpt.save(round_idx, state)
 
     def _train_rounds_sync(self, packed, nsamples, comm_rounds, freq, profiler,
                            ckpt=None, start_round=0):
@@ -586,7 +659,8 @@ class FedAvgAPI:
         start to training done on the device) beside ``round_time_s``
         (to the end of evaluation). With a checkpointer, rounds run from
         ``start_round`` and the state is saved every ``checkpoint_freq``
-        rounds and after the last."""
+        rounds and after the last; the preemption signal is polled at
+        each round's end, after the save."""
         final_stats: Dict[str, float] = {}
         for round_idx in range(start_round, comm_rounds):
             profiler.tick(round_idx)
@@ -604,10 +678,13 @@ class FedAvgAPI:
                 self.history.append(stats)
                 final_stats = stats
                 self.metrics_reporter.report_server_training_metric(stats)
+            saved = False
             if ckpt is not None and (
                 (round_idx + 1) % self._ckpt_freq == 0 or round_idx == comm_rounds - 1
             ):
                 self._save_checkpoint(ckpt, round_idx)
+                saved = True
+            self._maybe_preempt(ckpt, round_idx, saved=saved)
         return final_stats
 
     def _sync_round(self, round_idx: int, packed, nsamples) -> Dict[str, torch.Tensor]:

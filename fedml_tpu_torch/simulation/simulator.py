@@ -81,10 +81,14 @@ class SimulatorSingleProcess:
         name = getattr(args, "federated_optimizer", "FedAvg")
         operators = _operator_kwargs(name, client_trainer, server_aggregator)
         cls = _select_algorithm(name)
+        self.device = device
         self.fl_trainer = cls(args, device, dataset, model, **operators)
 
     def run(self):
-        return self.fl_trainer.train()
+        from ..core.tracking import device_trace
+
+        with device_trace(self.args, self.device):
+            return self.fl_trainer.train()
 
 
 class SimulatorMesh:
@@ -122,9 +126,13 @@ class SimulatorMesh:
                 f"{cls.__name__} does not support the MESH backend yet; "
                 "run it under the single-process simulator"
             )
+        self.device = dev
         self.fl_trainer = cls(args, device, dataset, model, **operators)
         if isinstance(self.fl_trainer, FedAvgAPI):
             self.fl_trainer.attach_mesh(mesh)
 
     def run(self):
-        return self.fl_trainer.train()
+        from ..core.tracking import device_trace
+
+        with device_trace(self.args, self.device):
+            return self.fl_trainer.train()

@@ -16,8 +16,9 @@ JAX package's (``fedml_tpu/cross_device/``).
   the final params are within ``FLAT_ATOL``, the masked world equals its
   unmasked twin bitwise, and the four device invariants of
   docs/cross_device.md, checked here on the port's WAL records and
-  counters (``core/invariants.py`` is not ported), flag exactly what
-  the JAX package's ``InvariantChecker`` flags.
+  counters by hand and by the port's ``InvariantChecker`` over the
+  world's exported artifacts, flag exactly what the JAX package's
+  ``InvariantChecker`` flags.
 
 The port makes its features with its own keyed generator (K2's plain
 version here); these tests hand it the JAX generator's features, as
@@ -152,8 +153,10 @@ def run_jax_world(name):
 
 
 def run_port_world(name):
+    from fedml_tpu_torch.core.invariants import InvariantChecker as PortChecker
+
     a = Arguments()
-    for k, v in _knobs(name).items():
+    for k, v in dict(_knobs(name), telemetry_dir=tempfile.mkdtemp(prefix="bh_td_")).items():
         setattr(a, k, v)
     a._validate()
     fedml_tpu_torch.init(a)
@@ -167,6 +170,10 @@ def run_port_world(name):
         registry_module.synthetic_classification_device_per_client = saved
     out["counters"] = _counters(Telemetry.get_instance())
     out["wal"] = [r for r in RoundWAL(a.checkpoint_dir).records() if r.get("kind") == "crossdevice"]
+    rep = PortChecker(telemetry_dir=a.telemetry_dir, checkpoint_dir=a.checkpoint_dir).check()
+    out["violated"] = {v["invariant"] for v in rep.to_dict()["violations"]} & set(
+        DEVICE_INVARIANTS)
+    out["checked"] = set(rep.to_dict()["checked"])
     return out
 
 
@@ -371,6 +378,9 @@ def test_device_invariants_flag_as_the_checker_does(name):
     assert set(DEVICE_INVARIANTS) <= jax_out["checked"]
     assert device_violations(port["wal"], port["counters"]) == jax_out["violated"]
     assert (jax_out["violated"] == {"device_mask_recovery_verified"}) == (name == "bad_share")
+    # the port's checker over the port world's exported artifacts says the same
+    assert set(DEVICE_INVARIANTS) <= port["checked"]
+    assert port["violated"] == jax_out["violated"]
 
 
 @pytest.mark.parametrize("name", WORLD_NAMES)
@@ -446,6 +456,10 @@ def test_needs_a_card_unless_told_and_refuses_telemetry_dir(monkeypatch):
         run_beehive_world(a)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DeviceHost(a, ClientRegistry(200, seed=0), 8, 4, 1, 8)
+    # telemetry_dir exports the world's artifacts (it was refused before
+    # the exporters were ported)
     a.telemetry_dir = tempfile.mkdtemp(prefix="bh_td_")
-    with pytest.raises(NotImplementedError, match="telemetry exporters"):
-        run_beehive_world(a, device="cpu")
+    run_beehive_world(a, device="cpu")
+    import os
+
+    assert {"trace.json", "metrics.prom", "telemetry.jsonl"} <= set(os.listdir(a.telemetry_dir))

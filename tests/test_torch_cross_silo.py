@@ -408,8 +408,9 @@ def _assert_exactly_once(mgr):
 
 
 @pytest.mark.parametrize("faults", [False, True], ids=["clean", "dup_delay"])
-def test_async_world_exactly_once(faults):
-    kw = dict(agg_mode="async", async_publish_every=3)
+def test_async_world_exactly_once(faults, tmp_path):
+    kw = dict(agg_mode="async", async_publish_every=3, telemetry_dir=str(tmp_path),
+              checkpoint_dir=str(tmp_path))
     if faults:
         kw.update(async_publish_every=2, reliable_comm=True, comm_retry_max=8,
                   comm_retry_base_s=0.05,
@@ -426,6 +427,14 @@ def test_async_world_exactly_once(faults):
         assert mgr.version >= 12 // 3
     for v in server.aggregator.get_global_model_params().values():
         assert torch.isfinite(v).all()
+    # the port's checker over the world's exported artifacts: the async
+    # ledger exactly once, the counters balancing it
+    from fedml_tpu_torch.core.invariants import InvariantChecker
+
+    rep = InvariantChecker(str(tmp_path)).check().to_dict()
+    assert rep["ok"], rep
+    assert {"exactly_once_folds", "no_reissued_seqs", "published_counter_match",
+            "counters_cover_ledger"} <= set(rep["checked"])
 
 
 # -- deadline, quorum, failure detector, late uploads ----------------------

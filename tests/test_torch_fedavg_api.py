@@ -261,9 +261,34 @@ def test_run_simulation_needs_a_card_unless_told(monkeypatch):
     ("stall_timeout_s", 5.0, "telemetry"),
     ("preempt_signal", "round:1", "elastic"),
 ])
-def test_later_knobs_raise(knob, value, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _api(**dict(ORACLE, **{knob: value}))
+def test_later_knobs_raise(knob, value, match, tmp_path, monkeypatch):
+    """The knobs that raised before their slice arrived now take effect,
+    as in the JAX package: the /metrics server and the stall watchdog run
+    for the run's lifetime (and stop with it), and the preemption signal
+    ends the run at its round with ``Preempted``."""
+    from fedml_tpu_torch.core.telemetry import Telemetry
+    from fedml_tpu_torch.parallel.elastic import Preempted
+
+    Telemetry.reset()
+    tel = Telemetry.get_instance()
+    started = []
+    for name in ("maybe_start_metrics_server", "maybe_start_watchdog"):
+        real = getattr(tel, name)
+
+        def spy(args, _real=real, _name=name):
+            started.append((_name, getattr(args, knob)))
+            return _real(args)
+
+        monkeypatch.setattr(tel, name, spy)
+    api = _api(**dict(ORACLE, checkpoint_dir=str(tmp_path), **{knob: value}))
+    if match == "elastic":
+        with pytest.raises(Preempted) as e:
+            api.train()
+        assert e.value.round_idx == 1 and e.value.ckpt_step == 1
+    else:
+        api.train()
+        assert tel._watchdog is None and tel._metrics_server is None  # stopped with the run
+    assert [v for _, v in started] == [value, value]
 
 
 @pytest.mark.parametrize("name, exc", [("HierFedAvg", NotImplementedError),

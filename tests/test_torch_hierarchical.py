@@ -17,8 +17,8 @@ CPU.
   survivor closes the round, all edges dead finishing loudly, the
   detector declaring a silent edge, and an edge killed at its
   ``edge.merge_upload`` barrier recovering bitwise. Where the JAX test
-  asserts through ``core/invariants.py`` (not ported yet) the WAL
-  sub-ledgers and counters are asserted directly.
+  asserts through its invariant checker, the WAL sub-ledgers and
+  counters are asserted directly here.
 """
 
 from __future__ import annotations

@@ -19,9 +19,8 @@ against the JAX package's (``fedml_tpu/scale/``).
 
 The int8-quantized tree is held to the flat fold in
 ``tests/test_torch_robust_fold.py``, the cross-silo aggregator's edge
-tier in ``tests/test_torch_hierarchical.py``. Left for its slice
-(ROADMAP.md): the preempted run resumed on a reshaped mesh (items 9 and
-11).
+tier in ``tests/test_torch_hierarchical.py``; the registry loop preempted and
+resumed in ``tests/test_torch_elastic.py``.
 """
 
 from __future__ import annotations

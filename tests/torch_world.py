@@ -353,6 +353,8 @@ def _mesh_one(run: dict) -> dict:
 
     import torch
 
+    from fedml_tpu_torch.parallel.elastic import Preempted
+
     import fedml_tpu_torch
     from fedml_tpu_torch import data, models
     from fedml_tpu_torch.simulation import SimulatorMesh, SimulatorSingleProcess
@@ -384,13 +386,36 @@ def _mesh_one(run: dict) -> dict:
         if run.get("params") is not None:
             full = {k: torch.tensor(v) for k, v in run["params"].items()}
             api.global_params = api._at_rest(full) if hasattr(api, "_at_rest") else full
-        stats = sim.run()
+        _arm_preemption(api, run)
+        preempted = None
+        try:
+            stats = sim.run()
+        except Preempted as e:
+            stats, preempted = None, [e.round_idx, e.ckpt_step]
     finally:
         logging.getLogger().removeHandler(catch)
     full = api.full_params() if hasattr(api, "full_params") else api.global_params
     return {"stats": stats, "params": {k: v.detach().numpy() for k, v in full.items()},
             "local_shapes": {k: tuple(v.shape) for k, v in api.global_params.items()},
-            "history": list(getattr(api, "history", [])), "warned": warned}
+            "history": list(getattr(api, "history", [])), "warned": warned,
+            "preempted": preempted}
+
+
+def _arm_preemption(api, run: dict) -> None:
+    """A run's preemption drill: ``preempt_at`` (a round) arms a
+    ``SimulatedPreemption``; ``preempt_file`` ``{"path", "visible_to"}``
+    arms a ``FilePreemption`` of ``path`` on rank ``visible_to`` only (the
+    other ranks watch a path that never exists)."""
+    import torch.distributed as dist
+
+    from fedml_tpu_torch.parallel.elastic import FilePreemption, SimulatedPreemption
+
+    if run.get("preempt_at") is not None:
+        api._preempt_signal = SimulatedPreemption(int(run["preempt_at"]))
+    if run.get("preempt_file"):
+        spec = run["preempt_file"]
+        seen = dist.get_rank() == spec["visible_to"]
+        api._preempt_signal = FilePreemption(spec["path"] if seen else spec["path"] + ".absent")
 
 
 def mesh_api(rank: int, payload: dict) -> dict:
@@ -440,6 +465,66 @@ def mesh_folds(rank: int, payload: dict) -> dict:
     return {"forward": whole(a1.finalize()), "reverse": whole(a2.finalize()),
             "limbs": whole(root.finalize()), "count": root.count, "mean": whole(mean),
             "sharded": sorted(k for k, s in specs.items() if s is not None)}
+
+
+def limb_travel(rank: int, payload: dict) -> dict:
+    """The elastic plane's limb travel over a world: fold uploads 0-1
+    whole (the world's ``{data: world, fsdp: 1}`` mesh keeps params
+    whole), export the accumulator, ``reshape_limb_state`` onto
+    ``surviving_mesh(payload["ranks"], payload["shape"])``, ``fold_limbs``
+    on the survivors and fold uploads 2-3 there; raw, or with ``int8``
+    each upload an int8-encoded delta against ``base`` folded through
+    ``fold_encoded`` (the survivors then keep fsdp 1: an encoded upload
+    decodes whole). The survivors' finalize gathered whole, and the
+    unsplit fold of all four; ranks outside the survivors return their
+    membership only."""
+    import torch
+    import torch.distributed as dist
+
+    from fedml_tpu_torch.core.aggregation import StreamingAccumulator
+    from fedml_tpu_torch.core.compression import Int8Codec
+    from fedml_tpu_torch.parallel.elastic import reshape_limb_state, surviving_mesh
+    from fedml_tpu_torch.parallel.layout import (build_fed_mesh, gather_tree, shard_tree,
+                                                 tree_specs)
+
+    world = dist.get_world_size()
+    ups = [{k: torch.tensor(v) for k, v in t.items()} for t in payload["trees"]]
+    base = {k: torch.tensor(v) for k, v in payload["base"].items()}
+    ws = payload["ws"]
+    codec = Int8Codec() if payload.get("int8") else None
+    enc = [codec.encode({k: u[k] - base[k] for k in u}) for u in ups] if codec else None
+
+    def fold(acc, i, mesh, specs, like):
+        if codec is not None:
+            acc.fold_encoded(codec, enc[i], like, ws[i])
+        else:
+            acc.fold(shard_tree(ups[i], mesh, specs), ws[i])
+
+    full_mesh = build_fed_mesh({"data": world, "fsdp": 1}, world, "cpu")
+    full_specs = tree_specs(base, full_mesh)
+    ref, old = StreamingAccumulator(base), StreamingAccumulator(base)
+    for i in range(4):
+        fold(ref, i, full_mesh, full_specs, base)
+    for i in range(2):
+        fold(old, i, full_mesh, full_specs, base)
+    mesh = surviving_mesh(payload["ranks"], payload["shape"], device_type="cpu",
+                          min_devices=len(payload["ranks"]))
+    out = {"member": mesh.member, "ranks": mesh.ranks, "full_ranks": full_mesh.ranks}
+    state = reshape_limb_state(old.export_state(), mesh)
+    if not mesh.member:
+        return out
+    specs = tree_specs(base, mesh)
+    local_base = shard_tree(base, mesh, specs)
+    new = StreamingAccumulator(local_base)
+    new.fold_limbs(state["limbs"], state["total_w"], count=state["count"])
+    for i in (2, 3):
+        fold(new, i, mesh, specs, local_base)
+    got = gather_tree(new.finalize(), mesh, specs)
+    out.update(count=new.count, total_w=new.total_w, ref_total_w=ref.total_w,
+               got={k: v.numpy() for k, v in got.items()},
+               ref={k: v.numpy() for k, v in ref.finalize().items()},
+               local_shapes={k: tuple(v.shape) for k, v in state["limbs"][0].items()})
+    return out
 
 
 def lane_gather(rank: int, payload: dict) -> list:
@@ -547,9 +632,9 @@ def _mesh_serve_one(rank: int, payload: dict) -> dict:
                 ep.infer(np.stack(xs[:1] * (ep.shard_multiple + 1)))
             except ValueError as e:
                 out["errors"].append(str(e))
-        try:
-            ep.remesh(devices=[0])
-        except NotImplementedError as e:
+        try:  # a shrink must keep rank 0, which serves
+            ep.remesh(devices=[1])
+        except ValueError as e:
             out["errors"].append(str(e))
         if payload.get("remesh"):
             eng.stop()
@@ -557,6 +642,13 @@ def _mesh_serve_one(rank: int, payload: dict) -> dict:
             eng.batcher.shard_multiple = ep.shard_multiple
             eng.start()
             out["rows"].append(_mesh_burst(eng, xs))
+        if payload.get("shrink"):  # the elastic shrink onto surviving ranks
+            eng.stop()
+            ep.remesh(**payload["shrink"])
+            eng.batcher.shard_multiple = ep.shard_multiple
+            eng.start()
+            out["rows"].append(_mesh_burst(eng, xs))
+            out["shrunk_mesh"] = dict(ep.mesh.shape)
         out["version"], out["swaps"] = ep.version, ep.swaps
     ep.release()
     return out
@@ -592,6 +684,10 @@ def _fleet_bursts(args, fleet, payload, pubs) -> dict:
         for v, pub in enumerate(pubs):
             fleet.hot_swap(pub, version=v + 1)
             out["rows"].append(np.stack([cl.request(x, timeout_s=30.0) for x in xs]))
+        if payload.get("shrink"):  # the elastic shrink onto surviving ranks
+            out["remeshed"] = fleet.remesh(**payload["shrink"])
+            out["rows"].append(np.stack([cl.request(x, timeout_s=30.0) for x in xs]))
+            out["shrunk_mesh"] = [dict(e.endpoint.mesh.shape) for e in fleet.engines]
         out["routed"] = list(fleet.routed)
     finally:
         cl.close()
