@@ -104,7 +104,13 @@ version on the card:
   ``cross_device_mnist_lr.yaml``, 3 of its 10 rounds), and
   ``CentralizedTrainer`` on the bf16 flash transformer config (one
   epoch of its 1,024 sequences coalesced: the flash kernels forward and
-  backward).
+  backward);
+- the seventeenth slice: the serving fleet over MQTT on the port's native
+  C++ broker (``FEDML_TPU_NATIVE_BROKER=1``, built with ``g++`` into
+  ``fedml_tpu_torch/native/build/``) and on the Python broker, the native
+  scheduler, two fresh processes serving at full width through the
+  kernels' build cache (``compile_cache_dir``), and ``python -m
+  fedml_tpu_torch.cli lint --ci --json``.
 The CNN, ResNet, RNN and logistic-regression paths run no other hand-written
 kernel: their
 convolutions and matrix products are cuDNN's and cuBLAS's through
@@ -165,6 +171,25 @@ Phases, each of which fails the run:
    among the kernel phase's flash cases; ``python -m
    fedml_tpu_torch.cli serve --dry-run --fleet-size 2`` exits 0 and
    prints its status line;
+4c. native and compile cache: ``g++`` on ``PATH`` (its version line) and
+   the port's native broker and scheduler built from
+   ``fedml_tpu_torch/native/`` (a failed build fails the phase; without
+   ``g++`` the Python fallback is taken and said); the serving fleet
+   behind ``FleetFrontend`` over MQTT with ``FEDML_TPU_NATIVE_BROKER=1``
+   (eight clients, a warm-up and a timed round: p50 and p99, host clock)
+   and the same over the Python broker; the broker process the port's
+   own binary (its pid and path); native LPT equal to
+   ``greedy_makespan`` on 40 seeded jobs and ``best_makespan`` equal to
+   brute force on 9 jobs; two child processes (``--compile-cache-child``)
+   serving four requests at full width with ``compile_cache_dir`` a fresh
+   directory: the cold one counting misses = libraries it built (the
+   flash forward's), hits 0, entries 1 and its ``nvcc`` seconds, the
+   warm one hits 1, misses 0, entries 1, no ``nvcc`` run and answers
+   bitwise the cold one's, each one's time to its first answer; ``cli
+   lint --ci --json`` exiting 0 with its counts by rule. Gates: as
+   above, every answer within ``LOGITS_ATOL`` of the full-attention
+   logits, the flash forward launches layers x micro-batches and no
+   plain flash call;
 5. fedavg: FedAvg equals centralized full-batch GD on the card (the
    reference's oracle 1, atol 1e-5); the vectorized round equals the
    sequential one (float64, atol 1e-5; the f32 error is printed); the headline configuration trains through
@@ -1621,9 +1646,9 @@ def fleet_clients(args, fleet, backend, run_id, clients=SERVE_COMM_CLIENTS, faul
         server.join(10)
 
 
-def serve_transport(args, fleet, backend, pool, ref):
+def serve_transport(args, fleet, backend, pool, ref, tag=None, profiled=True):
     """Eight clients over ``backend``: a warm-up round, one timed round and
-    one profiled round. Returns the numbers."""
+    (``profiled``) one profiled round. Returns the numbers."""
     from fedml_tpu_torch.core.telemetry import Telemetry
 
     tel = Telemetry.get_instance()
@@ -1633,12 +1658,13 @@ def serve_transport(args, fleet, backend, pool, ref):
         return {t: (tel.get_counter("comm_messages_sent_total", msg_type=t),
                     tel.get_counter("comm_bytes_sent_total", msg_type=t)) for t in (40, 41)}
 
-    with fleet_clients(args, fleet, backend, f"chip_serving_comm_{backend.lower()}") as clients:
+    tag = tag or backend.lower()
+    with fleet_clients(args, fleet, backend, f"chip_serving_comm_{tag}") as clients:
         client_round(clients, pool, 1)  # warm-up: every client's pipe open
         before = wire_counts()
         answers, wall = client_round(clients, pool, SERVE_COMM_REQUESTS)
         after = wire_counts()
-        profiled = profile_clients(clients, pool)
+        profiled = profile_clients(clients, pool) if profiled else None
     per_message = {t: (after[t][1] - before[t][1]) / max(after[t][0] - before[t][0], 1)
                    for t in (40, 41)}
     lat = np.array([dt for _, _, dt in answers])
@@ -1651,14 +1677,15 @@ def serve_transport(args, fleet, backend, pool, ref):
         "request_bytes": per_message[40], "response_bytes": per_message[41],
         "logits_max_abs_err": err, "profile": profiled,
     }
-    log(f"serving comm {backend}: {len(answers)} requests from {SERVE_COMM_CLIENTS} clients "
+    log(f"serving comm {tag}: {len(answers)} requests from {SERVE_COMM_CLIENTS} clients "
         f"in {wall:.3f} s: p50 {out['p50_request_latency_ms']:.2f} ms, p99 "
         f"{out['p99_request_latency_ms']:.2f} ms, {out['requests_per_s']:.2f} requests/s "
         f"(host clock); {out['request_bytes']:.0f} B a request, {out['response_bytes']:.0f} B "
         f"a response (instrumented counters); busy share of a profiled round "
-        f"{profiled['busy_share']}; logits err {err:.3g} (atol {LOGITS_ATOL})")
+        f"{profiled['busy_share'] if profiled else 'not profiled'}; logits err {err:.3g} "
+        f"(atol {LOGITS_ATOL})")
     if err > LOGITS_ATOL:
-        fail(f"serving comm {backend}: answers off the full-attention logits by {err}")
+        fail(f"serving comm {tag}: answers off the full-attention logits by {err}")
     return out
 
 
@@ -1891,6 +1918,302 @@ def run_serving_comm():
              f"for 2 buckets of a {L}-layer model")
     del fleet
     torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 4c: the native plane and the kernels' build cache -------------
+NATIVE_JOBS = 40  # native LPT against greedy_makespan on this many seeded jobs
+NATIVE_BNB_JOBS = (9, 3)  # branch-and-bound against brute force: jobs, resources
+CACHE_CHILD_ROWS = 4  # requests each build-cache child serves (one, then a burst)
+CACHE_CHILD_FLAG = "--compile-cache-child"
+CACHE_CHILD_TIMEOUT_S = 240
+
+
+def gxx_version():
+    """(path, first ``--version`` line) of ``g++`` on ``PATH``, or Nones."""
+    import shutil
+
+    path = shutil.which("g++")
+    if path is None:
+        return None, None
+    out = subprocess.run([path, "--version"], capture_output=True, text=True, timeout=60)
+    return path, (out.stdout.splitlines() or [""])[0]
+
+
+def native_build(gxx) -> dict:
+    """Build the port's native broker and scheduler (when ``g++`` is
+    there, a failed build fails the phase)."""
+    from fedml_tpu_torch.core import native
+    from fedml_tpu_torch.core.comm.native_broker import build_native_broker
+
+    t0 = time.perf_counter()
+    broker = build_native_broker()
+    lib = native._scheduler_lib()
+    secs = time.perf_counter() - t0
+    build = os.path.realpath(native.BUILD_DIR)
+    log(f"native: g++ {gxx[0]} ({gxx[1]}); broker {broker}, scheduler "
+        f"{'built' if lib is not None else 'missing'} in {secs:.2f} s")
+    if gxx[0] is not None and (broker is None or lib is None):
+        fail("native: g++ is on PATH but the port's native broker or scheduler did not "
+             "build (the Python fallback does not count here)")
+    if broker is not None and os.path.dirname(os.path.realpath(broker)) != build:
+        fail(f"native: the broker binary {broker} lies outside {build}")
+    return {"gxx": gxx[1], "build_s": secs, "broker": broker}
+
+
+@contextlib.contextmanager
+def native_broker_env():
+    """``FEDML_TPU_NATIVE_BROKER=1`` while open; yields the native brokers
+    ``ensure_broker`` started (host, port, process), terminated on the way
+    out."""
+    from fedml_tpu_torch.core.comm import native_broker
+
+    spawned, real = [], native_broker.spawn_native_broker
+
+    def recording(port=0, timeout_s=10.0):
+        out = real(port, timeout_s)
+        if out is not None:
+            spawned.append(out)
+        return out
+
+    native_broker.spawn_native_broker = recording
+    os.environ["FEDML_TPU_NATIVE_BROKER"] = "1"
+    try:
+        yield spawned
+    finally:
+        del os.environ["FEDML_TPU_NATIVE_BROKER"]
+        native_broker.spawn_native_broker = real
+        for _, _, proc in spawned:
+            proc.terminate()
+            proc.wait(10)
+
+
+def native_scheduler_checks() -> dict:
+    """Native LPT against ``greedy_makespan``; the branch-and-bound behind
+    ``best_makespan`` against brute force."""
+    import itertools
+
+    from fedml_tpu_torch.core import native, scheduler
+
+    rng = np.random.default_rng(40)
+    w = rng.uniform(1, 10, size=NATIVE_JOBS).tolist()
+    got = native.lpt_makespan_native(w, 5)
+    _, greedy = scheduler.greedy_makespan(w, 5)
+    n, m = NATIVE_BNB_JOBS
+    small = rng.uniform(1, 10, size=n).tolist()
+    brute = min(max(sum(small[j] for j in range(n) if a[j] == r) for r in range(m))
+                for a in itertools.product(range(m), repeat=n))
+    _, best = scheduler.best_makespan(small, m)
+    log(f"native scheduler: LPT {None if got is None else got[1]} vs greedy {greedy} on "
+        f"{NATIVE_JOBS} jobs; best_makespan {best} vs brute force {brute} on {n} jobs")
+    if got is None or abs(got[1] - greedy) > 1e-9 * greedy or abs(best - brute) > 1e-9 * brute:
+        fail(f"native scheduler: LPT {got and got[1]} / greedy {greedy}, best {best} / "
+             f"brute force {brute}")
+    return {"lpt": got[1], "greedy": greedy, "best": best, "brute_force": brute}
+
+
+def compile_cache_child(cache_dir: str, answers_path: str) -> int:
+    """A fresh process serving ``CACHE_CHILD_ROWS`` requests at full width
+    with ``compile_cache_dir`` set: prints one JSON line of its counters,
+    its ``nvcc`` runs and seconds and its time to the first answer, and
+    saves its answers."""
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(REPO))
+    from fedml_tpu_torch import models
+    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.convert import params_from_flax
+    from fedml_tpu_torch.core import compile_cache
+    from fedml_tpu_torch.core.telemetry import Telemetry
+    from fedml_tpu_torch.ops import _build
+    from fedml_tpu_torch.serving import ModelEndpoint, ServingEngine
+
+    nvcc, builds = [], []
+    real_popen, real_build = subprocess.Popen, _build.build
+
+    def popen(cmd, *a, **kw):
+        if isinstance(cmd, (list, tuple)) and os.path.basename(str(cmd[0])) == "nvcc":
+            nvcc.append(cmd)
+        return real_popen(cmd, *a, **kw)
+
+    def timed_build(names):
+        b0 = time.perf_counter()
+        out = real_build(names)
+        builds.append(time.perf_counter() - b0)
+        return out
+
+    subprocess.Popen, _build.build = popen, timed_build
+    args = load_arguments(str(CONFIG))
+    args.compile_cache_dir = cache_dir
+    args.serve_deadline_ms = 0.0
+    args._validate()
+    Telemetry.reset()
+    tel = Telemetry.get_instance(args)
+    model = models.create(args, 90, device=DEVICE)
+    vocab, T = model.input_bound, int(args.seq_len)
+    rng = np.random.default_rng(int(args.random_seed) + 29)
+    params = params_from_flax(flax_params(args, vocab, rng))
+    rows = list(rng.integers(0, vocab, size=(CACHE_CHILD_ROWS, T)))
+    with ServingEngine(ModelEndpoint(model, params), args) as engine:
+        first, _, _ = burst(engine, rows[:1])
+        first_s = time.perf_counter() - t0
+        rest, _, _ = burst(engine, rows[1:])
+    np.save(answers_path, np.concatenate([first, rest]))
+    print(json.dumps({
+        "enabled_dir": compile_cache.enabled_dir(),
+        "hits": tel.get_counter("compile_cache_hits_total"),
+        "misses": tel.get_counter("compile_cache_misses_total"),
+        "entries": compile_cache.cache_entries(),
+        "nvcc_runs": len(nvcc), "build_s": sum(builds),
+        "first_answer_s": first_s, "wall_s": time.perf_counter() - t0,
+    }), flush=True)
+    return 0
+
+
+def run_cache_child(cache_dir: str, answers_path: str) -> dict:
+    argv = [sys.executable, str(REPO / "chip_smoke.py"), CACHE_CHILD_FLAG, cache_dir,
+            answers_path]
+    t0 = time.perf_counter()
+    out = subprocess.run(argv, cwd=str(REPO), capture_output=True, text=True,
+                         timeout=CACHE_CHILD_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    try:
+        numbers = json.loads(out.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        numbers = None
+    if out.returncode != 0 or numbers is None:
+        fail(f"compile cache child: exit {out.returncode}, stdout {out.stdout[-500:]!r}, "
+             f"stderr {out.stderr[-1500:]!r}")
+    numbers["process_wall_s"] = wall
+    return numbers
+
+
+def run_lint_ci():
+    """``python -m fedml_tpu_torch.cli lint --ci --json``, started now."""
+    argv = [sys.executable, "-m", "fedml_tpu_torch.cli", "lint", "--ci", "--json"]
+    return subprocess.Popen(argv, cwd=str(REPO), env=dict(os.environ, PYTHONPATH=str(REPO)),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def lint_result(proc) -> dict:
+    stdout, stderr = proc.communicate(timeout=300)
+    try:
+        payload = json.loads(stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        payload = None
+    if proc.returncode != 0 or not payload or not payload.get("ok"):
+        fail(f"cli lint --ci --json: exit {proc.returncode}, stdout {stdout[-800:]!r}, "
+             f"stderr {stderr[-800:]!r}")
+    by_rule = {}
+    for f in payload["findings"]:
+        by_rule[f["rule"]] = by_rule.get(f["rule"], 0) + 1
+    log(f"lint: exit 0, {payload['total']} findings, all baselined; by rule {by_rule}")
+    return {"total": payload["total"], "by_rule": by_rule}
+
+
+def compile_cache_children() -> dict:
+    """The cold and the warm child on one fresh directory, with the lint
+    gate running beside the cold one."""
+    import shutil
+    import tempfile
+
+    out_dir = REPO / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    work = tempfile.mkdtemp(prefix="compile_cache_", dir=str(out_dir))
+    cache_dir = os.path.join(work, "cache")
+    try:
+        lint = run_lint_ci()
+        cold = run_cache_child(cache_dir, os.path.join(work, "cold.npy"))
+        lint_numbers = lint_result(lint)
+        warm = run_cache_child(cache_dir, os.path.join(work, "warm.npy"))
+        bitwise = bool(np.array_equal(np.load(os.path.join(work, "cold.npy")),
+                                      np.load(os.path.join(work, "warm.npy"))))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for tag, n in (("cold", cold), ("warm", warm)):
+        log(f"compile cache {tag}: hits {n['hits']:.0f}, misses {n['misses']:.0f}, entries "
+            f"{n['entries']}, nvcc runs {n['nvcc_runs']} ({n['build_s']:.2f} s in build), "
+            f"first answer {n['first_answer_s']:.2f} s after the child's start, process "
+            f"{n['process_wall_s']:.2f} s")
+    log(f"compile cache: warm answers bitwise the cold ones: {bitwise}")
+    if os.path.realpath(cold["enabled_dir"]) != os.path.realpath(cache_dir):
+        fail(f"compile cache: the child's cache sat at {cold['enabled_dir']}")
+    if (cold["misses"], cold["hits"], cold["entries"]) != (cold["nvcc_runs"], 0, 1) \
+            or cold["nvcc_runs"] != 1:
+        fail(f"compile cache cold child: misses {cold['misses']}, hits {cold['hits']}, "
+             f"entries {cold['entries']}, nvcc runs {cold['nvcc_runs']}")
+    if (warm["hits"], warm["misses"], warm["entries"], warm["nvcc_runs"]) != (1, 0, 1, 0):
+        fail(f"compile cache warm child: hits {warm['hits']}, misses {warm['misses']}, "
+             f"entries {warm['entries']}, nvcc runs {warm['nvcc_runs']}")
+    if not bitwise:
+        fail("compile cache: the warm child's answers differ from the cold child's")
+    return {"cold": cold, "warm": warm, "bitwise": bitwise, "lint": lint_numbers}
+
+
+def run_native_and_cache():
+    from fedml_tpu_torch import models
+    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.convert import params_from_flax
+    from fedml_tpu_torch.core.telemetry import Telemetry
+    from fedml_tpu_torch.ops.flash_attention import FWD_KERNEL
+    from fedml_tpu_torch.serving import ServingFleet
+
+    gxx = gxx_version()
+    log(f"native: g++ on PATH: {gxx[0] or 'no'}" + (f", {gxx[1]}" if gxx[0] else
+        "; ensure_broker takes the Python broker (the JAX package's fallback)"))
+    out = {"build": native_build(gxx)}
+    args = load_arguments(str(CONFIG))
+    args.serve_fleet_size = SERVE_COMM_FLEET
+    args.serve_deadline_ms = 0.0
+    output_dim = 90
+    model = models.create(args, output_dim, device=DEVICE)
+    vocab, L = model.input_bound, int(args.num_layers)
+    rng = np.random.default_rng(int(args.random_seed) + 23)
+    params = params_from_flax(flax_params(args, vocab, rng))
+    pool = list(rng.integers(0, vocab, size=(SERVE_COMM_CLIENTS, int(args.seq_len))))
+    ref = full_attention_logits(args, output_dim, params, np.stack(pool))
+    Telemetry.reset()
+    fleet = ServingFleet.build(model, params, args).start()
+    reset_launches()  # count only this path's own launches
+    try:
+        with plain_flash_calls() as plain:
+            mqtt = copy.copy(args)
+            with native_broker_env() as spawned:
+                mqtt.broker_port = free_port_block(1)
+                out["native"] = serve_transport(mqtt, fleet, "MQTT", pool, ref,
+                                                tag="mqtt_native", profiled=False)
+                brokers = [(proc.pid, os.path.realpath(proc.args[0]),
+                            os.readlink(f"/proc/{proc.pid}/exe")) for _, _, proc in spawned]
+            mqtt.broker_port = free_port_block(1)
+            out["python"] = serve_transport(mqtt, fleet, "MQTT", pool, ref,
+                                            tag="mqtt_python", profiled=False)
+    finally:
+        fleet.stop()
+    build = os.path.realpath(REPO / "fedml_tpu_torch" / "native" / "build")
+    log(f"native broker: {brokers} (pid, binary, /proc exe)")
+    if gxx[0] is not None and (len(brokers) != 1 or any(
+            os.path.dirname(p) != build or os.path.dirname(os.path.realpath(e)) != build
+            for _, p, e in brokers)):
+        fail(f"native: the MQTT world did not run on the port's own broker under {build}: "
+             f"{brokers}")
+    out["native_broker"] = brokers
+    batches = Telemetry.get_instance().counters_matching("serving_batches_total")
+    n_batches = int(sum(batches.values()))
+    launches = launch_counts()
+    log(f"native and compile cache: micro-batches {batches}, kernel launches {launches}, "
+        f"plain flash calls {plain}; p50/p99 native {out['native']['p50_request_latency_ms']:.2f}"
+        f"/{out['native']['p99_request_latency_ms']:.2f} ms, python "
+        f"{out['python']['p50_request_latency_ms']:.2f}/"
+        f"{out['python']['p99_request_latency_ms']:.2f} ms")
+    if launches[FWD_KERNEL.name] != L * n_batches or plain["forward"] or plain["backward"]:
+        fail(f"native: flash forward launched {launches[FWD_KERNEL.name]} times for "
+             f"{n_batches} micro-batches of a {L}-layer model (want {L * n_batches}); plain "
+             f"flash calls {plain}")
+    out["micro_batches"] = batches
+    out["kernel_launches"] = launches
+    del fleet
+    torch.cuda.empty_cache()
+    out["scheduler"] = native_scheduler_checks()
+    out["compile_cache"] = compile_cache_children()
     return out
 
 
@@ -6720,6 +7043,8 @@ def main() -> int:
     log(f"slice numbers on {card}: {json.dumps(slice_numbers)}")
     serving_comm_numbers = phase("serving comm", run_serving_comm)
     log(f"serving comm numbers on {card}: {json.dumps(serving_comm_numbers, default=str)}")
+    native_numbers = phase("native and compile cache", run_native_and_cache)
+    log(f"native and compile cache numbers on {card}: {json.dumps(native_numbers, default=str)}")
     fedavg_numbers = phase("fedavg", run_fedavg)
     log(f"fedavg numbers on {card}: {json.dumps(fedavg_numbers)}")
     dense_numbers = phase("dense", run_dense)
@@ -6768,6 +7093,7 @@ def main() -> int:
     log(f"phase wall times (s): {json.dumps(walls)}")
     paths = {
         "serving": slice_numbers, "serving_comm": serving_comm_numbers,
+        "native_and_cache": native_numbers,
         "fedavg_headline": fedavg_numbers,
         "fedavg_dense": dense_numbers, "fedavg_transformer": transformer_numbers,
         "fedavg_transformer_f32": transformer_f32_numbers, "fedavg_rnn": rnn_numbers,
@@ -6802,4 +7128,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [CACHE_CHILD_FLAG]:
+        sys.exit(compile_cache_child(*sys.argv[2:4]))
     sys.exit(main())

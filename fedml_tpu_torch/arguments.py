@@ -7,9 +7,12 @@ serving and fleet knobs, the comm layer's knobs, the cross-silo knobs
 (aggregation mode, quorum, deadline, elastic membership, async
 staleness, the silo's process group, the edge plane), the chaos
 plane's, the telemetry exporters' (watchdog, ``/metrics`` server,
-trace ring) and elastic preemption's, and their validation. A YAML written for the JAX package
-loads here unchanged; knobs this subset has no default for still land
-on the object as the YAML sets them.
+trace ring, devtime ring), elastic preemption's and the compile
+cache's, and their validation. Every key of the JAX package's
+``_DEFAULTS`` has an entry here with the JAX default, except that
+``device_type`` defaults to ``"cuda"``. A YAML written for the JAX
+package loads here unchanged; knobs without a default still land on
+the object as the YAML sets them.
 
 Validation imports nothing of JAX, and of the port only
 ``parallel/elastic.py``'s signal parser: the dtype knob is checked here
@@ -19,6 +22,7 @@ against its own table.
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Any, Dict, Optional
 
 import yaml
@@ -27,6 +31,7 @@ from . import constants
 
 # Defaults applied when neither the YAML nor the caller provides a value.
 _DEFAULTS: Dict[str, Any] = {
+    "scenario": constants.FEDML_CROSS_SILO_SCENARIO_HORIZONTAL,
     "random_seed": 0,
     # data
     "dataset": "synthetic",
@@ -69,6 +74,8 @@ _DEFAULTS: Dict[str, Any] = {
     "server_optimizer": "sgd",
     "server_lr": 1.0,
     "server_momentum": 0.0,
+    "server_beta1": 0.9,  # FedOpt adam/yogi first-moment decay
+    "server_beta2": 0.999,  # FedOpt adam/yogi second-moment decay
     "fedprox_mu": 0.0,
     # "vectorized" (vmap the cohort) or "sequential" (a loop per client)
     "sim_mode": "vectorized",
@@ -98,6 +105,11 @@ _DEFAULTS: Dict[str, Any] = {
     "checkpoint_dir": None,
     # save every N completed rounds (and after the last); None = every 10
     "checkpoint_freq": None,
+    # the kernels' build cache (core/compile_cache.py): the CUDA
+    # libraries are built into and reused from this directory, and
+    # hits/misses are counted in compile_cache_hits_total/_misses_total.
+    # One directory per process. None = ops/build/ inside the package
+    "compile_cache_dir": None,
     # metrics and profiling
     "log_metrics": True,  # mirror round metrics into the log
     "metrics_jsonl_path": None,  # also append them as JSON lines here
@@ -113,6 +125,9 @@ _DEFAULTS: Dict[str, Any] = {
     # flight-recorder ring capacity (events); overflow evicts the oldest,
     # counted in telemetry_trace_dropped_total and the trace's meta
     "trace_ring_size": 65536,
+    # devtime wall-clock ring capacity (core/devtime.py): per-call
+    # {executable, bucket, seconds} entries
+    "devtime_ring_size": 4096,
     # serve Telemetry.prometheus_text() at
     # http://<metrics_host>:<metrics_port>/metrics for the run's
     # lifetime; 0 = off. Loopback unless metrics_host says otherwise
@@ -317,6 +332,13 @@ _DEFAULTS: Dict[str, Any] = {
     "heartbeat_timeout_s": 0.0,
     # flight-recorder telemetry: False disables every instrument
     "telemetry": True,
+    # tracking (the JAX package's experiment-tracking switch)
+    "enable_tracking": False,
+    # device: the device kind this configuration targets ("cuda" here,
+    # where the JAX package says "tpu"), and the reference's GPU knobs
+    "using_gpu": True,
+    "device_type": "cuda",
+    "gpu_mapping_file": None,
     # -- cross-silo (cross_silo/) --------------------------------------
     # real edge-device ids of ranks 1..N (a JSON string or list); None =
     # the ranks themselves
@@ -531,11 +553,23 @@ class Arguments:
                 f"stall_timeout_s={self.stall_timeout_s}: must be >= 0 "
                 "(0 disables the stall watchdog)"
             )
-        for int_key in ("trace_ring_size", "metrics_port"):
+        raw = getattr(self, "compile_cache_dir", None)
+        if raw is not None and not isinstance(raw, (str, os.PathLike)):
+            # the null-naming rule: a YAML `compile_cache_dir: 3` must
+            # name the knob
+            raise ValueError(
+                f"compile_cache_dir={raw!r}: must be a directory path "
+                "(or null to disable the persistent compilation cache)"
+            )
+        for int_key in ("trace_ring_size", "devtime_ring_size", "metrics_port"):
             setattr(self, int_key, int(getattr(self, int_key)))
         if self.trace_ring_size < 1:
             raise ValueError(
                 f"trace_ring_size={self.trace_ring_size}: must be >= 1"
+            )
+        if self.devtime_ring_size < 1:
+            raise ValueError(
+                f"devtime_ring_size={self.devtime_ring_size}: must be >= 1"
             )
         if not 0 <= self.metrics_port <= 65535:
             raise ValueError(
@@ -939,6 +973,13 @@ class Arguments:
             )
         self.crossdevice_secure_agg = bool(self.crossdevice_secure_agg)
         self.crossdevice_verify_pubkey = bool(self.crossdevice_verify_pubkey)
+
+    # -- niceties ------------------------------------------------------
+    def get(self, key: str, default: Any = None) -> Any:
+        return getattr(self, key, default)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {k: v for k, v in self.__dict__.items() if not k.startswith("_")}
 
 
 def load_arguments(path: str) -> Arguments:

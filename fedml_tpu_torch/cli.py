@@ -38,10 +38,17 @@ status JSON line and exits. State lives under ``~/.fedml_tpu_torch/``
   (``core/invariants.py``); one JSON line ``{ok, checked, skipped,
   violations}``, exit 1 on a violation, 2 on a missing directory.
 
+- ``lint``: the port's static-analysis suite (``analysis/``, pure
+  stdlib AST: host syncs on hot paths, global RNG and wall clocks in
+  seeded paths, exception hygiene, unlocked cross-thread state,
+  registry drift), ratcheted against ``lint_baseline_torch.json``
+  (``--ci`` exits 0 at HEAD; ``--json``, ``--update-baseline``,
+  ``--no-baseline``, ``--root``, ``--baseline``).
+
 ``serve`` exports the run's artifacts to ``telemetry_dir`` when it stops.
-The JAX package's other subcommands, ``lint``, ``audit`` and ``perf``,
-are parsed and refused, naming what they wait for (ROADMAP.md queue A
-item 11): the analysis planes.
+The JAX package's other subcommands, ``audit`` and ``perf``, are parsed
+and refused, naming what they wait for (ROADMAP.md queue A item 11):
+the analysis planes.
 """
 
 from __future__ import annotations
@@ -56,7 +63,6 @@ import zipfile
 _ANALYSIS = "the analysis planes (a port-side counterpart of fedml_tpu/analysis/)"
 # refused subcommand -> what it waits for (ROADMAP.md, queue A item 11)
 _LATER = {
-    "lint": _ANALYSIS,
     "audit": _ANALYSIS,
     "perf": _ANALYSIS,
 }
@@ -67,6 +73,14 @@ def _not_ported(args) -> int:
         f"`{args.command}` is not ported to PyTorch yet; it arrives with "
         f"{_LATER[args.command]} (ROADMAP.md, queue A item 11)"
     )
+
+
+def cmd_lint(args) -> int:
+    """Run the port's static-analysis suite (pure stdlib AST, no torch
+    work): one ratchet gate against ``lint_baseline_torch.json``."""
+    from .analysis.engine import run_cli
+
+    return run_cli(args)
 
 
 def _home() -> str:
@@ -495,6 +509,12 @@ def build_parser() -> argparse.ArgumentParser:
     check.add_argument("--checkpoint-dir", default=None,
                        help="directory holding round_wal.jsonl (default: the telemetry dir)")
     check.set_defaults(fn=cmd_check)
+
+    lint = sub.add_parser("lint")
+    from .analysis.engine import add_lint_arguments
+
+    add_lint_arguments(lint)
+    lint.set_defaults(fn=cmd_lint)
 
     for name in _LATER:
         sub.add_parser(name).set_defaults(fn=_not_ported)

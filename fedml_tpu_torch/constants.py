@@ -31,6 +31,10 @@ FEDML_TRAINING_PLATFORM_DISTRIBUTED = "distributed"
 FEDML_TRAINING_PLATFORM_CROSS_SILO = "cross_silo"
 FEDML_TRAINING_PLATFORM_CROSS_DEVICE = "cross_device"
 
+# cross-silo scenarios
+FEDML_CROSS_SILO_SCENARIO_HORIZONTAL = "horizontal"
+FEDML_CROSS_SILO_SCENARIO_HIERARCHICAL = "hierarchical"
+
 # Robust-aggregation defenses and the poisoning attacks they defend
 # against: ONE vocabulary, which the knob validation (arguments.py),
 # RobustAggregator, needs_full_cohort and the poisoned-world loader all

@@ -22,16 +22,16 @@ Every subscriber socket has a send lock — concurrent publishers fan
 out through ``sendall`` and interleaved frames would corrupt the
 stream.
 
-The JAX package can also spawn a native C++ broker
-(``FEDML_TPU_NATIVE_BROKER=1``); that deployment piece comes with a
-later slice of the port, and :func:`ensure_broker` serves from this
-Python broker.
+With ``FEDML_TPU_NATIVE_BROKER=1``, :func:`ensure_broker` starts the
+native C++ broker instead (``core/comm/native_broker.py``, the same wire
+protocol), and falls back to this Python broker when it cannot be built.
 """
 
 from __future__ import annotations
 
 import errno
 import logging
+import os
 import socket
 import struct
 import threading
@@ -213,8 +213,18 @@ def ensure_broker(
     in-process broker is created. With a fixed port: reuse an existing
     listener (retrying while the hosting process starts up); only bind
     a new broker when the address is local and free — a lost same-host
-    bind race falls back to connecting to the winner."""
+    bind race falls back to connecting to the winner.
+    ``FEDML_TPU_NATIVE_BROKER=1`` makes both branches start the native
+    broker, when it builds, instead of binding a Python one."""
+    use_native = os.environ.get("FEDML_TPU_NATIVE_BROKER", "") == "1"
     if port == 0:
+        if use_native:
+            from .native_broker import spawn_native_broker
+
+            spawned = spawn_native_broker(0)
+            if spawned is not None:
+                h, p, _proc = spawned
+                return (h, p)
         with _shared_lock:
             broker = Broker(host, 0)
             _shared_brokers[(broker.host, broker.port)] = broker
@@ -239,6 +249,15 @@ def ensure_broker(
         except OSError:  # lint: except-ok — probe loop: refusal IS the
             pass  # signal "not up yet"; the deadline below reports failure
         if local:
+            if use_native:
+                from .native_broker import spawn_native_broker
+
+                spawned = spawn_native_broker(port)
+                if spawned is not None:
+                    _h, p, _proc = spawned
+                    return (host, p)
+                # native bind lost a race or toolchain missing -> fall
+                # through to the Python broker / reconnect path
             try:
                 with _shared_lock:
                     broker = Broker(host, port)

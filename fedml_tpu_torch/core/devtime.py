@@ -29,21 +29,41 @@ import torch
 
 from .telemetry import Telemetry
 
-RING_SIZE = 4096
+# ring default; runs override it through the ``devtime_ring_size`` knob
+# (adopted lazily at the next ``measure``)
+DEFAULT_RING_SIZE = 4096
 
 # histogram bounds: sub-ms dispatches through multi-second batches
 _BUCKETS = (1e-4, 1e-3, 5e-3, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 30.0)
 
 _lock = threading.Lock()
-_ring: deque = deque(maxlen=RING_SIZE)
+_ring: deque = deque(maxlen=DEFAULT_RING_SIZE)
+_adopted_ring_size: Optional[int] = None
 # monotonic origin so ring timestamps order without wall-clock reads
 _T0 = time.perf_counter()
 
 
+def configure(args) -> None:
+    """Adopt ``devtime_ring_size`` (idempotent; existing entries are kept
+    up to the new capacity, newest first)."""
+    global _ring, _adopted_ring_size
+    size = getattr(args, "devtime_ring_size", None)
+    if not size:
+        return
+    size = int(size)
+    with _lock:
+        if size == _adopted_ring_size:
+            return
+        _ring = deque(_ring, maxlen=max(1, size))
+        _adopted_ring_size = size
+
+
 def reset() -> None:
     """Drop accumulated state (tests)."""
+    global _ring, _adopted_ring_size
     with _lock:
-        _ring.clear()
+        _ring = deque(maxlen=DEFAULT_RING_SIZE)
+        _adopted_ring_size = None
 
 
 def ring_snapshot() -> List[Dict[str, Any]]:
@@ -59,6 +79,8 @@ def measure(executable: str, bucket: Optional[str] = None) -> Iterator[None]:
     with telemetry disabled; histogram and trace emission are
     telemetry-gated."""
     tel = Telemetry.get_instance()
+    if tel.args is not None:
+        configure(tel.args)
     enabled = tel.enabled
     tags: Dict[str, str] = {"executable": executable}
     if bucket is not None:
@@ -84,3 +106,9 @@ def measure(executable: str, bucket: Optional[str] = None) -> Iterator[None]:
                     "t_rel": t0 - _T0,
                 }
             )
+
+
+def measured_executables() -> List[str]:
+    """Distinct executable names the ring holds."""
+    with _lock:
+        return sorted({e["executable"] for e in _ring})

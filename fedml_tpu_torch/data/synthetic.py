@@ -154,9 +154,20 @@ def synthetic_sequences(
     # the steps would
     cum = trans.cumsum(axis=1)
     del trans
-    u = rng.rand(seq_len, n_samples, 1)
+    u = rng.rand(seq_len, n_samples)
+    # the next token counts the running sums below u; a row's sums never
+    # decrease, so the count is where u lands in the row: a binary search
+    # for every sample at once, exact like the count (no [n, vocab] gather)
     for t in range(seq_len):
-        toks[:, t + 1] = (u[t] > cum[toks[:, t]]).sum(axis=1)
+        cur, ut = toks[:, t], u[t]
+        lo = np.zeros(n_samples, np.int64)
+        hi = np.full(n_samples, vocab_size, np.int64)
+        for _ in range(int(vocab_size).bit_length()):
+            mid = (lo + hi) >> 1
+            below = (mid < hi) & (cum[cur, np.minimum(mid, vocab_size - 1)] < ut)
+            lo = np.where(below, mid + 1, lo)
+            hi = np.where(below, hi, mid)
+        toks[:, t + 1] = lo
     return toks[:, :-1], toks[:, 1:]
 
 

@@ -9,9 +9,11 @@ The library's file name carries a hash of its source, the shared
 headers and the flags, so an edited source is rebuilt and an unchanged
 one is reused. Several
 sources build in parallel (one ``nvcc`` each, all started together).
-The output lands in ``ops/build/``, which git ignores; it is written to
-a temporary name first and renamed, so concurrent builders never load a
-half-written file.
+The output lands in ``ops/build/``, which git ignores, or in the
+directory ``compile_cache_dir`` names (``core/compile_cache.py``, which
+also counts each library found built as a hit and each ``nvcc`` run as
+a miss); it is written to a temporary name first and renamed, so
+concurrent builders never load a half-written file.
 """
 
 from __future__ import annotations
@@ -25,8 +27,13 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
+from ..core import compile_cache
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent / "build"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parent / "build"
+# where libraries build to; compile_cache.maybe_enable_compile_cache
+# re-roots it at the compile_cache_dir knob
+BUILD_DIR = DEFAULT_BUILD_DIR
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -72,6 +79,7 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
     targets = {n: library_path(n) for n in names}
     todo = {n: p for n, p in targets.items() if not p.is_file()}
     if not todo:
+        compile_cache.record_build(len(targets), 0)
         return targets
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
@@ -94,6 +102,7 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
         os.replace(tmp, out)
     if failures:
         raise RuntimeError("nvcc failed for " + "\n".join(failures))
+    compile_cache.record_build(len(targets) - len(todo), len(todo))
     return targets
 
 

@@ -46,6 +46,7 @@ import torch
 
 from ..core import devtime
 from ..core.aggregation import StreamingAccumulator
+from ..core.compile_cache import maybe_enable_compile_cache
 from ..core.round_pipeline import _mark, _seconds
 from ..core.telemetry import Telemetry
 from ..core.tracking import DeferredMetrics
@@ -157,6 +158,8 @@ class PlanetRoundLoop:
         self.api = api
         args = api.args
         self._validate(api)
+        # the kernels' build cache: idempotent, shared with the api's own call
+        maybe_enable_compile_cache(args)
         self.cohort_size = int(
             getattr(args, "cohort_size", 0) or 0
         ) or int(args.client_num_per_round)

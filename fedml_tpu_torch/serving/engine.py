@@ -93,8 +93,12 @@ class ServingEngine:
         self.default_deadline_s = deadline_ms / 1e3 if deadline_ms > 0 else None
         self.bucket_policy = str(g("serve_bucket", "pow2"))
 
+        from ..core.compile_cache import maybe_enable_compile_cache
         from ..core.telemetry import Telemetry
 
+        # the kernels' build cache (args.compile_cache_dir): a serving
+        # restart reuses its kernels' libraries from disk
+        maybe_enable_compile_cache(args)
         self.telemetry = Telemetry.get_instance(args)
         self.admission = AdmissionController(self.queue_size, self.telemetry)
         self.batcher = MicroBatcher(

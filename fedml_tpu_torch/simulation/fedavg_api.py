@@ -77,6 +77,7 @@ from ..core.aggregation import (
     stack_pytrees,
     weighted_average,
 )
+from ..core.compile_cache import maybe_enable_compile_cache
 from ..core.frame import bind_operator, cohort_train_fn
 from ..core.local_trainer import (
     compute_dtype_from_args,
@@ -307,6 +308,11 @@ class FedAvgAPI:
         # sys_* gauges read this API's card
         self.telemetry = Telemetry.get_instance(args)
         self.telemetry.bind_device(self.device)
+        # the kernels' build cache (core/compile_cache.py): no-op unless
+        # args.compile_cache_dir is set; idempotent process-wide, so every
+        # engine (sync loop, round pipeline, planet loop, serving) shares
+        # one directory
+        maybe_enable_compile_cache(args)
         # the preemption seam (parallel/elastic.py): a caller may set a
         # signal object here; train() otherwise builds it from the knob
         self._preempt_signal = None

@@ -135,11 +135,15 @@ def test_device_and_edge_need_a_card_unless_told(monkeypatch, tmp_path):
     ("lint", "analysis planes"), ("audit", "analysis planes"), ("perf", "analysis planes"),
 ])
 def test_refused_subcommands_name_their_item(command, item, tmp_path):
-    """``lint``, ``audit`` and ``perf`` refuse, naming the analysis planes;
-    ``trace`` and ``check`` are ported and answer a missing directory with
-    the JAX package's usage exit code 2."""
+    """``audit`` and ``perf`` refuse, naming the analysis planes; ``trace``
+    and ``check`` are ported and answer a missing directory with the JAX
+    package's usage exit code 2, and ``lint`` (ported with the analysis
+    planes' lint half) answers a contradictory gate request with it."""
     if command in ("trace", "check"):
         assert cli_main([command, "--telemetry-dir", str(tmp_path / "x")]) == 2
+        return
+    if command == "lint":
+        assert cli_main([command, "--ci", "--update-baseline"]) == 2
         return
     with pytest.raises(NotImplementedError, match=item) as e:
         cli_main([command, "--telemetry-dir", "x"])

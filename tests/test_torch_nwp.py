@@ -30,7 +30,8 @@ LOSS_ATOL = 1e-6
 SEQ_LEN, TRAIN_N, TEST_N, CLIENTS = 16, 48, 16, 4
 
 
-@pytest.mark.parametrize("n, seq_len, vocab, seed", [(40, 16, 90, 0), (7, 33, 300, 5)])
+@pytest.mark.parametrize("n, seq_len, vocab, seed", [(40, 16, 90, 0), (7, 33, 300, 5),
+                                                     (2000, 12, 3001, 7), (9, 6, 1, 1)])
 def test_synthetic_sequences_bitwise(n, seq_len, vocab, seed):
     want = jax_synthetic.synthetic_sequences(n, seq_len, vocab, seed)
     got = synthetic.synthetic_sequences(n, seq_len, vocab, seed)

@@ -436,14 +436,17 @@ class TestCliServe:
 
     @pytest.mark.parametrize("command", ["trace", "lint", "check", "audit", "perf"])
     def test_other_subcommands_name_their_slice(self, command, tmp_path):
-        """``lint``, ``audit`` and ``perf`` still refuse, naming their item;
-        ``trace`` and ``check`` are ported and take the JAX package's flags
+        """``audit`` and ``perf`` still refuse, naming their item; ``trace``,
+        ``check`` and ``lint`` are ported and take the JAX package's flags
         (an unknown one is a usage error)."""
         from fedml_tpu_torch import cli
 
-        if command in ("trace", "check"):
+        if command in ("trace", "check", "lint"):
             with pytest.raises(SystemExit):
                 cli.main([command, "--anything"])
+            if command == "lint":
+                assert cli.main([command, "--ci", "--no-baseline"]) == 2
+                return
             assert cli.main([command, "--telemetry-dir", str(tmp_path / "none")]) == 2
             return
         with pytest.raises(NotImplementedError, match="item 11"):
