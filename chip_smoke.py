@@ -415,6 +415,14 @@ import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
+sys.path.insert(0, str(REPO))
+try:  # the port's device table; without the port, main() exits 2 at once
+    from fedml_tpu_torch.constants import hbm_bandwidth_bytes, peak_bf16_flops
+except ImportError:
+    def hbm_bandwidth_bytes(kind: str) -> float:
+        return 0.0
+
+    peak_bf16_flops = hbm_bandwidth_bytes
 CONFIG = REPO / "fedml_tpu_torch" / "configs" / "serve_transformer_flash.yaml"
 FEDAVG_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "fedavg_femnist_cnn.yaml"
 DENSE_CONFIG = REPO / "fedml_tpu_torch" / "configs" / "fedavg_cifar10_resnet18_bf16.yaml"
@@ -437,8 +445,11 @@ DEADLINE_S = 1140.0
 # product is three TF32 products (lo*hi + hi*lo + hi*hi of a hi/lo
 # split), so its operations take three passes at the 495 TFLOP/s TF32
 # peak. bf16 is bounded by the 989 TFLOP/s bf16 tensor-core peak.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 495e12, torch.bfloat16: 989e12}
+# The bf16 peak and the memory rate come from the port's one device table
+# (fedml_tpu_torch/constants.py); the table has no TF32 column.
+H100_KIND = "NVIDIA H100 80GB HBM3"
+HBM_BYTES_PER_S = hbm_bandwidth_bytes(H100_KIND)
+PEAK_FLOPS = {torch.float32: 495e12, torch.bfloat16: peak_bf16_flops(H100_KIND)}
 PASSES = {torch.float32: 3, torch.bfloat16: 1}
 ROUTE = {torch.float32: "3xTF32", torch.bfloat16: "bf16"}
 
@@ -6211,7 +6222,7 @@ def cs_artifacts(run: dict, telemetry_dir: str, checkpoint_dir: str) -> dict:
              f"{run['rounds']} rounds, flows {trace['flows']}")
     return {"checked": report["checked"], "skipped": report["skipped"],
             "trace": {k: trace[k] for k in ("events", "flows", "rounds_analyzed")},
-            "artifact_bytes": artifact_bytes(telemetry_dir)}
+            "artifact_bytes": artifact_bytes(telemetry_dir), "telemetry_dir": telemetry_dir}
 
 
 def cs_async_checked(dataset) -> dict:
@@ -6983,6 +6994,7 @@ def elastic_mesh_drill() -> dict:
     limbs = elastic_limb_travel({k: v.to(DEVICE) for k, v in straight["params"].items()})
     launches = launch_counts()
     return {"card": card, "rounds": ELASTIC_MESH_ROUNDS, "preempted": list(stopped["preempted"]),
+            "telemetry_dir": td,
             "wal": kinds, "recovery_s": resumed["recovery"][0], "bitwise_equal": True,
             "export_s": exports["export_run_artifacts"], "artifact_bytes": files,
             "scrape_bytes": len(scrape), "cli_trace": trace, "checked": report["checked"],
@@ -6994,6 +7006,142 @@ def run_elastic():
     mesh drill with the exporters, and limb travel. Each part is a path
     of its own in the kernels line (its counts reset just before it)."""
     return {"transformer": elastic_transformer_drill(), "mesh": elastic_mesh_drill()}
+
+
+# -- the eighteenth slice: audit and perf ---------------------------------
+AUDIT_CHILD_FLAG = "--audit-child"
+AUDIT_CHILD_TIMEOUT_S = 120
+AUDIT_EXECUTABLES = 9  # the JAX registry's names
+AUDIT_CASES = 16  # and its census keys
+PERF_MIN_COVERAGE = 0.9  # the JAX plane's default gate
+LEDGER_RECON_TOL = 0.05  # a round's ledger accounts for its wall within 5%
+AUDIT_PERF_BUDGET_S = 30.0  # the phase's budget (reported when exceeded)
+
+
+def audit_child(report: str) -> int:
+    """``cli audit --ci --json`` in a process started with no card visible
+    (its fake tensors sit on ``meta`` in any case); then one JSON line: its
+    exit code, whether CUDA was initialised, the hand kernels' launch
+    counts."""
+    from fedml_tpu_torch.cli import main as cli_main
+    from fedml_tpu_torch.ops.exact_fold import FOLD_KERNEL, MEAN_KERNEL
+    from fedml_tpu_torch.ops.robust_term import TERM_KERNEL
+
+    rc = cli_main(["audit", "--ci", "--json", "--report", report])
+    print(json.dumps({
+        "rc": rc, "cuda_initialized": torch.cuda.is_initialized(),
+        "launches": {k.name: k.launches for k in (FOLD_KERNEL, MEAN_KERNEL, TERM_KERNEL)},
+    }), flush=True)
+    return rc
+
+
+def run_audit_child(report: str) -> dict:
+    """The audit child: its gate line and the audit's JSON line."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), AUDIT_CHILD_FLAG, report],
+                         cwd=str(REPO), env=env, capture_output=True, text=True,
+                         timeout=AUDIT_CHILD_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    try:
+        audit, gate = json.loads(lines[-2]), json.loads(lines[-1])
+    except (IndexError, ValueError):
+        audit = gate = None
+    if out.returncode != 0 or gate is None:
+        fail(f"cli audit child: exit {out.returncode}, stdout {out.stdout[-800:]!r}, "
+             f"stderr {out.stderr[-1500:]!r}")
+    return {"audit": audit, "gate": gate, "wall_s": wall}
+
+
+def perf_report(argv) -> dict:
+    """``cli perf`` in this process (exit 0 or the phase fails); its
+    report file."""
+    out = cli_json(["perf", *argv, "--quiet"])
+    with open(out["report"]) as fh:
+        return json.load(fh)
+
+
+def run_audit_and_perf(elastic_mesh: dict, cross_silo: dict) -> dict:
+    """The eighteenth slice's phase; it trains nothing. ``cli audit`` in a
+    child process with no card visible (16 cases of 9 executables, CUDA
+    never initialised there, no kernel launched); ``cli perf`` on the
+    elastic phase's exporting mesh run (the round series
+    ``simulation.round_fn_mesh`` joined, coverage at least 0.9, the card's
+    bf16 peak from the port's table, the seconds' clock stated), on the
+    cross-silo TRPC World A run's trace (every ledgered round within 5% of
+    its wall) and ``--ratchet`` over the repo's BENCH records (exit 0, the
+    3 groups of the JAX plane, BENCH_r01.json skipped)."""
+    import glob
+    import tempfile
+
+    t0 = time.perf_counter()
+    before = launch_counts()
+    work = tempfile.mkdtemp(prefix="audit_perf_")
+    report = os.path.join(work, "audit_report_torch.json")
+    child = run_audit_child(report)
+    audit, gate = child["audit"], child["gate"]
+    with open(report) as fh:
+        traced = json.load(fh)
+    names = {e["executable"] for e in traced["executables"]}
+    kind = torch.cuda.get_device_name(0)
+    mesh = perf_report(["--telemetry-dir", elastic_mesh["telemetry_dir"], "--audit-report",
+                        report, "--device-kind", kind, "--out",
+                        os.path.join(work, "perf_mesh.json")])
+    roof = mesh["roofline"]
+    rows = {r["executable"]: r for r in roof["rows"]}
+    silo = perf_report(["--telemetry-dir", cross_silo["trpc_stream_artifacts"]["telemetry_dir"],
+                        "--audit-report", report, "--device-kind", kind, "--out",
+                        os.path.join(work, "perf_cross_silo.json")])
+    recon = [r["recon_frac"] for r in silo["ledger"]["rounds"]]
+    ratchet = cli_json(["perf", "--ratchet", *sorted(glob.glob(str(REPO / "BENCH_*.json"))),
+                        "--quiet"])
+    skipped = [os.path.basename(s.split(":")[0]) for s in ratchet["skipped"]]
+    moved = _delta(launch_counts(), before)
+    wall = time.perf_counter() - t0
+    card = card_line()
+    log(f"audit on {card}: child exit {gate['rc']}, {audit['executables']} cases of "
+        f"{len(names)} executables, findings {audit['total']}, CUDA initialised in the child "
+        f"{gate['cuda_initialized']}, the child's launches {gate['launches']}, "
+        f"{child['wall_s']:.2f} s (torch import and 16 fake-tensor traces)")
+    log(f"perf on {card}: mesh run rows "
+        f"{[(r['executable'], r['bucket'], r['calls'], r['device_seconds']) for r in roof['rows']]}"
+        f" ({roof['seconds_clock']}), coverage {roof['coverage']}, peak "
+        f"{roof['peak_bf16_flops']}; cross silo ledger recon {recon}, rows "
+        f"{[(r['executable'], r['calls']) for r in silo['roofline']['rows']]}; ratchet "
+        f"{[(g['phase'], g['device_kind'], g['smoke'], g['verdict']) for g in ratchet['groups']]}"
+        f", skipped {skipped}; phase {wall:.2f} s")
+    if gate["rc"] != 0 or not audit["ok"] or audit["executables"] != AUDIT_CASES \
+            or len(names) != AUDIT_EXECUTABLES:
+        fail(f"audit: exit {gate['rc']}, {audit}")
+    if gate["cuda_initialized"] or any(gate["launches"].values()) or any(moved.values()):
+        fail(f"audit: CUDA initialised {gate['cuda_initialized']}, the child's launches "
+             f"{gate['launches']}, this process's {moved}")
+    mesh_row = rows.get("simulation.round_fn_mesh")
+    if not mesh_row or not mesh_row["joined"] or (roof["coverage"] or 0) < PERF_MIN_COVERAGE \
+            or roof["peak_bf16_flops"] != peak_bf16_flops(H100_KIND) \
+            or roof.get("seconds_clock") != "host wall clock around the call":
+        fail(f"perf on the mesh run: {roof}")
+    if not recon or any(r is None or abs(r - 1.0) > LEDGER_RECON_TOL for r in recon):
+        fail(f"perf on the cross silo run: ledger recon {recon}")
+    if not ratchet["ok"] or len(ratchet["groups"]) != 3 or ratchet["regressions"] \
+            or skipped != ["BENCH_r01.json"]:
+        fail(f"perf --ratchet: {ratchet}")
+    if wall > AUDIT_PERF_BUDGET_S:
+        # a budget, not a correctness gate: the child is host-bound (torch's
+        # import and the fake mode's first use), and host time varies by
+        # machine; the script's own deadline bounds the whole run
+        log(f"audit and perf: {wall:.1f} s, over its {AUDIT_PERF_BUDGET_S} s budget")
+    return {"audit": {"cases": audit["executables"], "executables": len(names),
+                      "findings": audit["total"], "child_wall_s": child["wall_s"],
+                      "cuda_initialized": gate["cuda_initialized"],
+                      "fake_device": traced["fake_device"]},
+            "perf_mesh": {"rows": roof["rows"], "coverage": roof["coverage"],
+                          "seconds_clock": roof["seconds_clock"]},
+            "perf_cross_silo": {"recon_frac": recon,
+                                "coverage": silo["roofline"]["coverage"]},
+            "ratchet": {"groups": len(ratchet["groups"]), "skipped": skipped},
+            "wall_s": wall}
 
 
 def main() -> int:
@@ -7090,6 +7238,9 @@ def main() -> int:
     log(f"cross device numbers on {card}: {json.dumps(cross_device_numbers, default=str)}")
     elastic_numbers = phase("elastic", run_elastic)
     log(f"elastic numbers on {card}: {json.dumps(elastic_numbers, default=str)}")
+    audit_numbers = phase("audit and perf", run_audit_and_perf, elastic_numbers["mesh"],
+                          cross_silo_numbers)
+    log(f"audit and perf numbers on {card}: {json.dumps(audit_numbers, default=str)}")
     log(f"phase wall times (s): {json.dumps(walls)}")
     paths = {
         "serving": slice_numbers, "serving_comm": serving_comm_numbers,
@@ -7130,4 +7281,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [CACHE_CHILD_FLAG]:
         sys.exit(compile_cache_child(*sys.argv[2:4]))
+    if sys.argv[1:2] == [AUDIT_CHILD_FLAG]:
+        sys.exit(audit_child(sys.argv[2]))
     sys.exit(main())

@@ -45,10 +45,20 @@ status JSON line and exits. State lives under ``~/.fedml_tpu_torch/``
   (``--ci`` exits 0 at HEAD; ``--json``, ``--update-baseline``,
   ``--no-baseline``, ``--root``, ``--baseline``).
 
+- ``audit``: the compiled-artifact audit (``analysis/audit.py``): every
+  registered hot executable traced once on fake tensors (nothing
+  executes, no card is touched), checked for host transfers, the pow2
+  shape census and host constants against ``audit_baseline_torch.json``,
+  its static cost written to ``audit_report_torch.json`` (``--ci``,
+  ``--json``, ``--only``, ``--report``, ``--update-baseline``,
+  ``--no-baseline``, ``--root``, ``--baseline``).
+- ``perf``: the performance-attribution plane (``analysis/perf.py``,
+  pure stdlib): a run's measured ``exec_device_seconds`` joined to the
+  audit's FLOPs (``--telemetry-dir``; the seconds are host wall time),
+  the idle-time ledger of its rounds, or the ``--ratchet BENCH_*.json``
+  gate; exit 1 on a regression or low coverage, 2 on a usage error.
+
 ``serve`` exports the run's artifacts to ``telemetry_dir`` when it stops.
-The JAX package's other subcommands, ``audit`` and ``perf``, are parsed
-and refused, naming what they wait for (ROADMAP.md queue A item 11):
-the analysis planes.
 """
 
 from __future__ import annotations
@@ -60,25 +70,31 @@ import signal
 import sys
 import zipfile
 
-_ANALYSIS = "the analysis planes (a port-side counterpart of fedml_tpu/analysis/)"
-# refused subcommand -> what it waits for (ROADMAP.md, queue A item 11)
-_LATER = {
-    "audit": _ANALYSIS,
-    "perf": _ANALYSIS,
-}
-
-
-def _not_ported(args) -> int:
-    raise NotImplementedError(
-        f"`{args.command}` is not ported to PyTorch yet; it arrives with "
-        f"{_LATER[args.command]} (ROADMAP.md, queue A item 11)"
-    )
-
-
 def cmd_lint(args) -> int:
     """Run the port's static-analysis suite (pure stdlib AST, no torch
     work): one ratchet gate against ``lint_baseline_torch.json``."""
     from .analysis.engine import run_cli
+
+    return run_cli(args)
+
+
+def cmd_audit(args) -> int:
+    """Run the compiled-artifact audit: trace every registered hot
+    executable on fake tensors (nothing executes) and check host
+    transfers, the pow2 shape census and host constants against
+    ``audit_baseline_torch.json``, writing the static-cost report."""
+    from .analysis.audit import run_cli
+
+    return run_cli(args)
+
+
+def cmd_perf(args) -> int:
+    """The performance-attribution plane: join a run's measured
+    ``exec_device_seconds`` to the audit report's FLOPs, summarize the
+    per-round idle-time ledger, or (``--ratchet``) gate the BENCH
+    records against their best prior record per phase and device kind.
+    Pure stdlib, like ``lint``."""
+    from .analysis.perf import run_cli
 
     return run_cli(args)
 
@@ -516,17 +532,22 @@ def build_parser() -> argparse.ArgumentParser:
     add_lint_arguments(lint)
     lint.set_defaults(fn=cmd_lint)
 
-    for name in _LATER:
-        sub.add_parser(name).set_defaults(fn=_not_ported)
+    audit = sub.add_parser("audit")
+    from .analysis.audit import add_audit_arguments
+
+    add_audit_arguments(audit)
+    audit.set_defaults(fn=cmd_audit)
+
+    perf = sub.add_parser("perf")
+    from .analysis.perf import add_perf_arguments
+
+    add_perf_arguments(perf)
+    perf.set_defaults(fn=cmd_perf)
     return p
 
 
 def main(argv=None) -> int:
-    parser = build_parser()
-    # the refused subcommands take the JAX package's flags, unparsed
-    args, rest = parser.parse_known_args(argv)
-    if rest and args.fn is not _not_ported:
-        parser.error(f"unrecognized arguments: {' '.join(rest)}")
+    args = build_parser().parse_args(argv)
     return args.fn(args)
 
 

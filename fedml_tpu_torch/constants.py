@@ -167,3 +167,65 @@ DEVICE_WINDOW_REPORT = "report"
 # (never cohort completeness)
 DEVICE_CLOSE_TARGET = "target"
 DEVICE_CLOSE_WINDOW = "window"
+
+# -- the performance-attribution plane (analysis/perf.py, chip_smoke.py) --
+# bf16 dense peak TFLOP/s per device by device kind: the one table every
+# MFU and roofline denominator comes from. The TPU rows are the JAX
+# package's, verbatim (its own spec-sheet numbers, kept so that `cli
+# perf --ratchet` groups the repo's BENCH_*.json records as it does);
+# they describe TPUs, not the port. The card's row is keyed by
+# torch.cuda.get_device_name(0): the H100 SXM data sheet's dense bf16
+# peak. Unknown kinds report achieved FLOP/s without an MFU.
+PEAK_BF16_TFLOPS = {
+    "TPU v4": 275.0,
+    "TPU v5 lite": 197.0,
+    "TPU v5e": 197.0,
+    "TPU v5p": 459.0,
+    "TPU v6 lite": 918.0,
+    "TPU v6e": 918.0,
+    "NVIDIA H100 80GB HBM3": 989.0,
+}
+
+# HBM bandwidth per device (TB/s, the same sheets): the roofline ridge
+# point peak_flops / bandwidth decides a compute- or memory-bound verdict
+HBM_BANDWIDTH_TBPS = {
+    "TPU v4": 1.2,
+    "TPU v5 lite": 0.82,
+    "TPU v5e": 0.82,
+    "TPU v5p": 2.77,
+    "TPU v6 lite": 1.64,
+    "TPU v6e": 1.64,
+    "NVIDIA H100 80GB HBM3": 3.35,
+}
+
+
+def normalize_device_kind(kind: str) -> str:
+    """Canonical device-kind label for bench meta and ratchet grouping:
+    strips per-device ordinals (``"TPU v5 lite0"`` -> ``"TPU v5 lite"``)
+    and folds every CPU spelling (``TFRT_CPU_0``, ``cpu``, ``Cpu0``) to
+    ``"cpu"``, as the JAX package's function does."""
+    k = str(kind or "").strip()
+    if "cpu" in k.lower():
+        return "cpu"
+    # longest match against the table, so "TPU v4i" never folds into
+    # "TPU v4"; an ordinal suffix (digits) is tolerated
+    best = ""
+    low = k.lower()
+    for name in PEAK_BF16_TFLOPS:
+        nl = name.lower()
+        if (low == nl or low.startswith(nl)) and len(name) > len(best):
+            rest = low[len(nl):]
+            if rest == "" or rest.isdigit():
+                best = name
+    return best or k
+
+
+def peak_bf16_flops(kind: str) -> float:
+    """bf16 peak in FLOP/s for ``kind`` (ordinal suffix OK), or 0.0 when
+    unknown: callers treat 0 as "report achieved FLOP/s without an MFU"."""
+    return PEAK_BF16_TFLOPS.get(normalize_device_kind(kind), 0.0) * 1e12
+
+
+def hbm_bandwidth_bytes(kind: str) -> float:
+    """HBM bandwidth in bytes/s, or 0.0 when unknown."""
+    return HBM_BANDWIDTH_TBPS.get(normalize_device_kind(kind), 0.0) * 1e12

@@ -41,12 +41,41 @@ import numpy as np
 import torch
 
 from .. import constants
+from ..analysis.compiled import auditable
 from ..ops import exact_fold
 from ..ops.robust_term import aligned_rows, robust_term
 from . import devtime
 from .compression import Int8Codec, TopKCodec
 
 Params = Dict[str, torch.Tensor]
+
+
+# -- the compiled-artifact audit (fedml_tpu_torch/analysis/compiled.py) --
+# Fake-input builders for the registered term and fold executables:
+# `cli audit` traces each against these (no data, nothing executed) and
+# checks host transfers and host constants on the recorded ops. As in the
+# JAX package, the encoded and decoded codec variants are not registered.
+
+def _audit_spec(ctx) -> "_FlatSpec":
+    return _FlatSpec(ctx.abstract_params_f32())
+
+
+def _audit_term_inputs(ctx):
+    return [("model", (_audit_spec(ctx), ctx.abstract_params_f32(), 0.5), {})]
+
+
+def _audit_term_clipped_inputs(ctx):
+    p = ctx.abstract_params_f32()
+    return [("model", (_audit_spec(ctx), p, p, 1.0, 0.5), {})]
+
+
+def _audit_delta_term_clipped_inputs(ctx):
+    return [("model", (_audit_spec(ctx), ctx.abstract_params_f32(), 1.0, 0.5), {})]
+
+
+def _audit_fold_inputs(ctx):
+    n = _audit_spec(ctx).numel
+    return [("model", (ctx.sds((3, n)), ctx.sds((n,))), {})]
 
 
 def stack_pytrees(trees: Sequence[Params]) -> Params:
@@ -88,6 +117,7 @@ _two_sum = exact_fold.two_sum
 _fold_leaf = exact_fold.fold_leaf
 
 
+@auditable("agg.fold_tree", _audit_fold_inputs, round_shaped=True)
 def _fold_tree(limbs: torch.Tensor, term: torch.Tensor) -> torch.Tensor:
     """Fold an already-weighted term (``[N]``, or ``[K, N]`` folded in
     row order) into the flat expansion ``limbs`` ``[3, N]``, in place;
@@ -183,6 +213,7 @@ class _FlatSpec:
         }
 
 
+@auditable("agg.weighted_term", _audit_term_inputs)
 def _weighted_term(spec: _FlatSpec, theta: Params, w: float) -> torch.Tensor:
     """``t = fl32(w) * theta``, rounded once per element, as one flat
     ``[N]`` f32 tensor: a pure function of (theta, w), whatever the
@@ -291,6 +322,7 @@ def _weighted_term_decoded(spec, codec, encoded, w: float) -> torch.Tensor:
     return _k3(spec, src, scales, w=_row(w, spec.device))
 
 
+@auditable("agg.weighted_term_clipped", _audit_term_clipped_inputs)
 def _weighted_term_clipped(spec, theta: Params, g: Params, bound: float, w: float):
     """Clip against the global + weight: ``w * (g + delta * s)``, delta =
     theta - g. Returns (term, pre-clip norm)."""
@@ -310,6 +342,7 @@ def _weighted_term_encoded_clipped(spec, codec, encoded, like: Params, bound: fl
                s=_clip_scale(norm, bound).reshape(1), w=_row(w, spec.device)), norm
 
 
+@auditable("agg.weighted_delta_term_clipped", _audit_delta_term_clipped_inputs)
 def _weighted_delta_term_clipped(spec, delta: Params, bound: float, w: float):
     """The delta-only clip (the async fold currency): ``w * (delta * s)``."""
     src = spec.flatten(delta)[None]

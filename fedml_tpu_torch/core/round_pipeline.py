@@ -216,7 +216,7 @@ class RoundPipeline:
             rng = api._shuffle_uniforms(sizes[i], bucket)
             api._round_idx = round_idx
             start = _mark(cuda)
-            with devtime.measure("simulation.round_fn", bucket=f"b{bucket}"):
+            with devtime.measure(api._round_exec_name(), bucket=f"b{bucket}"):
                 api.global_params, api.server_state, summed = api._round_fn(
                     api.global_params, api.server_state, packed, nsamples,
                     idx_plan[i], rng, lr_plan[i], valid=valid_plan[i],

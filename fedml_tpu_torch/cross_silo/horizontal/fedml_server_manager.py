@@ -138,19 +138,6 @@ def _resolve_client_real_ids(args, size: int):
     return list(range(1, size))
 
 
-def attribute_idle(*, now: float, bcast_t0: float, last_arrival: float,
-                   aggregate_s: float, prev_close=None) -> Dict[str, float]:
-    """The round's idle gaps (the JAX package's ``analysis/perf.py``
-    ``attribute_idle``): ``arrival_to_aggregate`` is intra-round (last
-    upload in hand -> aggregate start); ``close_to_broadcast`` the
-    server's idle between rounds (previous close -> this broadcast)."""
-    agg_start = now - max(aggregate_s, 0.0)
-    idle = {"arrival_to_aggregate": max(agg_start - last_arrival, 0.0)}
-    if prev_close is not None:
-        idle["close_to_broadcast"] = max(bcast_t0 - prev_close, 0.0)
-    return idle
-
-
 class FedMLServerManager(ServerManager):
     def __init__(
         self,
@@ -1549,8 +1536,10 @@ class FedMLServerManager(ServerManager):
         # close_to_broadcast: server idle BETWEEN rounds (previous
         # ledger close -> this broadcast); inter-round by construction,
         # so it is excluded from the intra-round reconciliation. The
-        # arithmetic is attribute_idle's (below), the JAX package's
-        # analysis/perf.py function
+        # arithmetic lives in analysis/perf.py (attribute_idle), so the
+        # oracle tests exercise the exact code the live server runs
+        from ...analysis.perf import attribute_idle
+
         idle = attribute_idle(
             now=now,
             bcast_t0=self._bcast_t0,

@@ -24,6 +24,7 @@ import os
 import shutil
 import subprocess
 import threading
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -123,11 +124,45 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+_fake_type = None  # torch's FakeTensor class, looked up at the first call
+
+
+def faked(*tensors) -> bool:
+    """True when one of ``tensors`` is a fake tensor (``FakeTensorMode``):
+    the audit's trace (``analysis/compiled.py``), where a wrapper records
+    its kernel's call and launches nothing. An ``isinstance`` test, so
+    that a launch pays well under a microsecond for it."""
+    global _fake_type
+    if _fake_type is None:
+        from torch._subclasses.fake_tensor import FakeTensor
+
+        _fake_type = FakeTensor
+    return any(isinstance(t, _fake_type) for t in tensors)
+
+
+# the audit trace's sink of kernel calls on fake tensors (``tracing``)
+_trace_sink = None
+
+
+@contextmanager
+def tracing(sink):
+    """While the block runs, a wrapper called on fake tensors hands
+    ``sink(name, flops, bytes)`` its kernel's cost in place of a launch."""
+    global _trace_sink
+    prev, _trace_sink = _trace_sink, sink
+    try:
+        yield
+    finally:
+        _trace_sink = prev
+
+
 def cuda_device(name: str, **tensors):
-    """The one CUDA device all ``tensors`` share; raises ``ValueError``
-    naming the kernel and the operands' devices otherwise."""
+    """The one CUDA device all ``tensors`` share (or, in the audit's
+    trace, the fake tensors' one device); raises ``ValueError`` naming
+    the kernel and the operands' devices otherwise."""
     devices = {t.device for t in tensors.values()}
-    if any(not t.is_cuda for t in tensors.values()) or len(devices) != 1:
+    if len(devices) != 1 or (any(not t.is_cuda for t in tensors.values())
+                             and not faked(*tensors.values())):
         raise ValueError(
             f"{name}: operands on {({k: str(t.device) for k, t in tensors.items()})}; "
             "the kernel takes tensors on one CUDA device"
@@ -173,6 +208,16 @@ class Kernel:
             err.restype = ctypes.c_char_p
             self._fn, self._err = fn, err
         return self._fn
+
+    def trace(self, flops: float, nbytes: float) -> None:
+        """A call on fake tensors, recorded in the audit's trace in place
+        of a launch: ``flops`` and ``nbytes`` are the call's work by the
+        kernel's bound formulas. Nothing launches and ``launches`` does
+        not move; outside a trace a fake tensor raises."""
+        if _trace_sink is None:
+            raise RuntimeError(f"{self.name}: fake tensors outside the audit's trace; the "
+                               "kernel launches only on real CUDA tensors")
+        _trace_sink(self.name, flops, nbytes)
 
     def _launch(self, device, *args) -> None:
         """Call the entry point on ``device``'s current stream; raises on

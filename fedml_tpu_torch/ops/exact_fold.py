@@ -37,7 +37,10 @@ in launches of that many, in edge order.
 
 Dispatch follows the tensor's device and nothing else: a CPU tensor
 takes the plain version; a CUDA tensor launches the kernel or raises.
-Each launch adds one to the kernel's ``launches``.
+Each launch adds one to the kernel's ``launches``. A fake tensor (the
+audit's trace, ``analysis/compiled.py``) launches nothing: the wrapper
+records the call's work by the bound's formulas and returns outputs of
+the kernel's shapes.
 """
 
 from __future__ import annotations
@@ -191,6 +194,12 @@ class ExactFoldKernel(_build.Kernel):
         _check_mask(self.name, mask, E)
         if n == 0 or mask == 0 or rows == 0:
             return
+        if _build.faked(limbs, terms):
+            # (6 + K) * N * 4 bytes and 13 adds an element a term (two
+            # two-sums and the low limb's add) for K terms into one limb set
+            edges = bin(mask).count("1")
+            K = edges * rows
+            return self.trace(13 * K * n, (7 * edges if per_edge else 6 + K) * n * 4)
         self._launch(device, limbs.data_ptr(), edge_l, limbs.stride(-2), terms.data_ptr(),
                      edge_t, ld_t, rows, mask, int(per_edge), n)
 
@@ -217,6 +226,12 @@ class ExactWeightedMeanKernel(_build.Kernel):
             x = x.contiguous()
         w = w.contiguous()
         out = torch.empty(x.shape[1], dtype=x.dtype, device=device)
+        if _build.faked(x, w):
+            # (C + 1) * N elements and w; a multiply and the fold's 13 adds
+            # an element a client, the collapse's 2 adds an element
+            C, n = x.shape
+            self.trace((14 * C + 2) * n, (C + 1) * n * x.element_size() + C * 4)
+            return out
         if x.shape[1]:
             self._launch(device, x.data_ptr(), x.stride(0), w.data_ptr(), x.shape[0],
                          out.data_ptr(), x.shape[1], _DTYPE_CODES[x.dtype])
@@ -231,7 +246,7 @@ def fold(limbs: torch.Tensor, terms: torch.Tensor) -> None:
     """Fold ``terms`` ``[K, N]`` (or one ``[N]``) in index order into
     ``limbs`` ``[3, N]`` f32, in place: the kernel for CUDA tensors, the
     plain version for CPU ones."""
-    if limbs.is_cuda or terms.is_cuda:
+    if limbs.is_cuda or terms.is_cuda or _build.faked(limbs, terms):
         FOLD_KERNEL(limbs, (terms if terms.dim() == 2 else terms.unsqueeze(0)).unsqueeze(0), 1)
     else:
         fold_reference(limbs, terms)
@@ -242,7 +257,7 @@ def fold_edges(limbs: torch.Tensor, terms: torch.Tensor, mask: int) -> None:
     N]``) into ``limbs[e]`` (``[E, 3, N]`` f32), in place: one kernel
     launch for CUDA tensors (one per ``MAX_EDGES`` edges), the plain
     version for CPU ones."""
-    if not (limbs.is_cuda or terms.is_cuda):
+    if not (limbs.is_cuda or terms.is_cuda or _build.faked(limbs, terms)):
         return fold_edges_reference(limbs, terms, mask)
     for e0 in range(0, max(terms.shape[0], 1), MAX_EDGES):
         part = (mask >> e0) & ((1 << MAX_EDGES) - 1)
@@ -256,7 +271,7 @@ def fold_set(limbs: torch.Tensor, terms: torch.Tensor, mask: int) -> None:
     the bitmask ``mask``, edges in index order, into ``limbs`` ``[3, N]``
     f32, in place: one kernel launch for CUDA tensors (one per
     ``MAX_EDGES`` edges, in order), the plain version for CPU ones."""
-    if not (limbs.is_cuda or terms.is_cuda):
+    if not (limbs.is_cuda or terms.is_cuda or _build.faked(limbs, terms)):
         return fold_set_reference(limbs, terms, mask)
     for e0 in range(0, max(terms.shape[0], 1), MAX_EDGES):
         part = (mask >> e0) & ((1 << MAX_EDGES) - 1)
@@ -268,6 +283,6 @@ def weighted_mean(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The exact weighted sum ``sum_c w_c x_c`` over ``x``'s leading axis,
     ``[N]`` in ``x``'s dtype: the kernel for CUDA tensors, the plain
     version for CPU ones."""
-    if x.is_cuda or w.is_cuda:
+    if x.is_cuda or w.is_cuda or _build.faked(x, w):
         return MEAN_KERNEL(x, w)
     return weighted_mean_reference(x, w)

@@ -40,7 +40,10 @@ that is not into such a layout first.
 
 Dispatch follows the tensor's device and nothing else: a CPU tensor
 takes the plain version; a CUDA tensor launches the kernel or raises.
-Each launch adds one to ``TERM_KERNEL.launches``.
+Each launch adds one to ``TERM_KERNEL.launches``. A fake tensor (the
+audit's trace, ``analysis/compiled.py``) launches nothing: the wrapper
+records the call's work by the bound's formulas and returns a term of
+the kernel's shape.
 """
 
 from __future__ import annotations
@@ -158,6 +161,15 @@ class RobustTermKernel(_build.Kernel):
         device = _build.cuda_device(self.name, **operands)
         _check(src, g, add_g, leaf_scales, leaf_offsets, s, w)
         R, N = src.shape
+        if _build.faked(*operands.values()):
+            # the bound's bytes (a row's source and its f32 output, g once,
+            # the small operands) and one operation a step an element a row
+            steps = (src.dtype == torch.int8) + (s is not None) + bool(add_g) + (w is not None)
+            small = sum(t.numel() * t.element_size() for t in (leaf_scales, leaf_offsets, s, w)
+                        if t is not None)
+            self.trace(steps * R * N,
+                       R * N * (src.element_size() + 4) + (N * 4 if add_g else 0) + small)
+            return aligned_rows(R, N, device=device)
         src = _on_16_bytes(src)
         if add_g:
             g = _on_16_bytes(g)
@@ -195,6 +207,6 @@ def robust_term(src: torch.Tensor, g: Optional[torch.Tensor] = None, *,
     ones."""
     kw = dict(add_g=add_g, leaf_scales=leaf_scales,
               leaf_offsets=leaf_offsets, s=s, w=w)
-    if src.is_cuda:
+    if src.is_cuda or _build.faked(src):
         return TERM_KERNEL(src, g, **kw)
     return robust_term_reference(src, g, **kw)

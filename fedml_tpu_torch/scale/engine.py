@@ -44,6 +44,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
+from ..analysis.compiled import auditable, pow2_budget
 from ..core import devtime
 from ..core.aggregation import StreamingAccumulator
 from ..core.compile_cache import maybe_enable_compile_cache
@@ -134,6 +135,34 @@ def build_group_fn(
         return global_params, terms, edge_w, summed
 
     return group_fn
+
+
+@auditable(
+    "planet.group_fn",
+    round_shaped=True,
+    census_budget=lambda ctx: (
+        pow2_budget(ctx.cohort_buckets) * pow2_budget(ctx.nb_census)
+    ),
+)
+def _audit_group_fn_cases(ctx):
+    """`cli audit` provider: the per-(bucket, nb) group computation the
+    planet loop runs, traced across the two-axis pow2 census on fake
+    tensors, with no registry and no data."""
+    from ..analysis.compiled import LoweringCase
+
+    fn = build_group_fn(ctx.local_train_fn())
+    params = ctx.abstract_params()
+    E = max(1, ctx.edge_num)
+    return [
+        LoweringCase(
+            key=f"b{b}xnb{nb}",
+            fn=fn,
+            args=(params, ctx.abstract_group_batches(b, nb), ctx.sds((b,)), ctx.sds((b,)),
+                  ctx.sds((b, E)), ctx.abstract_uniforms(b, nb)),
+        )
+        for b in ctx.cohort_buckets
+        for nb in ctx.nb_census
+    ]
 
 
 def planet_knobs_active(args) -> bool:

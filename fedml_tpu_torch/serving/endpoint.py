@@ -12,8 +12,9 @@ for another model configuration fail loudly before any request sees
 them.
 
 What does not carry over: eager PyTorch has no trace, so there is no
-per-bucket trace count (``trace_counts``) and no ``@auditable``
-lowering provider for the compiled-artifact audit.
+per-bucket trace count (``trace_counts``). The served forward is
+``build_forward``'s, which the compiled-artifact audit traces across the
+serve-bucket census on fake tensors (``serving.forward``).
 """
 
 from __future__ import annotations
@@ -24,9 +25,41 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..analysis.compiled import auditable, pow2_budget
 from ..models.spec import FedModel, Params
 
-__all__ = ["ModelEndpoint"]
+__all__ = ["ModelEndpoint", "build_forward"]
+
+
+@auditable(
+    "serving.forward",
+    census_budget=lambda ctx: pow2_budget(ctx.serve_buckets),
+)
+def _audit_forward_cases(ctx):
+    """`cli audit` provider: the served forward the endpoint runs,
+    traced across the serve-bucket census on fake tensors. The hot rule
+    proves a request never makes the card wait on the host."""
+    from ..analysis.compiled import LoweringCase
+
+    fn = build_forward(ctx.model().apply)
+    params = ctx.abstract_params()
+    return [
+        LoweringCase(key=f"b{b}", fn=fn, args=(params, ctx.sds((b, ctx.feature_dim))))
+        for b in ctx.serve_buckets
+    ]
+
+
+def build_forward(apply_fn):
+    """The served forward as a pure function of the model's ``apply``:
+    ``fwd(params, x)`` on one bucket-padded batch on the device, without
+    autograd. Module-level, so that the audit traces the computation the
+    endpoints run without building one."""
+
+    def fwd(params: Params, x: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return apply_fn(params, x)
+
+    return fwd
 
 
 def _spec(params: Params) -> List[Tuple[str, Tuple[int, ...], str, str]]:
@@ -47,6 +80,7 @@ class ModelEndpoint:
         self.device = model.device
         self._lock = threading.Lock()
         self._params = self._place(params)
+        self._served = build_forward(model.apply)
         self.version = int(version)
         self.swaps = 0
 
@@ -73,8 +107,7 @@ class ModelEndpoint:
         landing midway affects the NEXT batch, never tears this one."""
         params = self.params()
         xt = torch.as_tensor(x).to(self.device)
-        with torch.inference_mode():
-            return self.model.apply(params, xt)
+        return self._served(params, xt)
 
     # -- hot swap ------------------------------------------------------
     def swap(self, new_params: Dict, version: Optional[int] = None) -> int:

@@ -46,11 +46,36 @@ from ..parallel.layout import (
     shard_tree,
     tree_specs,
 )
-from .endpoint import ModelEndpoint
+from ..analysis.compiled import auditable, pow2_budget
+from .endpoint import ModelEndpoint, build_forward
 
 __all__ = ["MeshModelEndpoint", "build_mesh_forward"]
 
 Params = Dict[str, torch.Tensor]
+
+
+@auditable(
+    "serving.forward_mesh",
+    census_budget=lambda ctx: pow2_budget(ctx.serve_buckets),
+)
+def _audit_mesh_forward_cases(ctx):
+    """`cli audit` provider: the mesh-served forward the endpoint runs,
+    traced across the serve-bucket census on the fed ``{data: 1, fsdp:
+    1}`` mesh of the audit's world of one rank, the params at their
+    at-rest shards. The hot rule proves a request never makes the card
+    wait on the host."""
+    from ..analysis.compiled import LoweringCase
+
+    mesh = ctx.mesh()
+    full = ctx.abstract_params()
+    specs = tree_specs(full, mesh)
+    with ctx.fake_mode():
+        params = shard_tree(full, mesh, specs)
+    fn = build_forward(build_mesh_forward(ctx.model().apply, mesh, specs))
+    return [
+        LoweringCase(key=f"b{b}", fn=fn, args=(params, ctx.sds((b, ctx.feature_dim))))
+        for b in ctx.serve_buckets
+    ]
 
 
 def build_mesh_forward(apply_fn, mesh, specs):
@@ -156,7 +181,7 @@ class MeshModelEndpoint(ModelEndpoint):
         self.shard_multiple = cohort_axis_size(mesh)
         self._last_published: Optional[int] = None
         self._specs = tree_specs(params, mesh)
-        self._fwd = build_mesh_forward(model.apply, mesh, self._specs)
+        self._fwd = build_forward(build_mesh_forward(model.apply, mesh, self._specs))
         super().__init__(model, params, version=version)
         self._channel = _channel_for(mesh, self.device)
         self._eid = self._channel.register(self)
@@ -187,9 +212,7 @@ class MeshModelEndpoint(ModelEndpoint):
             return self._forward(xt)
 
     def _forward(self, xt: torch.Tensor) -> torch.Tensor:
-        params = self.params()
-        with torch.inference_mode():
-            return self._fwd(params, xt)
+        return self._fwd(self.params(), xt)
 
     # -- hot swap ------------------------------------------------------
     def swap(self, new_params: Params, version: Optional[int] = None) -> int:
@@ -266,7 +289,7 @@ class MeshModelEndpoint(ModelEndpoint):
             self._specs = specs
             self.shard_multiple = cohort_axis_size(new_mesh)
             self._params = placed
-            self._fwd = build_mesh_forward(self.model.apply, new_mesh, specs)
+            self._fwd = build_forward(build_mesh_forward(self.model.apply, new_mesh, specs))
         from ..core.telemetry import Telemetry
 
         tel = Telemetry.get_instance()

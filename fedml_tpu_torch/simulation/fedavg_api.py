@@ -69,6 +69,7 @@ from torch.utils import _pytree as pytree
 
 from ..core import devtime
 from .. import constants
+from ..analysis.compiled import auditable, pow2_budget
 from ..core.aggregation import (
     RobustAggregator,
     derive_defense_rng,
@@ -186,6 +187,75 @@ def build_round_fn(local_train, aggregate, preprocess=None, keep_stacked: bool =
         return new_global, new_state, summed
 
     return round_fn
+
+
+def _audit_round_cases(ctx, fn, params):
+    """The round's census: ``fn`` at each cohort bucket over a packed
+    federation of twice the largest bucket."""
+    from ..analysis.compiled import LoweringCase
+
+    n_total = max(ctx.cohort_buckets) * 2
+    packed = ctx.abstract_batches(n_total)
+    nsamples = ctx.sds((n_total,))
+    return [
+        LoweringCase(
+            key=f"b{b}",
+            fn=fn,
+            args=(params, (), packed, nsamples, ctx.sds((b,), "int64"),
+                  ctx.abstract_uniforms(b)),
+            kwargs={"valid": ctx.sds((b,))},
+        )
+        for b in ctx.cohort_buckets
+    ]
+
+
+@auditable(
+    "simulation.round_fn",
+    round_shaped=True,
+    census_budget=lambda ctx: pow2_budget(ctx.cohort_buckets),
+)
+def _audit_round_fn_cases(ctx):
+    """`cli audit` provider: the round engine the runtime builds (same
+    builder), traced across the pow2 cohort census on fake tensors: no
+    dataset, no params, nothing executed. The host-transfer checker
+    proves the round never makes the card wait on the host."""
+
+    def aggregate(global_params, server_state, stacked, weights, cohort, rng):
+        # the stock FedAvg reduction: the shape every _aggregate
+        # override (FedOpt/FedNova/defenses) is generic over
+        return weighted_average(stacked, weights), server_state
+
+    fn = build_round_fn(ctx.local_train_fn(), aggregate)
+    return _audit_round_cases(ctx, fn, ctx.abstract_params())
+
+
+@auditable(
+    "simulation.round_fn_mesh",
+    round_shaped=True,
+    census_budget=lambda ctx: pow2_budget(ctx.cohort_buckets),
+)
+def _audit_round_fn_mesh_cases(ctx):
+    """`cli audit` provider for the mesh round: the same builder as
+    ``FedAvgAPI.attach_mesh`` on the fed ``{data: 1, fsdp: 1}`` mesh of
+    the audit's world of one rank (the JAX provider lowers a 1x1 mesh on
+    one CPU device), the params at their at-rest shards, the at-use
+    gather and the at-rest shard around it, and the exact fold the mesh
+    path really runs (``exact_weighted_mean``, K1)."""
+    from ..parallel.layout import gather_tree, shard_tree, tree_specs
+
+    mesh = ctx.mesh()
+    full = ctx.abstract_params()
+    specs = tree_specs(full, mesh)
+
+    def aggregate(global_params, server_state, stacked, weights, cohort, rng):
+        return exact_weighted_mean(stacked, weights), server_state
+
+    fn = build_round_fn(ctx.local_train_fn(), aggregate, mesh=mesh,
+                        at_use=lambda p: gather_tree(p, mesh, specs),
+                        at_rest=lambda p: shard_tree(p, mesh, specs))
+    with ctx.fake_mode():
+        params = shard_tree(full, mesh, specs)
+    return _audit_round_cases(ctx, fn, params)
 
 
 def deterministic_client_sampling(
@@ -392,6 +462,12 @@ class FedAvgAPI:
                                         mesh=mesh, at_use=self.full_params,
                                         at_rest=self._at_rest,
                                         aggregate_reads_masks=self._aggregate_reads_masks)
+
+    def _round_exec_name(self) -> str:
+        """The registry name of the round this API dispatches: the
+        ``executable`` tag of its ``exec_device_seconds`` series, which
+        ``cli perf`` joins to the audit report's row of that name."""
+        return "simulation.round_fn_mesh" if self.mesh is not None else "simulation.round_fn"
 
     def full_params(self, params: Optional[Params] = None) -> Params:
         """``params`` (default: the global params) whole: on a fed mesh
@@ -703,18 +779,20 @@ class FedAvgAPI:
         rng = self._shuffle_uniforms(len(idx))
         lr_mult = self._lr_mult(round_idx)
         self._round_idx = round_idx
-        with devtime.measure("simulation.round_fn", bucket=f"b{len(idx)}"):
-            if self.mode == "sequential":
-                self.global_params, summed = self._sequential_round(idx, rng, lr_mult, nsamples)
-            else:
-                out = self._round_fn(
-                    self.global_params, self.server_state, packed, nsamples,
-                    torch.as_tensor(idx, dtype=torch.int64, device=self.device), rng,
-                    lr_mult,
-                )
-                self.global_params, self.server_state, summed = out[:3]
-                if self._keep_stacked:
-                    self._post_round_stacked(out[3], idx, round_idx)
+        if self.mode == "sequential":
+            # no round series: the JAX package measures only the vmapped
+            # round (a sequential round is many executables, not one)
+            self.global_params, summed = self._sequential_round(idx, rng, lr_mult, nsamples)
+            return summed
+        with devtime.measure(self._round_exec_name(), bucket=f"b{len(idx)}"):
+            out = self._round_fn(
+                self.global_params, self.server_state, packed, nsamples,
+                torch.as_tensor(idx, dtype=torch.int64, device=self.device), rng,
+                lr_mult,
+            )
+            self.global_params, self.server_state, summed = out[:3]
+            if self._keep_stacked:
+                self._post_round_stacked(out[3], idx, round_idx)
         return summed
 
     def run_round(self, round_idx: int) -> Dict[str, torch.Tensor]:

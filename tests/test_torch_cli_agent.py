@@ -135,19 +135,17 @@ def test_device_and_edge_need_a_card_unless_told(monkeypatch, tmp_path):
     ("lint", "analysis planes"), ("audit", "analysis planes"), ("perf", "analysis planes"),
 ])
 def test_refused_subcommands_name_their_item(command, item, tmp_path):
-    """``audit`` and ``perf`` refuse, naming the analysis planes; ``trace``
-    and ``check`` are ported and answer a missing directory with the JAX
-    package's usage exit code 2, and ``lint`` (ported with the analysis
-    planes' lint half) answers a contradictory gate request with it."""
-    if command in ("trace", "check"):
+    """Every subcommand of the analysis planes and the exporters is
+    ported and answers a usage error with the JAX package's exit code 2:
+    ``trace`` and ``check`` a missing directory, ``perf`` a missing
+    directory and a call without a mode, ``lint`` and ``audit`` a
+    contradictory gate request. No subcommand refuses any more."""
+    if command in ("trace", "check", "perf"):
         assert cli_main([command, "--telemetry-dir", str(tmp_path / "x")]) == 2
+        if command == "perf":
+            assert cli_main([command]) == 2
         return
-    if command == "lint":
-        assert cli_main([command, "--ci", "--update-baseline"]) == 2
-        return
-    with pytest.raises(NotImplementedError, match=item) as e:
-        cli_main([command, "--telemetry-dir", "x"])
-    assert "item 11" in str(e.value)
+    assert cli_main([command, "--ci", "--update-baseline"]) == 2
 
 
 # -- tests/test_cli_observability.py's CLI and agent, on the port -------------

@@ -536,13 +536,22 @@ def test_cli_lint_ci_json_exits_zero_at_head(capsys):
 
 
 def test_analysis_imports_only_the_standard_library():
+    """Every import of the analysis planes is the standard library's (or
+    the package's own, relative), with one exception, the JAX package's
+    own contract (``fedml_tpu/analysis/compiled.py``): ``compiled.py``
+    and ``audit.py`` may import torch inside a function body, never at
+    module level. ``perf.py`` stays stdlib throughout."""
     stdlib = set(sys.stdlib_module_names) | {"__future__"}
     names = sorted(n for n in os.listdir(ANALYSIS) if n.endswith(".py"))
-    assert names == ["__init__.py", "determinism.py", "engine.py", "exceptions.py",
-                     "hostsync.py", "registry.py", "threads.py"]
+    assert names == ["__init__.py", "audit.py", "compiled.py", "determinism.py", "engine.py",
+                     "exceptions.py", "hostsync.py", "perf.py", "registry.py", "threads.py"]
+    torch_in_functions = {"audit.py", "compiled.py"}
     for name in names:
         with open(os.path.join(ANALYSIS, name), encoding="utf-8") as fh:
             tree = ast.parse(fh.read())
+        in_function = {id(node) for fn in ast.walk(tree)
+                       if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
+                       for node in ast.walk(fn)}
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 mods = [a.name for a in node.names]
@@ -553,4 +562,8 @@ def test_analysis_imports_only_the_standard_library():
             else:
                 continue
             for mod in mods:
-                assert mod.split(".")[0] in stdlib, f"{name} imports {mod}"
+                top = mod.split(".")[0]
+                if top == "torch" and name in torch_in_functions:
+                    assert id(node) in in_function, f"{name} imports {mod} at module level"
+                    continue
+                assert top in stdlib, f"{name} imports {mod}"

@@ -436,21 +436,23 @@ class TestCliServe:
 
     @pytest.mark.parametrize("command", ["trace", "lint", "check", "audit", "perf"])
     def test_other_subcommands_name_their_slice(self, command, tmp_path):
-        """``audit`` and ``perf`` still refuse, naming their item; ``trace``,
-        ``check`` and ``lint`` are ported and take the JAX package's flags
-        (an unknown one is a usage error)."""
+        """``trace``, ``check``, ``lint``, ``audit`` and ``perf`` are ported
+        and take the JAX package's flags: an unknown one is a usage error
+        (``SystemExit``), and each answers a usage mistake with exit code
+        2 (``perf`` without a mode, ``audit --ci --update-baseline``), as
+        the JAX cli does."""
         from fedml_tpu_torch import cli
 
-        if command in ("trace", "check", "lint"):
-            with pytest.raises(SystemExit):
-                cli.main([command, "--anything"])
+        with pytest.raises(SystemExit):
+            cli.main([command, "--anything"])
+        if command in ("lint", "audit"):
+            assert cli.main([command, "--ci", "--update-baseline"]) == 2
             if command == "lint":
                 assert cli.main([command, "--ci", "--no-baseline"]) == 2
-                return
-            assert cli.main([command, "--telemetry-dir", str(tmp_path / "none")]) == 2
             return
-        with pytest.raises(NotImplementedError, match="item 11"):
-            cli.main([command, "--anything"])
+        if command == "perf":
+            assert cli.main([command]) == 2
+        assert cli.main([command, "--telemetry-dir", str(tmp_path / "none")]) == 2
 
     def test_telemetry_dir_export_names_its_slice(self, tmp_path):
         """A ``telemetry_dir`` no longer refuses ``serve``: a dry run builds

@@ -328,6 +328,33 @@ def mesh_sim(rank: int, payload: dict) -> list:
     return [_mesh_one(run) for run in payload["runs"]]
 
 
+def devtime_series(rank: int, payload: dict) -> list:
+    """Each run of ``payload["runs"]`` as ``mesh_sim`` runs it, from a
+    fresh telemetry registry; for each, the ``exec_device_seconds``
+    series of its snapshot: ``{"executable|bucket": count}``."""
+    from fedml_tpu_torch.core.telemetry import Telemetry
+
+    out = []
+    for run in payload["runs"]:
+        Telemetry.reset()
+        _mesh_one(run)
+        hists = Telemetry.get_instance().snapshot()["histograms"]
+        out.append(exec_series(hists))
+    return out
+
+
+def exec_series(histograms: dict) -> dict:
+    """``{"executable|bucket": count}`` of the ``exec_device_seconds``
+    histograms of a telemetry snapshot (either package's)."""
+    out = {}
+    for key, h in histograms.items():
+        if not key.startswith("exec_device_seconds{"):
+            continue
+        tags = dict(part.split("=", 1) for part in key[key.index("{") + 1:-1].split(","))
+        out[f"{tags.get('executable', '')}|{tags.get('bucket', '')}"] = int(h["count"])
+    return out
+
+
 def _np_dataset(d: dict):
     import torch
 
