@@ -5,7 +5,7 @@ Drives the port's paths once each through the entry points a user
 calls, and holds every hand-written kernel against its plain PyTorch
 version on the card:
 
-- serving: ``load_arguments`` on
+- serving: ``load_yaml_arguments`` on
   ``fedml_tpu_torch/configs/serve_transformer_flash.yaml``,
   ``models.create``, ``convert.params_from_flax``, ``ModelEndpoint`` and
   ``ServingEngine``, at the full width of that configuration (embed 512,
@@ -380,6 +380,18 @@ Phases, each of which fails the run:
    as reckoned and no plain version, the three artifacts and no stall
    bundle, the scrape's counters and ``sys_device`` gauges, ``cli
    trace`` and ``cli check`` exiting 0.
+26. examples (after audit and perf): the scripts a user starts first,
+   each a child process on the card in a copy of its directory with its
+   own YAML unchanged (``device_type`` defaults to ``cuda``):
+   ``simulation_sp/one_line``, ``simulation_sp/custom`` and
+   ``cross_device/one_line`` of ``fedml_tpu_torch/examples/``, and a
+   child that calls ``fedml_tpu_torch.init()`` with no ``--cf`` and
+   prints the table it resolved (it trains nothing). The children run
+   side by side. Gates: each example exits 0 with one ``FINAL:`` line
+   of finite losses at its last round; the default table is the JAX
+   package's shipped one (mnist, 1000 clients, 200 rounds, batch 10,
+   weight decay 0.001) on ``cuda``. Its seconds are reported against a
+   40 s budget.
 The kernels phase also holds the rows route (head dims above 128),
 forward and backward, f32 and bf16, at D 160, 192, 256, 384 and 512,
 causal and not, at [2, 2048, 4, D], and at [8, 4096, 8, 256] causal,
@@ -1478,13 +1490,13 @@ def full_attention_logits(args, output_dim, params, rows):
 
 def run_slice(kernels):
     from fedml_tpu_torch import models
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
     from fedml_tpu_torch.convert import params_from_flax
     from fedml_tpu_torch.core import devtime
     from fedml_tpu_torch.ops.flash_attention import FWD_KERNEL
     from fedml_tpu_torch.serving import ModelEndpoint, ServingEngine
 
-    args = load_arguments(str(CONFIG))
+    args = load_yaml_arguments(str(CONFIG))
     output_dim = 90  # class_num of the shakespeare stand-in
     model = models.create(args, output_dim, device=DEVICE)
     vocab, T, L = model.input_bound, int(args.seq_len), int(args.num_layers)
@@ -1868,13 +1880,13 @@ def serve_cli_dry_run() -> dict:
 
 def run_serving_comm():
     from fedml_tpu_torch import models
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
     from fedml_tpu_torch.convert import params_from_flax
     from fedml_tpu_torch.core.telemetry import Telemetry
     from fedml_tpu_torch.ops.flash_attention import FWD_KERNEL
     from fedml_tpu_torch.serving import ServingFleet
 
-    args = load_arguments(str(CONFIG))
+    args = load_yaml_arguments(str(CONFIG))
     args.serve_fleet_size = SERVE_COMM_FLEET
     args.serve_deadline_ms = 0.0  # no default deadline: every request is answered
     output_dim = 90
@@ -2031,7 +2043,7 @@ def compile_cache_child(cache_dir: str, answers_path: str) -> int:
     t0 = time.perf_counter()
     sys.path.insert(0, str(REPO))
     from fedml_tpu_torch import models
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
     from fedml_tpu_torch.convert import params_from_flax
     from fedml_tpu_torch.core import compile_cache
     from fedml_tpu_torch.core.telemetry import Telemetry
@@ -2053,7 +2065,7 @@ def compile_cache_child(cache_dir: str, answers_path: str) -> int:
         return out
 
     subprocess.Popen, _build.build = popen, timed_build
-    args = load_arguments(str(CONFIG))
+    args = load_yaml_arguments(str(CONFIG))
     args.compile_cache_dir = cache_dir
     args.serve_deadline_ms = 0.0
     args._validate()
@@ -2162,7 +2174,7 @@ def compile_cache_children() -> dict:
 
 def run_native_and_cache():
     from fedml_tpu_torch import models
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
     from fedml_tpu_torch.convert import params_from_flax
     from fedml_tpu_torch.core.telemetry import Telemetry
     from fedml_tpu_torch.ops.flash_attention import FWD_KERNEL
@@ -2172,7 +2184,7 @@ def run_native_and_cache():
     log(f"native: g++ on PATH: {gxx[0] or 'no'}" + (f", {gxx[1]}" if gxx[0] else
         "; ensure_broker takes the Python broker (the JAX package's fallback)"))
     out = {"build": native_build(gxx)}
-    args = load_arguments(str(CONFIG))
+    args = load_yaml_arguments(str(CONFIG))
     args.serve_fleet_size = SERVE_COMM_FLEET
     args.serve_deadline_ms = 0.0
     output_dim = 90
@@ -2476,12 +2488,16 @@ def profile_summary(tag: str, summary: dict, kind_table=KERNEL_KINDS) -> dict:
         log(f"{tag}: the profiler saw no device events; device time not measured")
         return {"wall_ms": window * 1e3, "device_busy_ms": None}
     total = summary["device_kernel_s"]
+    # RoundProfiler's summaries count the launches with no device record
+    lost = ("" if "device_records_lost" not in summary else
+            f", {summary['device_records_lost']} launches the profiler holds no device "
+            f"record of")
     log(f"{tag}: wall {window * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
         f"({busy / window:.1%}), idle {(window - busy) * 1e3:.1f} ms; kernel time "
         f"{total * 1e3:.1f} ms summed over streams (cuDNN runs a grouped convolution's "
         f"groups on several streams, so it can exceed the busy time); "
         f"{summary['device_launches']} device intervals, {len(by_kernel)} distinct "
-        f"kernels; by kind:")
+        f"kernels{lost}; by kind:")
     for kind, sec in sorted(kinds.items(), key=lambda kv: -kv[1]):
         log(f"  {sec * 1e3:9.3f} ms  {sec / total:6.1%}  {kind_launches[kind]:7d} launches  {kind}")
     log(f"{tag}: kernel time by kernel:")
@@ -2490,6 +2506,7 @@ def profile_summary(tag: str, summary: dict, kind_table=KERNEL_KINDS) -> dict:
     return {"wall_ms": window * 1e3, "device_busy_ms": busy * 1e3,
             "busy_share": busy / window, "kernel_sum_ms": total * 1e3,
             "device_launches": summary["device_launches"],
+            "device_records_lost": summary.get("device_records_lost"),
             "by_kind_ms": {k: v * 1e3 for k, v in kinds.items()},
             "launches_by_kind": kind_launches,
             "top_kernels_ms": [(n[:110], sec * 1e3) for n, sec in top]}
@@ -2500,13 +2517,13 @@ def run_fedavg():
     import tempfile
 
     import fedml_tpu_torch
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
 
     oracle_err = fedavg_oracle()
     vec_seq_errs = fedavg_vectorized_vs_sequential()
     yardstick = fedavg_step_yardstick()
 
-    args = load_arguments(str(FEDAVG_CONFIG))
+    args = load_yaml_arguments(str(FEDAVG_CONFIG))
     profiled = HEADLINE_WARMUP + HEADLINE_TIMED
     with tempfile.TemporaryDirectory(prefix="fedavg_smoke_") as tmp:
         args.comm_round = profiled + 1
@@ -2578,11 +2595,16 @@ def launches_by_kind(fn, kind_table=KERNEL_KINDS) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from fedml_tpu_torch.core.tracing import CAPTURE_MARGIN_S
+
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # idle margins: the profiler drops records it dates outside its window
+        time.sleep(CAPTURE_MARGIN_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(CAPTURE_MARGIN_S)
     out = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
@@ -2645,10 +2667,10 @@ def _sim(config: Path, depth: int, comm_round: int, freq: int, client_trainer=No
     its trainer's params can be read afterwards."""
     import fedml_tpu_torch
     from fedml_tpu_torch import data, models
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
     from fedml_tpu_torch.simulation import SimulatorSingleProcess
 
-    args = load_arguments(str(config))
+    args = load_yaml_arguments(str(config))
     args.pipeline_depth, args.comm_round, args.frequency_of_the_test = depth, comm_round, freq
     args.log_metrics = False
     for knob, value in knobs.items():
@@ -2790,9 +2812,9 @@ def run_dense():
 
     import fedml_tpu_torch
     from fedml_tpu_torch import models
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
 
-    args = load_arguments(str(DENSE_CONFIG))
+    args = load_yaml_arguments(str(DENSE_CONFIG))
     model = models.create(args, 10, device=DEVICE)
     flops = dense_step_census(model, int(args.epochs))
     del model
@@ -3004,10 +3026,10 @@ def run_transformer():
 
     import fedml_tpu_torch
     from fedml_tpu_torch import models
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
     from fedml_tpu_torch.ops.flash_attention import BWD_KERNEL, FWD_KERNEL
 
-    args = load_arguments(str(TRANSFORMER_CONFIG))
+    args = load_yaml_arguments(str(TRANSFORMER_CONFIG))
     L, T = int(args.num_layers), int(args.seq_len)
     model = models.create(args, 90, device=DEVICE)
     census = transformer_step_census(model, args)
@@ -3092,7 +3114,8 @@ def run_transformer():
                 or profile["launches_by_kind"].get("flash backward") != 3 * L * steps):
             fail(f"the profiled round launched {profile['launches_by_kind']}: want {L * steps} "
                  f"flash forward and {3 * L * steps} flash backward kernels (3 per call), one "
-                 f"call per layer per step for the whole cohort")
+                 f"call per layer per step for the whole cohort ({profile['device_records_lost']} "
+                 f"launches without a device record)")
 
     losses = [r["train_loss"] for r in records]
     if len(records) < 2 or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -3161,10 +3184,10 @@ def run_transformer_f32(passes: int):
     a layer and step for the whole cohort (forward also once a layer per
     forward pass of each evaluation, ``passes`` of them), no plain version
     runs, and the loss falls."""
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
     from fedml_tpu_torch.ops.flash_attention import BWD_KERNEL, FWD_KERNEL
 
-    args = load_arguments(str(TRANSFORMER_F32_CONFIG))
+    args = load_yaml_arguments(str(TRANSFORMER_F32_CONFIG))
     args.comm_round = TRANSFORMER_F32_ROUNDS
     L, T, epochs = int(args.num_layers), int(args.seq_len), int(args.epochs)
     with plain_flash_calls() as plain:
@@ -3196,7 +3219,8 @@ def run_transformer_f32(passes: int):
         if (profile["launches_by_kind"].get("flash forward") != L * steps
                 or profile["launches_by_kind"].get("flash backward") != 3 * L * steps):
             fail(f"transformer f32: the profiled round launched {profile['launches_by_kind']}: "
-                 f"want {L * steps} flash forward and {3 * L * steps} flash backward kernels")
+                 f"want {L * steps} flash forward and {3 * L * steps} flash backward kernels "
+                 f"({profile['device_records_lost']} launches without a device record)")
     all_steps = len(pipe["round_spans_s"]) * steps
     evals = len(run["records"])
     want = {**no_launches(), FWD_KERNEL.name: L * (all_steps + evals * passes),
@@ -3290,9 +3314,9 @@ def run_rnn():
     """FedAvg of the Shakespeare LSTM through ``run_simulation``, as
     configured: rounds 1-3 timed on the card's clock, round 4 profiled;
     then depth 4 against depth 1 under ``deterministic()``."""
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
 
-    args = load_arguments(str(RNN_CONFIG))
+    args = load_yaml_arguments(str(RNN_CONFIG))
     T, bs, epochs = int(args.seq_len), int(args.batch_size), int(args.epochs)
     run = measured_run(args, RNN_PROFILED)
     pipe = run["pipe"]
@@ -3337,9 +3361,9 @@ def run_rnn_stackoverflow():
     ``run_simulation``, 2 rounds, evaluation after each, over
     ``SO_RNN_CLIENTS`` of the configuration's clients (each its own
     number of sequences)."""
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
 
-    args = load_arguments(str(SO_RNN_CONFIG))
+    args = load_yaml_arguments(str(SO_RNN_CONFIG))
     args.comm_round, args.frequency_of_the_test = SO_RNN_ROUNDS, 1
     per_client = int(args.synthetic_train_size) // int(args.client_num_in_total)
     args.client_num_in_total = SO_RNN_CLIENTS
@@ -3411,13 +3435,13 @@ def run_seam():
     the stock engine, and a half-step trainer, through the simulator."""
     import fedml_tpu_torch
     from fedml_tpu_torch import constants
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
 
     Default, Frozen, HalfStep, Recording, GlobalKeep = _seam_operators()
     t0 = time.perf_counter()
 
     def through_run_simulation(trainer, aggregator):
-        args = load_arguments(str(RNN_CONFIG))
+        args = load_yaml_arguments(str(RNN_CONFIG))
         args.comm_round, args.log_metrics = SEAM_ROUNDS, False
         fedml_tpu_torch.run_simulation(constants.FEDML_SIMULATION_TYPE_SP, trainer, aggregator,
                                        device=DEVICE, args=args)
@@ -3567,7 +3591,7 @@ def run_remat(passes: int):
     rounds/s, and the flash launches of the remat run (two forwards and
     one backward per layer per step for the whole cohort; ``passes``
     forward passes per evaluation)."""
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
 
     params = {}
     with deterministic():
@@ -3586,7 +3610,7 @@ def run_remat(passes: int):
 
     runs = {}
     for remat in (False, True):
-        args = load_arguments(str(TRANSFORMER_CONFIG))
+        args = load_yaml_arguments(str(TRANSFORMER_CONFIG))
         args.comm_round, args.remat = REMAT_ROUNDS, remat
         runs[remat] = measured_run(args)
     card = card_line()
@@ -3751,10 +3775,10 @@ def mesh_mean_cases():
     """K1's ``weighted_mean`` calls on the fed-mesh FedAvg path
     (``fedavg_femnist_cnn.yaml``): one a leaf, [clients a round, leaf
     size], f32."""
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
     from fedml_tpu_torch.models.cnn import CNNFedAvg
 
-    clients = int(load_arguments(str(FEDAVG_CONFIG)).client_num_per_round)
+    clients = int(load_yaml_arguments(str(FEDAVG_CONFIG)).client_num_per_round)
     return [(clients, p.numel(), torch.float32) for p in CNNFedAvg().parameters()]
 
 
@@ -3899,9 +3923,9 @@ def check_synth_features():
 
 def planet_args(**knobs):
     """The planet configuration's args, ``knobs`` set over the YAML."""
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
 
-    args = load_arguments(str(PLANET_CONFIG))
+    args = load_yaml_arguments(str(PLANET_CONFIG))
     args.log_metrics = False
     for knob, value in knobs.items():
         setattr(args, knob, value)
@@ -4163,9 +4187,9 @@ def slice7_run(config: Path, tag: str, profiled=None, **knobs):
     SLICE7_TIMED, the training's rounds/s and real examples/s on the
     card's clock and the whole rounds' rounds/s (evaluation included) on
     the host's, each with its spread over the rounds."""
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
 
-    args = load_arguments(str(config))
+    args = load_yaml_arguments(str(config))
     args.comm_round, args.frequency_of_the_test = SLICE7_ROUNDS, 1
     for knob, value in knobs.items():
         setattr(args, knob, value)
@@ -4211,9 +4235,9 @@ def run_tag_prediction():
     from ``evaluate_global`` lie in [0, 1], and no hand-written kernel
     launches (the path reckons none: its product is cuBLAS's, as XLA's
     was)."""
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
 
-    args = load_arguments(str(TAG_CONFIG))
+    args = load_yaml_arguments(str(TAG_CONFIG))
     share = TAG_CLIENTS / int(args.client_num_in_total)
     out = slice7_run(TAG_CONFIG, "tag prediction", SLICE7_PROFILED,
                      client_num_in_total=TAG_CLIENTS,
@@ -4353,10 +4377,10 @@ def _path_shapes():
     """(CNN params, ResNet-18-GN's leaf sizes): the stacked clip's row and
     the streamed upload's leaves, read from the models."""
     from fedml_tpu_torch import models
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
 
-    cnn = load_arguments(str(POISONED_CONFIG))
-    dense = load_arguments(str(DENSE_CONFIG))
+    cnn = load_yaml_arguments(str(POISONED_CONFIG))
+    dense = load_yaml_arguments(str(DENSE_CONFIG))
     n_cnn = sum(p.numel() for p in models.create(cnn, 62, device="cpu").module.parameters())
     sizes = [p.numel() for p in models.create(dense, 10, device="cpu").module.parameters()]
     if sum(sizes) != RESNET18_PARAMS:
@@ -4367,9 +4391,9 @@ def _path_shapes():
 def cnn_leaf_sizes():
     """The cross-silo configuration's CNN, leaf by leaf."""
     from fedml_tpu_torch import models
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
 
-    args = load_arguments(str(CROSS_SILO_CONFIG))
+    args = load_yaml_arguments(str(CROSS_SILO_CONFIG))
     sizes = [p.numel() for p in models.create(args, 62, device="cpu").module.parameters()]
     if sum(sizes) != CROSS_SILO_CNN_PARAMS:
         fail(f"the cross-silo CNN holds {sum(sizes)} params, not {CROSS_SILO_CNN_PARAMS}")
@@ -4583,9 +4607,9 @@ def poisoned_run(tag: str, rounds: int = POISONED_ROUNDS, timed=POISONED_TIMED,
     for ``rounds`` rounds, its robust aggregator recorded: the run,
     the API, the records, rounds/s of the timed rounds' training on the
     card's clock, the backdoor rate and clean accuracy."""
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
 
-    args = load_arguments(str(POISONED_CONFIG))
+    args = load_yaml_arguments(str(POISONED_CONFIG))
     args.comm_round, args.frequency_of_the_test = rounds, 1
     for knob, value in knobs.items():
         setattr(args, knob, value)
@@ -4939,10 +4963,10 @@ def a8_run(tag: str, config: str, overrides: dict) -> dict:
     card's clock, round A8_PROFILED profiled, then the algorithm's
     record."""
     import fedml_tpu_torch
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
     from fedml_tpu_torch.simulation.round_loop import host_sums
 
-    args = load_arguments(str(A8_CONFIGS / config))
+    args = load_yaml_arguments(str(A8_CONFIGS / config))
     for knob, value in dict(overrides, comm_round=1, frequency_of_the_test=1).items():
         setattr(args, knob, value)
     args._validate()
@@ -5030,12 +5054,12 @@ def hier_one_group_is_flat() -> float:
     both see the same batches): the largest parameter difference."""
     import fedml_tpu_torch
     from fedml_tpu_torch import data, models
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
     from fedml_tpu_torch.simulation import FedAvgAPI, HierarchicalFLAPI
 
     out = []
     for alg, extra in (("HierFedAvg", {"group_num": 1, "group_comm_round": 1}), ("FedAvg", {})):
-        args = load_arguments(str(A8_CONFIGS / "hierfedavg_femnist_cnn.yaml"))
+        args = load_yaml_arguments(str(A8_CONFIGS / "hierfedavg_femnist_cnn.yaml"))
         for knob, value in dict(extra, federated_optimizer=alg, shuffle=False).items():
             setattr(args, knob, value)
         args._validate()
@@ -5451,10 +5475,10 @@ def pp_resume_check(tempfile) -> dict:
     2 epochs straight against 1 epoch, checkpointed, then resumed to 2:
     the params bitwise equal, under deterministic algorithms."""
     import fedml_tpu_torch
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
 
     def run(epochs, ckpt=None):
-        args = load_arguments(str(PP_CONFIG))
+        args = load_yaml_arguments(str(PP_CONFIG))
         args.epochs, args.checkpoint_dir = epochs, ckpt
         args.synthetic_train_size = PP_RESUME_SEQUENCES
         with StepRecorder() as rec:
@@ -5493,24 +5517,24 @@ def run_distributed_phase():
     (deterministic algorithms)."""
     import tempfile
 
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
 
     out = {}
     with world_of_one():
-        moe_args = load_arguments(str(MOE_CONFIG))
+        moe_args = load_yaml_arguments(str(MOE_CONFIG))
         out["moe"], trainer = distributed_run("distributed moe (sharded)", moe_args, "flash")
         if not out["moe"]["occupancy_zero_one"] or not out["moe"]["moe_layers_checked"]:
             fail("distributed moe: a slot occupancy is not 0/1")
         del trainer
         for strategy in ("ring", "ulysses"):
-            args = load_arguments(str(SP_CONFIG))
+            args = load_yaml_arguments(str(SP_CONFIG))
             args.sp_strategy = strategy
             if strategy == "ulysses":
                 args.sp_ring_block = 0
             out[f"sp_{strategy}"], trainer = distributed_run(
                 f"distributed sequence ({strategy})", args, strategy)
             del trainer
-        losses = sp_attention_losses(load_arguments(str(SP_CONFIG)))
+        losses = sp_attention_losses(load_yaml_arguments(str(SP_CONFIG)))
         gap = max(abs(losses[a] - losses[b]) for a in losses for b in losses)
         out["sp_attention_losses"] = {**losses, "max_gap": gap, "atol": SP_LOSS_ATOL}
         log(f"distributed sequence: one batch's loss by ring / Ulysses / dense attention "
@@ -5520,10 +5544,10 @@ def run_distributed_phase():
             fail(f"distributed sequence: attention strategies disagree: {losses}")
         out["resume"] = distributed_resume_check(tempfile)
         out["pipeline"], trainer = distributed_run("distributed pipeline",
-                                                   load_arguments(str(PP_CONFIG)), "flash")
+                                                   load_yaml_arguments(str(PP_CONFIG)), "flash")
         out["pipeline"]["microbatches"] = trainer._microbatches(trainer.bs)
         del trainer
-        pp_losses = pp_plain_losses(load_arguments(str(PP_CONFIG)))
+        pp_losses = pp_plain_losses(load_yaml_arguments(str(PP_CONFIG)))
         gap = abs(pp_losses["pipeline"] - pp_losses["plain"])
         out["pp_plain_losses"] = {**pp_losses, "gap": gap, "atol": SP_LOSS_ATOL}
         log(f"distributed pipeline: one batch's loss pipelined / plain TransformerLM "
@@ -5543,10 +5567,10 @@ def distributed_resume_check(tempfile) -> dict:
     epoch, checkpointed, then resumed to 2: the params bitwise equal,
     under deterministic algorithms."""
     import fedml_tpu_torch
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
 
     def run(epochs, ckpt=None):
-        args = load_arguments(str(SP_CONFIG))
+        args = load_yaml_arguments(str(SP_CONFIG))
         args.epochs, args.checkpoint_dir = epochs, ckpt
         with StepRecorder() as rec:
             fedml_tpu_torch.run_distributed(args, device=DEVICE)
@@ -5686,10 +5710,10 @@ def run_mesh_phase():
     other kernel; each within MESH_ATOL of its run without a mesh (the
     FedAvg one with K1's plain version as its aggregator), under
     deterministic algorithms; the FedAvg loss falls."""
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
 
     def fedavg_args(mesh):
-        args = load_arguments(str(FEDAVG_CONFIG))
+        args = load_yaml_arguments(str(FEDAVG_CONFIG))
         args.comm_round = MESH_FEDAVG_ROUNDS
         if mesh:
             args.mesh_shape = dict(MESH_SHAPE)
@@ -5785,9 +5809,9 @@ def plain_fold_calls():
 def cs_args(run_id: str, rank: int, backend: str = "LOCAL", config=None, **kw):
     """One rank's args of the cross-silo configuration (or ``config``)."""
     import fedml_tpu_torch
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
 
-    args = load_arguments(str(config or CROSS_SILO_CONFIG))
+    args = load_yaml_arguments(str(config or CROSS_SILO_CONFIG))
     if config is None:
         args.epochs = CROSS_SILO_EPOCHS
     args.training_type = "cross_silo"
@@ -6408,13 +6432,13 @@ def beehive_world(tag: str, schedule, masked: bool, rounds=None, profiled=False)
     import tempfile
 
     import fedml_tpu_torch
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
     from fedml_tpu_torch.core.chaos import reset_chaos
     from fedml_tpu_torch.core.checkpoint import RoundWAL
     from fedml_tpu_torch.core.telemetry import Telemetry
     from fedml_tpu_torch.cross_device import run_beehive_world
 
-    a = load_arguments(str(BEEHIVE_CONFIG))
+    a = load_yaml_arguments(str(BEEHIVE_CONFIG))
     a.run_id = f"cd-{tag.replace(' ', '-')}"
     a.crossdevice_secure_agg = masked
     a.chaos_schedule = schedule
@@ -6481,11 +6505,11 @@ def beehive_world(tag: str, schedule, masked: bool, rounds=None, profiled=False)
 def cd_beehive() -> dict:
     """The Beehive part: masked and unmasked worlds under one churn
     schedule, then a one-round masked world under the profiler."""
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
     from fedml_tpu_torch.cross_device.driver import beehive_registry
     from fedml_tpu_torch.ops.synth_features import SYNTH_KERNEL
 
-    args = load_arguments(str(BEEHIVE_CONFIG))
+    args = load_yaml_arguments(str(BEEHIVE_CONFIG))
     schedule = beehive_schedule(args)
     registry_bytes = beehive_registry(args).nbytes()
     reset_launches()
@@ -6536,14 +6560,14 @@ def cd_legacy() -> dict:
 
     import fedml_tpu_torch
     from fedml_tpu_torch import data, models
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
     from fedml_tpu_torch.core.comm.payload_store import FilePayloadStore
     from fedml_tpu_torch.core.local_trainer import make_local_train_fn
     from fedml_tpu_torch.core.optimizers import create_client_optimizer
     from fedml_tpu_torch.core.types import Batches
     from fedml_tpu_torch.cross_device import EdgeClientSim, ServerEdge, params_to_model_bytes
 
-    a = load_arguments(str(LEGACY_CONFIG))
+    a = load_yaml_arguments(str(LEGACY_CONFIG))
     a.run_id = "cd-legacy"
     a.comm_round = LEGACY_ROUNDS
     a.payload_store_dir = tempfile.mkdtemp(prefix="cd_store_")
@@ -6597,12 +6621,12 @@ def cd_centralized() -> dict:
     transformer config, one epoch of the coalesced training split."""
     import fedml_tpu_torch
     from fedml_tpu_torch import data, models
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
     from fedml_tpu_torch.centralized import CentralizedTrainer
     from fedml_tpu_torch.core.local_trainer import eval_batches_per_pass
     from fedml_tpu_torch.ops.flash_attention import BWD_KERNEL, FWD_KERNEL
 
-    a = load_arguments(str(TRANSFORMER_CONFIG))
+    a = load_yaml_arguments(str(TRANSFORMER_CONFIG))
     a.epochs = 1
     a._validate()
     dev = torch.device(DEVICE)
@@ -6791,9 +6815,9 @@ def elastic_transformer_drill() -> dict:
 
 
 def elastic_mesh_args(**knobs):
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
 
-    args = load_arguments(str(FEDAVG_CONFIG))
+    args = load_yaml_arguments(str(FEDAVG_CONFIG))
     args.comm_round, args.mesh_shape, args.log_metrics = (
         ELASTIC_MESH_ROUNDS, dict(MESH_SHAPE), False)
     for k, v in knobs.items():
@@ -7144,6 +7168,87 @@ def run_audit_and_perf(elastic_mesh: dict, cross_silo: dict) -> dict:
             "wall_s": wall}
 
 
+# -- the nineteenth slice: examples -------------------------------------------
+
+EXAMPLES = ("simulation_sp/one_line", "simulation_sp/custom", "cross_device/one_line")
+EXAMPLE_TIMEOUT_S = 240
+EXAMPLES_BUDGET_S = 40.0  # the phase's budget (reported when exceeded)
+# the JAX package's shipped simulation default (fedml_tpu/config/
+# simulation_sp.yaml), but for the device
+DEFAULT_TABLE = {"training_type": "simulation", "dataset": "mnist",
+                 "client_num_in_total": 1000, "comm_round": 200, "batch_size": 10,
+                 "weight_decay": 0.001, "learning_rate": 0.03, "device_type": "cuda"}
+DEFAULT_CHILD = (
+    "import json, fedml_tpu_torch\n"
+    "a = fedml_tpu_torch.init()\n"
+    f"print(json.dumps({{k: getattr(a, k) for k in {sorted(DEFAULT_TABLE)!r}}}))\n"
+)
+
+
+def run_examples():
+    """The nineteenth slice's phase: three examples as a user runs them
+    (``python main.py --cf fedml_config.yaml`` in a copy of the example's
+    directory, its YAML unchanged, so on the card) and ``init()`` with no
+    ``--cf``, four child processes side by side."""
+    import ast
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="examples_")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    children = {}
+    for name in EXAMPLES:
+        d = os.path.join(work, name.replace("/", "_"))
+        shutil.copytree(REPO / "fedml_tpu_torch" / "examples" / name, d)
+        children[name] = subprocess.Popen(
+            [sys.executable, "main.py", "--cf", "fedml_config.yaml"], cwd=d, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    children["default config"] = subprocess.Popen(
+        [sys.executable, "-c", DEFAULT_CHILD], cwd=work, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    outs, walls = {}, {}
+    for name, proc in children.items():
+        try:
+            out, err = proc.communicate(timeout=max(1.0, EXAMPLE_TIMEOUT_S
+                                                    - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            for p in children.values():
+                p.kill()
+            fail(f"example {name}: no end within {EXAMPLE_TIMEOUT_S} s")
+        walls[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"example {name}: exit {proc.returncode}, stdout {out[-800:]!r}, "
+                 f"stderr {err[-2000:]!r}")
+        outs[name] = out
+    finals = {}
+    for name in EXAMPLES:
+        lines = [ln[len("FINAL:"):].strip() for ln in outs[name].splitlines()
+                 if ln.startswith("FINAL:")]
+        if len(lines) != 1:
+            fail(f"example {name}: {len(lines)} FINAL lines in {outs[name][-800:]!r}")
+        final = ast.literal_eval(lines[0])
+        losses = {k: v for k, v in final.items() if "loss" in k}
+        want_round = 1 if name.startswith("cross_device") else 4
+        if not losses or not all(np.isfinite(v) for v in losses.values()) \
+                or final.get("round") != want_round:
+            fail(f"example {name}: FINAL {final}")
+        finals[name] = final
+    table = json.loads(outs["default config"].strip().splitlines()[-1])
+    if table != DEFAULT_TABLE:
+        fail(f"init() with no --cf resolved {table}, not {DEFAULT_TABLE}")
+    wall = time.perf_counter() - t0
+    card = card_line()
+    log(f"examples on {card}: FINAL {json.dumps(finals)}; init() with no --cf {table}; "
+        f"each child collected {json.dumps({k: round(v, 2) for k, v in walls.items()})} s "
+        f"from the phase's start; phase {wall:.2f} s")
+    if wall > EXAMPLES_BUDGET_S:
+        # a budget, not a correctness gate: each child spends most of its
+        # time importing torch and reaching the card
+        log(f"examples: {wall:.1f} s, over its {EXAMPLES_BUDGET_S} s budget")
+    return {"finals": finals, "default_table": table, "child_collected_s": walls, "wall_s": wall}
+
+
 def main() -> int:
     sys.path.insert(0, str(REPO))
     try:
@@ -7241,6 +7346,8 @@ def main() -> int:
     audit_numbers = phase("audit and perf", run_audit_and_perf, elastic_numbers["mesh"],
                           cross_silo_numbers)
     log(f"audit and perf numbers on {card}: {json.dumps(audit_numbers, default=str)}")
+    examples_numbers = phase("examples", run_examples)
+    log(f"examples numbers on {card}: {json.dumps(examples_numbers, default=str)}")
     log(f"phase wall times (s): {json.dumps(walls)}")
     paths = {
         "serving": slice_numbers, "serving_comm": serving_comm_numbers,

@@ -5,7 +5,8 @@ A second package beside ``fedml_tpu``: module paths mirror it
 ``fedml_tpu/serving/engine.py``), it imports ``torch`` and never JAX or
 anything of ``fedml_tpu``, and every Pallas kernel on a ported path is a
 hand-written Hopper kernel under ``ops/csrc``. Entry points take
-``device=`` and default to ``"cuda"``; the CPU runs only when asked for.
+``device=``; without it they take the config's ``device_type``, which
+defaults to ``"cuda"``. The CPU runs only when asked for.
 
 Ported so far: the serving path of the flash-attention TransformerLM
 (``serving.ServingEngine`` over ``serving.ModelEndpoint``,
@@ -49,8 +50,15 @@ watchdog, the ``/metrics`` server; ``core/sys_stats.py``), the trace
 stitcher and round analyzer (``core/tracing.py``, ``cli trace``), the
 post-hoc invariant checker (``core/invariants.py``, ``cli check``) and
 elastic preemption (``parallel/elastic.py``: a signal polled at the
-round boundary, a durable exit, a resume on the surviving ranks).
-ROADMAP.md lists the slices still to come.
+round boundary, a durable exit, a resume on the surviving ranks). The
+nineteenth brings the user's front door as the JAX package has it: the
+shipped default configs (``config/``, read when no ``--cf`` is given),
+entry points that pin the run's training type (and ``run_simulation``
+its backend) as the JAX ones do, the device from the config's
+``device_type`` when ``device=`` is not passed, the top-level operator
+classes and ``load_arguments``, and the examples tree
+(``fedml_tpu_torch/examples/``); and the fed mesh's device-prefix
+sub-mesh. ROADMAP.md lists the slices still to come.
 """
 
 from __future__ import annotations
@@ -64,20 +72,33 @@ from typing import Optional
 import numpy as np
 
 from . import constants
-from .arguments import MATMUL_PRECISIONS, Arguments, add_args
+from .arguments import MATMUL_PRECISIONS, Arguments, load_arguments
+from .core.frame import (  # noqa: F401 (the L3 operator seam, as the JAX package exports it)
+    ClientTrainer,
+    DefaultClientTrainer,
+    DefaultServerAggregator,
+    ServerAggregator,
+)
 from .device import DeviceLike, get_device
 
 __version__ = "0.1.0"
 
+# What the last entry point called pins over the config when ``init``
+# loads it from the command line (the JAX package's globals).
+_global_training_type: Optional[str] = None
+_global_comm_backend: Optional[str] = None
+
 
 def init(args: Optional[Arguments] = None, device: DeviceLike = None) -> Arguments:
     """Load args (``--cf <yaml>`` from the command line when none are
-    given), seed ``random`` and ``numpy``, and set the matmul precision.
+    given, else the shipped default config of the training type the
+    entry point pinned), seed ``random`` and ``numpy``, set the matmul
+    precision and the log level (DEBUG with ``verbose``, else INFO).
     A cross-silo run takes its ``process_id`` from ``rank`` (a
     cross-device one is rank 0, process 0), and a hierarchical silo
     with a ``distributed_coordinator`` joins its ``torch.distributed``
-    group here, before anything is built: gloo for a CPU ``device``,
-    NCCL for a card.
+    group here, before anything is built: gloo for a CPU device, NCCL
+    for a card (``device``, else the config's ``device_type``).
 
     ``matmul_precision`` maps onto the two process-wide TF32 switches,
     ``torch.backends.cuda.matmul.allow_tf32`` and
@@ -87,7 +108,7 @@ def init(args: Optional[Arguments] = None, device: DeviceLike = None) -> Argumen
     own randomness comes from explicit ``torch.Generator``s, so the
     global torch seed is left alone."""
     if args is None:
-        args = Arguments(add_args())
+        args = load_arguments(_global_training_type, _global_comm_backend)
     seed = int(getattr(args, "random_seed", 0))
     _random.seed(seed)
     np.random.seed(seed)
@@ -96,6 +117,9 @@ def init(args: Optional[Arguments] = None, device: DeviceLike = None) -> Argumen
     tf32 = MATMUL_PRECISIONS[str(getattr(args, "matmul_precision", "highest"))]
     torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.backends.cudnn.allow_tf32 = tf32
+    logging.getLogger().setLevel(
+        logging.DEBUG if getattr(args, "verbose", False) else logging.INFO
+    )
     logging.info(
         "matmul_precision=%s: TF32 %s for cuBLAS and cuDNN",
         args.matmul_precision, "on" if tf32 else "off",
@@ -107,7 +131,7 @@ def init(args: Optional[Arguments] = None, device: DeviceLike = None) -> Argumen
                 ensure_distributed_initialized,
             )
 
-            ensure_distributed_initialized(args, device if device is not None else "cuda")
+            ensure_distributed_initialized(args, _entry_device(args, device))
     elif args.training_type == constants.FEDML_TRAINING_PLATFORM_CROSS_DEVICE:
         args.rank = 0
         args.process_id = 0
@@ -116,32 +140,43 @@ def init(args: Optional[Arguments] = None, device: DeviceLike = None) -> Argumen
     return args
 
 
+def _entry_device(args, device: DeviceLike):
+    """An entry point's device: ``device`` when the caller passed one,
+    else the config's ``device_type``."""
+    return get_device(device if device is not None else args)
+
+
 def run_simulation(
     backend: str = constants.FEDML_SIMULATION_TYPE_SP,
     client_trainer=None,
     server_aggregator=None,
     *,
-    device: DeviceLike = "cuda",
+    device: DeviceLike = None,
     args: Optional[Arguments] = None,
 ):
     """One-line simulation entry: trains ``args.comm_round`` rounds of
-    the configured algorithm on ``device`` and returns the last
-    evaluated round's stats. ``args`` defaults to ``--cf <yaml>`` from
-    the command line. Custom L3 operators (``core.frame``) plug in as
-    ``client_trainer`` / ``server_aggregator``, positionally as in the
-    reference. ``backend="MESH"`` (alias ``"NCCL"``) runs the mesh
-    simulator over ``args.mesh_shape`` (``simulation.SimulatorMesh``),
-    each rank calling it, in a process group the caller initialised, one
-    made from ``torchrun``'s environment, or alone as a world of one
-    rank."""
-    dev = get_device(device)
+    the configured algorithm and returns the last evaluated round's
+    stats. ``args`` defaults to ``--cf <yaml>`` from the command line
+    (or the shipped ``config/simulation_sp.yaml``), with
+    ``training_type: simulation`` and ``backend`` pinned over it, as in
+    the JAX package; ``device`` to the config's ``device_type``. Custom
+    L3 operators (``core.frame``) plug in as ``client_trainer`` /
+    ``server_aggregator``, positionally as in the reference.
+    ``backend="MESH"`` (alias ``"NCCL"``) runs the mesh simulator over
+    ``args.mesh_shape`` (``simulation.SimulatorMesh``), each rank
+    calling it, in a process group the caller initialised, one made
+    from ``torchrun``'s environment, or alone as a world of one rank."""
+    global _global_training_type, _global_comm_backend
+    _global_training_type = constants.FEDML_TRAINING_PLATFORM_SIMULATION
+    _global_comm_backend = backend
     mesh = backend in (constants.FEDML_SIMULATION_TYPE_MESH, constants.FEDML_SIMULATION_TYPE_NCCL)
     if not mesh and backend != constants.FEDML_SIMULATION_TYPE_SP:
         raise ValueError(f"unknown simulation backend {backend!r}")
     from . import data, models
     from .simulation import SimulatorMesh, SimulatorSingleProcess
 
-    args = init(args)
+    args = init(args, device)
+    dev = _entry_device(args, device)
     if not mesh:
         dataset = data.load(args, device=dev)
         model = models.create(args, dataset.class_num, device=dev)
@@ -149,7 +184,7 @@ def run_simulation(
             args, dev, dataset, model,
             client_trainer=client_trainer, server_aggregator=server_aggregator,
         ).run()
-    with _process_group(dev) as dev:
+    with process_group(dev) as dev:
         dataset = data.load(args, device=dev)
         model = models.create(args, dataset.class_num, device=dev)
         return SimulatorMesh(
@@ -159,7 +194,7 @@ def run_simulation(
 
 
 @contextlib.contextmanager
-def _process_group(dev):
+def process_group(dev):
     """The default process group for a distributed or mesh run: the caller's if
     one is initialised; else one from ``torchrun``'s environment
     (``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``/``MASTER_PORT``), each rank
@@ -187,40 +222,42 @@ def _process_group(dev):
         dist.destroy_process_group()
 
 
-def run_distributed(args: Optional[Arguments] = None, *, device: DeviceLike = "cuda"):
+def run_distributed(args: Optional[Arguments] = None, *, device: DeviceLike = None):
     """One-line mesh-parallel LM training, the ``training_type:
     distributed`` platform: ``args.mesh_shape`` picks the parallelism
     (dp x tp x ep, or sp with an optional dp; see ``distributed.py``).
     Returns the last epoch's stats. ``args`` defaults to ``--cf <yaml>``
-    from the command line. Each rank calls it, in a process group the
-    caller initialised or one made from the environment (``torchrun``),
-    or alone as a world of one rank."""
-    dev = get_device(device)
+    from the command line, with ``training_type: distributed`` pinned
+    over it. Each rank calls it, in a process group the caller
+    initialised or one made from the environment (``torchrun``), or
+    alone as a world of one rank."""
+    global _global_training_type
+    _global_training_type = constants.FEDML_TRAINING_PLATFORM_DISTRIBUTED
     from . import data, models
     from .distributed import DistributedTrainer
 
-    args = init(args)
-    with _process_group(dev) as dev:
+    args = init(args, device)
+    dev = _entry_device(args, device)
+    with process_group(dev) as dev:
         dataset = data.load(args, device=dev)
         model = models.create(args, dataset.class_num, device=dev)
         return DistributedTrainer(args, dev, dataset, model).run()
 
 
 def _cross_silo_parts(args, device):
-    """init -> data.load -> models.create for one cross-silo process, on
-    ``device``; a silo process of a group on card (silo - 1) *
-    silo_device_count + proc_rank_in_silo when that knob is set."""
+    """init -> data.load -> models.create for one cross-silo process
+    (``training_type: cross_silo`` pinned over a config read from the
+    command line), on ``device`` or the config's ``device_type``; a silo
+    process of a group on card (silo - 1) * silo_device_count +
+    proc_rank_in_silo when that knob is set."""
     import torch
 
     from . import data, models
 
-    dev = get_device(device)
-    args = init(args, dev)
-    if args.training_type != constants.FEDML_TRAINING_PLATFORM_CROSS_SILO:
-        raise ValueError(
-            f"training_type={args.training_type!r}: the cross-silo entry "
-            "points run training_type=cross_silo"
-        )
+    global _global_training_type
+    _global_training_type = constants.FEDML_TRAINING_PLATFORM_CROSS_SILO
+    args = init(args, device)
+    dev = _entry_device(args, device)
     cnt = int(getattr(args, "silo_device_count", 0) or 0)
     if dev.type == "cuda" and cnt > 0:
         silo = max(int(getattr(args, "rank", 1)), 1)
@@ -233,7 +270,7 @@ def _cross_silo_parts(args, device):
 
 
 def run_cross_silo_server(args: Optional[Arguments] = None, server_aggregator=None, *,
-                          device: DeviceLike = "cuda"):
+                          device: DeviceLike = None):
     """One-line cross-silo server (the reference's __init__.py:172-191):
     rank 0 of the federation, serving ``comm_round`` rounds to the silos
     over ``args.backend``; with ``edge_plane: ranks`` the root of the
@@ -241,31 +278,40 @@ def run_cross_silo_server(args: Optional[Arguments] = None, server_aggregator=No
     from .cross_silo import Server
     from .cross_silo.hierarchical import HierRoot
 
+    from .core.tracking import device_trace
+
     args, dev, dataset, model = _cross_silo_parts(args, device)
     if str(getattr(args, "edge_plane", "inproc")) == "ranks":
         root = HierRoot(args, dev, dataset, model, server_aggregator=server_aggregator)
-        root.run()
+        with device_trace(args, dev):
+            root.run()
         return getattr(root.aggregator, "last_stats", None)
-    return Server(args, dev, dataset, model, server_aggregator=server_aggregator).run()
+    server = Server(args, dev, dataset, model, server_aggregator=server_aggregator)
+    with device_trace(args, dev):
+        return server.run()
 
 
 def run_cross_silo_client(args: Optional[Arguments] = None, client_trainer=None, *,
-                          device: DeviceLike = "cuda"):
+                          device: DeviceLike = None):
     """One-line cross-silo client (the reference's __init__.py:193-211):
     silo ``args.rank`` (>= 1) of the federation; with ``edge_plane:
     ranks`` it connects to its edge aggregator's fabric."""
     from .cross_silo import Client
     from .cross_silo.hierarchical import hier_partition, prepare_client_args
 
+    from .core.tracking import device_trace
+
     args, dev, dataset, model = _cross_silo_parts(args, device)
     if str(getattr(args, "edge_plane", "inproc")) == "ranks":
         prepare_client_args(args, hier_partition(args, dataset))
-    Client(args, dev, dataset, model, client_trainer=client_trainer).run()
+    client = Client(args, dev, dataset, model, client_trainer=client_trainer)
+    with device_trace(args, dev):
+        return client.run()
 
 
 def run_hierarchical_cross_silo_server(args: Optional[Arguments] = None,
                                        server_aggregator=None, *,
-                                       device: DeviceLike = "cuda"):
+                                       device: DeviceLike = None):
     """One-line hierarchical cross-silo server (the reference's
     __init__.py:214-233): protocol-identical to the horizontal server;
     the hierarchy lives in the silos (each FL client a process group)."""
@@ -274,7 +320,7 @@ def run_hierarchical_cross_silo_server(args: Optional[Arguments] = None,
 
 def run_hierarchical_cross_silo_client(args: Optional[Arguments] = None,
                                        client_trainer=None, *,
-                                       device: DeviceLike = "cuda"):
+                                       device: DeviceLike = None):
     """One-line hierarchical cross-silo client (the reference's
     __init__.py:235-253): one process of silo ``args.rank``; master or
     slave as ``args.proc_rank_in_silo`` says, the way the reference forks
@@ -283,11 +329,15 @@ def run_hierarchical_cross_silo_client(args: Optional[Arguments] = None,
     (or the one the caller initialised)."""
     from .cross_silo import HierarchicalClient
 
+    from .core.tracking import device_trace
+
     args, dev, dataset, model = _cross_silo_parts(args, device)
-    HierarchicalClient(args, dev, dataset, model, client_trainer=client_trainer).run()
+    client = HierarchicalClient(args, dev, dataset, model, client_trainer=client_trainer)
+    with device_trace(args, dev):
+        return client.run()
 
 
-def run_edge_server(args: Optional[Arguments] = None, *, device: DeviceLike = "cuda"):
+def run_edge_server(args: Optional[Arguments] = None, *, device: DeviceLike = None):
     """One-line cross-device server, the reference's ``run_mnn_server``
     (its __init__.py:256-274): edge clients ship model files over the
     pub/sub plane (``args.cross_device_backend``, MQTT by default) and
@@ -295,10 +345,15 @@ def run_edge_server(args: Optional[Arguments] = None, *, device: DeviceLike = "c
     ``comm_round`` rounds to ``client_num_per_round`` edge clients and
     returns the evaluation history."""
     from . import data, models
+    from .core.tracking import device_trace
     from .cross_device import ServerEdge
 
-    dev = get_device(device)
-    args = init(args, dev)
+    global _global_training_type
+    _global_training_type = constants.FEDML_TRAINING_PLATFORM_CROSS_DEVICE
+    args = init(args, device)
+    dev = _entry_device(args, device)
     dataset = data.load(args, device=dev)
     model = models.create(args, dataset.class_num, device=dev)
-    return ServerEdge(args, dev, dataset, model).run()
+    server = ServerEdge(args, dev, dataset, model)
+    with device_trace(args, dev):
+        return server.run()

@@ -14,6 +14,16 @@ cache's, and their validation. Every key of the JAX package's
 package loads here unchanged; knobs without a default still land on
 the object as the YAML sets them.
 
+The command line and the entry points read it as the JAX package does:
+``load_arguments(training_type, comm_backend)`` parses ``--cf``,
+``--rank``, ``--local_rank``, ``--role`` and ``--run_id``; without
+``--cf`` it reads the shipped default config of ``training_type``
+(``config/simulation_sp.yaml``, ``cross_silo.yaml``,
+``cross_device.yaml``: the JAX package's files but for ``device_type:
+cuda`` in the first), and ``Arguments`` puts the pinned
+``training_type`` and ``comm_backend`` over what the YAML says.
+``load_yaml_arguments(path)`` reads one YAML file alone.
+
 Validation imports nothing of JAX, and of the port only
 ``parallel/elastic.py``'s signal parser: the dtype knob is checked here
 against its own table.
@@ -23,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import os
+from pathlib import Path
 from typing import Any, Dict, Optional
 
 import yaml
@@ -440,9 +451,17 @@ MATMUL_PRECISIONS = {
 
 
 class Arguments:
-    """Flat attribute bag over a sectioned YAML config."""
+    """Flat attribute bag over a sectioned YAML config: the command line's
+    flags first, the YAML over them, the defaults under both; then the
+    entry point's ``training_type`` and ``comm_backend``, when it pins
+    them, over everything."""
 
-    def __init__(self, cmd_args: Optional[argparse.Namespace] = None) -> None:
+    def __init__(
+        self,
+        cmd_args: Optional[argparse.Namespace] = None,
+        training_type: Optional[str] = None,
+        comm_backend: Optional[str] = None,
+    ) -> None:
         self._raw: Dict[str, Any] = {}
         if cmd_args is not None:
             for k, v in vars(cmd_args).items():
@@ -453,6 +472,10 @@ class Arguments:
         for key, val in _DEFAULTS.items():
             if not hasattr(self, key):
                 setattr(self, key, val)
+        if training_type is not None:
+            self.training_type = training_type
+        if comm_backend is not None:
+            self.backend = comm_backend
         self._validate()
 
     # -- YAML ----------------------------------------------------------
@@ -982,16 +1005,50 @@ class Arguments:
         return {k: v for k, v in self.__dict__.items() if not k.startswith("_")}
 
 
-def load_arguments(path: str) -> Arguments:
-    """``Arguments`` from one YAML file (what ``--cf <yaml>`` does)."""
+def load_yaml_arguments(path: str) -> Arguments:
+    """``Arguments`` from one YAML file alone (what ``--cf <yaml>`` does,
+    without the rest of the command line)."""
     return Arguments(argparse.Namespace(yaml_config_file=path))
 
 
-def add_args() -> argparse.Namespace:
-    """The reference's command line: ``--cf <yaml>``; other flags are
-    left to the caller."""
-    parser = argparse.ArgumentParser(description="fedml_tpu_torch")
+def add_args(parser: Optional[argparse.ArgumentParser] = None) -> argparse.Namespace:
+    """The reference's command line: ``--cf <yaml>``, ``--rank``,
+    ``--local_rank``, ``--role`` and ``--run_id``; other flags are left to
+    the caller."""
+    parser = parser or argparse.ArgumentParser(description="fedml_tpu_torch")
     parser.add_argument("--yaml_config_file", "--cf", type=str, default="",
                         help="yaml configuration file")
+    parser.add_argument("--rank", type=int, default=0)
+    parser.add_argument("--local_rank", type=int, default=0)
+    parser.add_argument("--role", type=str, default="client")
+    parser.add_argument("--run_id", type=str, default="0")
     args, _ = parser.parse_known_args()
     return args
+
+
+def _default_config_path(training_type: str) -> Optional[str]:
+    """The shipped default config of a training type (``config/``), or
+    None for a type that has none."""
+    name = {
+        constants.FEDML_TRAINING_PLATFORM_SIMULATION: "simulation_sp.yaml",
+        constants.FEDML_TRAINING_PLATFORM_CROSS_SILO: "cross_silo.yaml",
+        constants.FEDML_TRAINING_PLATFORM_CROSS_DEVICE: "cross_device.yaml",
+    }.get(training_type)
+    if name is None:
+        return None
+    p = Path(__file__).parent / "config" / name
+    return str(p) if p.exists() else None
+
+
+def load_arguments(training_type: Optional[str] = None,
+                   comm_backend: Optional[str] = None) -> Arguments:
+    """The command line's ``Arguments``: ``--cf <yaml>``, or without it the
+    shipped default config of ``training_type`` (the simulation's when
+    None), with ``training_type`` and ``comm_backend`` pinned over it when
+    given."""
+    cmd_args = add_args()
+    if not cmd_args.yaml_config_file:
+        default = _default_config_path(training_type or _DEFAULTS["training_type"])
+        if default is not None:
+            cmd_args.yaml_config_file = default
+    return Arguments(cmd_args, training_type, comm_backend)

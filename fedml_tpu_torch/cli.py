@@ -279,7 +279,7 @@ def cmd_device(args) -> int:
 def cmd_serve(args) -> int:
     """Serve the federated global model over LOCAL, TRPC or GRPC (see the
     module docstring). Returns the exit code."""
-    from . import _process_group
+    from . import process_group
     from .arguments import Arguments
     from .device import get_device
 
@@ -307,7 +307,7 @@ def cmd_serve(args) -> int:
 
     from .parallel.layout import build_fed_mesh
 
-    with _process_group(dev) as dev:
+    with process_group(dev) as dev:
         mesh = build_fed_mesh(a.serve_mesh, dist.get_world_size(), dev.type)
         return _serve(args, a, dev, mesh)
 

@@ -21,9 +21,13 @@ FEDML_SIMULATION_TYPE_NCCL = "NCCL"  # accepted as an alias of MESH
 # data partition methods
 PARTITION_HOMO = "homo"
 PARTITION_HETERO = "hetero"
+PARTITION_HETERO_FIX = "hetero-fix"
 
 # federated optimizers
 FED_OPTIMIZER_FEDAVG = "FedAvg"
+FED_OPTIMIZER_FEDOPT = "FedOpt"
+FED_OPTIMIZER_FEDPROX = "FedProx"
+FED_OPTIMIZER_FEDNOVA = "FedNova"
 
 # training platforms
 FEDML_TRAINING_PLATFORM_SIMULATION = "simulation"

@@ -22,6 +22,10 @@ lays E accumulators' limbs out as the rows of one ``[E, 3, N]`` buffer,
 so that a term for each folds in one launch and all of them merge into
 another accumulator in one launch (an edge tree's two hops).
 
+The JAX package's ``is_device_tree`` (are a tree's leaves device arrays
+rather than host numpy) is left out: it has no PyTorch meaning, since
+every leaf here is a ``torch.Tensor`` that carries its own device.
+
 The robust planes keep the reference's separation: a term is one step
 and the add-only fold another. The encoded and clipped folds
 (``fold_encoded`` ... ``fold_encoded_delta_clipped``) make each upload's

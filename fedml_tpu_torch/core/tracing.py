@@ -42,7 +42,9 @@ Where the JAX package writes a ``jax.profiler`` trace, this writes a
 (``summary.json``): the window's wall seconds, the device's busy
 seconds (the union of its kernel, copy and set intervals), their plain
 sum, the number of device intervals (kernels, copies and sets), and
-device seconds and launches by kernel name. On the CPU the
+device seconds and launches by kernel name, and the kernel launches the
+capture saw on the host but holds no device record of
+(``device_records_lost``, 0 in a whole capture). On the CPU the
 summary's device entries are empty.
 """
 
@@ -125,6 +127,22 @@ def continue_context(in_msg, out_msg) -> None:
         out_msg.add_params(constants.MSG_ARG_KEY_TRACE_SPAN, int(parent_flow))
 
 
+# torch.profiler keeps only the device records it dates inside its
+# capture window on the host's clock, and it dates the card's records
+# through a calibration that can be off: on an H100 kernel records came
+# dated up to 24 ms before their own launch, the records of the first
+# 1-10 launches after the start were dropped, and, late in a long
+# process, those of the last ~190 ms of a round (the kernels ran: the
+# launch counters saw them). A capture on the card therefore opens this
+# much host time before the round's first launch and closes this long
+# after its last kernel ends, on an idle card; the margins are left out
+# of the summary's wall.
+CAPTURE_MARGIN_S = 0.5
+# the host-side launch calls a kernel record answers, by correlation id
+_LAUNCH_CALLS = frozenset({"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                           "cuLaunchKernelEx", "cudaLaunchCooperativeKernel"})
+
+
 class RoundProfiler:
     def __init__(self, args=None, device: Optional[torch.device] = None) -> None:
         raw = getattr(args, "profile_rounds", None) if args else None
@@ -148,6 +166,10 @@ class RoundProfiler:
         self._prof = None
         self._t0 = 0.0
 
+    @property
+    def enabled(self) -> bool:
+        return bool(self.rounds)
+
     def tick(self, round_idx: int) -> None:
         if self._active is not None and round_idx != self._active:
             self._stop()
@@ -167,6 +189,8 @@ class RoundProfiler:
             torch.cuda.synchronize()
         self._prof = profile(activities=activities)
         self._prof.__enter__()
+        if self.cuda:
+            time.sleep(CAPTURE_MARGIN_S)
         self._active = round_idx
         self._t0 = time.perf_counter()
 
@@ -174,11 +198,14 @@ class RoundProfiler:
         if self.cuda:
             torch.cuda.synchronize()
         wall = time.perf_counter() - self._t0
+        if self.cuda:
+            time.sleep(CAPTURE_MARGIN_S)
         prof, round_idx = self._prof, self._active
         prof.__exit__(None, None, None)
         self._prof, self._active = None, None
         by_name, counts, spans = {}, {}, []
-        for name, start, end in _device_records(prof):
+        records, lost = _device_records(prof)
+        for name, start, end in records:
             by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e6
             counts[name] = counts.get(name, 0) + 1
             spans.append((start, end))
@@ -193,6 +220,7 @@ class RoundProfiler:
             "device_launches": len(spans),
             "device_s_by_kernel": dict(sorted(by_name.items(), key=lambda kv: -kv[1])),
             "device_launches_by_kernel": counts,
+            "device_records_lost": lost,
         }
         with open(os.path.join(path, "summary.json"), "w") as f:
             json.dump(summary, f)
@@ -205,21 +233,29 @@ def _device_records(prof):
     left out. Read from the profiler's raw records: ``prof.events()``
     builds the tree of every host op first, seconds for a round of 10^5
     of them, and only the device's are read here. Names are demangled as
-    ``prof.events()`` gives them."""
+    ``prof.events()`` gives them. Also returns how many kernel launches
+    the capture holds on the host with no device record by their
+    correlation id: records the profiler dropped."""
     from torch.autograd import DeviceType
 
     raw = prof.profiler.kineto_results
     t0 = raw.trace_start_ns()
     names = {}
     out = []
+    recorded, launched = set(), set()
     for e in raw.events():
-        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+        if e.device_type() != DeviceType.CUDA:
+            if e.name() in _LAUNCH_CALLS:
+                launched.add(e.correlation_id())
             continue
+        if e.is_user_annotation():
+            continue
+        recorded.add(e.correlation_id())
         name = e.name()
         if name not in names:
             names[name] = torch._C._demangle(name) if len(name) > 1 else name
         out.append((names[name], (e.start_ns() - t0) / 1e3, (e.end_ns() - t0) / 1e3))
-    return out
+    return out, len(launched - recorded)
 
 
 def _union_us(spans) -> float:

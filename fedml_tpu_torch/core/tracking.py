@@ -218,6 +218,8 @@ class ProfilerEvent:
     the context-manager form. ``Telemetry.attach_profiler`` mirrors the
     spans into the flight recorder."""
 
+    _instance: Optional["ProfilerEvent"] = None
+
     def __init__(self, args=None) -> None:
         self.args = args
         self.run_id = getattr(args, "run_id", "0") if args else "0"
@@ -226,6 +228,22 @@ class ProfilerEvent:
         self.totals: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
         self.recorder = None
+
+    @classmethod
+    def get_instance(cls, args=None) -> "ProfilerEvent":
+        """The process's recorder; a later caller's ``args`` are adopted
+        when the first gave none."""
+        if cls._instance is None:
+            cls._instance = cls(args)
+        elif args is not None and cls._instance.args is None:
+            cls._instance.args = args
+            cls._instance.run_id = getattr(args, "run_id", "0")
+        return cls._instance
+
+    @classmethod
+    def reset(cls) -> None:
+        """Drop the process's recorder."""
+        cls._instance = None
 
     def log_event_started(self, event_name: str, value: Any = None,
                           **trace_args: Any) -> None:
@@ -248,6 +266,10 @@ class ProfilerEvent:
 
     def span(self, name: str, **trace_args: Any) -> "_Span":
         return _Span(self, name, **trace_args)
+
+    def summary(self) -> Dict[str, Dict[str, float]]:
+        """Each span name's total seconds and count."""
+        return {k: {"total_s": self.totals[k], "count": self.counts[k]} for k in self.totals}
 
 
 class _Span:

@@ -14,6 +14,7 @@ Layout convention:
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -34,6 +35,14 @@ class Batches:
 
     def num_samples(self) -> torch.Tensor:
         return self.mask.sum(dim=(-1, -2))
+
+
+@dataclasses.dataclass(frozen=True)
+class ClientDataset:
+    """One client's (or one stacked federation's) packed splits."""
+
+    train: Batches
+    test: Optional[Batches] = None
 
 
 def flat_examples(b: Batches) -> Batches:

@@ -275,19 +275,21 @@ def _world() -> tuple:
 
 def poll_world(signal: PreemptionSignal, round_idx: int,
                mesh=None) -> Optional[PreemptionNotice]:
-    """``signal.poll(round_idx)`` agreed on by the world: with a mesh of
-    several ranks, rank 0 polls and broadcasts its notice (or none) to
-    every rank, one collective a round; alone, the poll itself."""
+    """``signal.poll(round_idx)`` agreed on by the mesh: with a mesh of
+    several ranks, its first rank polls and broadcasts its notice (or
+    none) to every rank of the mesh, one collective a round; alone, the
+    poll itself."""
     rank, world = _world()
     if mesh is None or world == 1:
         return signal.poll(int(round_idx))
     import torch.distributed as dist
 
     box = [None]
-    if rank == 0:
+    first = mesh.ranks[0]  # rank 0, or a sub-mesh's first member
+    if rank == first:
         notice = signal.poll(int(round_idx))
         box = [None if notice is None else (notice.reason, notice.detail)]
-    dist.broadcast_object_list(box, src=0)
+    dist.broadcast_object_list(box, src=first, group=mesh.group)
     if box[0] is None:
         return None
     return PreemptionNotice(*box[0])

@@ -24,11 +24,15 @@ At rest a rank's leaf is its ``local_shard`` (``parallel/tensor.py``);
 :func:`gather_tree` all-gathers it whole over the fsdp group.
 
 The mesh (``parallel/mesh.SimMesh``) runs one process a rank over the
-process group, so it spans the world (or, for the elastic shrink onto
-survivors, the ranks it is given); the refusals of
-:func:`build_fed_mesh` are the reference's, word for word, and a shape
-smaller than those ranks (which the reference serves from a prefix of
-its devices) is refused too.
+process group: over the world, or, for the elastic shrink onto
+survivors, over the ranks it is given. An explicit shape smaller than
+those ranks takes their prefix, as the reference takes a prefix of its
+devices: the ``{data: 1, fsdp: 1}`` baseline world in a world of 8 is
+rank 0 alone. The ranks outside the prefix take part in making the
+groups (``new_group`` is collective over the world) and train nothing;
+``simulation/simulator.SimulatorMesh`` hands them the run's final stats.
+The refusals of :func:`build_fed_mesh` are the reference's, word for
+word.
 """
 
 from __future__ import annotations
@@ -164,7 +168,10 @@ def build_fed_mesh(mesh_shape: Optional[dict], world_size: int, device_type: str
     """The named (data, fsdp) mesh over the process group's ``world_size``
     ranks; a missing axis is size 1 (``data`` by default takes the rest of
     the world). ``ranks`` (the elastic shrink onto survivors) lays the
-    mesh over those ranks of the world instead, which it must span."""
+    mesh over those ranks of the world instead. An explicit shape smaller
+    than the ranks takes their prefix, ranks ``0 .. data*fsdp-1`` of
+    them; every rank of the world still calls this (the groups are made
+    collectively), and the others hold no coordinate (``mesh.member``)."""
     from .mesh import SimMesh
 
     n = int(world_size) if ranks is None else len(ranks)
@@ -199,11 +206,10 @@ def build_fed_mesh(mesh_shape: Optional[dict], world_size: int, device_type: str
             f"{n} devices"
         )
     if data * fsdp < n:
-        raise ValueError(
-            f"fed mesh shape {{'data': {data}, 'fsdp': {fsdp}}} spans {data * fsdp} of "
-            f"the {n} ranks: the port runs one process a rank, so the mesh must span "
-            "the world"
-        )
+        # an explicit smaller shape takes the prefix of the ranks: the
+        # {'data': 1, 'fsdp': 1} baseline world every sharded shape is
+        # held against, bitwise
+        ranks = list(range(n) if ranks is None else ranks)[:data * fsdp]
     return SimMesh({AXIS_COHORT: data, AXIS_PARAM: fsdp}, device_type, ranks=ranks)
 
 

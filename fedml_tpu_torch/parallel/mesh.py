@@ -15,7 +15,8 @@ a mesh must span the world (JAX's multi-controller rule).
 The simulator's mesh (port of ``fedml_tpu/parallel/mesh.py``'s
 federation half) is a :class:`SimMesh`: the legacy ``{clients[, data]}``
 vocabulary (``build_sim_mesh``) or the fed ``{data, fsdp}`` one
-(``parallel/layout.build_fed_mesh``). The packed federation's client
+(``parallel/layout.build_fed_mesh``, which also lays an explicit smaller
+shape over a prefix of the world's ranks). The packed federation's client
 axis is padded with zero-sample dummies to a multiple of the cohort axis
 (``pad_federation``) and each cohort rank keeps its contiguous share
 (``shard_federation``); each cohort rank takes its lane of a round's
@@ -101,7 +102,8 @@ class SimMesh:
     coordinate on each axis (``coords``) and each axis's process group
     (``groups``). ``axis_names`` and ``shape`` read as a JAX mesh's do.
     ``ranks`` (default: the world) lays it over those ranks of the world
-    only; ``member`` says whether this rank is one of them."""
+    only; ``member`` says whether this rank is one of them, and ``group``
+    is the members' process group (None: the world's)."""
 
     def __init__(self, shape: Dict[str, int], device_type: str,
                  ranks: Optional[Sequence[int]] = None) -> None:
@@ -114,12 +116,15 @@ class SimMesh:
             self.ranks = list(range(world))
             mesh = build_mesh(self.shape, device_type)
             self.groups = {a: mesh.get_group(a) for a in self.shape}
+            self.group = None
         else:
             # a subset of the world's ranks (the elastic shrink onto
-            # survivors): every rank of the world takes part in making
-            # the groups, and only the members hold a coordinate
+            # survivors, a prefix sub-mesh): every rank of the world takes
+            # part in making the groups, and only the members hold a
+            # coordinate
             self.ranks = [int(r) for r in ranks]
             self.groups = _subset_groups(self.shape, self.ranks)
+            self.group = dist.new_group(self.ranks)
         self.member = dist.get_rank() in self.ranks
         self.coords = ({a: dist.get_rank(self.groups[a]) for a in self.shape}
                        if self.member else {})

@@ -55,6 +55,12 @@ the same stacked cohort (on the fed mesh through ``exact_weighted_mean``,
 in client-index order), so every mesh shape finalizes to the same bits;
 the result rests fsdp-sharded again. Evaluation sums each rank's own
 clients' metrics over the cohort axis.
+
+``get_algorithms()`` is the name -> API table, as in the JAX package.
+Its ``build_eval_all`` (a module-level ``jax.vmap`` factory over the
+clients' evaluation, kept out of ``self`` for jit's sake) is left out:
+it has no PyTorch meaning, and the port's evaluation sums the clients'
+metrics in ``make_eval_fn``'s callers directly.
 """
 
 from __future__ import annotations
@@ -684,7 +690,8 @@ class FedAvgAPI:
         if self.mesh is not None:
             import torch.distributed as dist
 
-            dist.barrier()  # every rank has read the preempt before rank 0 answers it
+            # every rank has read the preempt before rank 0 answers it
+            dist.barrier(group=self.mesh.group)
         if self._writes_state():
             wal.append(int(start_round), int(last.get("ckpt_step") or 0), [], kind="resume",
                        extra={"devices": _mesh_devices(self.mesh),
@@ -948,3 +955,11 @@ class FedNovaAPI(FedAvgAPI):
             return g - tau_eff.to(g.dtype) * (w * (g[None] - s) / ai).sum(dim=0)
 
         return {k: combine(global_params[k], new_stacked[k]) for k in global_params}, server_state
+
+
+def get_algorithms():
+    """Name -> API class registry (the simulators' table, read at call
+    time: ``simulator.py`` imports this module)."""
+    from .simulator import _ALGORITHMS
+
+    return _ALGORITHMS

@@ -13,7 +13,9 @@ vocabularies, picked by ``args.mesh_shape``:
 - fed ``{data[, fsdp]}`` (``parallel/layout.py``): the cohort over
   ``data``, the params fsdp-sharded at rest, the plain FedAvg/FedProx
   aggregation through the exact fold, bitwise the same for every mesh
-  shape;
+  shape; an explicit shape smaller than the world runs on the prefix of
+  its ranks, and the ranks past it train nothing and return the same
+  final stats;
 - legacy ``{clients[, data]}``: the cohort over ``clients``, the params
   whole on every rank, the weighted average; a ``data`` axis splits each
   batch's examples over its ranks, a client's gradient summed over them
@@ -128,11 +130,21 @@ class SimulatorMesh:
             )
         self.device = dev
         self.fl_trainer = cls(args, device, dataset, model, **operators)
-        if isinstance(self.fl_trainer, FedAvgAPI):
+        if isinstance(self.fl_trainer, FedAvgAPI) and mesh.member:
             self.fl_trainer.attach_mesh(mesh)
 
     def run(self):
+        """Train on the mesh's ranks. A rank outside a prefix sub-mesh
+        trains nothing and returns the stats of the mesh's first rank,
+        broadcast once at the end of the run."""
         from ..core.tracking import device_trace
 
-        with device_trace(self.args, self.device):
-            return self.fl_trainer.train()
+        stats = None
+        if self.mesh.member:
+            with device_trace(self.args, self.device):
+                stats = self.fl_trainer.train()
+        if self.mesh.group is None:
+            return stats
+        box = [stats]
+        dist.broadcast_object_list(box, src=self.mesh.ranks[0])
+        return box[0]

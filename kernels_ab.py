@@ -240,12 +240,12 @@ def time_planet(out: dict, sustain: float) -> None:
     import torch
 
     import fedml_tpu_torch
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
     from fedml_tpu_torch.ops import _build
     from fedml_tpu_torch.ops import exact_fold as ef
 
     rounds = 4
-    args = load_arguments(os.path.join("fedml_tpu_torch", "configs", "fedavg_planet_lr.yaml"))
+    args = load_yaml_arguments(os.path.join("fedml_tpu_torch", "configs", "fedavg_planet_lr.yaml"))
     args.comm_round, args.frequency_of_the_test, args.log_metrics = rounds, rounds - 1, False
     folds = [k for k in vars(ef).values()
              if isinstance(k, _build.Kernel) and k.name.startswith("exact_fold")]

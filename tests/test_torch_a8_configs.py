@@ -19,7 +19,7 @@ import torch
 
 import fedml_tpu_torch
 from fedml_tpu.arguments import Arguments as JaxArguments
-from fedml_tpu_torch.arguments import Arguments, load_arguments
+from fedml_tpu_torch.arguments import Arguments, load_yaml_arguments
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -57,7 +57,7 @@ KEYS = ("dataset", "model", "federated_optimizer", "client_num_in_total",
 
 
 def _shrunk(path, **kw):
-    args = load_arguments(path)
+    args = load_yaml_arguments(path)
     for k, v in dict(SMALL, **kw).items():
         setattr(args, k, v)
     args._validate()
@@ -68,7 +68,7 @@ def _shrunk(path, **kw):
 def test_config_reads_the_same_and_runs_a_round(config):
     path = os.path.join(CONFIGS, config)
     ja = JaxArguments(argparse.Namespace(yaml_config_file=path))
-    ta = load_arguments(path)
+    ta = load_yaml_arguments(path)
     for key in KEYS:
         got, want = getattr(ta, key, None), getattr(ja, key, None)
         if isinstance(want, (list, tuple)):

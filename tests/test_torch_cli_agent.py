@@ -92,11 +92,11 @@ def test_edge_dry_run_equals_jax(rank, tmp_path, capsys):
 
 
 def test_edge_refuses_a_root_rank_and_inproc(tmp_path):
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
 
     cf = tmp_path / "hier.yaml"
     cf.write_text(HIER)
-    a = load_arguments(str(cf))
+    a = load_yaml_arguments(str(cf))
     a.rank = 0
     with pytest.raises(ValueError, match="0 is the root"):
         run_edge(a, dry_run=True, device="cpu")

@@ -35,7 +35,7 @@ from fedml_tpu import models as jax_models
 from fedml_tpu.arguments import Arguments as JaxArguments
 from fedml_tpu.distributed import DistributedTrainer as JaxTrainer
 from fedml_tpu.distributed import _resolve_mesh
-from fedml_tpu_torch.arguments import Arguments, load_arguments
+from fedml_tpu_torch.arguments import Arguments, load_yaml_arguments
 from fedml_tpu_torch.convert import params_from_flax
 from fedml_tpu_torch.parallel.mesh import resolve_mesh_shape
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -329,7 +329,7 @@ def test_configs_read_the_same_in_both_packages(tmp_path):
                  "distributed_shakespeare_transformer_pp_bf16.yaml"):
         path = f"fedml_tpu_torch/configs/{name}"
         ja = JaxArguments(argparse.Namespace(yaml_config_file=path))
-        ta = load_arguments(path)
+        ta = load_yaml_arguments(path)
         for key in ("model", "training_type", "mesh_shape", "num_layers", "num_heads",
                     "embed_dim", "seq_len", "batch_size", "grad_accum_steps", "dtype",
                     "attention_impl", "sp_strategy", "sp_ring_block", "num_experts",
@@ -345,7 +345,7 @@ def test_configs_read_the_same_in_both_packages(tmp_path):
     path = tmp_path / "fed_mesh.yaml"
     path.write_text(src + "\nmesh_args: {mesh_shape: {data: 4, fsdp: 2}}\n")
     ja = JaxArguments(argparse.Namespace(yaml_config_file=str(path)))
-    ta = load_arguments(str(path))
+    ta = load_yaml_arguments(str(path))
     for key in ("mesh_shape", "federated_optimizer", "client_num_per_round", "model"):
         assert getattr(ta, key) == getattr(ja, key), key
     assert ta.mesh_shape == {"data": 4, "fsdp": 2}
@@ -371,7 +371,7 @@ def test_configs_read_the_same_in_both_packages(tmp_path):
              "payload_store_dir", "fault_injection", "run_id", "telemetry")
     for p in (path, "fedml_tpu_torch/configs/serve_transformer_flash.yaml"):
         ja = JaxArguments(argparse.Namespace(yaml_config_file=str(p)))
-        ta = load_arguments(str(p))
+        ta = load_yaml_arguments(str(p))
         for key in knobs:
             assert getattr(ta, key) == getattr(ja, key), (p, key)
             assert type(getattr(ta, key)) is type(getattr(ja, key)), (p, key)

@@ -31,7 +31,7 @@ from fedml_tpu.simulation.fedavg_api import (
     deterministic_client_sampling as jax_sampling,
 )
 from fedml_tpu_torch import models
-from fedml_tpu_torch.arguments import Arguments, load_arguments
+from fedml_tpu_torch.arguments import Arguments, load_yaml_arguments
 from fedml_tpu_torch.convert import params_from_flax
 from fedml_tpu_torch.core.types import Batches, flat_examples
 from fedml_tpu_torch.data import load
@@ -228,7 +228,7 @@ def test_fedprox_pulls_clients_toward_the_global_model():
 
 
 def test_run_simulation_on_the_cpu_writes_metrics_and_a_profile(tmp_path):
-    args = load_arguments(CONFIG)
+    args = load_yaml_arguments(CONFIG)
     _set(args, client_num_in_total=4, client_num_per_round=3, synthetic_train_size=240,
          synthetic_test_size=60, epochs=1, comm_round=2,
          metrics_jsonl_path=str(tmp_path / "metrics.jsonl"),
@@ -333,7 +333,7 @@ def test_init_maps_matmul_precision_onto_tf32():
 
 def test_headline_config_reads_the_same_in_both_packages():
     ja = JaxArguments(argparse.Namespace(yaml_config_file=CONFIG))
-    ta = load_arguments(CONFIG)
+    ta = load_yaml_arguments(CONFIG)
     keys = ("dataset", "model", "client_num_in_total", "client_num_per_round",
             "synthetic_train_size", "synthetic_test_size", "partition_method",
             "partition_alpha", "epochs", "batch_size", "learning_rate", "comm_round",

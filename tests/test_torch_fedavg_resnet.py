@@ -31,7 +31,7 @@ from fedml_tpu.models.resnet import ResNet as JaxResNet
 from fedml_tpu.models.spec import FedModel as JaxFedModel
 from fedml_tpu.simulation import fedavg_api as jax_api
 import fedml_tpu_torch
-from fedml_tpu_torch.arguments import Arguments, load_arguments
+from fedml_tpu_torch.arguments import Arguments, load_yaml_arguments
 from fedml_tpu_torch.convert import params_from_flax
 from fedml_tpu_torch.core.types import Batches
 from fedml_tpu_torch.data.loader import FederatedDataset
@@ -155,7 +155,7 @@ DENSE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_dense_config_reads_the_same_in_both_packages():
     ja = JaxArguments(argparse.Namespace(yaml_config_file=DENSE))
-    ta = load_arguments(DENSE)
+    ta = load_yaml_arguments(DENSE)
     keys = ("dataset", "model", "client_num_in_total", "client_num_per_round",
             "synthetic_train_size", "synthetic_test_size", "partition_method",
             "partition_alpha", "epochs", "batch_size", "learning_rate", "comm_round",
@@ -173,7 +173,7 @@ def test_dense_config_runs_shrunk_on_the_cpu(tmp_path):
     """The dense configuration at full model width with a tiny
     federation, through run_simulation on the CPU: bf16 over f32
     masters, the padded pow2 bucket, and the pipeline's record."""
-    args = load_arguments(DENSE)
+    args = load_yaml_arguments(DENSE)
     _set(args, client_num_in_total=5, client_num_per_round=3, synthetic_train_size=60,
          synthetic_test_size=16, batch_size=8, comm_round=2, frequency_of_the_test=1,
          metrics_jsonl_path=str(tmp_path / "m.jsonl"))

@@ -36,7 +36,7 @@ from fedml_tpu.data import load as jax_load
 from fedml_tpu.simulation import FedAvgAPI as JaxFedAvgAPI
 import fedml_tpu_torch
 from fedml_tpu_torch import data, models
-from fedml_tpu_torch.arguments import Arguments, load_arguments
+from fedml_tpu_torch.arguments import Arguments, load_yaml_arguments
 from fedml_tpu_torch.convert import params_from_flax
 from fedml_tpu_torch.core import local_trainer, optimizers
 from fedml_tpu_torch.core.types import Batches
@@ -227,7 +227,7 @@ def test_image_evaluation_keeps_4096_examples_per_pass(feat, bs, per):
 
 def test_config_reads_the_same_in_both_packages():
     ja = JaxArguments(argparse.Namespace(yaml_config_file=CONFIG))
-    ta = load_arguments(CONFIG)
+    ta = load_yaml_arguments(CONFIG)
     keys = ("dataset", "model", "attention_impl", "embed_dim", "num_heads", "num_layers",
             "seq_len", "max_len", "synthetic_train_size", "synthetic_test_size",
             "partition_method", "client_num_in_total", "client_num_per_round", "epochs",
@@ -247,7 +247,7 @@ def test_config_runs_shrunk_on_the_cpu(tmp_path):
     """The configuration at a small width and length through
     run_simulation on the CPU: bf16 over f32 masters through the flash
     functions' plain versions, metrics counted in tokens."""
-    args = _set(load_arguments(CONFIG), embed_dim=32, num_heads=2, seq_len=32, max_len=32,
+    args = _set(load_yaml_arguments(CONFIG), embed_dim=32, num_heads=2, seq_len=32, max_len=32,
                 synthetic_train_size=64, synthetic_test_size=16, client_num_in_total=8,
                 client_num_per_round=4, comm_round=2, frequency_of_the_test=1,
                 metrics_jsonl_path=str(tmp_path / "m.jsonl"))

@@ -129,6 +129,46 @@ def test_fed_mesh_shapes_match_the_one_rank_world(model, extra, bitwise, tmp_pat
                                                               rel=1e-5)
 
 
+def _untimed(stats: dict) -> dict:
+    """A round's stats without its wall-clock readings."""
+    return {k: v for k, v in stats.items() if not k.endswith("_time_s")}
+
+
+def test_prefix_sub_mesh_is_the_smaller_world(threefry_restored, tmp_path):
+    """In a gloo world of 8, {data: 1, fsdp: 1} runs on rank 0 and {data: 2,
+    fsdp: 2} on ranks 0-3, as the reference takes a prefix of its 8
+    devices: each bitwise the world of 1 and the world of 4 with the same
+    shape, and within the mesh tests' 1e-5 of the JAX package's run of the
+    same shape on 8 CPU devices. The ranks past the prefix train nothing
+    and return the prefix's final stats."""
+    want = {name: jax_mesh_world(BASE, shape) for name, shape in
+            (("1x1", {"data": 1, "fsdp": 1}), ("2x2", {"data": 2, "fsdp": 2}))}
+    start = want["1x1"]
+    for k, v in want["2x2"]["start"].items():
+        np.testing.assert_array_equal(v, start["start"][k])
+    carried = {"dataset": start["dataset"], "params": start["start"]}
+    runs = [{"args": dict(BASE, mesh_shape={"data": 1, "fsdp": 1}), **carried},
+            {"args": dict(BASE, mesh_shape={"data": 2, "fsdp": 2}), **carried}]
+    eight = torch_world.run_world(torch_world.mesh_sim, 8, {"runs": runs}, tmp_path, 120)
+    (one,) = torch_world.run_world(torch_world.mesh_sim, 1, {"runs": runs[:1]}, tmp_path, 60)[0]
+    four = torch_world.run_world(torch_world.mesh_sim, 4, {"runs": runs[1:]}, tmp_path, 90)[0][0]
+    for i, (name, alone, members) in enumerate((("1x1", one, 1), ("2x2", four, 4))):
+        for rank, got in enumerate(r[i] for r in eight):
+            assert got["stats"] == eight[0][i]["stats"], (name, rank)  # the one broadcast
+            assert _untimed(got["stats"]) == _untimed(alone["stats"]), (name, rank)
+            if rank < members:
+                _bitwise(got["params"], alone["params"])
+                assert [_untimed(h) for h in got["history"]] == [
+                    _untimed(h) for h in alone["history"]]
+            else:
+                assert got["history"] == []  # trained nothing
+        for k, v in want[name]["end"].items():
+            np.testing.assert_allclose(alone["params"][k], v, atol=ATOL, err_msg=f"{name} {k}")
+        for g, w in zip(alone["history"], want[name]["history"]):
+            for key in ("train_acc", "test_acc", "train_loss", "test_loss"):
+                np.testing.assert_allclose(g[key], w[key], atol=ATOL, rtol=1e-4, err_msg=key)
+
+
 def test_params_rest_fsdp_sharded(tmp_path):
     """{data: 2, fsdp: 4}: each rank holds a quarter of the dense kernel's
     input rows (the reference shards the kernel's leading axis, [in, out];
@@ -277,9 +317,10 @@ def test_layout_classes_and_refusals_match_jax():
     """The port's leaves fall in the reference's classes (a Linear weight
     is a dense kernel, a Conv2d's a conv kernel, an Embed_ table an
     embedding); an unknown family fails with the reference's words; a
-    sharded dim fsdp does not divide is replicated; a smaller explicit
-    shape than the world is refused (the reference serves it from a
-    device prefix; the port runs a process a rank)."""
+    sharded dim fsdp does not divide is replicated. (A smaller explicit
+    shape than the world takes a prefix of its ranks, as the reference
+    takes a prefix of its devices:
+    ``test_prefix_sub_mesh_is_the_smaller_world``.)"""
     for port, jax_name, ndim, cls in [
         ("Dense_0/weight", "kernel", 2, "dense_kernel"),
         ("Conv2d_0/weight", "kernel", 4, "conv_kernel"),
@@ -304,8 +345,6 @@ def test_layout_classes_and_refusals_match_jax():
     assert layout.param_spec(lay, "Conv2d_0/weight", (32, 1, 5, 5), 2).dim == 0
     assert layout.param_spec(lay, "ConvTranspose_0/weight", (8, 4, 4, 4), 2).dim == 1
     assert layout.param_spec(lay, "Embed_0/weight", (90, 16), 2).dim == 0
-    with pytest.raises(ValueError, match="must span the world"):
-        layout.build_fed_mesh({"data": 1, "fsdp": 1}, 8, "cpu")
     assert layout.fed_mesh_shape({"data": 2}) and not layout.fed_mesh_shape({"clients": 2, "data": 2})
 
 

@@ -30,7 +30,7 @@ from fedml_tpu.arguments import Arguments as JaxArguments
 from fedml_tpu.distributed import DistributedTrainer as JaxTrainer
 from fedml_tpu.parallel.mesh import build_mesh as jax_build_mesh
 from fedml_tpu.parallel.pipeline import pipeline_apply as jax_pipeline_apply
-from fedml_tpu_torch.arguments import load_arguments
+from fedml_tpu_torch.arguments import load_yaml_arguments
 from fedml_tpu_torch.convert import opt_state_from_flax, params_from_flax
 from fedml_tpu_torch.distributed import pipeline_params
 from fedml_tpu_torch.parallel import pipeline as pp
@@ -225,7 +225,7 @@ def test_convert_carries_the_pipeline_tree_and_its_optimizer_state():
 def test_config_reads_the_same_in_both_packages():
     path = "fedml_tpu_torch/configs/distributed_shakespeare_transformer_pp_bf16.yaml"
     ja = JaxArguments(argparse.Namespace(yaml_config_file=path))
-    ta = load_arguments(path)
+    ta = load_yaml_arguments(path)
     for key in ("model", "training_type", "mesh_shape", "num_layers", "num_heads",
                 "embed_dim", "seq_len", "batch_size", "grad_accum_steps", "dtype",
                 "attention_impl", "pp_microbatches", "learning_rate", "lr_schedule",

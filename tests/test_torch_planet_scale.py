@@ -49,7 +49,7 @@ from fedml_tpu.scale import pack_cohort as jax_pack_cohort
 from fedml_tpu.scale.engine import PlanetRoundLoop as JaxLoop
 from fedml_tpu.simulation import FedAvgAPI as JaxFedAvgAPI
 from fedml_tpu_torch import models
-from fedml_tpu_torch.arguments import Arguments, load_arguments
+from fedml_tpu_torch.arguments import Arguments, load_yaml_arguments
 from fedml_tpu_torch.convert import params_from_flax
 from fedml_tpu_torch.core import devtime
 from fedml_tpu_torch.core.aggregation import StreamingAccumulator
@@ -754,7 +754,7 @@ def test_1m_registry_round_memory_is_o_cohort():
 
 
 def test_planet_config_is_the_benchs_and_needs_a_card_unless_told(monkeypatch):
-    a = load_arguments(PLANET_CONFIG)
+    a = load_yaml_arguments(PLANET_CONFIG)
     want = dict(dataset="synthetic", model="lr", client_registry_size=1_000_000,
                 cohort_size=10_000, edge_num=4, client_num_in_total=1_000_000,
                 client_num_per_round=10_000, epochs=1, batch_size=32, learning_rate=0.1,

@@ -310,10 +310,10 @@ def test_materialized_digits_are_the_references_files(tmp_path):
 def test_slice_configs_load_the_same_federation_in_both_packages(name, shrink):
     import argparse
 
-    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.arguments import load_yaml_arguments
 
     path = os.path.join(REPO, "fedml_tpu_torch", "configs", f"{name}.yaml")
-    ja, pa = JaxArguments(argparse.Namespace(yaml_config_file=path)), load_arguments(path)
+    ja, pa = JaxArguments(argparse.Namespace(yaml_config_file=path)), load_yaml_arguments(path)
     for a in (ja, pa):
         for k, v in shrink.items():
             setattr(a, k, v)

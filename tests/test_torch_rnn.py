@@ -34,7 +34,7 @@ from fedml_tpu.models.rnn import RNNOriginalFedAvg as JaxShakespeare
 from fedml_tpu.models.rnn import RNNStackOverflow as JaxStackOverflow
 from fedml_tpu.simulation import FedAvgAPI as JaxFedAvgAPI
 from fedml_tpu_torch import data, models
-from fedml_tpu_torch.arguments import Arguments, load_arguments
+from fedml_tpu_torch.arguments import Arguments, load_yaml_arguments
 from fedml_tpu_torch.convert import params_from_flax
 from fedml_tpu_torch.core import optimizers
 from fedml_tpu_torch.core.local_trainer import make_local_train_fn
@@ -289,7 +289,7 @@ def test_vmapped_step_batches_every_op():
 def test_configs_read_the_same_in_both_packages(config, want):
     path = os.path.join(CONFIGS, config)
     ja = JaxArguments(argparse.Namespace(yaml_config_file=path))
-    ta = load_arguments(path)
+    ta = load_yaml_arguments(path)
     for key in ("dataset", "model", "seq_len", "client_num_in_total", "client_num_per_round",
                 "epochs", "batch_size", "learning_rate", "partition_method", "dtype",
                 "synthetic_train_size", "federated_optimizer", "comm_round",
@@ -304,7 +304,7 @@ def test_configs_read_the_same_in_both_packages(config, want):
 def test_shakespeare_config_trains_shrunk_on_the_cpu():
     """The configuration through run_simulation at its widths, its
     federation and sequences shrunk: the train loss falls."""
-    args = _set(load_arguments(os.path.join(CONFIGS, "fedavg_shakespeare_rnn.yaml")),
+    args = _set(load_yaml_arguments(os.path.join(CONFIGS, "fedavg_shakespeare_rnn.yaml")),
                 seq_len=10, synthetic_train_size=160, synthetic_test_size=40,
                 client_num_in_total=8, client_num_per_round=4, comm_round=3,
                 frequency_of_the_test=1, log_metrics=False)

@@ -24,7 +24,7 @@ from fedml_tpu.cross_device.model_file import (
     params_to_model_bytes,
 )
 from fedml_tpu_torch import models as torch_models
-from fedml_tpu_torch.arguments import Arguments, load_arguments
+from fedml_tpu_torch.arguments import Arguments, load_yaml_arguments
 from fedml_tpu_torch.convert import params_from_flax
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -109,7 +109,7 @@ def test_port_params_match_module_layout():
 
 def test_slice_config_reads_the_same_in_both_packages():
     ns = argparse.Namespace(yaml_config_file=REPO_CONFIG)
-    ja, ta = JaxArguments(ns), load_arguments(REPO_CONFIG)
+    ja, ta = JaxArguments(ns), load_yaml_arguments(REPO_CONFIG)
     for key in ("model", "vocab_size", "embed_dim", "num_heads", "num_layers",
                 "seq_len", "max_len", "attention_impl", "serve_max_batch",
                 "random_seed", "dataset"):

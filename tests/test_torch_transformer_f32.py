@@ -25,7 +25,7 @@ import fedml_tpu
 import fedml_tpu_torch
 from fedml_tpu.arguments import Arguments as JaxArguments
 from fedml_tpu.simulation import FedAvgAPI as JaxFedAvgAPI
-from fedml_tpu_torch.arguments import load_arguments
+from fedml_tpu_torch.arguments import load_yaml_arguments
 from fedml_tpu_torch.convert import params_from_flax
 from fedml_tpu_torch.simulation import FedAvgAPI
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -63,7 +63,7 @@ def _cpu_args(cls_args):
 
 def test_config_reads_the_same_in_both_packages():
     ja = JaxArguments(argparse.Namespace(yaml_config_file=CONFIG))
-    ta = load_arguments(CONFIG)
+    ta = load_yaml_arguments(CONFIG)
     keys = ("dataset", "model", "attention_impl", "embed_dim", "num_heads", "num_layers",
             "seq_len", "max_len", "synthetic_train_size", "synthetic_test_size",
             "partition_method", "client_num_in_total", "client_num_per_round", "epochs",
@@ -78,7 +78,7 @@ def test_config_reads_the_same_in_both_packages():
     assert (ta.attention_impl, ta.num_heads, ta.embed_dim // ta.num_heads, ta.seq_len,
             ta.batch_size, ta.num_layers) == ("flash", 8, 64, 4096, 4, 2)
     # everything else is the bf16 configuration's
-    bf16 = load_arguments(BF16_CONFIG)
+    bf16 = load_yaml_arguments(BF16_CONFIG)
     for key in keys:
         if key != "dtype":
             assert getattr(bf16, key) == getattr(ta, key), key
@@ -110,7 +110,7 @@ def test_one_round_through_run_simulation_matches_jax(monkeypatch):
     monkeypatch.setattr(JaxFedAvgAPI, "train", jax_side)
     monkeypatch.setattr(FedAvgAPI, "train", port_side)
     want = fedml_tpu.run_simulation()
-    got = fedml_tpu_torch.run_simulation(device="cpu", args=_cpu_args(load_arguments(CONFIG)))
+    got = fedml_tpu_torch.run_simulation(device="cpu", args=_cpu_args(load_yaml_arguments(CONFIG)))
 
     start, jp, tp = held["start"], held["jax"], held["port"]
     assert max(float((jp[k] - start[k]).abs().max()) for k in jp) > 1e-3
@@ -141,7 +141,7 @@ def test_f32_flash_reaches_the_f32_plain_versions(monkeypatch):
 
     monkeypatch.setattr(fa, "flash_attention_reference", spy("forward", forward))
     monkeypatch.setattr(fa, "_flash_backward", spy("backward", backward))
-    args = _cpu_args(load_arguments(CONFIG))
+    args = _cpu_args(load_yaml_arguments(CONFIG))
     args.frequency_of_the_test = 5  # evaluation only after the last round
     fedml_tpu_torch.run_simulation(device="cpu", args=args)
     assert {dtype for _, dtype in seen} == {torch.float32}
